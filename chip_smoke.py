@@ -8,20 +8,34 @@ result line):
 
 1. device — requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` reports them;
-2. build — compiles every CUDA kernel of the serving path from ``csrc/``;
-3. kernels — holds each kernel against its plain PyTorch version on card
-   tensors at GPT-2 1.5B's serving shapes, and times the kernel, the plain
-   version and the closest single PyTorch call (CUDA events);
+2. build — compiles every CUDA kernel of the serving and training paths
+   from ``csrc/`` (one ``nvcc`` per source, all at once);
+3. kernels — holds the paged-decode kernel against its plain PyTorch
+   version on card tensors at GPT-2 1.5B's serving shapes, and times the
+   kernel, the plain version and the closest single PyTorch call (CUDA
+   events);
 4. serving — GPT-2 1.5B (48 x 1600, 25 heads, vocab 50304, bf16, random
    weights from seed 0) through ``init_inference`` with the paged-decode
    kernel on, over a seeded trace of 10 requests; checks that every request
    finishes, that the kernel ran once per layer per decode step, and that
    the first decode step's logits agree with the gather path on the same
    pools; then a short ``torch.profiler`` window for where the time goes;
-5. result — one ``{"kernels": [...]}`` line, then the last line
+5. flash kernels — the forward, dq and dk/dv kernels against the plain
+   version (out, lse, dq, dk, dv) at the training shape and at edge cases
+   (ragged T, T = 9000, D = 128, float32, float16, key bias, dropout); times
+   at the training shape beside the plain version and SDPA;
+6. training — GPT-2 1.5B (the same widths, ``use_flash_attention``, no remat)
+   through ``initialize`` at ZeRO-2 in bf16, micro-batch 4 x 2 accumulation
+   steps, for 12 optimizer steps on one seeded batch; checks the first
+   micro-batch's loss and per-layer grad norms against the plain attention
+   path (bf16 at full depth, float32 at 4 layers), that the losses are finite
+   and fall, and that each flash kernel ran once per layer per micro-step;
+   then a profiler window of one step;
+7. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,6 +63,30 @@ F32_TOL = (1e-5, 1e-5)          # summation order only
 # pools leaves only the summation order, which is the kernel's real check.
 LOGITS_TOL = 0.15
 LOGITS_TOL_F32 = 1e-4
+
+# training: GPT-2 1.5B at bench.py:406-420's config (no remat, T = 1024)
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+TRAIN_MODEL = dict(MODEL, use_flash_attention=True, remat=False, loss_chunk=128)
+TRAIN_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
+                "gradient_accumulation_steps": 2, "bf16": {"enabled": True},
+                "zero_optimization": {"stage": 2},
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 1e-4, "betas": [0.9, 0.95],
+                                         "weight_decay": 0.1}},
+                "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 4}},
+                "gradient_clipping": 1.0, "steps_per_print": 1000}
+TRAIN_STEPS = 12
+FLASH_SHAPE = (4, 25, 1024, 64)  # B, H, T, D of the training path
+# kernels vs plain: max |err| / max |ref| per output. bf16/fp16: the kernel
+# rounds the scaled q and the probabilities to the operand type where the
+# plain version keeps float32, a few ulps of 2**-8; float32: summation order.
+FLASH_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 1e-4}
+# first micro-batch, kernel path vs plain attention path: |loss diff| and the
+# max relative difference of the 49 per-layer grad norms. bf16 rounds at
+# other points in the two attention paths, and 48 layers carry it; float32
+# at 4 layers leaves summation order only.
+TRAIN_TOL_BF16 = (2e-2, 5e-2)
+TRAIN_TOL_F32 = 1e-4
 
 
 def log(*a):
@@ -90,7 +128,7 @@ def phase_device():
 def phase_build():
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    builds = _build.build("paged_decode")
+    builds = _build.build("paged_decode", "flash_attention")
     log(f"[build] {sorted(builds)} in {time.perf_counter() - t0:.2f} s")
     for b in builds.values():
         for line in b.log.splitlines():
@@ -313,6 +351,298 @@ def profile(eng, cfg):
         log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
 
 
+# --------------------------------------------------------------------- training
+def _flash_case(B, H, T, D, dtype, causal=True, bias=False, rate=0.0, seed=0):
+    """(kernel, plain) results of one case on the same seeded inputs: each a
+    list [out, lse, dq, dk, dv] from the forward and from the backward of
+    sum(out * g) + sum(lse * g_lse)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn((B, H, T, D), generator=gen, device="cuda").to(dtype)
+                  for _ in range(4))
+    g_lse = torch.randn((B, H, T), generator=gen, device="cuda")
+    b = (torch.where(torch.rand((B, T), generator=gen, device="cuda") < 0.2, -1e4, 0.0)
+         if bias else None)
+    dseed = 1234 if rate else None
+
+    def run(kernel):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        if kernel:   # the wrappers' core: kernels under the autograd Function
+            out, lse = fa._attend(qs, ks, vs, causal, None, b, rate, dseed, 0, 0)
+        else:
+            out, lse = fa.flash_attention_reference(qs, ks, vs, causal, bias=b,
+                                                    dropout_rate=rate, dropout_seed=dseed)
+        ((out.float() * g.float()).sum() + (lse * g_lse).sum()).backward()
+        return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
+
+    return run(True), run(False)
+
+
+def phase_flash_kernels():
+    """The three flash kernels against their plain version at the training
+    path's shape and at edge cases; then times at the main shape."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    cases = [  # (B, H, T, D, dtype, causal, bias, rate)
+        (*FLASH_SHAPE, torch.bfloat16, True, False, 0.0),   # the main path
+        (2, 4, 200, 64, torch.bfloat16, True, False, 0.0),  # ragged tail
+        (1, 1, 9000, 64, torch.bfloat16, True, False, 0.0), # past the TPU's VMEM cap
+        (2, 4, 512, 128, torch.bfloat16, True, False, 0.0), # D = 128
+        (2, 4, 256, 64, torch.float32, True, False, 0.0),
+        (2, 4, 256, 64, torch.float16, True, False, 0.0),
+        (2, 4, 384, 64, torch.bfloat16, False, True, 0.0),  # key bias, non-causal
+        (2, 4, 256, 64, torch.float32, True, False, 0.1),   # dropout
+    ]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for case in cases:
+        got, want = _flash_case(*case)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[case[4]]
+        errs = {}
+        for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"flash {case}: non-finite {name}")
+            errs[name] = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-6)
+        log(f"[flash] {case}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (scaled by max |ref|, tol {tol})")
+        if max(errs.values()) > tol:
+            raise AssertionError(f"flash kernels vs plain, case {case}: {errs} > {tol}")
+        if case == cases[0]:
+            main = {n: (float((a - b).abs().max()), errs[n]) for n, a, b in
+                    zip(("out", "lse", "dq", "dk", "dv"), got, want)}
+        for kern, names in (("fwd", ("out", "lse")), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            worst[kern] = max(worst[kern], *(errs[n] for n in names))
+        del got, want
+    torch.cuda.empty_cache()
+    return time_flash(main, worst)
+
+
+def time_flash(main_err, worst):
+    """Device times at the main shape, inputs rotating over 4 sets (52 MB a
+    set, beyond the 50 MB L2); the plain version and SDPA (forward, and its
+    backward for both backward kernels) beside them."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sets = []
+    for _ in range(4):
+        q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True, sm_scale=D ** -0.5)
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        sets.append((q, k, v, do, lse, delta))
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    ms = {
+        "fwd": time_ms(lambda i: fa.flash_attention_fwd(*sets[i % 4][:3], **kw), 40),
+        "dq": time_ms(lambda i: fa.flash_attention_bwd_dq(*sets[i % 4], **kw), 40),
+        "dkv": time_ms(lambda i: fa.flash_attention_bwd_dkv(*sets[i % 4], **kw), 40),
+    }
+
+    def fwd_bwd(fn):
+        """(forward ms, backward ms) of fn(q, k, v): the backward is the
+        whole of dq, dk and dv from one saved graph per input set."""
+        fwd = time_ms(lambda i: fn(*sets[i % 4][:3]), 8)
+        graphs = []
+        for q, k, v, do, _, _ in sets:
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            graphs.append((fn(*qkv), qkv, do))
+        bwd = time_ms(lambda i: torch.autograd.grad(
+            graphs[i % 4][0], graphs[i % 4][1], graphs[i % 4][2], retain_graph=True), 8)
+        return fwd, bwd
+
+    plain_fwd, plain_bwd = fwd_bwd(
+        lambda q, k, v: fa.flash_attention_reference(q, k, v, True)[0])
+    sdpa_fwd, sdpa_bwd = fwd_bwd(
+        lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+    del sets
+    torch.cuda.empty_cache()
+
+    mm = B * H * T * T * D          # 2 * B*H*T^2*D / 2 flops per causal matmul
+    tensor = B * H * T * D * 2      # one bf16 [B, H, T, D]
+    row = B * H * T * 4             # one float32 [B, H, T]
+    work = {"fwd": (2 * mm, 3 * tensor + tensor + row),
+            "dq": (3 * mm, 4 * tensor + 2 * row + tensor),
+            "dkv": (4 * mm, 4 * tensor + 2 * row + 2 * tensor)}
+    entries = []
+    for name, body, line, plain, lib, outs in (
+            ("fwd", "_fwd_kernel", 132, plain_fwd, sdpa_fwd, ("out", "lse")),
+            ("dq", "_bwd_dq_kernel", 289, plain_bwd, sdpa_bwd, ("dq",)),
+            ("dkv", "_bwd_dkv_kernel", 352, plain_bwd, sdpa_bwd, ("dk", "dv"))):
+        flops, nbytes = work[name]
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        # max_abs_err: absolute, at the main shape; scaled_err and tol: the
+        # error over max |ref|, the main shape's and the worst case's
+        e = {"name": f"flash_attention_{name}", "route": "cuda",
+             "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+             "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}:{body}",
+             "launches": None, "max_abs_err": max(main_err[n][0] for n in outs),
+             "scaled_err": max(main_err[n][1] for n in outs),
+             "worst_scaled_err": worst[name], "tol": FLASH_TOL[torch.bfloat16],
+             "kernel_ms": ms[name], "ms": ms[name],
+             "plain_ms": plain, "library_ms": lib,
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"[flash] {json.dumps(e)}")
+        entries.append(e)
+    return entries
+
+
+def _layer_grad_norms(model):
+    """float32 grad norm of each block, then of the embeddings and ln_f."""
+    groups = [list(b.parameters()) for b in model.blocks]
+    groups.append([model.wte, model.wpe, *model.ln_f.parameters()])
+    return torch.stack([torch.sqrt(sum(torch.sum(p.grad.float() ** 2) for p in g))
+                        for g in groups]).cpu()
+
+
+def _plain_loss_backward(model, tokens, labels):
+    """The training loss through the model's dense attention branch (the
+    plain attention path), each block under non-reentrant checkpointing so
+    that only one block's [T, T] scores live in the backward; backward run."""
+    from torch.utils.checkpoint import checkpoint
+    cfg = model.config
+    model.config = dataclasses.replace(cfg, use_flash_attention=False)
+    try:
+        p = model.params_tree()
+        x = model._embed(p, tokens)
+        for bp in p["blocks"]:
+            x = checkpoint(model._block, x, bp, use_reentrant=False)
+        x = model._layer_norm(x, p["ln_f"], cfg.layer_norm_epsilon)
+        loss = model._chunked_ce(x, p["wte"], labels.long(), cfg.loss_chunk)
+        loss.backward()
+    finally:
+        model.config = cfg
+    return loss.detach()
+
+
+def _kernel_vs_plain(model, tokens, labels):
+    """(loss, per-layer grad norms) of the kernel path and the plain path of
+    one micro-batch through ``model``'s own parameters; grads cleared."""
+    loss_k = model(tokens, labels)
+    loss_k.backward()
+    loss_k = loss_k.detach()
+    norms_k = _layer_grad_norms(model)
+    model.zero_grad(set_to_none=True)
+    loss_p = _plain_loss_backward(model, tokens, labels)
+    norms_p = _layer_grad_norms(model)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return (loss_k.item(), loss_p.item(), float(((norms_k - norms_p).abs() / norms_p).max()))
+
+
+def phase_training():
+    """GPT-2 1.5B through deepspeed_tpu_torch.initialize on the card."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    # the same check in float32 at a cut depth, where only summation order differs
+    cfg32 = GPT2Config(**dict(TRAIN_MODEL, n_layer=4), compute_dtype=torch.float32)
+    m32 = GPT2Model(cfg32)
+    m32.init(torch.Generator(device="cuda").manual_seed(0))
+    tokens, labels = _train_batch(cfg32.vocab_size)
+    mb = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    l32k, l32p, n32 = _kernel_vs_plain(m32, tokens[:mb], labels[:mb])
+    log(f"[train] float32 4 layers, kernel vs plain: loss {l32k!r} vs {l32p!r}, "
+        f"per-layer grad norms max rel diff {n32!r} (tol {TRAIN_TOL_F32})")
+    if abs(l32k - l32p) > TRAIN_TOL_F32 * abs(l32p) or n32 > TRAIN_TOL_F32:
+        raise AssertionError("float32 kernel path disagrees with the plain path")
+    del m32
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = GPT2Config(**TRAIN_MODEL)
+    model = GPT2Model(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.param_count()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=TRAIN_CONFIG)
+    torch.cuda.synchronize()
+    log(f"[train] GPT-2 {n_params / 1e9:.3f}B + engine built in "
+        f"{time.perf_counter() - t0:.2f} s; grad dtype {engine._grad_dtype}, "
+        f"accumulator {engine._acc_dtype}")
+
+    lk, lp, nrel = _kernel_vs_plain(engine.module, tokens[:mb], labels[:mb])
+    log(f"[train] bf16 48 layers, first micro-batch kernel vs plain: loss {lk!r} vs {lp!r}, "
+        f"per-layer grad norms max rel diff {nrel!r} (tol {TRAIN_TOL_BF16})")
+    if abs(lk - lp) > TRAIN_TOL_BF16[0] or nrel > TRAIN_TOL_BF16[1]:
+        raise AssertionError("bf16 kernel path disagrees with the plain path")
+    torch.cuda.empty_cache()
+
+    gas = engine.gradient_accumulation_steps()
+    launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for f in launchers:
+        f.launches = 0
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        window = []
+        for m in range(gas):
+            loss = engine(tokens[m * mb:(m + 1) * mb], labels[m * mb:(m + 1) * mb])
+            engine.backward(loss)
+            engine.step()
+            window.append(loss.detach())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(torch.stack(window).mean()))
+    launches = [f.launches for f in launchers]
+    micro = TRAIN_STEPS * gas
+    log(f"[train] step losses {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and decreasing: {losses}")
+    if launches != [cfg.n_layer * micro] * 3:
+        raise AssertionError(f"flash launches {launches} != {cfg.n_layer} x {micro} "
+                             "micro-steps each")
+    step = statistics.median(step_s[2:])
+    tok_s = TRAIN_CONFIG["train_batch_size"] * cfg.n_positions / step
+    res = {"steps": TRAIN_STEPS, "micro_steps": micro, "loss_first": losses[0],
+           "loss_last": losses[-1], "step_ms_median": step * 1e3,
+           "step_ms_all": [s * 1e3 for s in step_s], "tokens_per_s": tok_s,
+           "params": n_params, "mfu": tok_s * 6 * n_params / BF16_FLOPS,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "flash_launches": launches, "first_micro_loss_kernel": lk,
+           "first_micro_loss_plain": lp, "grad_norm_max_rel_diff": nrel,
+           "f32_4_layer": [l32k, l32p, n32],
+           "tol_bf16": list(TRAIN_TOL_BF16), "tol_f32": TRAIN_TOL_F32}
+    log(f"[train] {json.dumps(res)}")
+    profile_training(engine, tokens, labels)
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_batch(vocab):
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, vocab, size=(TRAIN_CONFIG["train_batch_size"],
+                                         TRAIN_MODEL["n_positions"]))
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -100
+    return (torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda())
+
+
+def profile_training(engine, tokens, labels):
+    """Where the time goes: one optimizer step under torch.profiler;
+    device-busy share and top kernels."""
+    from torch.profiler import ProfilerActivity
+    mb = TRAIN_CONFIG["train_micro_batch_size_per_gpu"]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for m in range(engine.gradient_accumulation_steps()):
+            engine.backward(engine(tokens[m * mb:(m + 1) * mb], labels[m * mb:(m + 1) * mb]))
+            engine.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    log(f"[profile-train] window {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"({busy_us / wall_us:.3f} of the window)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        log(f"[profile-train] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+            f"{e.key[:90]}")
+
+
 def main():
     card = phase_device()
     root = Path(__file__).resolve().parent
@@ -321,8 +651,11 @@ def main():
     phase_build()
     entry = phase_kernels()
     entry["launches"] = phase_serving()
+    flash = phase_flash_kernels()
+    for e, n in zip(flash, phase_training()):
+        e["launches"] = n
     log(card)
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": [entry, *flash]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,14 +1,52 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of ``deepspeed_tpu``.
 
 A package of its own beside the JAX one, which stays the reference. It
-imports torch and numpy, never jax and never ``deepspeed_tpu``. This slice
-carries the serving path: ``init_inference`` -> ``serve.InferenceEngine``
-over the paged KV pool and ``models.gpt2``, with the paged-decode kernel
-in CUDA (``csrc/paged_decode.cu``). Entry points run on the card unless the
-caller passes ``device="cpu"``. ROADMAP.md lists what later slices bring.
+imports torch and numpy, never jax and never ``deepspeed_tpu``. Two slices
+are ported: serving, ``init_inference`` -> ``serve.InferenceEngine`` over the
+paged KV pool and ``models.gpt2``, with the paged-decode kernel in CUDA
+(``csrc/paged_decode.cu``); and training, ``initialize`` ->
+``runtime.engine.DeepSpeedEngine`` (ZeRO 0-2 over ``torch.distributed``)
+with the flash-attention kernels in CUDA (``csrc/flash_attention.cu``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
+ROADMAP.md lists what later slices bring.
 """
 
 from .runtime.config import DeepSpeedConfig  # noqa: F401
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
+               collate_fn=None, config_params=None, device=None):
+    """Initialize the training engine (``deepspeed.initialize``-shaped).
+
+    ``model`` is a ``torch.nn.Module`` whose ``forward(*batch)`` returns the
+    loss (``models.gpt2.GPT2Model`` does, given labels); ``model_parameters``
+    an optional name -> tensor dict loaded into it (``params_from_jax``
+    gives one). The engine runs on ``device``: the card unless ``"cpu"``; no
+    card and no ``"cpu"`` raises. With ``WORLD_SIZE`` > 1 in the environment
+    the process group is joined first (``runtime/dist.py``). Returns
+    ``(engine, optimizer, training_dataloader, lr_scheduler)``."""
+    from .runtime.engine import make_engine
+
+    engine = make_engine(args=args, model=model, optimizer=optimizer,
+                         model_parameters=model_parameters, training_data=training_data,
+                         lr_scheduler=lr_scheduler, mpu=mpu,
+                         dist_init_required=dist_init_required, collate_fn=collate_fn,
+                         config_params=config_params, device=device)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
+
+
+def add_config_arguments(parser):
+    """Add the DeepSpeed arguments (``--deepspeed``, ``--deepspeed_config``,
+    ``--deepspeed_mpi``) to an argparse parser and return it."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag for user code, no impact on engine)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to DeepSpeed json configuration.")
+    group.add_argument("--deepspeed_mpi", default=False, action="store_true",
+                       help="Run via MPI; this flag will force multi-host distributed init.")
+    return parser
 
 
 def init_inference(model, model_parameters=None, config_params=None,

@@ -10,10 +10,16 @@ names and layouts, so the JAX package's parameters carry over one to one
     blocks.{i}.ln_2.{scale, bias},
     blocks.{i}.mlp.{c_fc_w [E, 4E], c_fc_b, c_proj_w [4E, E], c_proj_b}
 
-Weights stay ``[in, out]`` (``x @ w``), as in the JAX package. This slice of
-the port carries the serving path only (serve/paged.py calls
-``_layer_norm`` and ``_mlp``); the training forward, flash attention, the
-fused block, MoE and sparse attention come with later slices and raise
+Weights stay ``[in, out]`` (``x @ w``), as in the JAX package. The module
+carries the serving path (serve/paged.py calls ``_layer_norm`` and ``_mlp``)
+and the training forward: ``forward(tokens, labels=None, generator=None)``
+is the JAX ``apply`` over the module's own parameters, with dense or flash
+attention (ops/flash_attention.py) and the chunked cross-entropy. Its layers
+take the JAX package's per-layer parameter dicts (``params_tree``) and round
+where the JAX model rounds. Dropout draws from an explicit
+``torch.Generator``; it cannot match ``jax.random`` bit for bit, except the
+flash kernels' attention dropout, which hashes coordinates. The fused
+block, MoE, sparse attention and remat come with later slices and raise
 ``NotImplementedError`` when asked for.
 """
 
@@ -25,8 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops.flash_attention import flash_attention
 
 
 @dataclass
@@ -59,10 +67,15 @@ class GPT2Config:
 # options of the JAX model that later slices of the port bring, by the
 # ROADMAP.md queue item that ports them
 _LATER = {
-    "use_flash_attention": "queue B1 (flash attention, slice 2: training)",
     "fused_block": "queue B3 (fused transformer block)",
     "moe_experts": "queue A19 (MoE)",
     "sparse_attention": "queue B4 (block-sparse attention)",
+}
+# options only the training forward reads; the serving programs ignore them,
+# as the JAX serving path does
+_LATER_TRAINING = {
+    "remat": "queue A19 (activation checkpointing policies)",
+    "remat_policy": "queue A19 (activation checkpointing policies)",
 }
 
 
@@ -184,6 +197,163 @@ class GPT2Model(nn.Module):
         h = torch.matmul(x, p["c_fc_w"].to(x.dtype)) + p["c_fc_b"].to(x.dtype)
         h = F.gelu(h, approximate="tanh")
         return torch.matmul(h, p["c_proj_w"].to(x.dtype)) + p["c_proj_b"].to(x.dtype)
+
+    # ------------------------------------------------------------- training
+    def params_tree(self) -> Dict[str, Any]:
+        """The JAX package's nested parameter dict over this module's own
+        parameters (the same tensors, so autograd reaches them)."""
+        def ln(m):
+            return {"scale": m.scale, "bias": m.bias}
+
+        return {
+            "wte": self.wte, "wpe": self.wpe, "ln_f": ln(self.ln_f),
+            "blocks": [{
+                "ln_1": ln(b.ln_1),
+                "attn": {k: getattr(b.attn, k) for k in
+                         ("c_attn_w", "c_attn_b", "c_proj_w", "c_proj_b")},
+                "ln_2": ln(b.ln_2),
+                "mlp": {k: getattr(b.mlp, k) for k in
+                        ("c_fc_w", "c_fc_b", "c_proj_w", "c_proj_b")},
+            } for b in self.blocks],
+        }
+
+    def param_count(self, params=None) -> int:
+        """Element count of ``params`` (a name -> tensor dict or tree), or of
+        the module's own parameters."""
+        from ..runtime.utils import param_count
+        return param_count(params if params is not None else dict(self.named_parameters()))
+
+    def _check_training(self):
+        for field, where in _LATER_TRAINING.items():
+            if getattr(self.config, field):
+                raise NotImplementedError(
+                    f"GPT2Config.{field} is not in the PyTorch port's training "
+                    f"forward yet: ROADMAP.md {where}")
+
+    def _dropout(self, x, generator):
+        """Inverted dropout at ``config.dropout``, the mask drawn from
+        ``generator`` (on x's device)."""
+        keep = 1.0 - self.config.dropout
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def _attention(self, x, p, generator=None):
+        c = self.config
+        B, T, E = x.shape
+        nh, hd = c.n_head, c.head_dim
+        qkv = torch.matmul(x, p["c_attn_w"].to(x.dtype)) + p["c_attn_b"].to(x.dtype)
+        q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2) for t in qkv.split(E, dim=-1))
+        dropout = generator is not None and c.dropout > 0
+        if c.use_flash_attention:
+            # one seed per call; the kernels hash (seed, b*H + h, q, k)
+            seed = (int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                                      device=generator.device)) if dropout else None)
+            y = flash_attention(q, k, v, True, dropout_rate=c.dropout if dropout else 0.0,
+                                dropout_seed=seed)
+        else:
+            # scores, mask and softmax in float32, probabilities rounded to the
+            # compute dtype before the value product (gpt2.py:372-386)
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
+            mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+            s = torch.where(mask, s, torch.full((), -1e9, device=x.device))
+            probs = torch.softmax(s, dim=-1).to(x.dtype)
+            if dropout:
+                probs = self._dropout(probs, generator)
+            y = torch.matmul(probs.float(), v.float()).to(x.dtype)
+        y = y.transpose(1, 2).reshape(B, T, E)
+        return torch.matmul(y, p["c_proj_w"].to(x.dtype)) + p["c_proj_b"].to(x.dtype)
+
+    def _embed(self, p, tokens, generator=None):
+        c = self.config
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = (p["wte"][tokens.long()].to(c.compute_dtype)
+             + p["wpe"][pos].to(c.compute_dtype))
+        if generator is not None and c.dropout > 0:
+            x = self._dropout(x, generator)
+        return x
+
+    def _block(self, x, bp, generator=None):
+        c = self.config
+        eps = c.layer_norm_epsilon
+        if not (generator is not None and c.dropout > 0):
+            generator = None
+        a = self._attention(self._layer_norm(x, bp["ln_1"], eps), bp["attn"], generator)
+        if generator is not None:
+            a = self._dropout(a, generator)
+        x = x + a
+        m = self._mlp(self._layer_norm(x, bp["ln_2"], eps), bp["mlp"])
+        if generator is not None:
+            m = self._dropout(m, generator)
+        return x + m
+
+    def _backbone(self, p, tokens, generator=None):
+        """Embeddings -> blocks -> final LayerNorm: ``[B, T, E]`` hidden states."""
+        self._check_training()
+        x = self._embed(p, tokens, generator)
+        for bp in p["blocks"]:
+            x = self._block(x, bp, generator)
+        return self._layer_norm(x, p["ln_f"], self.config.layer_norm_epsilon)
+
+    @staticmethod
+    def _head(x, wte):
+        # the tied LM head in float32 from compute-dtype operands: a product of
+        # two bf16 numbers is exact in float32, so this is JAX's bf16-in /
+        # f32-accumulate dot up to summation order (TF32 must stay off)
+        return torch.matmul(x.float(), wte.to(x.dtype).float().t())
+
+    def logits(self, p, tokens, generator=None):
+        """float32 logits ``[B, T, vocab]``."""
+        return self._head(self._backbone(p, tokens, generator), p["wte"])
+
+    def _chunked_ce(self, x, wte, labels, chunk):
+        """Cross-entropy over sequence chunks; each chunk's float32 logits are
+        recomputed in the backward (non-reentrant checkpoint), so the
+        ``[B, T, vocab]`` logits never exist at once."""
+        w = wte.to(x.dtype).float()
+        total = n_valid = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s in range(0, x.shape[1], chunk):
+            t, n = checkpoint(_ce_sums, x[:, s:s + chunk], w, labels[:, s:s + chunk],
+                              use_reentrant=False, preserve_rng_state=False)
+            total, n_valid = total + t, n_valid + n
+        return total / n_valid.clamp(min=1.0)
+
+    def apply_parts(self, p, tokens, labels, generator=None):
+        """``(ce_mean, aux)``: the mean cross-entropy over labels >= 0 (the
+        -100 convention ignores the rest) and the MoE auxiliary term (zero:
+        MoE is not ported)."""
+        x = self._backbone(p, tokens, generator)
+        labels = labels.long()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        T = x.shape[1]
+        if self.config.loss_chunk:
+            # largest divisor of T not above loss_chunk (gpt2.py:532)
+            chunk = next(cc for cc in range(min(self.config.loss_chunk, T), 0, -1)
+                         if T % cc == 0)
+            if chunk < T:
+                return self._chunked_ce(x, p["wte"], labels, chunk), aux
+        total, n_valid = _ce_sums(x, p["wte"].to(x.dtype).float(), labels)
+        return total / n_valid.clamp(min=1.0), aux
+
+    def forward(self, tokens, labels=None, generator=None):
+        """With labels: the mean token cross-entropy (the training loss).
+        Without: float32 logits. ``generator`` (on the module's device)
+        turns dropout on when ``config.dropout > 0``."""
+        p = self.params_tree()
+        if labels is None:
+            return self.logits(p, tokens, generator)
+        ce, aux = self.apply_parts(p, tokens, labels, generator)
+        return ce + aux
+
+
+def _ce_sums(x, w, labels):
+    """(sum of token cross-entropies over labels >= 0, their count) of
+    hidden states ``x`` against the float32 head ``w`` [vocab, E]."""
+    logits = torch.matmul(x.float(), w.t())
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = (labels >= 0).float()
+    gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    return ((lse - gold) * valid).sum(), valid.sum()
 
 
 def params_from_jax(tree, device=None) -> Dict[str, torch.Tensor]:

@@ -1,0 +1,348 @@
+"""Flash attention: the CUDA kernels' wrappers, their autograd, and the plain
+versions.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. The kernels
+are ``csrc/flash_attention.cu``: ``flash_fwd`` (replaces the TPU kernel
+``_fwd_kernel``), ``flash_bwd_dq`` (``_bwd_dq_kernel``) and
+``flash_bwd_dkv`` (``_bwd_dkv_kernel``). They take q, k, v ``[B, H, T, D]``
+with one T, in float32, bfloat16 or float16, any T, and an even D <= 256.
+
+``flash_attention`` and ``flash_attention_with_lse`` keep the JAX signatures.
+For CUDA tensors they run the kernels through ``_FlashAttention`` (a
+``torch.autograd.Function`` saving ``(q, k, v, out, lse)``; its backward
+forms ``delta = rowsum(dO * O) - g_lse`` with torch ops and launches the two
+backward kernels). For CPU tensors they run the plain version
+(``flash_attention_reference``: dense float32 softmax, autograd for the
+backward). There is no other fallback. Each launch function counts its
+launches in ``<function>.launches`` (a plain integer; set it to 0 to start a
+count).
+
+The TPU package's ``_RESIDENT_T_LIMIT`` / ``_flash_attention_chunked`` and
+its v5e block table exist for the TPU's scoped VMEM: the CUDA kernels take
+any T directly, so they are not carried over.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+LOG2E = 1.4426950408889634
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def dense_attention(q, k, v, causal=False, sm_scale=None, bias=None, dropout_keep=None):
+    """Dense attention on ``[B, H, T, D]`` with a float32 softmax; the
+    probabilities are cast to q's dtype before the product with v.
+    ``bias``: additive key bias ``[B, 1, T_k]``; ``dropout_keep``: a pre-scaled
+    multiplicative mask on the probabilities (``dropout_keep_reference``)."""
+    out, _ = _dense(q, k, v, causal, sm_scale, bias, dropout_keep, 0, 0)
+    return out
+
+
+def _dense(q, k, v, causal, sm_scale, bias, keep, q_off, k_off):
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        scores = scores + bias.float().reshape(bias.shape[0], 1, 1, -1)
+    if causal:
+        qp = torch.arange(q.shape[2], device=q.device)[:, None] + q_off
+        kp = torch.arange(k.shape[2], device=q.device)[None, :] + k_off
+        scores = torch.where(qp >= kp, scores,
+                             torch.full((), DEFAULT_MASK_VALUE, device=q.device))
+    lse = torch.logsumexp(scores, dim=-1)
+    probs = torch.softmax(scores, dim=-1)
+    if keep is not None:
+        probs = probs * keep.to(probs.dtype)
+    out = torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
+    return out, lse
+
+
+def _mul32(x, c):
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _dropout_bits(seed_u32, bh_u32, q_pos, k_pos):
+    """The TPU kernels' coordinate hash in int64 arithmetic masked to 32 bits
+    (torch's uint32 ops are limited). Inputs broadcast; returns int64 values
+    in [0, 2**32)."""
+    x = (_mul32(q_pos & _M32, 0x9E3779B1) + _mul32(k_pos & _M32, 0x85EBCA77)
+         + _mul32(bh_u32 & _M32, 0xC2B2AE3D) + (seed_u32 & _M32)) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _keep_threshold(rate: float) -> int:
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _keep_mask(seed, B, H, T_q, T_k, rate, q_off=0, k_off=0, device=None):
+    bh = torch.arange(B * H, dtype=torch.int64, device=device)[:, None, None]
+    qp = torch.arange(T_q, dtype=torch.int64, device=device)[None, :, None] + q_off
+    kp = torch.arange(T_k, dtype=torch.int64, device=device)[None, None, :] + k_off
+    bits = _dropout_bits(int(seed) & _M32, bh, qp, kp)
+    keep = (bits >= _keep_threshold(rate)).to(torch.float32)
+    return (keep / (1.0 - rate)).reshape(B, H, T_q, T_k)
+
+
+def dropout_keep_reference(seed, B, H, T_q, T_k, rate: float, device=None):
+    """``[B, H, T_q, T_k]`` pre-scaled keep mask, bit for bit the stream the
+    kernels (and the TPU kernels) draw for this seed."""
+    return _keep_mask(seed, B, H, T_q, T_k, rate, device=device)
+
+
+def _merge_partial(o, lse, o_new, lse_new):
+    """Online-softmax merge of normalized partials (float32 accumulator)."""
+    lse_out = torch.logaddexp(lse, lse_new)
+    o_out = (o * torch.exp(lse - lse_out)[..., None]
+             + o_new.float() * torch.exp(lse_new - lse_out)[..., None])
+    return o_out, lse_out
+
+
+def flash_attention_reference(q, k, v, causal=False, sm_scale=None, bias=None,
+                              dropout_rate=0.0, dropout_seed=None, q_offset=0,
+                              k_offset=0):
+    """Plain PyTorch version of the kernels: ``(out, lse)`` from dense
+    attention with the keep mask of the same hash, ``lse`` the natural-log
+    logsumexp of the scaled (biased, masked) scores. Differentiable by
+    autograd in q, k, v; runs on any device. The wrappers use it for CPU
+    tensors, and ``chip_smoke.py`` holds the kernels against it on the card."""
+    keep = None
+    if dropout_rate > 0:
+        B, H, T, _ = q.shape
+        keep = _keep_mask(dropout_seed, B, H, T, k.shape[2], dropout_rate,
+                          q_offset, k_offset, device=q.device)
+    if bias is not None:
+        bias = bias.detach()
+    return _dense(q, k, v, causal, sm_scale, bias, keep, q_offset, k_offset)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("flash_attention")
+    if lib.flash_fwd.argtypes is None:
+        vp, i32, f32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+        tail = [i32, i32, i32, i32,          # BH H T D
+                f32, f32, i32,               # sm_scale, op_scale, causal
+                f32, u32, u32, i32, i32,     # rate, threshold, seed, q_off, k_off
+                i32, vp]                     # dtype, stream
+        lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp] + tail
+        lib.flash_bwd_dq.argtypes = [vp] * 8 + tail
+        lib.flash_bwd_dkv.argtypes = [vp] * 9 + tail
+        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_launch(q, k, v, do=None, lse=None, delta=None, bias=None):
+    """Raise on what the kernels do not take: q, k, v (and do) of one
+    ``[B, H, T, D]`` shape and one dtype with an even D <= 256; lse and delta
+    float32 ``[B, H, T]``; bias float32 ``[B, T]``; all contiguous on q's card."""
+    if q.dim() != 4 or any(t is not None and t.shape != q.shape for t in (k, v, do)):
+        raise ValueError(f"q, k, v, do must share one [B, H, T, D] shape, got "
+                         f"{[tuple(t.shape) for t in (q, k, v, do) if t is not None]}")
+    B, H, T, D = q.shape
+    if D % 2 or D > 256:
+        raise ValueError(f"the kernels take an even head_dim <= 256, got {D}")
+    if q.dtype not in _DTYPES or any(t is not None and t.dtype != q.dtype
+                                     for t in (k, v, do)):
+        raise TypeError(f"q, k, v, do must share one dtype of {tuple(_DTYPES)}")
+    for name, t, shape in (("lse", lse, (B, H, T)), ("delta", delta, (B, H, T)),
+                           ("bias", bias, (B, T))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse),
+                    ("delta", delta), ("bias", bias)):
+        if t is None:
+            continue
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _tail(q, H, sm_scale, causal, rate, seed, q_off, k_off):
+    BH, T, D = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+    return (BH, H, T, D, sm_scale, sm_scale * LOG2E, int(bool(causal)), float(rate),
+            _keep_threshold(rate) if rate > 0 else 0, int(seed or 0) & _M32,
+            int(q_off), int(k_off), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _bias_ptr(bias):
+    return None if bias is None else bias.data_ptr()
+
+
+def flash_attention_fwd(q, k, v, *, causal, sm_scale, bias=None, dropout_rate=0.0,
+                        dropout_seed=None, q_offset=0, k_offset=0):
+    """Launch ``flash_fwd``: returns ``(out, lse)``, out in q's dtype and lse
+    float32 ``[B, H, T]`` (natural log). q, k, v contiguous ``[B, H, T, D]``
+    on one card; bias contiguous float32 ``[B, T]`` or None."""
+    _check_launch(q, k, v, bias=bias)
+    lib = _lib()
+    B, H, T, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias),
+                            out.data_ptr(), lse.data_ptr(),
+                            *_tail(q, H, sm_scale, causal, dropout_rate, dropout_seed,
+                                   q_offset, k_offset))
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, bias=None,
+                           dropout_rate=0.0, dropout_seed=None, q_offset=0, k_offset=0):
+    """Launch ``flash_bwd_dq``: returns dq in q's dtype. ``do`` as q; ``lse``
+    and ``delta`` contiguous float32 ``[B, H, T]``."""
+    _check_launch(q, k, v, do, lse, delta, bias)
+    lib = _lib()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                               lse.data_ptr(), delta.data_ptr(), _bias_ptr(bias),
+                               dq.data_ptr(),
+                               *_tail(q, q.shape[1], sm_scale, causal, dropout_rate,
+                                      dropout_seed, q_offset, k_offset))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, bias=None,
+                            dropout_rate=0.0, dropout_seed=None, q_offset=0, k_offset=0):
+    """Launch ``flash_bwd_dkv``: returns ``(dk, dv)`` in k's dtype."""
+    _check_launch(q, k, v, do, lse, delta, bias)
+    lib = _lib()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), _bias_ptr(bias),
+                                dk.data_ptr(), dv.data_ptr(),
+                                *_tail(q, q.shape[1], sm_scale, causal, dropout_rate,
+                                       dropout_seed, q_offset, k_offset))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward; backward by the two backward kernels. Both outputs
+    are differentiable: an lse cotangent folds into delta."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, sm_scale, rate, seed, q_off, k_off):
+        kw = dict(causal=causal, sm_scale=sm_scale, bias=bias, dropout_rate=rate,
+                  dropout_seed=seed, q_offset=q_off, k_offset=k_off)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, bias)
+        ctx.kw = kw
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse, bias = ctx.saved_tensors
+        kw = dict(ctx.kw, bias=bias)
+        do = torch.zeros_like(out) if g_out is None else g_out.contiguous()
+        # delta = rowsum(dO * O): the softmax-normalization term; an lse
+        # cotangent adds g_lse * p to dS, i.e. it subtracts from delta
+        delta = (do.float() * out.float()).sum(-1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        delta = delta.contiguous()
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _attend(q, k, v, causal, sm_scale, bias, rate, seed, q_off, k_off):
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one [B, H, T, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of {tuple(_DTYPES)}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, H, T, D = q.shape
+    if D % 2 or D > 256:
+        raise ValueError(f"head_dim must be even and <= 256, got {D}")
+    rate = float(rate)
+    if rate > 0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_seed")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    if bias is not None:
+        # a padding mask, never learned: no gradient (the JAX wrapper's
+        # stop_gradient)
+        bias = bias.detach().to(torch.float32).reshape(B, T).contiguous()
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, sm_scale, bias, rate, seed,
+                                         q_off, k_off)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                                 bool(causal), float(sm_scale), rate,
+                                 int(seed) if rate > 0 else 0, int(q_off), int(k_off))
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=None, block_k=None,
+                    interpret=None, bias=None, dropout_rate=0.0, dropout_seed=None):
+    """Flash attention on ``[B, H, T, D]`` tensors, differentiable in q, k, v.
+
+    ``bias``: optional additive key bias, any shape that reshapes to
+    ``[B, T]`` (the BERT padding mask ``[B, 1, 1, T]`` included); it gets no
+    gradient. ``dropout_rate`` / ``dropout_seed``: attention dropout on the
+    probabilities by the coordinate hash (``dropout_keep_reference`` gives
+    the mask). ``block_q``, ``block_k`` and ``interpret`` are accepted for the
+    JAX signature and ignored: the kernels choose their own tiles, and CPU
+    tensors always take the plain version. CUDA tensors launch the kernels."""
+    out, _ = _attend(q, k, v, causal, sm_scale, bias, dropout_rate, dropout_seed, 0, 0)
+    return out
+
+
+def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None, block_q=None,
+                             block_k=None, interpret=None, dropout_rate=0.0,
+                             dropout_seed=None, dropout_q_offset=0, dropout_k_offset=0,
+                             q_segments=None, k_segments=None):
+    """``(out, lse)``, both differentiable; ``lse`` is the natural-log
+    logsumexp of the scaled scores ``[B, H, T]``. ``dropout_*_offset`` place
+    this call's positions in global coordinates for the dropout hash and the
+    causal mask. The segmented zigzag layout (``q_segments`` /
+    ``k_segments``, the (7,) seed operand) belongs to the sequence-parallel
+    ring and is not ported yet. ``block_q``, ``block_k`` and ``interpret``
+    are ignored, as in ``flash_attention``."""
+    if q_segments is not None or k_segments is not None:
+        raise NotImplementedError(
+            "flash_attention_with_lse: the segmented (7,) seed layout is not in the "
+            "PyTorch port yet: ROADMAP.md item 14 (sequence-parallel ring)")
+    return _attend(q, k, v, causal, sm_scale, None, dropout_rate, dropout_seed,
+                   dropout_q_offset, dropout_k_offset)

@@ -1,0 +1,554 @@
+"""DeepSpeedEngine: the training wrapper (PyTorch port).
+
+Counterpart of ``deepspeed_tpu/runtime/engine.py`` with its API and
+semantics: ``loss = engine(*batch); engine.backward(loss); engine.step()``
+with gradient-accumulation boundaries; a float32 master copy of every
+parameter, the module's own parameters as the compute-dtype copy; the loss
+scaled by ``scale / gradient_accumulation_steps`` before the backward; grads
+in ``grad_dtype`` (the compute dtype at ZeRO stage >= 2, float32 below,
+``allreduce_always_fp32`` / ``communication_data_type`` override it), moved
+after every micro-step into an accumulator that is float32 when the window
+spans several micro-batches; at the boundary the fp16 overflow check and
+unscale, the global norm, clipping, the optimizer (skipped on overflow), the
+loss-scaler update, the master -> compute re-cast, and the LR scheduler on
+clean steps only.
+
+ZeRO over ``torch.distributed``, explicit where the JAX package leaves it to
+GSPMD (``zero/sharding.py``). Each rank runs its own micro-batch; its loss is
+the mean over its rows, so the mean of the ranks' gradients is the JAX
+global-batch gradient when the ranks hold equal numbers of valid labels.
+- stage 0: grads all-reduced (mean); master and moments whole on each rank;
+- stage 1: grads all-reduced; each rank holds and updates only its
+  ``zero_spec`` slice of master and moments, then the compute params are
+  all-gathered;
+- stage 2: as stage 1, but each micro-step's grads are reduce-scattered into
+  a sharded accumulator;
+- leaves ``zero_spec`` keeps replicated (under 1024 elements, or no
+  divisible axis) are all-reduced and updated whole on every rank;
+- the global norm sums the sharded squares over the ranks.
+With one rank every collective is skipped.
+
+The engine updates master, moments and accumulators in place (the JAX
+functions return new trees; the port keeps one copy of each). What the
+slice does not carry raises ``NotImplementedError`` naming its ROADMAP.md
+item. ``compilation_cache_dir`` names the JAX compile cache and has no
+counterpart in eager PyTorch; it is ignored.
+"""
+
+import re
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from ..device import resolve_device
+from ..ops import adam as adam_opt
+from ..ops import lamb as lamb_opt
+from ..ops import sgd as sgd_opt
+from ..utils import log_dist, logger
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer, device_sync
+from .config import DeepSpeedConfig
+from .constants import (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, COMM_MODE_FLAT,
+                        COMM_OVERLAP_BUCKETED, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+                        ROUTE_TRAIN, SGD_OPTIMIZER)
+from .dataloader import DeepSpeedDataLoader
+from .fp16 import loss_scaler as ls
+from .lr_schedules import get_scheduler
+from .utils import clip_grads_by_global_norm, detect_overflow
+from .zero.sharding import reduce_scatter, shard, sharding_coverage, unshard, zero_spec
+
+
+def _later(what, item):
+    return NotImplementedError(f"{what} is not in the PyTorch port yet: ROADMAP.md {item}")
+
+
+class OptimizerHandle:
+    """Host-side view of the optimizer's hyper-parameters (the reference's
+    param_groups). Group 0 holds the optimizer block's values; each
+    ``group_specs`` entry adds a group that inherits them and applies its
+    overrides (lr, weight_decay, betas, eps). Schedulers mutate
+    ``param_groups[i]``; ``current_hyper`` hands the values to the update."""
+
+    def __init__(self, name: str, params: dict, group_specs=()):
+        self.name = name
+        params = params or {}
+
+        def group_dict(overrides: dict) -> dict:
+            hyper = adam_opt.hyper_from_params({**params, **overrides})
+            return {"lr": hyper["lr"], "betas": (hyper["beta1"], hyper["beta2"]),
+                    "eps": hyper["eps"], "weight_decay": hyper["weight_decay"]}
+
+        self.param_groups = [group_dict({})]
+        for spec in group_specs or ():
+            overrides = {k: v for k, v in dict(spec).items()
+                         if k in ("lr", "weight_decay", "betas", "eps")}
+            self.param_groups.append(group_dict(overrides))
+
+    def current_hyper(self) -> list:
+        """Per-group hyper dicts {lr, beta1, beta2, eps, weight_decay}."""
+        return [dict(lr=g["lr"], beta1=g["betas"][0], beta2=g["betas"][1],
+                     eps=g["eps"], weight_decay=g["weight_decay"])
+                for g in self.param_groups]
+
+
+def _adam_l2(grads, state, master, step, hyper, groups=None, **_):
+    # "Adam" is classic L2 Adam; "AdamW" decoupled (the JAX package's split)
+    return adam_opt.apply(grads, state, master, step, hyper, adamw=False, groups=groups)
+
+
+_OPTIMIZERS = {
+    ADAM_OPTIMIZER: (adam_opt.init, _adam_l2),
+    ADAMW_OPTIMIZER: (adam_opt.init, adam_opt.apply),
+    LAMB_OPTIMIZER: (lamb_opt.init, lamb_opt.apply),
+    SGD_OPTIMIZER: (sgd_opt.init, sgd_opt.apply),
+}
+
+
+def make_engine(args=None, model=None, optimizer=None, model_parameters=None,
+                training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
+                collate_fn=None, config_params=None, device=None):
+    """Engine factory (the JAX package's dispatch point for pipeline models)."""
+    if any(c.__name__ == "PipelineModule" for c in type(model).__mro__):
+        raise _later("a PipelineModule model", "item 16 (pipeline)")
+    if dist_init_required is not False:
+        from .dist import init_distributed
+        init_distributed(resolve_device(device).type)
+    return DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                           model_parameters=model_parameters, training_data=training_data,
+                           lr_scheduler=lr_scheduler, mpu=mpu,
+                           dist_init_required=dist_init_required, collate_fn=collate_fn,
+                           config_params=config_params, device=device)
+
+
+class DeepSpeedEngine:
+
+    def __init__(self, args=None, model=None, optimizer=None, model_parameters=None,
+                 training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
+                 collate_fn=None, config_params=None, device=None, param_shardings=None):
+        if mpu is not None or param_shardings is not None:
+            raise _later("tensor parallelism (mpu / param_shardings)", "item 15")
+        if not isinstance(model, nn.Module):
+            raise TypeError("model must be a torch.nn.Module whose forward(*batch) "
+                            "returns the loss")
+        if optimizer is not None and not isinstance(optimizer, str):
+            raise _later("a client optimizer ((init, apply) pairs, external_master, "
+                         "torch.optim optimizers)", "item 24")
+        self.client_lr_scheduler = lr_scheduler
+        self.training_data = training_data
+        self.collate_fn = collate_fn
+        self.global_steps = 0
+        self.micro_steps = 0
+        self.skipped_steps = 0
+        self._in_training = True
+
+        self.dp_size = dist.get_world_size() if dist.is_initialized() else 1
+        self.dp_rank = dist.get_rank() if dist.is_initialized() else 0
+
+        config_file = getattr(args, "deepspeed_config", None) if args is not None else None
+        if config_params is None and config_file is None:
+            raise ValueError("DeepSpeed requires --deepspeed_config or config_params")
+        self.config = DeepSpeedConfig(config_params if config_params is not None
+                                      else config_file, world_size=self.dp_size)
+        self._refuse_unported()
+
+        if self.fp16_enabled():
+            self.compute_dtype = torch.float16
+        elif self.bfloat16_enabled():
+            self.compute_dtype = torch.bfloat16
+        else:
+            self.compute_dtype = torch.float32
+        self.device = resolve_device(device)
+        model.to(self.device)
+        if model_parameters is not None:
+            if hasattr(model, "load_parameters"):
+                model.load_parameters(model_parameters)
+            else:
+                model.load_state_dict(model_parameters, strict=True)
+        self.module = model
+
+        # ---- master (float32, this rank's ZeRO slices) and compute params ----
+        named = list(model.named_parameters())
+        self._names = [n for n, _ in named]
+        self._params = [p for _, p in named]
+        stage = self.zero_optimization_stage()
+        self._axes = [zero_spec(tuple(p.shape), self.dp_size) if stage >= 1 else None
+                      for p in self._params]
+        with torch.no_grad():
+            self._master = [shard(p.detach().float().clone(), a, self.dp_rank, self.dp_size)
+                            for p, a in zip(self._params, self._axes)]
+            model.to(self.compute_dtype)
+        # stage 2 keeps the accumulated grads reduce-scattered like the master
+        self._grad_axes = self._axes if stage >= 2 else [None] * len(self._params)
+        self._zero_sharded_fraction = None
+        if stage >= 1 and self.dp_size > 1:
+            sharded_b, total_b = sharding_coverage(
+                self._axes, [p.detach().float() for p in self._params])
+            self._zero_sharded_fraction = sharded_b / max(total_b, 1)
+            log_dist(f"ZeRO-{stage}: {sharded_b / 2**20:.1f}/{total_b / 2**20:.1f} MiB "
+                     f"({self._zero_sharded_fraction:.1%}) of master+optimizer state "
+                     f"sharded over data={self.dp_size}", ranks=[0])
+
+        self._configure_optimizer()
+
+        self._dynamic_scale = self.fp16_enabled() and self.config.loss_scale == 0
+        if self.fp16_enabled():
+            self.scaler_state = ls.init_state(self.config.loss_scale,
+                                              self.config.initial_scale_power,
+                                              self.config.hysteresis)
+        else:
+            self.scaler_state = ls.init_state(1.0)  # scale fixed at 1
+
+        grad_dtype = self.compute_dtype if stage >= 2 else torch.float32
+        if self.config.allreduce_always_fp32:
+            grad_dtype = torch.float32
+        if self.config.communication_data_type is not None:
+            grad_dtype = {"fp32": torch.float32, "fp16": torch.float16,
+                          "bf16": torch.bfloat16}[self.config.communication_data_type]
+        self._grad_dtype = grad_dtype
+        # a window of several micro-batches accumulates in float32: a bf16
+        # a + g loses mantissa as the window grows, a scaled fp16 sum overflows
+        self._acc_dtype = (torch.float32 if (grad_dtype != torch.float32
+                                             and self.gradient_accumulation_steps() > 1)
+                           else grad_dtype)
+        self._grad_acc = None
+        self._pending_loss = None
+        self._window_losses = []
+        self._last_grad_norm = None
+
+        self._configure_lr_scheduler(lr_scheduler)
+        self.training_dataloader = (self.deepspeed_io(training_data)
+                                    if training_data is not None else None)
+        sync = device_sync(self.device)
+        self.timers = SynchronizedWallClockTimer(sync)
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_micro_batch_size_per_gpu() * self.dp_size,
+            num_workers=1, steps_per_output=self.steps_per_print(),
+            monitor_memory=False, sync_fn=sync)
+        if self.config.dump_state:
+            self.config.print("DeepSpeedEngine configuration")
+
+    def _refuse_unported(self):
+        c = self.config
+        if c.zero_enabled and c.zero_optimization_stage >= 3:
+            raise _later("ZeRO stage 3", "item 17")
+        if c.zero_enabled and c.zero_config.cpu_offload:
+            raise _later("ZeRO-Offload (zero_optimization.cpu_offload)", "item 17")
+        if c.optimizer_name == ONEBIT_ADAM_OPTIMIZER:
+            raise _later("1-bit Adam", "item 18")
+        if c.sparse_gradients_enabled:
+            raise _later("sparse_gradients", "item 18")
+        if c.comm_mode != COMM_MODE_FLAT:
+            raise _later(f"comm.mode={c.comm_mode!r}", "item 18")
+        if c.comm_overlap_mode == COMM_OVERLAP_BUCKETED:
+            raise _later("comm.overlap.mode='bucketed'", "item 18")
+        if c.sequence_parallel_enabled:
+            raise _later("sequence_parallel", "item 14")
+        if c.fused_step:
+            raise _later("fused_step", "item 25")
+        if c.activation_checkpointing_config.configured_in_json:
+            raise _later("the activation_checkpointing block", "item 19")
+        for on, what, item in ((c.telemetry_enabled, "telemetry", "items 21-22"),
+                               (c.numerics_enabled, "numerics", "item 22"),
+                               (c.resilience_enabled, "resilience", "item 20"),
+                               (c.tensorboard_enabled, "the tensorboard monitor", "item 21")):
+            if on:
+                raise _later(what, item)
+
+    # ------------------------------------------------------------------ state views
+    @property
+    def master_params(self):
+        """name -> this rank's float32 master (its ZeRO slice of the leaf)."""
+        return dict(zip(self._names, self._master))
+
+    # ------------------------------------------------------------------ config accessors
+    def train_batch_size(self):
+        return self.config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self.config.train_micro_batch_size_per_gpu
+
+    def gradient_accumulation_steps(self):
+        return self.config.gradient_accumulation_steps
+
+    def steps_per_print(self):
+        return self.config.steps_per_print
+
+    def zero_optimization(self):
+        return self.config.zero_enabled
+
+    def zero_optimization_stage(self):
+        return self.config.zero_optimization_stage
+
+    def fp16_enabled(self):
+        return self.config.fp16_enabled
+
+    def bfloat16_enabled(self):
+        return self.config.bf16_enabled
+
+    def gradient_clipping(self):
+        return self.config.gradient_clipping
+
+    def allreduce_always_fp32(self):
+        return self.config.allreduce_always_fp32
+
+    def wall_clock_breakdown(self):
+        return self.config.wall_clock_breakdown
+
+    def dynamic_loss_scale(self):
+        return self._dynamic_scale
+
+    def loss_scale(self):
+        return float(self.scaler_state.cur_scale)
+
+    def get_lr(self):
+        return [g["lr"] for g in self.optimizer.param_groups]
+
+    def get_mom(self):
+        return [g["betas"] for g in self.optimizer.param_groups]
+
+    # ------------------------------------------------------------------ setup
+    def _group_ids(self, specs):
+        """Per-leaf group ids from pattern specs: a leaf whose path (the JAX
+        package's "blocks/0/attn/c_attn_w" form) matches ``specs[i]['pattern']``
+        (first match wins) is in group i + 1, any other in group 0."""
+        compiled = [re.compile(s["pattern"]) for s in specs]
+        ids, counts = [], [0] * (len(specs) + 1)
+        for name in self._names:
+            path = name.replace(".", "/")
+            gi = next((i + 1 for i, rx in enumerate(compiled) if rx.search(path)), 0)
+            ids.append(gi)
+            counts[gi] += 1
+        log_dist(f"optimizer param groups: {counts[0]} base leaves + "
+                 f"{counts[1:]} per pattern group", ranks=[0])
+        return ids
+
+    def _configure_optimizer(self):
+        specs = (self.config.optimizer_params or {}).get("param_groups")
+        if not specs:
+            hook = getattr(self.module, "param_group_patterns", None)
+            specs = tuple(hook()) if callable(hook) else ()
+        specs = tuple(specs or ())
+        self._groups = self._group_ids(specs) if specs else None
+        name = self.config.optimizer_name or ADAM_OPTIMIZER
+        if name not in _OPTIMIZERS:
+            raise ValueError(f"Unrecognized optimizer {name!r}")
+        self._opt_init, self._opt_apply = _OPTIMIZERS[name]
+        self.optimizer = OptimizerHandle(name, self.config.optimizer_params or {},
+                                         group_specs=specs)
+        self.opt_state = self._opt_init(self._master)
+        log_dist(f"Using DeepSpeed Optimizer param name {self.optimizer.name}", ranks=[0])
+
+    def _configure_lr_scheduler(self, client_lr_scheduler):
+        if client_lr_scheduler is not None:
+            self.lr_scheduler = client_lr_scheduler
+        elif self.config.scheduler_name is not None:
+            self.lr_scheduler = get_scheduler(self.config.scheduler_name, self.optimizer,
+                                              self.config.scheduler_params or {})
+            log_dist(f"DeepSpeed using configured LR scheduler = "
+                     f"{self.config.scheduler_name}", ranks=[0])
+        else:
+            self.lr_scheduler = None
+
+    def deepspeed_io(self, dataset, batch_size=None, route=ROUTE_TRAIN, data_sampler=None,
+                     collate_fn=None, num_local_io_workers=None):
+        """A loader of this rank's micro-batches (``batch_size`` rows each,
+        default ``train_micro_batch_size_per_gpu``)."""
+        return DeepSpeedDataLoader(dataset,
+                                   batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+                                   collate_fn=collate_fn or self.collate_fn,
+                                   data_parallel_world_size=self.dp_size,
+                                   data_parallel_rank=self.dp_rank)
+
+    # ------------------------------------------------------------------ train API
+    def _to_device(self, x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return x
+
+    def train(self, mode=True):
+        self._in_training = mode
+
+    def eval(self):
+        self._in_training = False
+
+    def __call__(self, *inputs, **kwargs):
+        return self.forward(*inputs, **kwargs)
+
+    def forward(self, *inputs):
+        """The loss of this micro-batch; in training mode autograd records
+        it for ``backward``, in eval mode it runs under ``torch.no_grad``."""
+        if self.wall_clock_breakdown():
+            self.timers("forward_microstep").start()
+        batch = tuple(self._to_device(x) for x in inputs)
+        if self._in_training:
+            loss = self.module(*batch)
+            self._pending_loss = loss
+        else:
+            with torch.no_grad():
+                loss = self.module(*batch)
+        if isinstance(loss, (tuple, list)):
+            loss = loss[0]
+            if self._in_training:
+                self._pending_loss = loss
+        if self.wall_clock_breakdown():
+            self.timers("forward_microstep").stop()
+        return loss
+
+    def backward(self, loss, allreduce_gradients=True, release_loss=False):
+        """Differentiate ``loss * scale / gradient_accumulation_steps`` and move
+        this micro-batch's grads (reduced over the ranks) into the
+        accumulator. ``allreduce_gradients`` and ``release_loss`` are accepted
+        for the reference's signature; the grads are always reduced."""
+        if not self._in_training or self._pending_loss is None:
+            raise RuntimeError("backward() called without a preceding forward() in "
+                               "training mode")
+        if self.wall_clock_breakdown():
+            self.timers("backward_microstep").start()
+        factor = np.float32(self.scaler_state.cur_scale) / np.float32(
+            self.gradient_accumulation_steps())
+        if self.config.prescale_gradients:
+            factor = factor / np.float32(self.config.gradient_predivide_factor or 1.0)
+        (loss * float(factor)).backward()
+        grads = []
+        for p in self._params:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            grads.append(g.to(self._grad_dtype))
+        if self.dp_size > 1:
+            grads = [self._reduce(g, a) for g, a in zip(grads, self._grad_axes)]
+        if self._grad_acc is None:
+            self._grad_acc = [g.to(self._acc_dtype) for g in grads]
+        else:
+            for a, g in zip(self._grad_acc, grads):
+                a.add_(g)   # in the accumulator's dtype: a + g.astype(acc_dtype)
+        self._window_losses.append(self._pending_loss.detach())
+        self._pending_loss = None
+        self.micro_steps += 1
+        if self.wall_clock_breakdown():
+            self.timers("backward_microstep").stop()
+        return loss
+
+    def _reduce(self, g, axis):
+        """The mean over the ranks: reduce-scattered to this rank's slice for
+        a stage-2 sharded leaf, all-reduced otherwise."""
+        if axis is not None:
+            g = reduce_scatter(g, axis, self.dp_size)
+        else:
+            dist.all_reduce(g, op=dist.ReduceOp.SUM)
+        return g.div_(self.dp_size)
+
+    def is_gradient_accumulation_boundary(self):
+        return self.micro_steps % self.gradient_accumulation_steps() == 0
+
+    def zero_grad(self):
+        self._grad_acc = None
+
+    def step(self):
+        """Apply the optimizer at the gradient-accumulation boundary."""
+        if self.is_gradient_accumulation_boundary() and self._grad_acc is not None:
+            self._take_model_step()
+
+    def _grad_norm(self, grads):
+        """Global L2 norm: squares of sharded grads summed over the ranks,
+        replicated ones counted once (an axis is set only when dp > 1)."""
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        whole = [s for s, a in zip(sq, self._grad_axes) if a is None]
+        sharded = [s for s, a in zip(sq, self._grad_axes) if a is not None]
+        if whole:
+            total = total + torch.stack(whole).sum()
+        if sharded:
+            part = torch.stack(sharded).sum()
+            dist.all_reduce(part, op=dist.ReduceOp.SUM)
+            total = total + part
+        return torch.sqrt(total)
+
+    def _leaf_sumsq(self, i, t):
+        """A master leaf's squared norm, summed over the ranks when sharded."""
+        s = torch.sum(torch.square(t))
+        if self._axes[i] is not None:
+            dist.all_reduce(s, op=dist.ReduceOp.SUM)
+        return s
+
+    @torch.no_grad()
+    def _take_model_step(self):
+        if self.wall_clock_breakdown():
+            self.timers("step_microstep").start()
+        grads = self._grad_acc
+        fp16 = self.fp16_enabled()
+        overflow, _ = detect_overflow(grads, fp16)
+        if fp16:
+            flag = overflow.to(self.device, torch.float32)
+            if self.dp_size > 1:
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            overflow = bool(flag)
+            scale = self.scaler_state.cur_scale
+            inv = 1.0 / scale if scale > 0 else 1.0
+            # bf16 and f32 unscale in place by a power of two; fp16 through
+            # float32, whose exponent keeps the small unscaled grads
+            grads = [g.float() * inv if g.dtype == torch.float16
+                     else g.mul_(torch.tensor(inv, dtype=g.dtype)) for g in grads]
+        else:
+            overflow = False
+        predivide = float(self.config.gradient_predivide_factor or 1.0)
+        if self.config.prescale_gradients and predivide != 1.0:
+            grads = [g.mul_(torch.tensor(predivide, dtype=g.dtype)) for g in grads]
+        norm = self._grad_norm(grads)
+        clip = float(self.gradient_clipping() or 0.0)
+        if clip > 0:
+            clip_grads_by_global_norm(grads, clip, norm=norm)
+        if not overflow:
+            # stage 1 holds whole grads and sliced master: take this rank's slice
+            opt_grads = [g if self._grad_axes[i] is not None
+                         else shard(g, self._axes[i], self.dp_rank, self.dp_size)
+                         for i, g in enumerate(grads)]
+            step = self.global_steps + 1 - self.skipped_steps
+            kw = {"sumsq": self._leaf_sumsq} if self._opt_apply is lamb_opt.apply else {}
+            self._opt_apply(opt_grads, self.opt_state, self._master, step,
+                            self.optimizer.current_hyper(), groups=self._groups, **kw)
+            del opt_grads
+            for p, m, a in zip(self._params, self._master, self._axes):
+                p.copy_(unshard(m.to(self.compute_dtype), a, self.dp_size))
+        self.scaler_state = ls.update(
+            self.scaler_state, overflow, dynamic=self._dynamic_scale,
+            scale_window=self.config.loss_scale_window,
+            min_scale=self.config.min_loss_scale, hysteresis=self.config.hysteresis)
+        self._last_grad_norm = norm
+        self._finish_step(overflow)
+
+    def _finish_step(self, overflowed: bool):
+        self._grad_acc = None
+        if overflowed:
+            self.skipped_steps += 1
+            logger.info("[deepspeed_tpu_torch] OVERFLOW! Skipping step.")
+        elif self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+        if self.global_steps == 0 or (self.global_steps + 1) % self.steps_per_print() == 0:
+            log_dist(f"step={self.global_steps + 1}, skipped={self.skipped_steps}, "
+                     f"lr={self.get_lr()}, mom={self.get_mom()}", ranks=[0])
+        self.global_steps += 1
+        self._window_losses = []
+        if self.wall_clock_breakdown():
+            self.timers("step_microstep").stop()
+            self.timers.log(["forward_microstep", "backward_microstep", "step_microstep"],
+                            memory_breakdown=self.config.memory_breakdown)
+
+    # ------------------------------------------------------------------ not ported
+    def save_checkpoint(self, save_dir, tag=None, client_state={}, save_latest=True):
+        raise _later("save_checkpoint", "item 6")
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True):
+        raise _later("load_checkpoint", "item 6")
+
+    def flops_profile(self, *inputs, peak_tflops=None):
+        raise _later("flops_profile", "item 22")
+
+    def lint_programs(self, sample_batch):
+        raise _later("lint_programs", "item 23")
+
+    def memory_manifest(self):
+        raise _later("memory_manifest", "item 22")

@@ -232,8 +232,7 @@ def test_engine_refuses_mirror_telemetry_and_warm_restart(models):
             call()
 
 
-@pytest.mark.parametrize("field", ["use_flash_attention", "fused_block",
-                                   "moe_experts", "sparse_attention"])
+@pytest.mark.parametrize("field", ["fused_block", "moe_experts", "sparse_attention"])
 def test_model_refuses_later_slices(field):
     with pytest.raises(NotImplementedError, match=field):
         GPT2Model(GPT2Config(**DIMS, **{field: 1}), device="cpu")
