@@ -31,12 +31,30 @@ result line):
    path (bf16 at full depth, float32 at 4 layers), that the losses are finite
    and fall, and that each flash kernel ran once per layer per micro-step;
    then a profiler window of one step;
-7. result — one ``{"kernels": [...]}`` line, then the last line
+7. block-sparse kernels — the forward, dq and dk/dv kernels against the plain
+   version (out, lse, dq, dk, dv) at the long-sequence path's shape (the
+   Variable layout at block 256, T = 8192, causal) and at layouts of blocks
+   16 to 128 (Fixed in float32, BigBird with random blocks, float16 at
+   D = 128, D = 256, a bidirectional layout without the causal mask, a layout
+   with an empty row and column); times at the main shape beside the plain
+   version and SDPA with the layout as a boolean mask;
+8. long-sequence training — GPT-2 at n_embd 1024 (16 heads, 12 layers, vocab
+   50304, T = 8192, bf16, no remat) with block-sparse attention
+   (``tests/perf/long_seq_model_perf.py``'s layout) through ``initialize`` at
+   ZeRO-2 with Adam, 10 optimizer steps on one seeded batch; checks the loss
+   and per-layer grad norms of the kernel path against the plain path at 2
+   layers (bf16 at T = 8192, float32 at T = 2048), that the losses are finite
+   and fall, and that each block-sparse kernel ran once per layer per step;
+   a profiler window of one step; then the same model with dense flash
+   attention for 6 steps, for the sparse/dense step ratio;
+9. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -128,12 +146,29 @@ def phase_device():
 def phase_build():
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    builds = _build.build("paged_decode", "flash_attention")
+    builds = _build.build("paged_decode", "flash_attention", "block_sparse_attention")
     log(f"[build] {sorted(builds)} in {time.perf_counter() - t0:.2f} s")
     for b in builds.values():
-        for line in b.log.splitlines():
-            if "registers" in line:
-                log(f"[build] {b.name}: {line.strip()}")
+        kernels = _ptxas_kernels(b.log)
+        regs = [r for _, r, _ in kernels]
+        log(f"[build] {b.name}: {len(kernels)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers; spilling: "
+            + (", ".join(f"{n} ({s} B)" for n, _, s in kernels if s) or "none"))
+
+
+def _ptxas_kernels(log_text):
+    """(entry name, registers, spill-store bytes) of each kernel in nvcc's
+    ``-Xptxas -v`` output."""
+    kernels, name, spill = [], None, 0
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            name, spill = line.split("Function properties for", 1)[1].strip(), 0
+        elif "bytes spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].rsplit(",", 1)[-1])
+        elif "Used" in line and "registers" in line and name:
+            kernels.append((name, int(line.split("Used", 1)[1].split("registers")[0]), spill))
+            name = None
+    return kernels
 
 
 def _within(y, ref, tol):
@@ -496,12 +531,18 @@ def _layer_grad_norms(model):
 
 
 def _plain_loss_backward(model, tokens, labels):
-    """The training loss through the model's dense attention branch (the
-    plain attention path), each block under non-reentrant checkpointing so
-    that only one block's [T, T] scores live in the backward; backward run."""
+    """The training loss through the plain attention path, each block under
+    non-reentrant checkpointing so that only one block's [T, T] scores live
+    in the backward; backward run. A flash model takes its dense attention
+    branch; a sparse model its layout through ``dense_blocksparse_attention``
+    (the JAX package's dense-masked oracle) in place of the kernels."""
     from torch.utils.checkpoint import checkpoint
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.block_sparse_attention import dense_blocksparse_attention
     cfg = model.config
     model.config = dataclasses.replace(cfg, use_flash_attention=False)
+    kernel_path = gpt2.block_sparse_attention
+    gpt2.block_sparse_attention = dense_blocksparse_attention
     try:
         p = model.params_tree()
         x = model._embed(p, tokens)
@@ -512,6 +553,7 @@ def _plain_loss_backward(model, tokens, labels):
         loss.backward()
     finally:
         model.config = cfg
+        gpt2.block_sparse_attention = kernel_path
     return loss.detach()
 
 
@@ -643,6 +685,340 @@ def profile_training(engine, tokens, labels):
             f"{e.key[:90]}")
 
 
+# ------------------------------------------------------- long-sequence training
+# tests/perf/long_seq_model_perf.py:6-8,25,37-56: GPT-2 at n_embd 1024, 16
+# heads, 12 layers, T = 8192, batch 1, loss_chunk 512, bf16, ZeRO-2, Adam at
+# lr 1e-4; without its remat="dots" (refused by the port, ROADMAP item 19)
+LONG_MODEL = dict(vocab_size=50304, n_positions=8192, n_embd=1024, n_layer=12, n_head=16,
+                  remat=False, loss_chunk=512)
+LONG_CONFIG = {"train_batch_size": 1, "steps_per_print": 1000, "bf16": {"enabled": True},
+               "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+               "zero_optimization": {"stage": 2}}
+LONG_STEPS, DENSE_STEPS = 10, 6
+BS_SHAPE = (1, 16, 8192, 64)    # B, H, T, D of the long-sequence path
+
+
+def long_sparsity():
+    from deepspeed_tpu_torch.ops.sparse_attention import VariableSparsityConfig
+    return VariableSparsityConfig(num_heads=16, block=256, num_random_blocks=0,
+                                  local_window_blocks=[3], global_block_indices=[0],
+                                  attention="unidirectional")
+
+
+def _bs_cases():
+    """(name, (B, H, T, D), dtype, layout, block, causal) of each check."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    empty = np.ones((2, 8, 8), np.int64)
+    empty[:, 3, :] = 0     # a q-row with no active block: out 0, lse -inf
+    empty[:, :, 5] = 0     # a k-column with none: dk = dv = 0
+    return [
+        ("variable-256 (main)", BS_SHAPE, torch.bfloat16,
+         long_sparsity().make_layout(8192), 256, True),
+        ("fixed-16", (2, 4, 512, 64), torch.float32,
+         sa.FixedSparsityConfig(num_heads=4, block=16, attention="unidirectional")
+         .make_layout(512), 16, True),
+        ("bigbird-64", (2, 4, 2048, 64), torch.bfloat16,
+         sa.BigBirdSparsityConfig(num_heads=4, block=64, num_random_blocks=2,
+                                  different_layout_per_head=True).make_layout(2048), 64, True),
+        ("variable-128-d128", (1, 4, 2048, 128), torch.float16,
+         sa.VariableSparsityConfig(num_heads=4, block=128, num_random_blocks=1,
+                                   attention="unidirectional").make_layout(2048), 128, True),
+        ("longformer-64-d256", (1, 2, 512, 256), torch.bfloat16,
+         sa.BSLongformerSparsityConfig(num_heads=2, block=64).make_layout(512), 64, True),
+        ("fixed-32-bidirectional", (2, 4, 1024, 64), torch.bfloat16,
+         sa.FixedSparsityConfig(num_heads=4, block=32).make_layout(1024), 32, False),
+        ("empty-row-col-64-d40", (2, 2, 512, 40), torch.float32, empty, 64, False),
+    ]
+
+
+def _scaled_err(a, b):
+    """max |a - b| / max |b| over the finite entries; equal entries (-inf
+    lse of rows with no allowed key in both) count as no error."""
+    err = torch.where(a == b, 0.0, (a - b).abs())
+    fin = torch.isfinite(b)
+    return float(err.max()) / (float(b[fin].abs().max()) + 1e-6)
+
+
+def _bs_case(shape, dtype, layout, block, causal, seed=0):
+    """(kernel, plain) results of one case on the same seeded inputs: each a
+    list [out, lse, dq, dk, dv] from the forward and the backward of
+    sum(out * g)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    luts = bsa.device_luts(layout, q.device)
+
+    def run(kernel):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        if kernel:
+            _, lse = bsa.block_sparse_fwd(q, k, v, luts, block=block, causal=causal,
+                                          sm_scale=scale)
+            out = bsa._BlockSparseAttention.apply(qs, ks, vs, luts, block, causal, scale)
+        else:
+            out, lse = bsa.block_sparse_attention_reference(qs, ks, vs, layout, block,
+                                                            causal, scale)
+        (out.float() * g.float()).sum().backward()
+        return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
+
+    return run(True), run(False)
+
+
+def phase_block_sparse_kernels():
+    """The three block-sparse kernels against their plain version at the
+    long-sequence path's shape and at other layouts; then times."""
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    main = None
+    for name, shape, dtype, layout, block, causal in _bs_cases():
+        got, want = _bs_case(shape, dtype, layout, block, causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        errs = {}
+        for out, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+            if out != "lse" and not torch.isfinite(a).all():
+                raise AssertionError(f"block-sparse {name}: non-finite {out}")
+            errs[out] = _scaled_err(a, b)
+        log(f"[block-sparse] {name} {shape} {dtype} block {block} causal {causal}: "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (scaled by max |ref|, tol {tol})")
+        if name.startswith("empty"):
+            row, col = slice(3 * block, 4 * block), slice(5 * block, 6 * block)
+            if not (got[0][:, :, row].eq(0).all() and got[1][:, :, row].eq(-math.inf).all()
+                    and got[3][:, :, col].eq(0).all() and got[4][:, :, col].eq(0).all()):
+                raise AssertionError("block-sparse: the empty row or column is not zero")
+        if max(errs.values()) > tol:
+            raise AssertionError(f"block-sparse kernels vs plain, {name}: {errs} > {tol}")
+        if main is None:
+            main = {n: (float(torch.where(a == b, 0.0, (a - b).abs()).max()), errs[n])
+                    for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want)}
+        for kern, names in (("fwd", ("out", "lse")), ("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+            worst[kern] = max(worst[kern], *(errs[n] for n in names))
+        del got, want
+    torch.cuda.empty_cache()
+    return time_block_sparse(main, worst)
+
+
+def time_block_sparse(main_err, worst):
+    """Device times at the main shape, inputs rotating over 3 sets (68 MB a
+    set, beyond the 50 MB L2); beside them the plain version and SDPA with
+    the layout (causal included) as a boolean mask, forward and backward;
+    and the dk/dv kernel on the layout without its global column."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    B, H, T, D = BS_SHAPE
+    layout = long_sparsity().make_layout(T)
+    block, kw = 256, dict(block=256, causal=True, sm_scale=D ** -0.5)
+    luts = bsa.device_luts(layout, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sets = []
+    for _ in range(3):
+        q, k, v, do = (torch.randn(BS_SHAPE, generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        out, lse = bsa.block_sparse_fwd(q, k, v, luts, **kw)
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        sets.append((q, k, v, do, lse, delta))
+    ms = {
+        "fwd": time_ms(lambda i: bsa.block_sparse_fwd(*sets[i % 3][:3], luts, **kw), 60),
+        "dq": time_ms(lambda i: bsa.block_sparse_bwd_dq(*sets[i % 3], luts, **kw), 60),
+        "dkv": time_ms(lambda i: bsa.block_sparse_bwd_dkv(*sets[i % 3], luts, **kw), 60),
+    }
+    no_global = layout.copy()
+    no_global[:, 1:, 0] = 0
+    luts_ng = bsa.device_luts(no_global, "cuda")
+    dkv_ng = time_ms(lambda i: bsa.block_sparse_bwd_dkv(*sets[i % 3], luts_ng, **kw), 60)
+    mask = bsa.layout_mask(layout, block, True, "cuda")
+    pairs = int(mask.sum()) * B          # (q, k) pairs the layout and causal mask keep
+    pairs_ng = int(bsa.layout_mask(no_global, block, True, "cuda").sum()) * B
+    log(f"[block-sparse] dk/dv without the global column: {dkv_ng!r} ms for "
+        f"{pairs_ng / pairs:.3f} of the pairs ({ms['dkv']!r} ms with it)")
+
+    def fwd_bwd(fn, iters):
+        fwd = time_ms(lambda i: fn(*sets[i % 3][:3]), iters, warmup=1)
+        graphs = []
+        for q, k, v, do, _, _ in sets[:2]:
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            graphs.append((fn(*qkv), qkv, do))
+        bwd = time_ms(lambda i: torch.autograd.grad(
+            graphs[i % 2][0], graphs[i % 2][1], graphs[i % 2][2], retain_graph=True),
+            iters, warmup=1)
+        del graphs
+        torch.cuda.empty_cache()
+        return fwd, bwd
+
+    plain_fwd, plain_bwd = fwd_bwd(lambda q, k, v: bsa.block_sparse_attention_reference(
+        q, k, v, layout, block, True)[0], 2)
+    sdpa_fwd, sdpa_bwd = fwd_bwd(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), 4)
+    del sets, mask
+    torch.cuda.empty_cache()
+
+    tensor = B * H * T * D * 2      # one bf16 [B, H, T, D]
+    row = B * H * T * 4             # one float32 [B, H, T]
+    lut_bytes = sum(t.numel() * 4 for t in luts)
+    mm = 2 * pairs * D              # flops of one product over the kept pairs
+    work = {"fwd": (2 * mm, 3 * tensor + tensor + row + lut_bytes),
+            "dq": (3 * mm, 4 * tensor + 2 * row + tensor + lut_bytes),
+            "dkv": (4 * mm, 4 * tensor + 2 * row + 2 * tensor + lut_bytes)}
+    entries = []
+    for name, body, line, other, plain, lib, outs in (
+            ("fwd", "_bs_fwd_kernel_res", 135, "285:_bs_fwd_kernel", plain_fwd, sdpa_fwd,
+             ("out", "lse")),
+            ("dq", "_bs_dq_kernel_res", 174, "372:_bs_dq_kernel", plain_bwd, sdpa_bwd, ("dq",)),
+            ("dkv", "_bs_dkv_kernel_res", 210, "442:_bs_dkv_kernel", plain_bwd, sdpa_bwd,
+             ("dk", "dv"))):
+        flops, nbytes = work[name]
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        e = {"name": f"block_sparse_{name}", "route": "cuda",
+             "source": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+             "replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{line}:{body}",
+             "also_replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{other}",
+             "launches": None, "max_abs_err": max(main_err[n][0] for n in outs),
+             "scaled_err": max(main_err[n][1] for n in outs),
+             "worst_scaled_err": worst[name], "tol": FLASH_TOL[torch.bfloat16],
+             "kernel_ms": ms[name], "ms": ms[name], "plain_ms": plain, "library_ms": lib,
+             "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if name == "dkv":
+            e["ms_without_global_column"] = dkv_ng
+        log(f"[block-sparse] {json.dumps(e)}")
+        entries.append(e)
+    return entries
+
+
+def _long_batch(vocab, T):
+    rng = np.random.RandomState(0)
+    tokens = rng.randint(0, vocab, size=(1, T))
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -100
+    return torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
+
+
+def _long_model(**over):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    kw = dict(LONG_MODEL, sparse_attention=long_sparsity())
+    kw.update(over)
+    model = GPT2Model(GPT2Config(**kw))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def _train_steps(engine, tokens, labels, steps):
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine(tokens, labels)
+        engine.backward(loss)
+        engine.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(loss.detach()))
+    return losses, step_s
+
+
+def phase_long_training():
+    """GPT-2 with block-sparse attention at T = 8192 through
+    deepspeed_tpu_torch.initialize on the card; then dense flash."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    tokens, labels = _long_batch(LONG_MODEL["vocab_size"], LONG_MODEL["n_positions"])
+    checks = {}
+    for dtype, T, tol in ((torch.float32, 2048, TRAIN_TOL_F32),
+                          (torch.bfloat16, 8192, TRAIN_TOL_BF16)):
+        m = _long_model(n_layer=2, compute_dtype=dtype)
+        before = bsa.block_sparse_fwd.launches
+        lk, lp, nrel = _kernel_vs_plain(m, tokens[:, :T], labels[:, :T])
+        if bsa.block_sparse_fwd.launches - before != 2:
+            raise AssertionError("the kernel path did not launch the kernel once per layer, "
+                                 "or the plain path launched it")
+        checks[str(dtype)] = [lk, lp, nrel]
+        log(f"[long] {dtype} 2 layers T {T}, kernel vs plain: loss {lk!r} vs {lp!r}, "
+            f"per-layer grad norms max rel diff {nrel!r} (tol {tol})")
+        bad = ((abs(lk - lp) > tol * abs(lp) or nrel > tol) if dtype == torch.float32
+               else (abs(lk - lp) > tol[0] or nrel > tol[1]))
+        if bad:
+            raise AssertionError(f"{dtype} block-sparse kernel path disagrees with the plain path")
+        del m
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = _long_model()
+    n_params = model.param_count()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=LONG_CONFIG)
+    launchers = (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq, bsa.block_sparse_bwd_dkv)
+    for f in launchers:
+        f.launches = 0
+    losses, step_s = _train_steps(engine, tokens, labels, LONG_STEPS)
+    launches = [f.launches for f in launchers]
+    log(f"[long] step losses {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"long-sequence losses not finite and decreasing: {losses}")
+    n_layer = LONG_MODEL["n_layer"]
+    if launches != [n_layer * LONG_STEPS] * 3:
+        raise AssertionError(f"block-sparse launches {launches} != {n_layer} x "
+                             f"{LONG_STEPS} steps each")
+    steady = step_s[2:]
+    step = statistics.median(steady)
+    tok_s = LONG_MODEL["n_positions"] / step
+    res = {"steps": LONG_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+           "step_ms_median": step * 1e3, "step_ms_min": min(steady) * 1e3,
+           "step_ms_max": max(steady) * 1e3, "step_ms_all": [s * 1e3 for s in step_s],
+           "tokens_per_s": tok_s, "params": n_params,
+           "mfu": tok_s * 6 * n_params / BF16_FLOPS,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "block_sparse_launches": launches, "kernel_vs_plain": checks}
+    log(f"[long] {json.dumps(res)}")
+    profile_long(engine, tokens, labels)
+    del engine, model
+    gc.collect()        # the engine and its optimizer refer to each other
+    torch.cuda.empty_cache()
+
+    # the same model with dense flash attention
+    log(f"[long-dense] allocated before the dense model: "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    dense = _long_model(sparse_attention=None, use_flash_attention=True)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=dense, config_params=LONG_CONFIG)
+    before = fa.flash_attention_fwd.launches
+    d_losses, d_step_s = _train_steps(engine, tokens, labels, DENSE_STEPS)
+    if fa.flash_attention_fwd.launches - before != n_layer * DENSE_STEPS:
+        raise AssertionError("the dense comparison did not run the flash kernels")
+    if not all(np.isfinite(d_losses)):
+        raise AssertionError(f"dense long-sequence losses not finite: {d_losses}")
+    d_step = statistics.median(d_step_s[2:])
+    d_res = {"steps": DENSE_STEPS, "losses": d_losses, "step_ms_median": d_step * 1e3,
+             "step_ms_all": [s * 1e3 for s in d_step_s],
+             "tokens_per_s": LONG_MODEL["n_positions"] / d_step,
+             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "sparse_over_dense_step": step / d_step,
+             "dense_over_sparse_tokens_per_s": d_step / step}
+    log(f"[long-dense] {json.dumps(d_res)}")
+    del engine, dense
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_long(engine, tokens, labels):
+    """One long-sequence optimizer step under torch.profiler: device-busy
+    share and top kernels."""
+    from torch.profiler import ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.backward(engine(tokens, labels))
+        engine.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    log(f"[profile-long] window {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+        f"({busy_us / wall_us:.3f} of the window)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"[profile-long] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+            f"{e.key[:90]}")
+
+
 def main():
     card = phase_device()
     root = Path(__file__).resolve().parent
@@ -654,8 +1030,11 @@ def main():
     flash = phase_flash_kernels()
     for e, n in zip(flash, phase_training()):
         e["launches"] = n
+    sparse = phase_block_sparse_kernels()
+    for e, n in zip(sparse, phase_long_training()):
+        e["launches"] = n
     log(card)
-    log(json.dumps({"kernels": [entry, *flash]}))
+    log(json.dumps({"kernels": [entry, *flash, *sparse]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

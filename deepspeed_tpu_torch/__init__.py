@@ -1,12 +1,15 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of ``deepspeed_tpu``.
 
 A package of its own beside the JAX one, which stays the reference. It
-imports torch and numpy, never jax and never ``deepspeed_tpu``. Two slices
+imports torch and numpy, never jax and never ``deepspeed_tpu``. Three slices
 are ported: serving, ``init_inference`` -> ``serve.InferenceEngine`` over the
 paged KV pool and ``models.gpt2``, with the paged-decode kernel in CUDA
-(``csrc/paged_decode.cu``); and training, ``initialize`` ->
+(``csrc/paged_decode.cu``); training, ``initialize`` ->
 ``runtime.engine.DeepSpeedEngine`` (ZeRO 0-2 over ``torch.distributed``)
-with the flash-attention kernels in CUDA (``csrc/flash_attention.cu``).
+with the flash-attention kernels in CUDA (``csrc/flash_attention.cu``); and
+long-sequence training with block-sparse attention over a ``SparsityConfig``
+layout (``ops.sparse_attention``), its kernels in CUDA
+(``csrc/block_sparse_attention.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ROADMAP.md lists what later slices bring.
 """

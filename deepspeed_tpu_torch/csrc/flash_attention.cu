@@ -37,34 +37,15 @@
 // Left for a later change: wgmma on bf16/fp16 tiles staged by TMA, and warp
 // specialization; this kernel is far from the bound above.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // DEFAULT_MASK_VALUE
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-
-// x rounded to T and back: the TPU kernels' .astype(operand dtype)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
 // _dropout_bits: lowbias32-style avalanche of the absolute coordinate
 __device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t bh,
@@ -90,35 +71,6 @@ struct Params {
   uint32_t seed;
   int q_off, k_off;   // global coordinates of local position 0
 };
-
-// Stage rows [r0, r0 + BM) of a [T, D] slab into a float tile of row stride
-// DP + 1, zero past T and past D; optionally scaled and rounded to T.
-template <typename T, int DP, int BM>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int n_rows, int D, float scale,
-                                          bool scaled) {
-  for (int idx = threadIdx.x; idx < BM * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx % DP;
-    float x = 0.f;
-    if (r0 + r < n_rows && c < D) {
-      x = to_f(src[static_cast<long long>(r0 + r) * D + c]);
-      if (scaled) x = round_to<T>(x * scale);
-    }
-    dst[r * (DP + 1) + c] = x;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <int DP, int BM>
 constexpr int fwd_smem_floats() { return 3 * BM * (DP + 1) + BM * (BM + 1) + BM; }

@@ -14,12 +14,14 @@ Weights stay ``[in, out]`` (``x @ w``), as in the JAX package. The module
 carries the serving path (serve/paged.py calls ``_layer_norm`` and ``_mlp``)
 and the training forward: ``forward(tokens, labels=None, generator=None)``
 is the JAX ``apply`` over the module's own parameters, with dense or flash
-attention (ops/flash_attention.py) and the chunked cross-entropy. Its layers
+attention (ops/flash_attention.py), block-sparse attention over a
+``SparsityConfig`` layout (ops/block_sparse_attention.py; it takes precedence
+over flash, as in the JAX model) and the chunked cross-entropy. Its layers
 take the JAX package's per-layer parameter dicts (``params_tree``) and round
 where the JAX model rounds. Dropout draws from an explicit
 ``torch.Generator``; it cannot match ``jax.random`` bit for bit, except the
 flash kernels' attention dropout, which hashes coordinates. The fused
-block, MoE, sparse attention and remat come with later slices and raise
+block, MoE and remat come with later slices and raise
 ``NotImplementedError`` when asked for.
 """
 
@@ -34,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..ops.block_sparse_attention import block_sparse_attention
 from ..ops.flash_attention import flash_attention
 
 
@@ -69,7 +72,6 @@ class GPT2Config:
 _LATER = {
     "fused_block": "queue B3 (fused transformer block)",
     "moe_experts": "queue A19 (MoE)",
-    "sparse_attention": "queue B4 (block-sparse attention)",
 }
 # options only the training forward reads; the serving programs ignore them,
 # as the JAX serving path does
@@ -121,12 +123,18 @@ class GPT2Model(nn.Module):
 
     def __init__(self, config: GPT2Config, device=None):
         super().__init__()
+        if config.sparse_attention is not None:
+            if config.dropout != 0.0:
+                raise ValueError("sparse_attention has no in-kernel dropout; set dropout=0")
+            if config.fused_block:
+                raise ValueError("fused_block and sparse_attention are mutually exclusive")
         for field, where in _LATER.items():
             if getattr(config, field):
                 raise NotImplementedError(
                     f"GPT2Config.{field} is not in the PyTorch port yet: "
                     f"ROADMAP.md {where}")
         self.config = config
+        self._sparse_layouts = {}  # seq_len -> block layout (host numpy), built once
         dev = resolve_device(device)
         c = config
         self.wte = nn.Parameter(torch.empty(c.vocab_size, c.n_embd, device=dev))
@@ -245,7 +253,10 @@ class GPT2Model(nn.Module):
         qkv = torch.matmul(x, p["c_attn_w"].to(x.dtype)) + p["c_attn_b"].to(x.dtype)
         q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2) for t in qkv.split(E, dim=-1))
         dropout = generator is not None and c.dropout > 0
-        if c.use_flash_attention:
+        if c.sparse_attention is not None:
+            y = block_sparse_attention(q, k, v, self.sparse_layout(T),
+                                       c.sparse_attention.block, causal=True)
+        elif c.use_flash_attention:
             # one seed per call; the kernels hash (seed, b*H + h, q, k)
             seed = (int(torch.randint(0, 2**31 - 1, (), generator=generator,
                                       device=generator.device)) if dropout else None)
@@ -263,6 +274,19 @@ class GPT2Model(nn.Module):
             y = torch.matmul(probs.float(), v.float()).to(x.dtype)
         y = y.transpose(1, 2).reshape(B, T, E)
         return torch.matmul(y, p["c_proj_w"].to(x.dtype)) + p["c_proj_b"].to(x.dtype)
+
+    def sparse_layout(self, T):
+        """The ``sparse_attention`` layout at sequence length T, built once
+        per T; its head count must be the model's."""
+        if T not in self._sparse_layouts:
+            layout = self.config.sparse_attention.make_layout(T)
+            if layout.shape[0] != self.config.n_head:
+                raise ValueError(
+                    f"sparse_attention config built for {layout.shape[0]} heads; model "
+                    f"runs {self.config.n_head} — construct it with "
+                    f"num_heads={self.config.n_head}")
+            self._sparse_layouts[T] = layout
+        return self._sparse_layouts[T]
 
     def _embed(self, p, tokens, generator=None):
         c = self.config

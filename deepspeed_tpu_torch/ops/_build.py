@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface, so ``nvcc``
 builds it into a shared library in seconds (no PyTorch headers). The library
 goes to ``build/kernels/`` beside the package, named by a hash of its source
-so that an edited source never loads a stale build. Building needs ``nvcc``
+and of the shared headers (``csrc/*.cuh``) so that an edited source never loads
+a stale build. Building needs ``nvcc``
 (on ``PATH``, under ``$CUDA_HOME`` or ``/usr/local/cuda``); nothing here runs
 at import time.
 """
@@ -43,7 +44,8 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,0 +1,351 @@
+"""Block-sparse attention: the CUDA kernels' wrappers, their autograd, the
+host-side LUTs and the plain versions.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/block_sparse_attention.py``.
+Attention on q, k, v ``[B, H, T, D]`` over the active blocks of a
+``[H, T/block, T/block]`` 0/1 layout (``SparsityConfig.make_layout``), with a
+token-level causal mask inside diagonal blocks when ``causal``. The kernels
+are ``csrc/block_sparse_attention.cu``: ``bs_fwd`` (replaces the TPU kernels
+``_bs_fwd_kernel_res`` / ``_bs_fwd_kernel``), ``bs_dq`` (``_bs_dq_kernel*``)
+and ``bs_dkv`` (``_bs_dkv_kernel*``). They read the group-1 LUTs of
+``build_luts`` (the TPU file's row grouping and membership bitmasks shape
+tiles for its matrix unit and do not carry over), which ``device_luts``
+keeps on the card, cached by layout and device.
+
+``block_sparse_attention`` keeps the JAX signature. For CUDA tensors it runs
+the kernels through ``_BlockSparseAttention`` (a ``torch.autograd.Function``
+whose backward forms ``delta = rowsum(dO * O)`` in float32 with torch ops and
+launches the two backward kernels). For CPU tensors it runs the plain
+version ``block_sparse_attention_reference``. There is no other fallback.
+Each launch function counts its launches in ``<function>.launches``.
+"""
+
+import ctypes
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .flash_attention import DEFAULT_MASK_VALUE
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+# ---------------------------------------------------------------------------
+# LUT construction (host-side, static per layout)
+# ---------------------------------------------------------------------------
+
+_MEMB_SHIFT = 24  # block index in bits 0..23, membership bitmask in bits 24..30
+
+
+def build_luts(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """From [H, nb, nb] layout build forward and transposed LUTs.
+
+    Returns (counts [H*nb], cols [H*nb, A], counts_t [H*nb], rows_t [H*nb, A_t]):
+    cols[h*nb+i, :counts[...]] are the active k-block indices of q-row i (sorted);
+    rows_t the active q-block indices of k-column j.
+    """
+    counts, packed = build_grouped_luts(layout, 1)
+    counts_t, packed_t = build_grouped_luts(np.transpose(np.asarray(layout), (0, 2, 1)), 1)
+    return counts, packed & ((1 << _MEMB_SHIFT) - 1), counts_t, \
+        packed_t & ((1 << _MEMB_SHIFT) - 1)
+
+
+def build_grouped_luts(layout: np.ndarray, group: int):
+    """LUT over GROUPS of ``group`` consecutive q-rows: each group's list is the
+    UNION of its rows' active k-blocks, with a per-slot membership bitmask (bit g
+    set iff sub-row g of the group attends that k-block) packed into the entry's
+    high bits. The TPU kernels read grouped LUTs; the CUDA kernels read group 1.
+
+    Returns (counts [H*ng], packed [H*ng, A]) with packed = kb | memb << 24; padded
+    slots have memb == 0.
+    """
+    layout = np.asarray(layout) != 0
+    H, nb, _ = layout.shape
+    if nb % group:
+        raise ValueError(f"layout rows {nb} not divisible by group {group}")
+    if not (nb < (1 << _MEMB_SHIFT) and group <= 7):
+        raise ValueError("packed LUT limits: nb < 2^24, group <= 7")
+    ng = nb // group
+    per_group = []
+    max_a = 1
+    for h in range(H):
+        for gi in range(ng):
+            rows = layout[h, gi * group:(gi + 1) * group]  # [group, nb]
+            act = np.nonzero(rows.any(axis=0))[0]
+            max_a = max(max_a, len(act))
+            per_group.append((h, gi, rows, act))
+    counts = np.zeros((H * ng,), np.int32)
+    packed = np.zeros((H * ng, max_a), np.int32)
+    for h, gi, rows, act in per_group:
+        r = h * ng + gi
+        counts[r] = len(act)
+        for idx, kb in enumerate(act):
+            memb = int(sum(1 << g for g in range(group) if rows[g, kb]))
+            packed[r, idx] = int(kb) | (memb << _MEMB_SHIFT)
+    return counts, packed
+
+
+class DeviceLuts(NamedTuple):
+    """int32 LUTs of one layout on one card (``build_luts``)."""
+    counts: torch.Tensor
+    cols: torch.Tensor
+    counts_t: torch.Tensor
+    rows_t: torch.Tensor
+
+
+# A deep model calls block_sparse_attention once per layer with the same
+# layout: without this cache every call would rebuild the LUTs (Python loops
+# over H*nb rows, twice) and copy them to the card. Keyed by layout bytes and
+# device, bounded, least recently used out first.
+_LUT_CACHE = {}
+_LUT_CACHE_MAX = 32
+
+
+def device_luts(layout: np.ndarray, device) -> DeviceLuts:
+    layout = np.asarray(layout)
+    key = (layout.shape, layout.dtype.str, layout.tobytes(), str(torch.device(device)))
+    hit = _LUT_CACHE.pop(key, None)
+    if hit is None:
+        hit = DeviceLuts(*(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+                           for a in build_luts(layout)))
+        while len(_LUT_CACHE) >= _LUT_CACHE_MAX:
+            _LUT_CACHE.pop(next(iter(_LUT_CACHE)))
+    _LUT_CACHE[key] = hit  # re-insert = most recently used
+    return hit
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def layout_mask(layout, block: int, causal: bool, device=None) -> torch.Tensor:
+    """The layout expanded to tokens, ``[H, T, T]`` bool, and with
+    ``causal`` also cut to the lower triangle (q >= k)."""
+    mask = torch.from_numpy(np.asarray(layout) != 0).to(device)
+    mask = mask.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        mask = mask & torch.ones(mask.shape[1:], dtype=torch.bool, device=device).tril()
+    return mask
+
+
+def dense_blocksparse_attention(q, k, v, layout, block: int, causal: bool = False,
+                                sm_scale: Optional[float] = None):
+    """Dense-masked oracle (the JAX package's; O(T^2) memory): float32
+    softmax over the masked scores, rows with no allowed key zeroed, the
+    probabilities rounded to q's dtype before the product with v.
+    Differentiable by autograd."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    mask = layout_mask(layout, block, causal, q.device)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    scores = torch.where(mask, scores, torch.full((), DEFAULT_MASK_VALUE, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(mask.any(-1, keepdim=True), probs, 0.0)
+    return torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def block_sparse_attention_reference(q, k, v, layout, block: int, causal: bool = False,
+                                     sm_scale: Optional[float] = None):
+    """Plain PyTorch version of the kernels: ``(out, lse)``, rounding where
+    they round (scores times sm_scale after q.k in float32, natural exp,
+    dropped lanes exactly 0, probabilities rounded to v's dtype before p.v,
+    the normalizer unrounded). A row with no allowed key gives out 0 and lse
+    -inf. ``out`` is differentiable by autograd in q, k, v; ``lse`` is not.
+    The wrapper uses it for CPU tensors, and ``chip_smoke.py`` holds the
+    kernels against it on the card."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    mask = layout_mask(layout, block, causal, q.device)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = s.masked_fill(~mask, -math.inf)
+    # out does not depend on the shift m, so it carries no gradient
+    m = s.detach().amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    # l >= 1 wherever a lane survives (its max lane gives exp(0)): the
+    # kernels' 1e-30 floor only meets rows with none, whose out is 0
+    l_safe = torch.where(l > 0, l, 1.0)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
+    lse = torch.where(l > 0, m + torch.log(l_safe), -math.inf)[..., 0].detach()
+    return out.to(q.dtype), lse
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("block_sparse_attention")
+    if lib.bs_fwd.argtypes is None:
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lut = [vp, vp, i32]                               # counts, lut, width
+        tail = [i32, i32, i32, i32, i32, f32, i32, i32, vp]  # BH H T D block scale causal dtype stream
+        lib.bs_fwd.argtypes = [vp] * 5 + lut + tail
+        lib.bs_dq.argtypes = [vp] * 6 + lut + [vp] + tail
+        lib.bs_dkv.argtypes = [vp] * 6 + lut + [vp, vp] + tail
+        for fn in (lib.bs_fwd, lib.bs_dq, lib.bs_dkv):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_launch(q, k, v, luts, block, do=None, lse=None, delta=None):
+    """Raise on what the kernels do not take: q, k, v (and do) of one
+    ``[B, H, T, D]`` shape and one dtype with D <= 256; a layout block that
+    is a multiple of 16 and divides T; the LUTs of an ``[H, T/block,
+    T/block]`` layout; lse and delta float32 ``[B, H, T]``; all contiguous on
+    q's card."""
+    if q.dim() != 4 or any(t is not None and t.shape != q.shape for t in (k, v, do)):
+        raise ValueError(f"q, k, v, do must share one [B, H, T, D] shape, got "
+                         f"{[tuple(t.shape) for t in (q, k, v, do) if t is not None]}")
+    B, H, T, D = q.shape
+    if D > 256:
+        raise ValueError(f"the kernels take head_dim <= 256, got {D}")
+    if block % 16 or T % block:
+        raise ValueError(f"the kernels take a layout block that is a multiple of 16 and "
+                         f"divides T = {T}, got {block}")
+    if q.dtype not in _DTYPES or any(t is not None and t.dtype != q.dtype
+                                     for t in (k, v, do)):
+        raise TypeError(f"q, k, v, do must share one dtype of {tuple(_DTYPES)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (tuple(t.shape) != (B, H, T) or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be float32 {(B, H, T)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    rows = H * (T // block)
+    for name, c, lut in (("", luts.counts, luts.cols), ("_t", luts.counts_t, luts.rows_t)):
+        if (c.dtype != torch.int32 or lut.dtype != torch.int32 or tuple(c.shape) != (rows,)
+                or lut.dim() != 2 or lut.shape[0] != rows):
+            raise ValueError(f"LUT{name} must be int32 counts [{rows}] and indices "
+                             f"[{rows}, width] (an [H, T/block, T/block] layout)")
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do), ("lse", lse),
+                    ("delta", delta), ("counts", luts.counts), ("cols", luts.cols),
+                    ("counts_t", luts.counts_t), ("rows_t", luts.rows_t)):
+        if t is None:
+            continue
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be on q's CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _tail(q, block, sm_scale, causal):
+    B, H, T, D = q.shape
+    return (B * H, H, T, D, int(block), float(sm_scale), int(bool(causal)), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def block_sparse_fwd(q, k, v, luts: DeviceLuts, *, block, causal, sm_scale):
+    """Launch ``bs_fwd``: returns ``(out, lse)``, out in q's dtype and lse
+    float32 ``[B, H, T]`` (natural log; -inf on rows with no allowed key)."""
+    _check_launch(q, k, v, luts, block)
+    lib = _lib()
+    B, H, T, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.bs_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         lse.data_ptr(), luts.counts.data_ptr(), luts.cols.data_ptr(),
+                         luts.cols.shape[1], *_tail(q, block, sm_scale, causal))
+    if err != 0:
+        raise RuntimeError(f"bs_fwd kernel launch failed: cudaError {err}")
+    block_sparse_fwd.launches += 1
+    return out, lse
+
+
+def block_sparse_bwd_dq(q, k, v, do, lse, delta, luts: DeviceLuts, *, block, causal,
+                        sm_scale):
+    """Launch ``bs_dq``: returns dq in q's dtype. ``do`` as q; ``lse`` and
+    ``delta`` contiguous float32 ``[B, H, T]``."""
+    _check_launch(q, k, v, luts, block, do, lse, delta)
+    lib = _lib()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.bs_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        lse.data_ptr(), delta.data_ptr(), luts.counts.data_ptr(),
+                        luts.cols.data_ptr(), luts.cols.shape[1], dq.data_ptr(),
+                        *_tail(q, block, sm_scale, causal))
+    if err != 0:
+        raise RuntimeError(f"bs_dq kernel launch failed: cudaError {err}")
+    block_sparse_bwd_dq.launches += 1
+    return dq
+
+
+def block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts: DeviceLuts, *, block, causal,
+                         sm_scale):
+    """Launch ``bs_dkv`` over the transposed LUT: returns ``(dk, dv)`` in k's
+    dtype."""
+    _check_launch(q, k, v, luts, block, do, lse, delta)
+    lib = _lib()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.bs_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                         lse.data_ptr(), delta.data_ptr(), luts.counts_t.data_ptr(),
+                         luts.rows_t.data_ptr(), luts.rows_t.shape[1], dk.data_ptr(),
+                         dv.data_ptr(), *_tail(q, block, sm_scale, causal))
+    if err != 0:
+        raise RuntimeError(f"bs_dkv kernel launch failed: cudaError {err}")
+    block_sparse_bwd_dkv.launches += 1
+    return dk, dv
+
+
+block_sparse_fwd.launches = 0
+block_sparse_bwd_dq.launches = 0
+block_sparse_bwd_dkv.launches = 0
+
+
+class _BlockSparseAttention(torch.autograd.Function):
+    """Kernel forward; backward by the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, luts, block, causal, sm_scale):
+        kw = dict(block=block, causal=causal, sm_scale=sm_scale)
+        out, lse = block_sparse_fwd(q, k, v, luts, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.luts, ctx.kw = luts, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = g.contiguous()
+        # the softmax-normalization term, in float32 from the rounded out
+        delta = (do.float() * out.float()).sum(-1).contiguous()
+        dq = block_sparse_bwd_dq(q, k, v, do, lse, delta, ctx.luts, **ctx.kw)
+        dk, dv = block_sparse_bwd_dkv(q, k, v, do, lse, delta, ctx.luts, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def block_sparse_attention(q, k, v, layout, block: int, causal: bool = False,
+                           sm_scale: Optional[float] = None, interpret: Optional[bool] = None,
+                           group: Optional[int] = None):
+    """Block-sparse attention on ``[B, H, T, D]`` with an ``[H, T/block,
+    T/block]`` layout, differentiable in q, k, v. Rows with no allowed key
+    give 0. ``interpret`` and ``group`` are accepted for the JAX signature
+    and have no effect: CPU tensors always take the plain version, and the
+    CUDA kernels read the ungrouped LUT. CUDA tensors launch the kernels,
+    which take a block that is a multiple of 16 and D <= 256."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one [B, H, T, D] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of {tuple(_DTYPES)}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    B, H, T, D = q.shape
+    if T % block:
+        raise ValueError(f"seq len {T} must be divisible by block {block}")
+    layout = np.asarray(layout)
+    if layout.shape != (H, T // block, T // block):
+        raise ValueError(f"layout shape {layout.shape} does not match {H} heads and "
+                         f"{T // block} blocks of {block} (T = {T})")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return block_sparse_attention_reference(q, k, v, layout, block, causal, sm_scale)[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"block-sparse attention runs on cuda or cpu, not {q.device}")
+    return _BlockSparseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                       device_luts(layout, q.device), int(block),
+                                       bool(causal), float(sm_scale))

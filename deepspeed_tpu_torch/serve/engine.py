@@ -65,6 +65,8 @@ class InferenceEngine:
         if max_model_len > c.n_positions:
             raise ValueError(f"max_model_len {max_model_len} exceeds the "
                              f"model's n_positions {c.n_positions}")
+        if getattr(c, "sparse_attention", None):
+            raise ValueError("serving supports dense attention only")
         if params is not None:
             model.load_parameters(params)
         self.model = model

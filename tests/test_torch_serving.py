@@ -234,5 +234,17 @@ def test_engine_refuses_mirror_telemetry_and_warm_restart(models):
 
 @pytest.mark.parametrize("field", ["fused_block", "moe_experts", "sparse_attention"])
 def test_model_refuses_later_slices(field):
-    with pytest.raises(NotImplementedError, match=field):
-        GPT2Model(GPT2Config(**DIMS, **{field: 1}), device="cpu")
+    """fused_block and MoE come with later slices. A sparse model is built
+    (block-sparse attention is ported) but serving refuses it, as the JAX
+    engine does."""
+    if field != "sparse_attention":
+        with pytest.raises(NotImplementedError, match=field):
+            GPT2Model(GPT2Config(**DIMS, **{field: 1}), device="cpu")
+        return
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    model = GPT2Model(GPT2Config(**DIMS, sparse_attention=FixedSparsityConfig(
+        num_heads=DIMS["n_head"], block=BS)), device="cpu")
+    cfg = {"serving": {"block_size": BS, "num_blocks": NB, "max_seqs": S,
+                       "max_model_len": ML, "prefill_chunk": C}}
+    with pytest.raises(ValueError, match="dense attention only"):
+        deepspeed_tpu_torch.init_inference(model, config_params=cfg, device="cpu")
