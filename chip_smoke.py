@@ -22,7 +22,8 @@ result line):
    pools; then a short ``torch.profiler`` window for where the time goes;
 5. flash kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the training shape and at edge cases
-   (ragged T, T = 9000, D = 128, float32, float16, key bias, dropout); times
+   (ragged T, T = 9000, D = 128, float32, float16, key bias, dropout) and at
+   the BERT path's shape (non-causal with a key bias); times
    at the training shape beside the plain version and SDPA;
 6. training — GPT-2 1.5B (the same widths, ``use_flash_attention``, no remat)
    through ``initialize`` at ZeRO-2 in bf16, micro-batch 4 x 2 accumulation
@@ -47,7 +48,28 @@ result line):
    and fall, and that each block-sparse kernel ran once per layer per step;
    a profiler window of one step; then the same model with dense flash
    attention for 6 steps, for the sparse/dense step ratio;
-9. result — one ``{"kernels": [...]}`` line, then the last line
+9. fused-block kernels — the two entries of the fused transformer block
+   (K/V pass, q pass) and the wrapper against their plain versions at GPT-2
+   124M's shape (x [8, 1024, 768], 12 heads, bf16, causal) and at the JAX
+   tests' shape in float32 (causal and not), a ragged T, float16, E = 1024
+   with 16 heads, and B = 1 at T = 4096; gradients through the wrapper
+   against autograd of the plain version; times beside the plain version and
+   the unfused composition the model would otherwise run;
+10. fused training — GPT-2 124M (768 x 12, 12 heads, vocab 50304, T = 1024,
+   ``fused_block``) through ``initialize`` at ZeRO-2 in bf16 with AdamW,
+   micro-batch 8, 10 steps on one seeded batch; checks the first
+   micro-batch's loss and per-layer grad norms against the plain path (bf16
+   at full depth, float32 at 2 layers), that the losses are finite and fall
+   and that the wrapper ran 12 times per micro-step; a profiler window; then
+   the same model with flash attention for the fused/unfused step ratio;
+11. BERT training — BERT-large (24 x 1024, 16 heads, vocab 30522, seq 512,
+   micro-batch 16, flash attention with the padding mask as a key bias)
+   through ``initialize`` at ZeRO-2 in bf16 with LAMB, 10 steps on one seeded
+   masked-LM batch whose attention mask rides in the batch; the same checks
+   (each flash kernel 24 times per micro-step); then one BERT-large layer
+   forward + backward at two shapes with the mask and train-mode dropout
+   against the dense attention path under the same seeds, and its time;
+12. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -146,7 +168,8 @@ def phase_device():
 def phase_build():
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    builds = _build.build("paged_decode", "flash_attention", "block_sparse_attention")
+    builds = _build.build("paged_decode", "flash_attention", "block_sparse_attention",
+                          "fused_block")
     log(f"[build] {sorted(builds)} in {time.perf_counter() - t0:.2f} s")
     for b in builds.values():
         kernels = _ptxas_kernels(b.log)
@@ -425,6 +448,7 @@ def phase_flash_kernels():
         (2, 4, 256, 64, torch.float32, True, False, 0.0),
         (2, 4, 256, 64, torch.float16, True, False, 0.0),
         (2, 4, 384, 64, torch.bfloat16, False, True, 0.0),  # key bias, non-causal
+        (16, 16, 512, 64, torch.bfloat16, False, True, 0.0),  # BERT-large's shape
         (2, 4, 256, 64, torch.float32, True, False, 0.1),   # dropout
     ]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -533,14 +557,15 @@ def _layer_grad_norms(model):
 def _plain_loss_backward(model, tokens, labels):
     """The training loss through the plain attention path, each block under
     non-reentrant checkpointing so that only one block's [T, T] scores live
-    in the backward; backward run. A flash model takes its dense attention
-    branch; a sparse model its layout through ``dense_blocksparse_attention``
-    (the JAX package's dense-masked oracle) in place of the kernels."""
+    in the backward; backward run. A flash or fused-block model takes its
+    unfused dense attention branch; a sparse model its layout through
+    ``dense_blocksparse_attention`` (the JAX package's dense-masked oracle) in
+    place of the kernels."""
     from torch.utils.checkpoint import checkpoint
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.ops.block_sparse_attention import dense_blocksparse_attention
     cfg = model.config
-    model.config = dataclasses.replace(cfg, use_flash_attention=False)
+    model.config = dataclasses.replace(cfg, use_flash_attention=False, fused_block=False)
     kernel_path = gpt2.block_sparse_attention
     gpt2.block_sparse_attention = dense_blocksparse_attention
     try:
@@ -901,12 +926,12 @@ def _long_model(**over):
     return model
 
 
-def _train_steps(engine, tokens, labels, steps):
+def _train_steps(engine, *batch, steps):
     losses, step_s = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        loss = engine(tokens, labels)
+        loss = engine(*batch)
         engine.backward(loss)
         engine.step()
         torch.cuda.synchronize()
@@ -949,7 +974,7 @@ def phase_long_training():
     launchers = (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq, bsa.block_sparse_bwd_dkv)
     for f in launchers:
         f.launches = 0
-    losses, step_s = _train_steps(engine, tokens, labels, LONG_STEPS)
+    losses, step_s = _train_steps(engine, tokens, labels, steps=LONG_STEPS)
     launches = [f.launches for f in launchers]
     log(f"[long] step losses {losses}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -969,7 +994,7 @@ def phase_long_training():
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "block_sparse_launches": launches, "kernel_vs_plain": checks}
     log(f"[long] {json.dumps(res)}")
-    profile_long(engine, tokens, labels)
+    profile_step("profile-long", engine, tokens, labels)
     del engine, model
     gc.collect()        # the engine and its optimizer refer to each other
     torch.cuda.empty_cache()
@@ -981,7 +1006,7 @@ def phase_long_training():
     dense = _long_model(sparse_attention=None, use_flash_attention=True)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=dense, config_params=LONG_CONFIG)
     before = fa.flash_attention_fwd.launches
-    d_losses, d_step_s = _train_steps(engine, tokens, labels, DENSE_STEPS)
+    d_losses, d_step_s = _train_steps(engine, tokens, labels, steps=DENSE_STEPS)
     if fa.flash_attention_fwd.launches - before != n_layer * DENSE_STEPS:
         raise AssertionError("the dense comparison did not run the flash kernels")
     if not all(np.isfinite(d_losses)):
@@ -999,24 +1024,470 @@ def phase_long_training():
     return launches
 
 
-def profile_long(engine, tokens, labels):
-    """One long-sequence optimizer step under torch.profiler: device-busy
-    share and top kernels."""
+def profile_step(tag, engine, *batch, top=15):
+    """One optimizer step of one micro-batch under torch.profiler:
+    device-busy share and top kernels."""
     from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.backward(engine(tokens, labels))
+        engine.backward(engine(*batch))
         engine.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"[profile-long] window {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+    log(f"[{tag}] window {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
         f"({busy_us / wall_us:.3f} of the window)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"[profile-long] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"[{tag}] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
             f"{e.key[:90]}")
+
+
+# ------------------------------------------------------------ the fused block
+# GPT-2 124M: GPT2Config's own width and depth, vocab padded as bench.py pads it
+FUSED_MODEL = dict(vocab_size=50304, n_positions=1024, n_embd=768, n_layer=12, n_head=12,
+                   fused_block=True, remat=False, loss_chunk=128)
+FUSED_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 8,
+                "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+                "optimizer": {"type": "AdamW",
+                              "params": {"lr": 1e-4, "betas": [0.9, 0.95],
+                                         "weight_decay": 0.1}},
+                "steps_per_print": 1000}
+FUSED_STEPS, UNFUSED_STEPS = 10, 6
+FUSED_SHAPE = (8, 1024, 768, 12)   # B, T, E, heads of the fused path
+
+
+def _fused_operands(B, T, E, dtype, seed=0):
+    """x and the six parameters as the wrapper hands them to the kernels:
+    weights in x's dtype, LayerNorm parameters and biases float32."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def mk(shape, scale=0.05):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    return [mk((B, T, E), 1.0).to(dtype), 1.0 + mk((E,)), mk((E,)), mk((E, 3 * E)).to(dtype),
+            mk((3 * E,)), mk((E, E)).to(dtype), mk((E,))]
+
+
+def _fused_bounds(B, T, E, H, itemsize, causal):
+    """(flops, bytes) of the K/V entry, the q entry and the whole op: each
+    input read once, each output written once."""
+    tile, vec = B * T * E * itemsize, 4 * E
+    attn = 4 * B * H * T * T * (E // H) // (2 if causal else 1)
+    kv = (2 * B * T * E * 2 * E, tile + 2 * E * E * itemsize + 4 * vec + 2 * tile)
+    q = (4 * B * T * E * E + attn, tile + 2 * tile + 2 * E * E * itemsize + 4 * vec + tile)
+    whole = (kv[0] + q[0], 2 * tile + 4 * E * E * itemsize + 6 * vec)
+    return kv, q, whole
+
+
+def _bound_ms(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_fused_block_kernels():
+    """The fused-block entries and their wrapper against the plain versions
+    at the fused path's shape and at other shapes; gradients; times."""
+    from deepspeed_tpu_torch.ops import fused_block as fb
+    cases = [  # (B, T, E, heads, dtype, causal)
+        (*FUSED_SHAPE, torch.bfloat16, True),         # the main path
+        (2, 64, 32, 4, torch.float32, True),          # the JAX tests' shape
+        (2, 64, 32, 4, torch.float32, False),
+        (2, 1000, 768, 12, torch.bfloat16, True),     # ragged tail
+        (2, 512, 768, 12, torch.float16, False),
+        (2, 512, 1024, 16, torch.bfloat16, True),     # E = 1024
+        (1, 4096, 768, 12, torch.bfloat16, True),     # one long row
+    ]
+    main, worst = None, {"kv": 0.0, "q": 0.0}
+    for case in cases:
+        B, T, E, H, dtype, causal = case
+        x, scale, bias, wq, bq, wp, bp = ops = _fused_operands(B, T, E, dtype)
+        ws = fb.fused_block_kv(x, scale, bias, wq, bq)
+        ws_p = fb.fused_block_kv_plain(x, scale, bias, wq, bq)
+        out = fb.fused_block_q(x, ws_p, scale, bias, wq, bq, wp, bp, n_head=H, causal=causal)
+        out_p = fb.fused_block_q_plain(x, ws_p, scale, bias, wq, bq, wp, bp, H, causal)
+        full = fb.fused_transformer_block(*ops, H, causal=causal)
+        full_p = fb.fused_block_plain(*ops, H, causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        errs = {"kv": _scaled_err(ws.float(), ws_p.float()),
+                "q": _scaled_err(out.float(), out_p.float()),
+                "wrapper": _scaled_err(full.float(), full_p.float())}
+        log(f"[fused] {case}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (scaled by max |ref|, tol {tol})")
+        if not all(torch.isfinite(t).all() for t in (ws, out, full)):
+            raise AssertionError(f"fused block {case}: non-finite output")
+        if max(errs.values()) > tol:
+            raise AssertionError(f"fused-block kernels vs plain, case {case}: {errs} > {tol}")
+        if main is None:
+            main = {"kv": (float((ws.float() - ws_p.float()).abs().max()), errs["kv"]),
+                    "q": (float((out.float() - out_p.float()).abs().max()), errs["q"])}
+        for k in worst:
+            worst[k] = max(worst[k], errs[k])
+        del ws, ws_p, out, out_p, full, full_p, ops
+    torch.cuda.empty_cache()
+
+    # gradients of sum(out * g) through the wrapper (kernel forward, reference
+    # backward) against autograd of the plain version
+    for B, T, E, H, dtype in ((*FUSED_SHAPE, torch.bfloat16), (2, 64, 32, 4, torch.float32)):
+        ops = _fused_operands(B, T, E, dtype, seed=1)
+        g = torch.randn((B, T, E), generator=torch.Generator(device="cuda").manual_seed(2),
+                        device="cuda")
+        grads = []
+        for fn in (fb.fused_transformer_block, fb.fused_block_plain):
+            leaves = [t.clone().requires_grad_() for t in ops]
+            (fn(*leaves, H).float() * g).sum().backward()
+            grads.append([t.grad.float() for t in leaves])
+        torch.cuda.synchronize()
+        gerr = max(_scaled_err(a, b) for a, b in zip(*grads))
+        log(f"[fused] gradients {(B, T, E, H, dtype)}: worst of 7, {gerr:.2e} "
+            f"(scaled by max |ref|, tol {FLASH_TOL[dtype]})")
+        if gerr > FLASH_TOL[dtype]:
+            raise AssertionError(f"fused-block gradients vs the plain version: {gerr}")
+        del grads, ops
+    torch.cuda.empty_cache()
+    return time_fused(main, worst)
+
+
+def time_fused(main_err, worst):
+    """Device times at the main shape, x rotating over 4 sets (x, workspace
+    and output 50 MB a set); the plain versions and the unfused composition
+    (LayerNorm, bf16 GEMMs and the flash forward kernel) beside them."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_block as fb
+    B, T, E, H = FUSED_SHAPE
+    sets = []
+    for i in range(4):
+        ops = _fused_operands(B, T, E, torch.bfloat16, seed=10 + i)
+        sets.append((ops, fb.fused_block_kv(*ops[:5])))
+
+    def unfused(x, scale, bias, wq, bq, wp, bp):
+        h = fb._layer_norm_f32(x, scale, bias, 1e-5).to(x.dtype)
+        qkv = torch.matmul(h, wq) + bq.to(x.dtype)
+        q, k, v = (t.reshape(B, T, H, E // H).transpose(1, 2) for t in qkv.split(E, dim=-1))
+        y = fa.flash_attention(q, k, v, True).transpose(1, 2).reshape(B, T, E)
+        return x + (torch.matmul(y, wp) + bp.to(x.dtype))
+
+    with torch.no_grad():
+        ms = {
+            "kv": time_ms(lambda i: fb.fused_block_kv(*sets[i % 4][0][:5]), 20),
+            "q": time_ms(lambda i: fb.fused_block_q(sets[i % 4][0][0], sets[i % 4][1],
+                                                    *sets[i % 4][0][1:], n_head=H), 20),
+            "wrapper": time_ms(lambda i: fb.fused_transformer_block(*sets[i % 4][0], H), 20),
+        }
+        plain = {
+            "kv": time_ms(lambda i: fb.fused_block_kv_plain(*sets[i % 4][0][:5]), 8),
+            "q": time_ms(lambda i: fb.fused_block_q_plain(sets[i % 4][0][0], sets[i % 4][1],
+                                                          *sets[i % 4][0][1:], H), 8),
+        }
+        unfused_ms = time_ms(lambda i: unfused(*sets[i % 4][0]), 20)
+    del sets
+    torch.cuda.empty_cache()
+
+    kv_w, q_w, whole_w = _fused_bounds(B, T, E, H, 2, True)
+    whole_ms, whole_by = _bound_ms(*whole_w, BF16_FLOPS)
+    log("[fused] " + json.dumps({
+        "name": "fused_transformer_block", "shape": FUSED_SHAPE, "ms": ms["wrapper"],
+        "entries_ms": ms["kv"] + ms["q"], "plain_ms": plain["kv"] + plain["q"],
+        "unfused_composition_ms": unfused_ms, "gflop": whole_w[0] / 1e9,
+        "mbytes": whole_w[1] / 1e6, "bound_ms": whole_ms, "bound_by": whole_by}))
+    entries = []
+    for name, work in (("kv", kv_w), ("q", q_w)):
+        b_ms, b_by = _bound_ms(*work, BF16_FLOPS)
+        e = {"name": f"fused_block_{name}", "route": "cuda",
+             "source": "deepspeed_tpu_torch/csrc/fused_block.cu",
+             "replaces": "deepspeed_tpu/ops/pallas/fused_block.py:86:_fused_block_kernel",
+             "launches": None, "max_abs_err": main_err[name][0],
+             "scaled_err": main_err[name][1], "worst_scaled_err": worst[name],
+             "tol": FLASH_TOL[torch.bfloat16], "kernel_ms": ms[name], "ms": ms[name],
+             "plain_ms": plain[name], "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[fused] {json.dumps(e)}")
+        entries.append(e)
+    return entries
+
+
+def _fused_model(**over):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    model = GPT2Model(GPT2Config(**dict(FUSED_MODEL, **over)))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def _step_stats(step_s, tokens_per_step, n_params):
+    steady = step_s[2:]
+    step = statistics.median(steady)
+    tok_s = tokens_per_step / step
+    return {"step_ms_median": step * 1e3, "step_ms_min": min(steady) * 1e3,
+            "step_ms_max": max(steady) * 1e3, "step_ms_all": [s * 1e3 for s in step_s],
+            "tokens_per_s": tok_s, "params": n_params,
+            "mfu": tok_s * 6 * n_params / BF16_FLOPS,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_fused_training():
+    """GPT-2 124M with the fused block through deepspeed_tpu_torch.initialize
+    on the card; then the same model with flash attention."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_block as fb
+
+    tokens, labels = _train_batch(FUSED_MODEL["vocab_size"])
+    m32 = _fused_model(n_layer=2, compute_dtype=torch.float32)
+    before = fb.fused_transformer_block.launches
+    l32k, l32p, n32 = _kernel_vs_plain(m32, tokens, labels)
+    if fb.fused_transformer_block.launches - before != 2:
+        raise AssertionError("the kernel path did not launch the fused block once per layer, "
+                             "or the plain path launched it")
+    log(f"[fused-train] float32 2 layers, kernel vs plain: loss {l32k!r} vs {l32p!r}, "
+        f"per-layer grad norms max rel diff {n32!r} (tol {TRAIN_TOL_F32})")
+    if abs(l32k - l32p) > TRAIN_TOL_F32 * abs(l32p) or n32 > TRAIN_TOL_F32:
+        raise AssertionError("float32 fused path disagrees with the plain path")
+    del m32
+    torch.cuda.empty_cache()
+
+    model = _fused_model()
+    n_params = model.param_count()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=FUSED_CONFIG)
+    lk, lp, nrel = _kernel_vs_plain(engine.module, tokens, labels)
+    log(f"[fused-train] bf16 12 layers, first micro-batch kernel vs plain: loss {lk!r} vs "
+        f"{lp!r}, per-layer grad norms max rel diff {nrel!r} (tol {TRAIN_TOL_BF16})")
+    if abs(lk - lp) > TRAIN_TOL_BF16[0] or nrel > TRAIN_TOL_BF16[1]:
+        raise AssertionError("bf16 fused path disagrees with the plain path")
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()      # the training steps' peak, not the check's
+    launchers = (fb.fused_block_kv, fb.fused_block_q, fb.fused_transformer_block)
+    for f in launchers:
+        f.launches = 0
+    losses, step_s = _train_steps(engine, tokens, labels, steps=FUSED_STEPS)
+    launches = [f.launches for f in launchers]
+    log(f"[fused-train] step losses {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fused training losses not finite and decreasing: {losses}")
+    n_layer = FUSED_MODEL["n_layer"]
+    if launches != [n_layer * FUSED_STEPS] * 3:
+        raise AssertionError(f"fused-block launches {launches} != {n_layer} x "
+                             f"{FUSED_STEPS} micro-steps each")
+    res = {"steps": FUSED_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+           **_step_stats(step_s, tokens.numel(), n_params),
+           "fused_block_launches": launches, "first_micro_loss_kernel": lk,
+           "first_micro_loss_plain": lp, "grad_norm_max_rel_diff": nrel,
+           "f32_2_layer": [l32k, l32p, n32]}
+    log(f"[fused-train] {json.dumps(res)}")
+    profile_step("profile-fused", engine, tokens, labels)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same model, unfused, with the flash kernels
+    torch.cuda.reset_peak_memory_stats()
+    unfused = _fused_model(fused_block=False, use_flash_attention=True)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=unfused, config_params=FUSED_CONFIG)
+    before = (fa.flash_attention_fwd.launches, fb.fused_transformer_block.launches)
+    u_losses, u_step_s = _train_steps(engine, tokens, labels, steps=UNFUSED_STEPS)
+    if (fa.flash_attention_fwd.launches - before[0] != n_layer * UNFUSED_STEPS
+            or fb.fused_transformer_block.launches != before[1]):
+        raise AssertionError("the unfused comparison did not run the flash kernels alone")
+    if not all(np.isfinite(u_losses)):
+        raise AssertionError(f"unfused losses not finite: {u_losses}")
+    u_res = {"steps": UNFUSED_STEPS, "losses": u_losses,
+             **_step_stats(u_step_s, tokens.numel(), n_params)}
+    u_res["fused_over_unfused_step"] = res["step_ms_median"] / u_res["step_ms_median"]
+    log(f"[fused-train-unfused] {json.dumps(u_res)}")
+    del engine, unfused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches[:2]
+
+
+# ------------------------------------------------------------------------- BERT
+# BERT-large (docs/bert.md:25-26) at tests/perf/transformer_layer_perf.py's
+# second shape, LAMB as examples/train_bert_mlm.py:38
+BERT_MODEL = dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+                  num_attention_heads=16, intermediate_size=4096, max_position_embeddings=512,
+                  use_flash_attention=True)
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 16, 512, 10
+BERT_CONFIG = {"train_batch_size": BERT_BATCH, "steps_per_print": 1000,
+               "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+               "optimizer": {"type": "Lamb", "params": {"lr": 2e-3}}}
+LAYER_SHAPES = ((128, 64), (512, 16))    # (seq, batch) of the one-layer check
+
+
+def _padding_mask(batch, seq, rng):
+    """[B, T] 1/0 mask: rows keep between half and all of their positions."""
+    lengths = rng.randint(seq // 2, seq + 1, size=batch)
+    lengths[0] = seq
+    return (np.arange(seq)[None, :] < lengths[:, None]).astype(np.float32)
+
+
+def _bert_batch():
+    """(input_ids, labels, token_type_ids, attention_mask): 15% of the kept
+    positions masked ([MASK] = 103) with their labels, -100 elsewhere."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(1000, BERT_MODEL["vocab_size"], size=(BERT_BATCH, BERT_SEQ))
+    mask = _padding_mask(BERT_BATCH, BERT_SEQ, rng)
+    chosen = (rng.rand(BERT_BATCH, BERT_SEQ) < 0.15) & (mask > 0)
+    labels = np.where(chosen, ids, -100)
+    inputs = np.where(chosen, 103, ids)
+    return (torch.from_numpy(inputs).cuda(), torch.from_numpy(labels).cuda(), None,
+            torch.from_numpy(mask).cuda())
+
+
+def _bert_model(**over):
+    from deepspeed_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    model = BertForMaskedLM(BertConfig(**dict(BERT_MODEL, **over)))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def _bert_grad_norms(model):
+    """float32 grad norm of each layer, then of the embeddings (the
+    token-type table has no grad when the batch has no token types)."""
+    groups = [list(l.parameters()) for l in model.layers] + [list(model.embeddings.parameters())]
+    return torch.stack([torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                                       for p in g if p.grad is not None))
+                        for g in groups]).cpu()
+
+
+def _bert_kernel_vs_plain(model, batch):
+    """(loss, loss, max relative grad-norm difference) of the flash path and
+    the dense attention path of one micro-batch; grads cleared."""
+    out = []
+    for flash in (True, False):
+        for layer in model.layers:
+            layer.config.use_flash_attention = flash
+        loss = model(*batch)
+        loss.backward()
+        out.append((loss.item(), _bert_grad_norms(model)))
+        model.zero_grad(set_to_none=True)
+        del loss
+    for layer in model.layers:
+        layer.config.use_flash_attention = True
+    torch.cuda.synchronize()
+    (lk, nk), (lp, npl) = out
+    return lk, lp, float(((nk - npl).abs() / npl).max())
+
+
+def phase_bert_training():
+    """BERT-large masked-LM through deepspeed_tpu_torch.initialize on the
+    card, then the one-layer check with the mask and train-mode dropout."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+
+    batch = _bert_batch()
+    launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    m32 = _bert_model(num_hidden_layers=2, compute_dtype=torch.float32)
+    before = fa.flash_attention_fwd.launches
+    l32k, l32p, n32 = _bert_kernel_vs_plain(m32, batch)
+    if fa.flash_attention_fwd.launches - before != 2:
+        raise AssertionError("the flash path did not launch once per layer, or the dense "
+                             "path launched the kernel")
+    log(f"[bert] float32 2 layers, kernel vs plain: loss {l32k!r} vs {l32p!r}, "
+        f"per-layer grad norms max rel diff {n32!r} (tol {TRAIN_TOL_F32})")
+    if abs(l32k - l32p) > TRAIN_TOL_F32 * abs(l32p) or n32 > TRAIN_TOL_F32:
+        raise AssertionError("float32 BERT flash path disagrees with the dense path")
+    del m32
+    torch.cuda.empty_cache()
+
+    model = _bert_model()
+    n_params = model.param_count()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=BERT_CONFIG)
+    lk, lp, nrel = _bert_kernel_vs_plain(engine.module, batch)
+    log(f"[bert] bf16 24 layers, first micro-batch kernel vs plain: loss {lk!r} vs {lp!r}, "
+        f"per-layer grad norms max rel diff {nrel!r} (tol {TRAIN_TOL_BF16})")
+    if abs(lk - lp) > TRAIN_TOL_BF16[0] or nrel > TRAIN_TOL_BF16[1]:
+        raise AssertionError("bf16 BERT flash path disagrees with the dense path")
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()      # the training steps' peak, not the check's
+    for f in launchers:
+        f.launches = 0
+    losses, step_s = _train_steps(engine, *batch, steps=BERT_STEPS)
+    launches = [f.launches for f in launchers]
+    log(f"[bert] step losses {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"BERT losses not finite and decreasing: {losses}")
+    n_layer = BERT_MODEL["num_hidden_layers"]
+    if launches != [n_layer * BERT_STEPS] * 3:
+        raise AssertionError(f"flash launches {launches} != {n_layer} x {BERT_STEPS} "
+                             "micro-steps each")
+    res = {"steps": BERT_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
+           **_step_stats(step_s, BERT_BATCH * BERT_SEQ, n_params),
+           "masked_positions": int((batch[1] >= 0).sum()),
+           "kept_positions": int(batch[3].sum()), "flash_launches": launches,
+           "first_micro_loss_kernel": lk, "first_micro_loss_plain": lp,
+           "grad_norm_max_rel_diff": nrel, "f32_2_layer": [l32k, l32p, n32]}
+    log(f"[bert] {json.dumps(res)}")
+    profile_step("profile-bert", engine, *batch, top=20)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_layer_check()
+    return launches
+
+
+def bert_layer_check():
+    """One BERT-large layer (pre-LN, bf16), forward + backward of
+    sum(out ** 2) with a padding mask and train-mode dropout 0.1: the flash
+    path against the dense path under the same generator seed (both draw
+    one attention seed; the dense path's keep mask is
+    ``dropout_keep_reference`` of it); then the flash path's time."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
+                                                     DeepSpeedTransformerLayer)
+    for seq, batch in LAYER_SHAPES:
+        cfg = DeepSpeedTransformerConfig(
+            batch_size=batch, max_seq_length=seq, hidden_size=1024, intermediate_size=4096,
+            heads=16, attn_dropout_ratio=0.1, hidden_dropout_ratio=0.1, num_hidden_layers=24,
+            fp16=False, pre_layer_norm=True)
+        layer = DeepSpeedTransformerLayer(cfg)
+        layer.init(torch.Generator(device="cuda").manual_seed(0))
+        rng = np.random.RandomState(1)
+        x = torch.from_numpy(rng.randn(batch, seq, 1024).astype(np.float32)).cuda().bfloat16()
+        keep = torch.from_numpy(_padding_mask(batch, seq, rng)).cuda()
+        mask = ((1.0 - keep) * -1e9)[:, None, None, :]
+
+        def fwd_bwd(seed=1):
+            xs = x.clone().requires_grad_()
+            out = layer(xs, mask, generator=torch.Generator(device="cuda").manual_seed(seed),
+                        deterministic=False)
+            out.float().square().sum().backward()
+            grads = [xs.grad] + [p.grad for p in layer.parameters()]
+            layer.zero_grad(set_to_none=True)
+            return [out.detach().float()] + [g.float() for g in grads]
+
+        before = [f.launches for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                                       fa.flash_attention_bwd_dkv)]
+        got = fwd_bwd()
+        after = [f.launches for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                                      fa.flash_attention_bwd_dkv)]
+        other_seed = fwd_bwd(seed=2)[0]
+        cfg.use_flash_attention = False
+        want = fwd_bwd()
+        cfg.use_flash_attention = True
+        torch.cuda.synchronize()
+        if [a - b for a, b in zip(after, before)] != [1, 1, 1]:
+            raise AssertionError("the layer did not launch each flash kernel once")
+        if torch.equal(got[0], other_seed):
+            raise AssertionError("train-mode dropout did not depend on the generator seed")
+        names = ["out", "dx"] + list(layer.NAMES)
+        errs = {n: _scaled_err(a, b) for n, a, b in zip(names, got, want)}
+        tol = FLASH_TOL[torch.bfloat16]
+        worst = max(errs, key=errs.get)
+        log(f"[bert-layer] seq {seq} batch {batch}, mask + dropout 0.1, flash vs dense under "
+            f"one seed: out {errs['out']:.2e}, dx {errs['dx']:.2e}, worst {worst} "
+            f"{errs[worst]:.2e} (scaled by max |ref|, tol {tol})")
+        if not all(torch.isfinite(t).all() for t in got) or errs[worst] > tol:
+            raise AssertionError(f"BERT layer flash vs dense, seq {seq}: {errs}")
+        del got, want, other_seed
+        ms = time_ms(lambda i: fwd_bwd(), 10)
+        mm = 2 * batch * seq * 1024 * (4 * 1024 + 2 * 4096)
+        attn = 4 * batch * 16 * seq * seq * 64
+        log(f"[bert-layer] seq {seq} batch {batch}: forward + backward {ms!r} ms, "
+            f"{3 * (mm + attn) / ms / 1e9:.1f} TFLOP/s (3 x forward flops)")
+        del layer, x
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1033,8 +1504,14 @@ def main():
     sparse = phase_block_sparse_kernels()
     for e, n in zip(sparse, phase_long_training()):
         e["launches"] = n
+    fused = phase_fused_block_kernels()
+    for e, n in zip(fused, phase_fused_training()):
+        e["launches"] = n
+    # the flash kernels' non-causal path with a key bias, inside BERT
+    for e, n in zip(flash, phase_bert_training()):
+        e["launches_bert"] = n
     log(card)
-    log(json.dumps({"kernels": [entry, *flash, *sparse]}))
+    log(json.dumps({"kernels": [entry, *flash, *sparse, *fused]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """deepspeed_tpu_torch: the PyTorch/CUDA port of ``deepspeed_tpu``.
 
 A package of its own beside the JAX one, which stays the reference. It
-imports torch and numpy, never jax and never ``deepspeed_tpu``. Three slices
+imports torch and numpy, never jax and never ``deepspeed_tpu``. Four slices
 are ported: serving, ``init_inference`` -> ``serve.InferenceEngine`` over the
 paged KV pool and ``models.gpt2``, with the paged-decode kernel in CUDA
 (``csrc/paged_decode.cu``); training, ``initialize`` ->
@@ -9,7 +9,9 @@ paged KV pool and ``models.gpt2``, with the paged-decode kernel in CUDA
 with the flash-attention kernels in CUDA (``csrc/flash_attention.cu``); and
 long-sequence training with block-sparse attention over a ``SparsityConfig``
 layout (``ops.sparse_attention``), its kernels in CUDA
-(``csrc/block_sparse_attention.cu``).
+(``csrc/block_sparse_attention.cu``); and the fused attention half of a
+GPT-2 block (``GPT2Config.fused_block``, ``csrc/fused_block.cu``) with the
+BERT family (``models.bert`` over ``ops.transformer``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ROADMAP.md lists what later slices bring.
 """
@@ -23,7 +25,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     """Initialize the training engine (``deepspeed.initialize``-shaped).
 
     ``model`` is a ``torch.nn.Module`` whose ``forward(*batch)`` returns the
-    loss (``models.gpt2.GPT2Model`` does, given labels); ``model_parameters``
+    loss (``models.gpt2.GPT2Model`` does, given labels, and the
+    ``models.bert`` heads); ``model_parameters``
     an optional name -> tensor dict loaded into it (``params_from_jax``
     gives one). The engine runs on ``device``: the card unless ``"cpu"``; no
     card and no ``"cpu"`` raises. With ``WORLD_SIZE`` > 1 in the environment

@@ -16,13 +16,15 @@ and the training forward: ``forward(tokens, labels=None, generator=None)``
 is the JAX ``apply`` over the module's own parameters, with dense or flash
 attention (ops/flash_attention.py), block-sparse attention over a
 ``SparsityConfig`` layout (ops/block_sparse_attention.py; it takes precedence
-over flash, as in the JAX model) and the chunked cross-entropy. Its layers
+over flash, as in the JAX model), the fused attention half of a block
+(``fused_block``, ops/fused_block.py; it takes precedence over flash, and
+the serving programs ignore it, as the JAX ones do) and the chunked
+cross-entropy. Its layers
 take the JAX package's per-layer parameter dicts (``params_tree``) and round
 where the JAX model rounds. Dropout draws from an explicit
 ``torch.Generator``; it cannot match ``jax.random`` bit for bit, except the
-flash kernels' attention dropout, which hashes coordinates. The fused
-block, MoE and remat come with later slices and raise
-``NotImplementedError`` when asked for.
+flash kernels' attention dropout, which hashes coordinates. MoE and remat
+come with later slices and raise ``NotImplementedError`` when asked for.
 """
 
 import math
@@ -38,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.block_sparse_attention import block_sparse_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.fused_block import fused_transformer_block
 
 
 @dataclass
@@ -70,7 +73,6 @@ class GPT2Config:
 # options of the JAX model that later slices of the port bring, by the
 # ROADMAP.md queue item that ports them
 _LATER = {
-    "fused_block": "queue B3 (fused transformer block)",
     "moe_experts": "queue A19 (MoE)",
 }
 # options only the training forward reads; the serving programs ignore them,
@@ -126,7 +128,10 @@ class GPT2Model(nn.Module):
         if config.sparse_attention is not None:
             if config.dropout != 0.0:
                 raise ValueError("sparse_attention has no in-kernel dropout; set dropout=0")
-            if config.fused_block:
+        if config.fused_block:
+            if config.dropout != 0.0:
+                raise ValueError("fused_block has no in-kernel dropout; set dropout=0")
+            if config.sparse_attention is not None:
                 raise ValueError("fused_block and sparse_attention are mutually exclusive")
         for field, where in _LATER.items():
             if getattr(config, field):
@@ -173,21 +178,10 @@ class GPT2Model(nn.Module):
         self.ln_f.bias.zero_()
         return dict(self.named_parameters())
 
-    @torch.no_grad()
     def load_parameters(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy a full name -> tensor dict into the parameters (strict: every
         name once, shapes equal)."""
-        own = dict(self.named_parameters())
-        if set(params) != set(own):
-            missing = sorted(set(own) - set(params))
-            extra = sorted(set(params) - set(own))
-            raise ValueError(f"parameter names differ: missing {missing[:5]}, "
-                             f"unexpected {extra[:5]}")
-        for name, t in params.items():
-            if tuple(t.shape) != tuple(own[name].shape):
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                 f"{tuple(own[name].shape)}")
-            own[name].copy_(t)
+        load_parameters(self, params)
 
     # ------------------------------------------------------------- layers
     # Both take the JAX package's per-layer parameter dicts and round at the
@@ -302,10 +296,18 @@ class GPT2Model(nn.Module):
         eps = c.layer_norm_epsilon
         if not (generator is not None and c.dropout > 0):
             generator = None
-        a = self._attention(self._layer_norm(x, bp["ln_1"], eps), bp["attn"], generator)
-        if generator is not None:
-            a = self._dropout(a, generator)
-        x = x + a
+        if c.fused_block and generator is None:
+            # the whole attention half (LayerNorm + qkv + attention + proj +
+            # residual) in the fused-block kernels
+            ap = bp["attn"]
+            x = fused_transformer_block(
+                x, bp["ln_1"]["scale"], bp["ln_1"]["bias"], ap["c_attn_w"], ap["c_attn_b"],
+                ap["c_proj_w"], ap["c_proj_b"], c.n_head, causal=True, eps=eps)
+        else:
+            a = self._attention(self._layer_norm(x, bp["ln_1"], eps), bp["attn"], generator)
+            if generator is not None:
+                a = self._dropout(a, generator)
+            x = x + a
         m = self._mlp(self._layer_norm(x, bp["ln_2"], eps), bp["mlp"])
         if generator is not None:
             m = self._dropout(m, generator)
@@ -368,6 +370,23 @@ class GPT2Model(nn.Module):
             return self.logits(p, tokens, generator)
         ce, aux = self.apply_parts(p, tokens, labels, generator)
         return ce + aux
+
+
+@torch.no_grad()
+def load_parameters(module: nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Copy a full name -> tensor dict into ``module``'s parameters (strict:
+    every name once, shapes equal)."""
+    own = dict(module.named_parameters())
+    if set(params) != set(own):
+        missing = sorted(set(own) - set(params))
+        extra = sorted(set(params) - set(own))
+        raise ValueError(f"parameter names differ: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    for name, t in params.items():
+        if tuple(t.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(own[name].shape)}")
+        own[name].copy_(t)
 
 
 def _ce_sums(x, w, labels):

@@ -189,8 +189,14 @@ def test_sparse_attention_utils_match_jax():
 
 @pytest.mark.parametrize("name", ["MatMul", "Softmax", "dense_to_sparse", "sparse_to_dense"])
 def test_unported_parts_raise(name):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(sa, name)
+    """The package is whole now: these four come from its matmul.py and
+    softmax.py (tests/test_torch_sparse_matmul_softmax.py holds them against
+    the JAX package), and a name the JAX package lacks is an AttributeError."""
+    import deepspeed_tpu.ops.sparse_attention as jsa
+    assert callable(getattr(sa, name)) and callable(getattr(jsa, name))
+    assert getattr(sa, name).__module__.startswith("deepspeed_tpu_torch.ops.sparse_attention.")
+    with pytest.raises(AttributeError):
+        getattr(sa, name + "Later")
 
 
 def test_refusals():

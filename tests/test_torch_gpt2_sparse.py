@@ -118,8 +118,8 @@ def test_guards_raise():
     with pytest.raises(ValueError, match="mutually exclusive"):
         GPT2Model(GPT2Config(**DIMS, n_layer=1, fused_block=True, sparse_attention=sparse),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="B3"):
-        GPT2Model(GPT2Config(**DIMS, n_layer=1, fused_block=True), device="cpu")
+    with pytest.raises(ValueError, match="fused_block has no in-kernel dropout"):
+        GPT2Model(GPT2Config(**DIMS, n_layer=1, dropout=0.1, fused_block=True), device="cpu")
     wrong_heads = GPT2Model(GPT2Config(**DIMS, n_layer=1, compute_dtype=torch.float32,
                                        sparse_attention=FixedSparsityConfig(
                                            **dict(SPARSE, num_heads=NH + 1))), device="cpu")

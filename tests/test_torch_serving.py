@@ -234,17 +234,29 @@ def test_engine_refuses_mirror_telemetry_and_warm_restart(models):
 
 @pytest.mark.parametrize("field", ["fused_block", "moe_experts", "sparse_attention"])
 def test_model_refuses_later_slices(field):
-    """fused_block and MoE come with later slices. A sparse model is built
-    (block-sparse attention is ported) but serving refuses it, as the JAX
-    engine does."""
-    if field != "sparse_attention":
+    """MoE comes with a later slice. A sparse model is built (block-sparse
+    attention is ported) but serving refuses it, as the JAX engine does. A
+    ``fused_block`` model serves: the serving programs ignore the flag, as
+    the JAX ones do, and give the unfused model's tokens."""
+    cfg = {"serving": {"block_size": BS, "num_blocks": NB, "max_seqs": S,
+                       "max_model_len": ML, "prefill_chunk": C}}
+    if field == "moe_experts":
         with pytest.raises(NotImplementedError, match=field):
             GPT2Model(GPT2Config(**DIMS, **{field: 1}), device="cpu")
+        return
+    if field == "fused_block":
+        outs = []
+        for fused in (True, False):
+            model = GPT2Model(GPT2Config(**DIMS, compute_dtype=torch.float32,
+                                         fused_block=fused), device="cpu")
+            model.init(torch.Generator().manual_seed(0))
+            eng = deepspeed_tpu_torch.init_inference(model, config_params=cfg, device="cpu")
+            outs.append(eng.run([Request(r, p, n, **kw) for r, p, n, kw in _trace()])[0])
+        assert [o.status for o in outs[0]] == ["finished"] * len(outs[0])
+        assert [o.tokens for o in outs[0]] == [o.tokens for o in outs[1]]
         return
     from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
     model = GPT2Model(GPT2Config(**DIMS, sparse_attention=FixedSparsityConfig(
         num_heads=DIMS["n_head"], block=BS)), device="cpu")
-    cfg = {"serving": {"block_size": BS, "num_blocks": NB, "max_seqs": S,
-                       "max_model_len": ML, "prefill_chunk": C}}
     with pytest.raises(ValueError, match="dense attention only"):
         deepspeed_tpu_torch.init_inference(model, config_params=cfg, device="cpu")
