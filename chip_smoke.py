@@ -22,16 +22,20 @@ result line):
    pools; then a short ``torch.profiler`` window for where the time goes;
 5. flash kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the training shape and at edge cases
-   (ragged T, T = 9000, D = 128, float32, float16, key bias, dropout) and at
-   the BERT path's shape (non-causal with a key bias); times
-   at the training shape beside the plain version and SDPA;
+   (ragged T, T = 9000, D = 128, float32, float16, key bias, dropout at rates
+   0.1 and 0.5, bf16 at D = 256) and at the BERT path's shape (non-causal with
+   a key bias); checks that each case ran the design the shape rule names
+   (tensor cores for bf16/fp16 at D <= 128, else CUDA cores); times at the
+   training shape beside the plain version, SDPA and the CUDA-core design of
+   the forward and dk/dv on the same inputs;
 6. training — GPT-2 1.5B (the same widths, ``use_flash_attention``, no remat)
    through ``initialize`` at ZeRO-2 in bf16, micro-batch 4 x 2 accumulation
    steps, for 12 optimizer steps on one seeded batch; checks the first
    micro-batch's loss and per-layer grad norms against the plain attention
    path (bf16 at full depth, float32 at 4 layers), that the losses are finite
-   and fall, and that each flash kernel ran once per layer per micro-step;
-   then a profiler window of one step;
+   and fall, that each flash kernel ran once per layer per micro-step and the
+   forward and dk/dv on the tensor cores each time; then a profiler window of
+   one step;
 7. block-sparse kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the long-sequence path's shape (the
    Variable layout at block 256, T = 8192, causal) and at layouts of blocks
@@ -66,7 +70,8 @@ result line):
    micro-batch 16, flash attention with the padding mask as a key bias)
    through ``initialize`` at ZeRO-2 in bf16 with LAMB, 10 steps on one seeded
    masked-LM batch whose attention mask rides in the batch; the same checks
-   (each flash kernel 24 times per micro-step); then one BERT-large layer
+   (each flash kernel 24 times per micro-step, the forward and dk/dv on the
+   tensor cores); then one BERT-large layer
    forward + backward at two shapes with the mask and train-mode dropout
    against the dense attention path under the same seeds, and its time;
 12. result — one ``{"kernels": [...]}`` line, then the last line
@@ -450,11 +455,20 @@ def phase_flash_kernels():
         (2, 4, 384, 64, torch.bfloat16, False, True, 0.0),  # key bias, non-causal
         (16, 16, 512, 64, torch.bfloat16, False, True, 0.0),  # BERT-large's shape
         (2, 4, 256, 64, torch.float32, True, False, 0.1),   # dropout
+        (2, 8, 1024, 64, torch.bfloat16, True, False, 0.1),   # dropout on the tensor cores
+        (16, 16, 512, 64, torch.bfloat16, False, True, 0.5),  # BERT's shape, bias, dropout
+        (2, 4, 384, 128, torch.float16, False, True, 0.0),  # fp16 D = 128 with bias
+        (1, 2, 256, 256, torch.bfloat16, True, False, 0.0),  # bf16 past the shape rule
     ]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for case in cases:
+        tc_before = _tensor_core_launches()
         got, want = _flash_case(*case)
         torch.cuda.synchronize()
+        ran = [a - b for a, b in zip(_tensor_core_launches(), tc_before)]
+        if ran != [int(fa._tensor_core_path(case[4], case[3]))] * 2:
+            raise AssertionError(f"flash {case}: tensor-core launches (fwd, dk/dv) {ran} "
+                                 "disagree with the shape rule")
         tol = FLASH_TOL[case[4]]
         errs = {}
         for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
@@ -475,10 +489,44 @@ def phase_flash_kernels():
     return time_flash(main, worst)
 
 
+def _tensor_core_launches():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    return [fa.flash_attention_fwd.tensor_core_launches,
+            fa.flash_attention_bwd_dkv.tensor_core_launches]
+
+
+def _cuda_core_entries(H, sm_scale):
+    """The CUDA-core forward and dk/dv entries called directly on bf16
+    inputs that the shape rule sends to the tensor cores: the earlier design,
+    timed beside its redesign on the same inputs (no launch counted)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    lib = fa._lib()
+
+    def fwd(q, k, v):
+        out, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=q.device)
+        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+                            lse.data_ptr(), *fa._tail(q, H, sm_scale, True, 0.0, None, 0, 0))
+        if err:
+            raise RuntimeError(f"flash_fwd: cudaError {err}")
+        return out, lse
+
+    def dkv(q, k, v, do, lse, delta):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                lse.data_ptr(), delta.data_ptr(), None, dk.data_ptr(),
+                                dv.data_ptr(), *fa._tail(q, H, sm_scale, True, 0.0, None, 0, 0))
+        if err:
+            raise RuntimeError(f"flash_bwd_dkv: cudaError {err}")
+        return dk, dv
+
+    return fwd, dkv
+
+
 def time_flash(main_err, worst):
     """Device times at the main shape, inputs rotating over 4 sets (52 MB a
     set, beyond the 50 MB L2); the plain version and SDPA (forward, and its
-    backward for both backward kernels) beside them."""
+    backward for both backward kernels) beside them, and the CUDA-core design
+    of the forward and dk/dv (the earlier design) on the same inputs."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     B, H, T, D = FLASH_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -495,6 +543,20 @@ def time_flash(main_err, worst):
         "dq": time_ms(lambda i: fa.flash_attention_bwd_dq(*sets[i % 4], **kw), 40),
         "dkv": time_ms(lambda i: fa.flash_attention_bwd_dkv(*sets[i % 4], **kw), 40),
     }
+    fma_fwd, fma_dkv = _cuda_core_entries(H, D ** -0.5)
+    q, k, v, do, lse, delta = sets[0]
+    out_tc, lse_tc = fa.flash_attention_fwd(q, k, v, **kw)
+    dk_tc, dv_tc = fa.flash_attention_bwd_dkv(*sets[0], **kw)
+    out_f, lse_f = fma_fwd(q, k, v)
+    dk_f, dv_f = fma_dkv(*sets[0])
+    designs_err = max(_scaled_err(a.float(), b.float()) for a, b in
+                      ((out_tc, out_f), (lse_tc, lse_f), (dk_tc, dk_f), (dv_tc, dv_f)))
+    del out_tc, lse_tc, dk_tc, dv_tc, out_f, lse_f, dk_f, dv_f
+    earlier = {"fwd": time_ms(lambda i: fma_fwd(*sets[i % 4][:3]), 20),
+               "dkv": time_ms(lambda i: fma_dkv(*sets[i % 4]), 20)}
+    log(f"[flash] the CUDA-core design on the same inputs: fwd {earlier['fwd']!r} ms, "
+        f"dk/dv {earlier['dkv']!r} ms; tensor-core vs CUDA-core outputs within "
+        f"{designs_err:.2e} of max |value|")
 
     def fwd_bwd(fn):
         """(forward ms, backward ms) of fn(q, k, v): the backward is the
@@ -523,15 +585,15 @@ def time_flash(main_err, worst):
             "dq": (3 * mm, 4 * tensor + 2 * row + tensor),
             "dkv": (4 * mm, 4 * tensor + 2 * row + 2 * tensor)}
     entries = []
-    for name, body, line, plain, lib, outs in (
-            ("fwd", "_fwd_kernel", 132, plain_fwd, sdpa_fwd, ("out", "lse")),
-            ("dq", "_bwd_dq_kernel", 289, plain_bwd, sdpa_bwd, ("dq",)),
-            ("dkv", "_bwd_dkv_kernel", 352, plain_bwd, sdpa_bwd, ("dk", "dv"))):
+    for name, body, line, plain, lib, outs, design in (
+            ("fwd", "_fwd_kernel", 132, plain_fwd, sdpa_fwd, ("out", "lse"), "wgmma"),
+            ("dq", "_bwd_dq_kernel", 289, plain_bwd, sdpa_bwd, ("dq",), "fma"),
+            ("dkv", "_bwd_dkv_kernel", 352, plain_bwd, sdpa_bwd, ("dk", "dv"), "wgmma")):
         flops, nbytes = work[name]
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         # max_abs_err: absolute, at the main shape; scaled_err and tol: the
         # error over max |ref|, the main shape's and the worst case's
-        e = {"name": f"flash_attention_{name}", "route": "cuda",
+        e = {"name": f"flash_attention_{name}", "route": "cuda", "design": design,
              "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
              "replaces": f"deepspeed_tpu/ops/pallas/flash_attention.py:{line}:{body}",
              "launches": None, "max_abs_err": max(main_err[n][0] for n in outs),
@@ -541,6 +603,8 @@ def time_flash(main_err, worst):
              "plain_ms": plain, "library_ms": lib,
              "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if name in earlier:
+            e["fma_ms"] = earlier[name]      # the CUDA-core design, same inputs
         log(f"[flash] {json.dumps(e)}")
         entries.append(e)
     return entries
@@ -640,6 +704,8 @@ def phase_training():
     launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     for f in launchers:
         f.launches = 0
+    fa.flash_attention_fwd.tensor_core_launches = 0
+    fa.flash_attention_bwd_dkv.tensor_core_launches = 0
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -661,6 +727,9 @@ def phase_training():
     if launches != [cfg.n_layer * micro] * 3:
         raise AssertionError(f"flash launches {launches} != {cfg.n_layer} x {micro} "
                              "micro-steps each")
+    if _tensor_core_launches() != [launches[0], launches[2]]:
+        raise AssertionError(f"tensor-core launches (fwd, dk/dv) {_tensor_core_launches()}: "
+                             f"not every launch of {launches[0]} ran the tensor cores")
     step = statistics.median(step_s[2:])
     tok_s = TRAIN_CONFIG["train_batch_size"] * cfg.n_positions / step
     res = {"steps": TRAIN_STEPS, "micro_steps": micro, "loss_first": losses[0],
@@ -668,7 +737,8 @@ def phase_training():
            "step_ms_all": [s * 1e3 for s in step_s], "tokens_per_s": tok_s,
            "params": n_params, "mfu": tok_s * 6 * n_params / BF16_FLOPS,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "flash_launches": launches, "first_micro_loss_kernel": lk,
+           "flash_launches": launches, "tensor_core_launches": _tensor_core_launches(),
+           "first_micro_loss_kernel": lk,
            "first_micro_loss_plain": lp, "grad_norm_max_rel_diff": nrel,
            "f32_4_layer": [l32k, l32p, n32],
            "tol_bf16": list(TRAIN_TOL_BF16), "tol_f32": TRAIN_TOL_F32}
@@ -1403,6 +1473,8 @@ def phase_bert_training():
     torch.cuda.reset_peak_memory_stats()      # the training steps' peak, not the check's
     for f in launchers:
         f.launches = 0
+    fa.flash_attention_fwd.tensor_core_launches = 0
+    fa.flash_attention_bwd_dkv.tensor_core_launches = 0
     losses, step_s = _train_steps(engine, *batch, steps=BERT_STEPS)
     launches = [f.launches for f in launchers]
     log(f"[bert] step losses {losses}")
@@ -1412,10 +1484,14 @@ def phase_bert_training():
     if launches != [n_layer * BERT_STEPS] * 3:
         raise AssertionError(f"flash launches {launches} != {n_layer} x {BERT_STEPS} "
                              "micro-steps each")
+    if _tensor_core_launches() != [launches[0], launches[2]]:
+        raise AssertionError(f"tensor-core launches (fwd, dk/dv) {_tensor_core_launches()}: "
+                             f"not every launch of {launches[0]} ran the tensor cores")
     res = {"steps": BERT_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
            **_step_stats(step_s, BERT_BATCH * BERT_SEQ, n_params),
            "masked_positions": int((batch[1] >= 0).sum()),
            "kept_positions": int(batch[3].sum()), "flash_launches": launches,
+           "tensor_core_launches": _tensor_core_launches(),
            "first_micro_loss_kernel": lk, "first_micro_loss_plain": lp,
            "grad_norm_max_rel_diff": nrel, "f32_2_layer": [l32k, l32p, n32]}
     log(f"[bert] {json.dumps(res)}")
@@ -1494,7 +1570,11 @@ def main():
     card = phase_device()
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
-    import deepspeed_tpu_torch  # noqa: F401  (fails when run outside the repo)
+    try:
+        import deepspeed_tpu_torch  # noqa: F401
+    except ImportError as err:     # the script alone, outside a checkout of the repo
+        print(f"chip_smoke: run it from the root of the repository ({err})", file=sys.stderr)
+        sys.exit(1)
     phase_build()
     entry = phase_kernels()
     entry["launches"] = phase_serving()

@@ -23,8 +23,17 @@
 // outputs, 258 flops per byte, at the card's ridge; the backward passes do
 // 3 and 4 such products on about twice the bytes.
 //
-// Design (the simple one): float tiles in shared memory and f32 FMA on the
-// CUDA cores; no tensor cores yet. A CTA of 256 threads owns a tile of BM
+// Two designs; the wrapper picks one by shape (ops/flash_attention.py,
+// _tensor_core_path), never by a failure:
+// - tensor cores (flash_fwd_tc, flash_bwd_dkv_tc): bf16/fp16 with D <= 128 a
+//   multiple of 8 — every model of the repository. Described at the
+//   tensor-core section below.
+// - CUDA cores (flash_fwd, flash_bwd_dq, flash_bwd_dkv): every dtype and even
+//   D <= 256; float32 and D > 128 take it, and dq always (its redesign is
+//   queued next).
+//
+// CUDA-core design (the simple one): float tiles in shared memory and f32 FMA
+// on the CUDA cores. A CTA of 256 threads owns a tile of BM
 // rows (64, or 32 at D > 128) and walks the other side's tiles of BM rows
 // staged in shared memory (rows padded to D + 1 floats, so column walks hit
 // distinct banks). Thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i
@@ -34,13 +43,14 @@
 // is padded to DP (64, 128 or 256) with zeros. T need not be a multiple of
 // the tile: rows and columns past T are masked or dropped. Tiles are visited
 // heaviest first under causal masking (the grid's x index runs backwards).
-// Left for a later change: wgmma on bf16/fp16 tiles staged by TMA, and warp
-// specialization; this kernel is far from the bound above.
 
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_tiles.cuh"
+#include "tc_tiles.cuh"
 
 namespace {
 
@@ -572,6 +582,580 @@ int run(int pass, const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(err);
 }
 
+// ============================================================================
+// Tensor-core design (flash_fwd_tc, flash_bwd_dkv_tc): bf16/fp16, D <= 128 a
+// multiple of 8, padded to DP = 64 or 128 by TMA's zero fill. Same function as
+// the CUDA-core kernels above, element for element: the masks, bias, dropout
+// hash and roundings sit at the same points.
+//
+// Forward (replaces _fwd_kernel): a CTA owns 128 query rows, two consumer
+// warpgroups of 64 (the wgmma M) and one producer warp. The producer puts Q
+// once, then 64-key K and V tiles, through a ring of kStages shared-memory
+// stages by TMA from 3-D tensor maps [B*H, T, D] (128-byte swizzle; a box
+// never crosses into the next head, the ragged tail arrives as zeros), each
+// stage with a full and an empty mbarrier; its lanes also stage the tile's
+// key bias. Each warpgroup scales its Q tile in place by op_scale (rounded
+// to the type, then fence.proxy.async), then per key tile: S = Q K^T by
+// wgmma.m64n64k16 from shared memory into f32 registers; the online softmax
+// on the accumulator fragments (a row lives in the 4 threads of a quad:
+// shuffles; the causal mask, bias and dropout per element at its global
+// (q, k)); P packed to 16-bit pairs in registers as the A operand of
+// O += P V (wgmma.m64nDPk16, V from shared memory MN-major, transposed). No
+// shared-memory round trip for P. Heaviest tiles first under causal.
+//
+// dk/dv (replaces _bwd_dkv_kernel): a CTA owns 64 keys per consumer
+// warpgroup (two at DP = 64, one at DP = 128) with K (scaled by op_scale,
+// rounded) and V resident in shared memory; the producer streams 64-row Q
+// and dO tiles and their lse * log2(e) and delta through the ring. Per q
+// tile: S^T = K Q^T and dP^T = V dO^T by wgmma into registers; P^T =
+// exp2(S^T - lse2), masked on diagonal tiles; the keep bits by the same
+// hash; dV += (P^T keep) dO and dK += dS^T Q, dS^T = P^T (dP^T keep -
+// delta), each with its 16-bit A operand in registers and B (dO, Q) from
+// shared memory, transposed. Registers: at DP = 64 a 384-thread CTA (its
+// third warpgroup the producer) gives each thread 168, too few for dK, dV,
+// S^T and dP^T (ptxas spilled); setmaxnreg moves the producer's to the
+// consumers (24 + 2 x 240). At DP = 128 one consumer warpgroup and a
+// producer warp, 160 threads, may use 255 a thread (ptxas: 240).
+//
+// Bound at GPT-2 1.5B's shape: operations (the tensor cores' 989 TFLOP/s),
+// as above. On the card the elementwise softmax work per score, not the
+// tensor cores, bounds both kernels (a build without it ran several times
+// faster), so the tiles inside the diagonal and the keys are compiled
+// without per-element tests, and exp2 is the SFU's ex2.approx. Left for a
+// later change: overlapping one tile's softmax with the next tile's wgmma
+// (two score buffers, or ping-pong between the warpgroups), a TMA store
+// epilogue, persistent CTAs.
+namespace tcfa {
+
+constexpr int kRows = 64;             // wgmma M: a warpgroup's rows; the streamed tile
+constexpr int kStages = 2;            // ring depth
+constexpr int kAtom = kRows * 128;    // bytes of one [64 rows, 64 columns] 16-bit atom
+
+template <int DP>
+__host__ __device__ constexpr int tile_bytes() { return kRows * DP * 2; }
+
+// dk/dv's threads: two consumer warpgroups and a producer warpgroup that
+// hands its registers to them (setmaxnreg: 24 + 2 x 240 = 3 x 168), or one
+// consumer warpgroup and a producer warp (160 threads may use 255 registers)
+template <int NWG>
+__host__ __device__ constexpr int dkv_threads() { return NWG == 2 ? 384 : 160; }
+
+template <int DP>
+constexpr int fwd_smem() {            // Q x 2, K and V x kStages, bias, 5 barriers
+  return 1024 + (2 + 2 * kStages) * tile_bytes<DP>() + kStages * kRows * 4 +
+         (2 * kStages + 1) * 8;
+}
+template <int DP, int NWG>
+constexpr int dkv_smem() {            // K and V x NWG, Q and dO x kStages, lse and delta
+  return 1024 + 2 * (NWG + kStages) * tile_bytes<DP>() + 2 * kStages * kRows * 4 +
+         (2 * kStages + 1) * 8;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (tc::smem_u32(p) & 1023)) & 1023);
+}
+
+// 2^x by the SFU alone (ex2.approx: relative error about 2^-22, far below
+// the 16-bit operands' rounding); exp2f's exact path costs several times as
+// many instructions, and the softmax, not the tensor cores, bounds these
+// kernels.
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x * scale rounded back to T over a tile, 16 bytes a thread at a time
+// (elementwise, so the swizzle does not matter)
+template <typename T>
+__device__ __forceinline__ void scale_tile(uint8_t* tile, int bytes, float scale, int tid) {
+  for (int i = tid * 16; i < bytes; i += 128 * 16) {
+    uint4 v = *reinterpret_cast<uint4*>(tile + i);
+    T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = from_f<T>(to_f(e[j]) * scale);
+    *reinterpret_cast<uint4*>(tile + i) = v;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b) {
+  if constexpr (std::is_same<T, __half>::value) {
+    *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(a, b);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Element e of a thread's 64 x 64 accumulator: row offset 8 * row8(e) from
+// the thread's first row, column col(e, t).
+__device__ __forceinline__ int row8(int e) { return (e % 4) / 2; }
+__device__ __forceinline__ int col(int e, int t) { return 8 * (e / 4) + 2 * t + (e % 2); }
+
+// The forward's scores of one key tile, in place: bias added, masked, and
+// each of the thread's two rows' maximum. kEdge: the tile is the causal
+// diagonal's (diag) or reaches past the last key, and its elements are
+// tested; the other tiles skip the tests.
+template <bool kEdge>
+__device__ __forceinline__ void fwd_scores(float (&sc)[32], float (&mx)[2], const Params& P,
+                                           const float* bias_s, int k0, int r0, int t,
+                                           bool diag) {
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int kj = k0 + col(e, t);
+    float x = sc[e];
+    if (kEdge && kj >= P.T) {
+      x = -INFINITY;
+    } else {
+      if (P.bias) x += bias_s[col(e, t)];
+      if (kEdge && diag && r0 + 8 * row8(e) + P.q_off < kj + P.k_off) x = kMaskValue;
+    }
+    sc[e] = x;
+    mx[row8(e)] = fmaxf(mx[row8(e)], x);
+  }
+}
+
+// dk/dv's P^T (dropped, scaled) and dS^T of one query tile, in place of S^T
+// and dP^T; kEdge as above (the diagonal's tile, or queries past T).
+template <bool kEdge>
+__device__ __forceinline__ void dkv_probs(float (&sc)[32], float (&dp)[32], const Params& P,
+                                          const float* lse_s, const float* dlt_s,
+                                          const float (&bk)[2], int q0, int kr0, int t,
+                                          bool diag, uint32_t bh, float inv_keep) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int qi = q0 + col(e, t);
+    const int kj = kr0 + 8 * row8(e);
+    float pd = 0.f, gd = 0.f;
+    if (!kEdge || qi < P.T) {
+      float x = sc[e] + bk[row8(e)];
+      if (kEdge && diag && qi + P.q_off < kj + P.k_off) x = kMaskValue;
+      const float p = exp2_(x - lse_s[col(e, t)]);
+      float keep = 1.f;
+      if (P.rate > 0.f) {
+        const uint32_t bits = dropout_bits(P.seed, bh, qi + P.q_off, kj + P.k_off);
+        keep = bits >= P.threshold ? inv_keep : 0.f;
+      }
+      pd = p * keep;
+      gd = p * (dp[e] * keep - dlt_s[col(e, t)]);
+    }
+    sc[e] = pd;
+    dp[e] = gd;
+  }
+}
+
+// ---------------------------------------------------------------- forward
+template <typename T, int DP>
+__global__ void __launch_bounds__(288, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv, T* __restrict__ out,
+                    float* __restrict__ lse, Params P) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  constexpr int kTile = tile_bytes<DP>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);               // one tile per consumer warpgroup
+  uint8_t* sK = sQ + 2 * kTile;                    // kStages tiles
+  uint8_t* sV = sK + kStages * kTile;              // kStages tiles
+  float* sBias = reinterpret_cast<float*>(sV + kStages * kTile);   // [kStages][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sBias + kStages * kRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int q0 = qt * 2 * kRows;
+  const int n_wg = q0 + kRows < P.T ? 2 : 1;       // warpgroups with a row below T
+  const int n_kt = (P.T + kRows - 1) / kRows;
+  // causal: up to the last warpgroup's diagonal tile
+  const int n_tiles = P.causal ? q0 / kRows + n_wg : n_kt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&full[s], 32);         // the producer's lanes, and the TMA bytes
+      tc::mbar_init(&empty[s], 4 * n_wg);  // one arrival per consumer warp
+    }
+    tc::mbar_init(q_full, 1);
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ------------------------------------------- producer
+    const float* bias_row = P.bias ? P.bias + static_cast<long long>(bh / P.H) * P.T : nullptr;
+    if (lane == 0) {
+      tc::mbar_arrive_expect_tx(q_full, n_wg * kTile);
+      for (int w = 0; w < n_wg; ++w)
+        for (int a = 0; a < DP / 64; ++a)
+          tc::tma_load(sQ + w * kTile + a * kAtom, &mq, q_full, 64 * a, q0 + kRows * w, bh);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) tc::mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+      const int k0 = i * kRows;
+      if (bias_row) {
+        for (int c = lane; c < kRows; c += 32)
+          sBias[s * kRows + c] = k0 + c < P.T ? bias_row[k0 + c] * kLog2e : 0.f;
+      }
+      if (lane == 0) {
+        tc::mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        for (int a = 0; a < DP / 64; ++a) {
+          tc::tma_load(sK + s * kTile + a * kAtom, &mk, &full[s], 64 * a, k0, bh);
+          tc::tma_load(sV + s * kTile + a * kAtom, &mv, &full[s], 64 * a, k0, bh);
+        }
+      } else {
+        tc::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  const int wg = warp / 4;
+  if (wg >= n_wg) return;
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, g = lane / 4, t = lane % 4;
+  const int q0w = q0 + kRows * wg;
+  const int n_mine = P.causal ? q0w / kRows + 1 : n_kt;   // key tiles this warpgroup needs
+  const int r0 = q0w + 16 * w + g;                         // this thread's rows r0, r0 + 8
+  const float inv_keep = P.rate > 0.f ? 1.f / (1.f - P.rate) : 1.f;
+  uint8_t* myQ = sQ + wg * kTile;
+
+  tc::mbar_wait(q_full, 0);
+  scale_tile<T>(myQ, kTile, P.op_scale, tid);
+  tc::fence_proxy_async();
+  tc::named_sync(1 + wg, 128);
+
+  float o[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) o[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    tc::mbar_wait(&full[s], (i / kStages) & 1);
+    if (i < n_mine) {
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      const uint8_t* ktile = sK + s * kTile;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::wgmma_ss_n64<kHalf>(sc, tc::desc_k(myQ, kk, kAtom), tc::desc_k(ktile, kk, kAtom), kk);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(sc);
+
+      const int k0 = i * kRows;
+      const float* bias_s = sBias + s * kRows;
+      const bool diag = P.causal && k0 + kRows - 1 > q0w;
+      float mx[2];
+      if (diag || k0 + kRows > P.T)
+        fwd_scores<true>(sc, mx, P, bias_s, k0, r0, t, diag);
+      else
+        fwd_scores<false>(sc, mx, P, bias_s, k0, r0, t, diag);
+      float m_new[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = m_new[r] == -INFINITY ? 1.f : exp2_(m[r] - m_new[r]);
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = row8(e);
+        float p = m_new[r] == -INFINITY ? 0.f : exp2_(sc[e] - m_new[r]);
+        rs[r] += p;
+        if (P.rate > 0.f) {
+          const uint32_t bits =
+              dropout_bits(P.seed, bh, r0 + 8 * r + P.q_off, k0 + col(e, t) + P.k_off);
+          p = bits >= P.threshold ? p * inv_keep : 0.f;
+        }
+        sc[e] = p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * alpha[r] + quad_sum(rs[r]);
+        m[r] = m_new[r];
+      }
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e) o[e] *= alpha[row8(e)];
+
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tc::acc_to_a<kHalf>(sc, kk, pa[kk]);
+      const uint8_t* vtile = sV + s * kTile;
+      tc::fence_regs(o);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tc::wgmma_rs<kHalf>(o, pa[kk], tc::desc_mn(vtile, kk, kAtom), 1);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(o);
+    }
+    if (lane == 0) tc::mbar_arrive(&empty[s]);
+  }
+
+  const long long base = static_cast<long long>(bh) * P.T * P.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi >= P.T) continue;
+    const float li = fmaxf(l[r], 1e-30f);
+    T* orow = out + base + static_cast<long long>(qi) * P.D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < P.D) store2(orow + c, o[4 * j + 2 * r] / li, o[4 * j + 2 * r + 1] / li);
+    }
+    if (t == 0) lse[static_cast<long long>(bh) * P.T + qi] = m[r] / kLog2e + logf(li);
+  }
+}
+
+// ---------------------------------------------------------------- dk, dv
+template <typename T, int DP, int NWG>
+__global__ void __launch_bounds__(dkv_threads<NWG>(), 1)
+flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv,
+                        const __grid_constant__ CUtensorMap mdo,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dk, T* __restrict__ dv, Params P) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  constexpr int kTile = tile_bytes<DP>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);               // NWG tiles, resident
+  uint8_t* sV = sK + NWG * kTile;                  // NWG tiles, resident
+  uint8_t* sQ = sV + NWG * kTile;                  // kStages tiles
+  uint8_t* sO = sQ + kStages * kTile;              // dO, kStages tiles
+  float* sL = reinterpret_cast<float*>(sO + kStages * kTile);   // [kStages][64] lse * log2(e)
+  float* sD = sL + kStages * kRows;                              // [kStages][64] delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(sD + kStages * kRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  // causal: the first key tiles have the most query tiles, so run them first
+  const int kt = P.causal ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int k0 = kt * NWG * kRows;
+  const int n_wg = min(NWG, (P.T - k0 + kRows - 1) / kRows);
+  const int first = P.causal ? k0 / kRows : 0;     // the first query tile
+  const int n_tiles = (P.T + kRows - 1) / kRows - first;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&full[s], 32);
+      tc::mbar_init(&empty[s], 4 * n_wg);
+    }
+    tc::mbar_init(kv_full, 1);
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {  // ------------------------------- producer (warp)
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (warp > 4 * NWG) return;
+    if (lane == 0) {
+      tc::mbar_arrive_expect_tx(kv_full, 2 * n_wg * kTile);
+      for (int w = 0; w < n_wg; ++w)
+        for (int a = 0; a < DP / 64; ++a) {
+          tc::tma_load(sK + w * kTile + a * kAtom, &mk, kv_full, 64 * a, k0 + kRows * w, bh);
+          tc::tma_load(sV + w * kTile + a * kAtom, &mv, kv_full, 64 * a, k0 + kRows * w, bh);
+        }
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) tc::mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+      const int q0 = (first + i) * kRows;
+      for (int c = lane; c < kRows; c += 32) {
+        const bool in = q0 + c < P.T;
+        const long long row = static_cast<long long>(bh) * P.T + q0 + c;
+        sL[s * kRows + c] = in ? lse[row] * kLog2e : 0.f;
+        sD[s * kRows + c] = in ? delta[row] : 0.f;
+      }
+      if (lane == 0) {
+        tc::mbar_arrive_expect_tx(&full[s], 2 * kTile);
+        for (int a = 0; a < DP / 64; ++a) {
+          tc::tma_load(sQ + s * kTile + a * kAtom, &mq, &full[s], 64 * a, q0, bh);
+          tc::tma_load(sO + s * kTile + a * kAtom, &mdo, &full[s], 64 * a, q0, bh);
+        }
+      } else {
+        tc::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int wg = warp / 4;
+  if (wg >= n_wg) return;
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, g = lane / 4, t = lane % 4;
+  const int k0w = k0 + kRows * wg;
+  const int first_mine = P.causal ? k0w / kRows : 0;  // query tiles before it: all masked
+  const int kr0 = k0w + 16 * w + g;                    // this thread's keys kr0, kr0 + 8
+  const float inv_keep = P.rate > 0.f ? 1.f / (1.f - P.rate) : 1.f;
+  const float* bias_row = P.bias ? P.bias + static_cast<long long>(bh / P.H) * P.T : nullptr;
+  float bk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    bk[r] = bias_row && kr0 + 8 * r < P.T ? bias_row[kr0 + 8 * r] * kLog2e : 0.f;
+  uint8_t* myK = sK + wg * kTile;
+  const uint8_t* myV = sV + wg * kTile;
+
+  tc::mbar_wait(kv_full, 0);
+  scale_tile<T>(myK, kTile, P.op_scale, tid);
+  tc::fence_proxy_async();
+  tc::named_sync(1 + wg, 128);
+
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) dka[e] = dva[e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    tc::mbar_wait(&full[s], (i / kStages) & 1);
+    const int qt = first + i;
+    if (qt >= first_mine) {
+      const uint8_t* qtile = sQ + s * kTile;
+      const uint8_t* otile = sO + s * kTile;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::wgmma_ss_n64<kHalf>(sc, tc::desc_k(myK, kk, kAtom), tc::desc_k(qtile, kk, kAtom), kk);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::wgmma_ss_n64<kHalf>(dp, tc::desc_k(myV, kk, kAtom), tc::desc_k(otile, kk, kAtom), kk);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(sc);
+      tc::fence_regs(dp);
+
+      // query tiles whose first row is past this warpgroup's last key need
+      // no mask; the last tile may reach past T
+      const int q0 = qt * kRows;
+      const float* lse_s = sL + s * kRows;
+      const float* dlt_s = sD + s * kRows;
+      const bool diag = P.causal && q0 < k0w + kRows - 1;
+      if (diag || q0 + kRows > P.T)
+        dkv_probs<true>(sc, dp, P, lse_s, dlt_s, bk, q0, kr0, t, diag, bh, inv_keep);
+      else
+        dkv_probs<false>(sc, dp, P, lse_s, dlt_s, bk, q0, kr0, t, diag, bh, inv_keep);
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        tc::acc_to_a<kHalf>(sc, kk, pa[kk]);
+        tc::acc_to_a<kHalf>(dp, kk, da[kk]);
+      }
+      tc::fence_regs(dva);
+      tc::fence_regs(dka);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_rs<kHalf>(dva, pa[kk], tc::desc_mn(otile, kk, kAtom), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_rs<kHalf>(dka, da[kk], tc::desc_mn(qtile, kk, kAtom), 1);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(dva);
+      tc::fence_regs(dka);
+    }
+    if (lane == 0) tc::mbar_arrive(&empty[s]);
+  }
+
+  const long long base = static_cast<long long>(bh) * P.T * P.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = kr0 + 8 * r;
+    if (kj >= P.T) continue;
+    const long long at = base + static_cast<long long>(kj) * P.D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < P.D) {
+        store2(dk + at + c, dka[4 * j + 2 * r] * P.sm_scale, dka[4 * j + 2 * r + 1] * P.sm_scale);
+        store2(dv + at + c, dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+template <typename T, int DP>
+cudaError_t launch_tc(int pass, int BH, const void* q, const void* k, const void* v,
+                      const void* dout, float* lse, const float* delta, void* o1, void* o2,
+                      const Params& P, cudaStream_t st) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = tc::make_map(&mq, q, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess ||
+      (err = tc::make_map(&mk, k, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess ||
+      (err = tc::make_map(&mv, v, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess) {
+    return err;
+  }
+  if (pass == kFwd) {
+    constexpr int smem = fwd_smem<DP>();
+    auto kernel = flash_fwd_tc_kernel<T, DP>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((P.T + 2 * kRows - 1) / (2 * kRows), BH);
+    kernel<<<grid, 288, smem, st>>>(mq, mk, mv, static_cast<T*>(o1), lse, P);
+  } else {
+    err = tc::make_map(&mdo, dout, kHalf, BH, P.T, P.D, kRows);
+    if (err != cudaSuccess) return err;
+    constexpr int NWG = DP == 64 ? 2 : 1;
+    constexpr int smem = dkv_smem<DP, NWG>();
+    auto kernel = flash_bwd_dkv_tc_kernel<T, DP, NWG>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((P.T + NWG * kRows - 1) / (NWG * kRows), BH);
+    kernel<<<grid, dkv_threads<NWG>(), smem, st>>>(mq, mk, mv, mdo, lse, delta, static_cast<T*>(o1),
+                                               static_cast<T*>(o2), P);
+  }
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+int run_tc(int pass, const void* q, const void* k, const void* v, const void* dout,
+           float* lse, const float* delta, const float* bias, void* o1, void* o2, int BH,
+           int H, int T, int D, float sm_scale, float op_scale, int causal, float rate,
+           unsigned threshold, unsigned seed, int q_off, int k_off, int dtype, void* stream) {
+  if (BH < 1 || H < 1 || BH % H != 0 || T < 1 || D < 8 || D > 128 || D % 8 != 0 ||
+      BH > 65535 || (dtype != 1 && dtype != 2) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params P{H, T, D, sm_scale, op_scale, causal, bias, rate, threshold, seed, q_off, k_off};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1) {
+    err = D <= 64 ? launch_tc<__nv_bfloat16, 64>(pass, BH, q, k, v, dout, lse, delta, o1, o2, P, st)
+                  : launch_tc<__nv_bfloat16, 128>(pass, BH, q, k, v, dout, lse, delta, o1, o2, P, st);
+  } else {
+    err = D <= 64 ? launch_tc<__half, 64>(pass, BH, q, k, v, dout, lse, delta, o1, o2, P, st)
+                  : launch_tc<__half, 128>(pass, BH, q, k, v, dout, lse, delta, o1, o2, P, st);
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace tcfa
+
 }  // namespace
 
 // q, k, v, out: [B*H, T, D] contiguous of one type (dtype 0 float32,
@@ -609,4 +1193,28 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   return run(kDkv, q, k, v, dout, const_cast<float*>(lse), delta, bias, dk, dv, BH,
              H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off,
              dtype, stream);
+}
+
+// The tensor-core entries: the arguments of flash_fwd and flash_bwd_dkv, for
+// dtype 1 (bfloat16) or 2 (float16), D <= 128 a multiple of 8, and q, k, v,
+// dout 16-byte aligned; anything else returns cudaErrorInvalidValue.
+extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
+                            const float* bias, void* out, float* lse, int BH, int H,
+                            int T, int D, float sm_scale, float op_scale, int causal,
+                            float rate, unsigned threshold, unsigned seed, int q_off,
+                            int k_off, int dtype, void* stream) {
+  return tcfa::run_tc(kFwd, q, k, v, nullptr, lse, nullptr, bias, out, nullptr, BH, H, T, D,
+                      sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off, dtype,
+                      stream);
+}
+
+extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse, const float* delta,
+                                const float* bias, void* dk, void* dv, int BH, int H,
+                                int T, int D, float sm_scale, float op_scale, int causal,
+                                float rate, unsigned threshold, unsigned seed, int q_off,
+                                int k_off, int dtype, void* stream) {
+  return tcfa::run_tc(kDkv, q, k, v, dout, const_cast<float*>(lse), delta, bias, dk, dv, BH,
+                      H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off,
+                      dtype, stream);
 }

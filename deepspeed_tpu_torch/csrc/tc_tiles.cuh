@@ -1,0 +1,252 @@
+// Tensor-core helpers for Hopper (sm_90a), as raw PTX: TMA tensor maps and
+// loads, mbarriers, 128-byte-swizzled wgmma descriptors and the wgmma shapes
+// the attention kernels use. No CuTe: its templates add minutes to a build.
+//
+// Shared-memory tiles are [rows, 64] atoms of 16-bit elements, 128 bytes a
+// row, as TMA writes them under CU_TENSOR_MAP_SWIZZLE_128B; a row of DP
+// elements is DP / 64 such atoms side by side, each atom at a 1024-byte
+// aligned address (the swizzle is a function of the address bits, so TMA and
+// wgmma agree only on aligned atoms).
+#pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tc {
+
+// ------------------------------------------------------------------ host
+// cuTensorMapEncodeTiled looked up at run time (cudaGetDriverEntryPoint), so
+// that nothing links libcuda.
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A contiguous [BH, T, D] tensor of 16-bit elements (half: float16, else
+// bfloat16) as a 3-D map with a box of 64 columns x `rows` rows x one head:
+// a box never crosses into the next head, and rows past T and columns past D
+// arrive as zeros. D * 2 bytes must be a multiple of 16 and ptr 16-aligned.
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, bool half, int BH, int T,
+                            int D, int rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
+                        static_cast<cuuint64_t>(BH)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                           static_cast<cuuint64_t>(T) * D * 2};
+  cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  cuuint32_t elem_strides[3] = {1, 1, 1};
+  CUresult r = encode(map, half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------- device
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity
+// (0 for its first phase, then alternating). A wait of more than about ten
+// seconds can only be a fault in the pipeline: it traps, so that the launch
+// fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - start > 20000000000ll) __trap();
+  } while (!done);
+}
+
+// One TMA box at (column c0, row c1, head c2) into shared memory; completion
+// is reported to `bar` as transaction bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Thread-written shared memory made visible to the async proxy (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier over `count` threads (a warpgroup) on hardware barrier `id` > 0.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand. SBO = 1024
+// bytes (the next 8 rows); lbo: for an MN-major operand the stride between
+// its 64-element column atoms, ignored for a K-major one.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// The k16 step `kk` of a K-major [rows, DP] tile: atom kk / 4, 32 bytes a step
+// inside the atom. atom_bytes: the size of one [rows, 64] atom.
+__device__ __forceinline__ uint64_t desc_k(const uint8_t* tile, int kk, int atom_bytes) {
+  return desc_sw128(tile + (kk / 4) * atom_bytes + (kk % 4) * 32, 16);
+}
+
+// The k16 step `kk` of an MN-major [K rows, N] tile (K = rows): 16 rows of 128
+// bytes a step; its N atoms atom_bytes apart.
+__device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int kk, int atom_bytes) {
+  return desc_sw128(tile + kk * 2048, atom_bytes);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// between a wgmma and its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Two floats rounded to one packed 16-bit pair, the first in the low half:
+// a register A fragment of wgmma.
+template <bool kHalf>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+// ------------------------------------------------------------------ wgmma
+// D[64, N] (+)= A[64, 16] * B[16, N], f32 accumulators. The accumulator
+// fragment: thread (warp w, lane 4g + t) holds d[4j + c] at row 16w + g +
+// 8 (c / 2), column 8j + 2t + c % 2. ss: A and B K-major in shared memory;
+// rs: A in registers (the same layout as a 64 x 16 slice of the
+// accumulator, packed in pairs), B MN-major in shared memory (transposed).
+// acc = 0 overwrites D.
+#define TC_D8(i)                                                                           \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TC_D32 TC_D8(0), TC_D8(8), TC_D8(16), TC_D8(24)
+#define TC_D64 TC_D32, TC_D8(32), TC_D8(40), TC_D8(48), TC_D8(56)
+#define TC_R32                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "   \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TC_R64                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "   \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "    \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define TC_SS_N64(TY)                                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " TC_R32 \
+               ", %32, %33, p, 1, 1, 0, 0;\n}"                                     \
+               : TC_D32 : "l"(da), "l"(db), "r"(acc))
+#define TC_RS_N64(TY)                                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " TC_R32 \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"                       \
+               : TC_D32 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
+#define TC_RS_N128(TY)                                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " TC_R64 \
+               ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"                        \
+               : TC_D64 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc))
+
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  if constexpr (kHalf) TC_SS_N64("f16");
+  else TC_SS_N64("bf16");
+}
+
+// N = 64 or 128 (the padded head dim) by the accumulator's size
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  if constexpr (kHalf) TC_RS_N64("f16");
+  else TC_RS_N64("bf16");
+}
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  if constexpr (kHalf) TC_RS_N128("f16");
+  else TC_RS_N128("bf16");
+}
+
+#undef TC_SS_N64
+#undef TC_RS_N64
+#undef TC_RS_N128
+#undef TC_R64
+#undef TC_R32
+#undef TC_D64
+#undef TC_D32
+#undef TC_D8
+
+// The A fragments of k16 step kk from a 64 x 64 f32 accumulator (32 values a
+// thread): columns 16kk .. 16kk + 15 rounded to 16 bits in pairs.
+template <bool kHalf>
+__device__ __forceinline__ void acc_to_a(const float (&s)[32], int kk, uint32_t (&a)[4]) {
+  a[0] = pack2<kHalf>(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack2<kHalf>(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack2<kHalf>(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack2<kHalf>(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+}  // namespace tc

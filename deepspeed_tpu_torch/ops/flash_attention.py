@@ -2,10 +2,17 @@
 versions.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. The kernels
-are ``csrc/flash_attention.cu``: ``flash_fwd`` (replaces the TPU kernel
-``_fwd_kernel``), ``flash_bwd_dq`` (``_bwd_dq_kernel``) and
-``flash_bwd_dkv`` (``_bwd_dkv_kernel``). They take q, k, v ``[B, H, T, D]``
-with one T, in float32, bfloat16 or float16, any T, and an even D <= 256.
+are ``csrc/flash_attention.cu``: the forward (replaces the TPU kernel
+``_fwd_kernel``), dq (``_bwd_dq_kernel``) and dk/dv (``_bwd_dkv_kernel``).
+They take q, k, v ``[B, H, T, D]`` with one T, in float32, bfloat16 or
+float16, any T, and an even D <= 256.
+
+The forward and dk/dv come in two designs, chosen by shape alone
+(``_tensor_core_path``): bfloat16/float16 with D <= 128 a multiple of 8 run
+the tensor-core kernels (``flash_fwd_tc``, ``flash_bwd_dkv_tc``: TMA-fed
+``wgmma`` tiles); float32 and the other head dims the CUDA-core kernels
+(``flash_fwd``, ``flash_bwd_dkv``). dq always runs ``flash_bwd_dq`` on the
+CUDA cores. A failed build or launch raises; nothing falls back.
 
 ``flash_attention`` and ``flash_attention_with_lse`` keep the JAX signatures.
 For CUDA tensors they run the kernels through ``_FlashAttention`` (a
@@ -15,7 +22,8 @@ backward kernels). For CPU tensors they run the plain version
 (``flash_attention_reference``: dense float32 softmax, autograd for the
 backward). There is no other fallback. Each launch function counts its
 launches in ``<function>.launches`` (a plain integer; set it to 0 to start a
-count).
+count); the forward and dk/dv also count those that ran the tensor-core
+design in ``<function>.tensor_core_launches``.
 
 The TPU package's ``_RESIDENT_T_LIMIT`` / ``_flash_attention_chunked`` and
 its v5e block table exist for the TPU's scoped VMEM: the CUDA kernels take
@@ -136,6 +144,13 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None, bias=None,
 # kernel launches
 # ---------------------------------------------------------------------------
 
+def _tensor_core_path(dtype, D) -> bool:
+    """The shape rule between the two designs of the forward and dk/dv
+    kernels: 16-bit operands (what ``wgmma`` multiplies) and a head dim that
+    fits one 128-wide tile and gives TMA rows of a multiple of 16 bytes."""
+    return dtype in (torch.bfloat16, torch.float16) and D <= 128 and D % 8 == 0
+
+
 def _lib():
     lib = _build.load("flash_attention")
     if lib.flash_fwd.argtypes is None:
@@ -144,10 +159,11 @@ def _lib():
                 f32, f32, i32,               # sm_scale, op_scale, causal
                 f32, u32, u32, i32, i32,     # rate, threshold, seed, q_off, k_off
                 i32, vp]                     # dtype, stream
-        lib.flash_fwd.argtypes = [vp, vp, vp, vp, vp, vp] + tail
+        lib.flash_fwd.argtypes = lib.flash_fwd_tc.argtypes = [vp] * 6 + tail
         lib.flash_bwd_dq.argtypes = [vp] * 8 + tail
-        lib.flash_bwd_dkv.argtypes = [vp] * 9 + tail
-        for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
+        lib.flash_bwd_dkv.argtypes = lib.flash_bwd_dkv_tc.argtypes = [vp] * 9 + tail
+        for fn in (lib.flash_fwd, lib.flash_fwd_tc, lib.flash_bwd_dq, lib.flash_bwd_dkv,
+                   lib.flash_bwd_dkv_tc):
             fn.restype = ctypes.c_int
     return lib
 
@@ -194,22 +210,26 @@ def _bias_ptr(bias):
 
 def flash_attention_fwd(q, k, v, *, causal, sm_scale, bias=None, dropout_rate=0.0,
                         dropout_seed=None, q_offset=0, k_offset=0):
-    """Launch ``flash_fwd``: returns ``(out, lse)``, out in q's dtype and lse
+    """Launch ``flash_fwd_tc`` or ``flash_fwd`` by the shape rule
+    (``_tensor_core_path``): returns ``(out, lse)``, out in q's dtype and lse
     float32 ``[B, H, T]`` (natural log). q, k, v contiguous ``[B, H, T, D]``
     on one card; bias contiguous float32 ``[B, T]`` or None."""
     _check_launch(q, k, v, bias=bias)
     lib = _lib()
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
+    tensor_cores = _tensor_core_path(q.dtype, D)
+    entry = lib.flash_fwd_tc if tensor_cores else lib.flash_fwd
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias),
-                            out.data_ptr(), lse.data_ptr(),
-                            *_tail(q, H, sm_scale, causal, dropout_rate, dropout_seed,
-                                   q_offset, k_offset))
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias),
+                    out.data_ptr(), lse.data_ptr(),
+                    *_tail(q, H, sm_scale, causal, dropout_rate, dropout_seed,
+                           q_offset, k_offset))
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry.__name__} kernel launch failed: cudaError {err}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tensor_core_launches += tensor_cores
     return out, lse
 
 
@@ -234,25 +254,29 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, bias=No
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, bias=None,
                             dropout_rate=0.0, dropout_seed=None, q_offset=0, k_offset=0):
-    """Launch ``flash_bwd_dkv``: returns ``(dk, dv)`` in k's dtype."""
+    """Launch ``flash_bwd_dkv_tc`` or ``flash_bwd_dkv`` by the shape rule:
+    returns ``(dk, dv)`` in k's dtype."""
     _check_launch(q, k, v, do, lse, delta, bias)
     lib = _lib()
+    tensor_cores = _tensor_core_path(q.dtype, q.shape[3])
+    entry = lib.flash_bwd_dkv_tc if tensor_cores else lib.flash_bwd_dkv
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                lse.data_ptr(), delta.data_ptr(), _bias_ptr(bias),
-                                dk.data_ptr(), dv.data_ptr(),
-                                *_tail(q, q.shape[1], sm_scale, causal, dropout_rate,
-                                       dropout_seed, q_offset, k_offset))
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    lse.data_ptr(), delta.data_ptr(), _bias_ptr(bias),
+                    dk.data_ptr(), dv.data_ptr(),
+                    *_tail(q, q.shape[1], sm_scale, causal, dropout_rate,
+                           dropout_seed, q_offset, k_offset))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{entry.__name__} kernel launch failed: cudaError {err}")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.tensor_core_launches += tensor_cores
     return dk, dv
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = flash_attention_fwd.tensor_core_launches = 0
 flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches = flash_attention_bwd_dkv.tensor_core_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -197,6 +197,37 @@ def test_launchers_validate_before_the_kernel():
     assert fa.flash_attention_fwd.launches == 0
 
 
+@pytest.mark.parametrize("dtype,D,tensor_cores", [
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True), (torch.float16, 64, True),
+    (torch.float16, 128, True), (torch.bfloat16, 40, True), (torch.bfloat16, 8, True),
+    (torch.bfloat16, 36, False), (torch.bfloat16, 136, False), (torch.bfloat16, 256, False),
+    (torch.float16, 256, False)])
+def test_tensor_core_path_shape_rule(dtype, D, tensor_cores):
+    """16-bit operands with D <= 128 a multiple of 8 take the tensor-core
+    kernels; float32, D > 128 and D not a multiple of 8 the CUDA-core ones."""
+    assert fa._tensor_core_path(dtype, D) is tensor_cores
+
+
+def test_cpu_tensors_of_a_tensor_core_shape_take_the_plain_version():
+    """bf16 at D = 64 is a tensor-core shape, but CPU tensors run the plain
+    version: no kernel of either design is launched, and the result is the
+    plain version's."""
+    q, k, v, _, _, _ = _inputs((1, 2, 48, 64), seed=7)
+    qt, kt, vt = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    counts = [fa.flash_attention_fwd.launches, fa.flash_attention_fwd.tensor_core_launches,
+              fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dkv.tensor_core_launches]
+    out, lse = fa.flash_attention_with_lse(qt, kt, vt, causal=True)
+    want_out, want_lse = fa.flash_attention_reference(qt, kt, vt, causal=True)
+    torch.testing.assert_close(out, want_out, atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
+    assert counts == [fa.flash_attention_fwd.launches,
+                      fa.flash_attention_fwd.tensor_core_launches,
+                      fa.flash_attention_bwd_dkv.launches,
+                      fa.flash_attention_bwd_dkv.tensor_core_launches]
+
+
 # --------------------------------------------------------------------- card
 CUDA_CASES = [
     # (B, H, T, D, dtype, causal, bias, rate)
@@ -206,6 +237,13 @@ CUDA_CASES = [
     (1, 2, 96, 256, torch.float32, True, False, 0.0),       # D = 256
     (2, 2, 160, 32, torch.float32, False, False, 0.1),      # dropout
     (1, 2, 77, 40, torch.float32, True, False, 0.0),        # D not a tile width
+    (2, 2, 192, 64, torch.bfloat16, False, True, 0.0),      # tensor cores: bias
+    (1, 2, 320, 128, torch.float16, False, True, 0.0),      # tensor cores: D 128, bias
+    (2, 2, 256, 64, torch.bfloat16, True, False, 0.1),      # tensor cores: dropout
+    (2, 2, 256, 64, torch.bfloat16, True, False, 0.5),
+    (1, 2, 1, 64, torch.bfloat16, True, False, 0.0),        # tensor cores: T = 1
+    (1, 2, 17, 64, torch.bfloat16, True, False, 0.0),       # T = 17
+    (1, 2, 64, 256, torch.bfloat16, True, False, 0.0),      # bf16 past the rule: CUDA cores
 ]
 
 
@@ -234,10 +272,15 @@ def test_cuda_kernels_match_plain_version(case):
         ((out.float() * g).sum() + (lse * g_lse).sum()).backward()
         return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
 
-    before = fa.flash_attention_fwd.launches
+    before = [fa.flash_attention_fwd.launches, fa.flash_attention_fwd.tensor_core_launches,
+              fa.flash_attention_bwd_dkv.tensor_core_launches]
     got, want = run(True), run(False)
     torch.cuda.synchronize()
-    assert fa.flash_attention_fwd.launches == before + 1
+    # which design ran: the shape rule, counted by the wrappers
+    tc = int(fa._tensor_core_path(dtype, Dc))
+    assert [fa.flash_attention_fwd.launches, fa.flash_attention_fwd.tensor_core_launches,
+            fa.flash_attention_bwd_dkv.tensor_core_launches] == [
+        before[0] + 1, before[1] + tc, before[2] + tc]
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b, name in zip(got, want, ("out", "lse", "dq", "dk", "dv")):
         scale = float(b.abs().max()) + 1e-6
