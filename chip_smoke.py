@@ -22,20 +22,20 @@ result line):
    pools; then a short ``torch.profiler`` window for where the time goes;
 5. flash kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the training shape and at edge cases
-   (ragged T, T = 9000, D = 128, float32, float16, key bias, dropout at rates
-   0.1 and 0.5, bf16 at D = 256) and at the BERT path's shape (non-causal with
-   a key bias); checks that each case ran the design the shape rule names
-   (tensor cores for bf16/fp16 at D <= 128, else CUDA cores); times at the
+   (ragged T, T = 9000, D = 32 and 128, float32, float16, key bias, dropout at
+   rates 0.1 and 0.5, global offsets with and without the causal mask, bf16 at
+   D = 256) and at the BERT path's shape (non-causal with a key bias); checks
+   that each case ran the design the shape rule names (tensor cores for
+   bf16/fp16 at D <= 128, else CUDA cores) in all three kernels; times at the
    training shape beside the plain version, SDPA and the CUDA-core design of
-   the forward and dk/dv on the same inputs;
+   each kernel on the same inputs;
 6. training — GPT-2 1.5B (the same widths, ``use_flash_attention``, no remat)
    through ``initialize`` at ZeRO-2 in bf16, micro-batch 4 x 2 accumulation
    steps, for 12 optimizer steps on one seeded batch; checks the first
    micro-batch's loss and per-layer grad norms against the plain attention
    path (bf16 at full depth, float32 at 4 layers), that the losses are finite
-   and fall, that each flash kernel ran once per layer per micro-step and the
-   forward and dk/dv on the tensor cores each time; then a profiler window of
-   one step;
+   and fall, that each flash kernel ran once per layer per micro-step and on
+   the tensor cores each time; then a profiler window of one step;
 7. block-sparse kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the long-sequence path's shape (the
    Variable layout at block 256, T = 8192, causal) and at layouts of blocks
@@ -70,8 +70,8 @@ result line):
    micro-batch 16, flash attention with the padding mask as a key bias)
    through ``initialize`` at ZeRO-2 in bf16 with LAMB, 10 steps on one seeded
    masked-LM batch whose attention mask rides in the batch; the same checks
-   (each flash kernel 24 times per micro-step, the forward and dk/dv on the
-   tensor cores); then one BERT-large layer
+   (each flash kernel 24 times per micro-step, on the tensor cores); then one
+   BERT-large layer
    forward + backward at two shapes with the mask and train-mode dropout
    against the dense attention path under the same seeds, and its time;
 12. result — one ``{"kernels": [...]}`` line, then the last line
@@ -415,10 +415,12 @@ def profile(eng, cfg):
 
 
 # --------------------------------------------------------------------- training
-def _flash_case(B, H, T, D, dtype, causal=True, bias=False, rate=0.0, seed=0):
+def _flash_case(B, H, T, D, dtype, causal=True, bias=False, rate=0.0, offsets=(0, 0),
+                seed=0):
     """(kernel, plain) results of one case on the same seeded inputs: each a
     list [out, lse, dq, dk, dv] from the forward and from the backward of
-    sum(out * g) + sum(lse * g_lse)."""
+    sum(out * g) + sum(lse * g_lse). ``offsets``: the global positions of
+    local q and k position 0 (the dropout hash and the causal mask)."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn((B, H, T, D), generator=gen, device="cuda").to(dtype)
@@ -431,10 +433,11 @@ def _flash_case(B, H, T, D, dtype, causal=True, bias=False, rate=0.0, seed=0):
     def run(kernel):
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
         if kernel:   # the wrappers' core: kernels under the autograd Function
-            out, lse = fa._attend(qs, ks, vs, causal, None, b, rate, dseed, 0, 0)
+            out, lse = fa._attend(qs, ks, vs, causal, None, b, rate, dseed, *offsets)
         else:
             out, lse = fa.flash_attention_reference(qs, ks, vs, causal, bias=b,
-                                                    dropout_rate=rate, dropout_seed=dseed)
+                                                    dropout_rate=rate, dropout_seed=dseed,
+                                                    q_offset=offsets[0], k_offset=offsets[1])
         ((out.float() * g.float()).sum() + (lse * g_lse).sum()).backward()
         return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
 
@@ -445,7 +448,7 @@ def phase_flash_kernels():
     """The three flash kernels against their plain version at the training
     path's shape and at edge cases; then times at the main shape."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
-    cases = [  # (B, H, T, D, dtype, causal, bias, rate)
+    cases = [  # (B, H, T, D, dtype, causal, bias, rate[, (q_offset, k_offset)])
         (*FLASH_SHAPE, torch.bfloat16, True, False, 0.0),   # the main path
         (2, 4, 200, 64, torch.bfloat16, True, False, 0.0),  # ragged tail
         (1, 1, 9000, 64, torch.bfloat16, True, False, 0.0), # past the TPU's VMEM cap
@@ -459,6 +462,10 @@ def phase_flash_kernels():
         (16, 16, 512, 64, torch.bfloat16, False, True, 0.5),  # BERT's shape, bias, dropout
         (2, 4, 384, 128, torch.float16, False, True, 0.0),  # fp16 D = 128 with bias
         (1, 2, 256, 256, torch.bfloat16, True, False, 0.0),  # bf16 past the shape rule
+        (2, 4, 256, 32, torch.bfloat16, True, False, 0.0),  # D = 32: TMA's zero fill to 64
+        (2, 4, 384, 32, torch.float16, False, True, 0.0),   # D = 32 with a key bias
+        (2, 4, 512, 64, torch.bfloat16, False, False, 0.1, (128, 0)),   # offsets: the hash
+        (2, 4, 512, 64, torch.bfloat16, True, False, 0.1, (256, 256)),  # equal, causal
     ]
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     for case in cases:
@@ -466,8 +473,8 @@ def phase_flash_kernels():
         got, want = _flash_case(*case)
         torch.cuda.synchronize()
         ran = [a - b for a, b in zip(_tensor_core_launches(), tc_before)]
-        if ran != [int(fa._tensor_core_path(case[4], case[3]))] * 2:
-            raise AssertionError(f"flash {case}: tensor-core launches (fwd, dk/dv) {ran} "
+        if ran != [int(fa._tensor_core_path(case[4], case[3]))] * 3:
+            raise AssertionError(f"flash {case}: tensor-core launches (fwd, dq, dk/dv) {ran} "
                                  "disagree with the shape rule")
         tol = FLASH_TOL[case[4]]
         errs = {}
@@ -492,11 +499,12 @@ def phase_flash_kernels():
 def _tensor_core_launches():
     from deepspeed_tpu_torch.ops import flash_attention as fa
     return [fa.flash_attention_fwd.tensor_core_launches,
+            fa.flash_attention_bwd_dq.tensor_core_launches,
             fa.flash_attention_bwd_dkv.tensor_core_launches]
 
 
 def _cuda_core_entries(H, sm_scale):
-    """The CUDA-core forward and dk/dv entries called directly on bf16
+    """The CUDA-core forward, dq and dk/dv entries called directly on bf16
     inputs that the shape rule sends to the tensor cores: the earlier design,
     timed beside its redesign on the same inputs (no launch counted)."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
@@ -510,6 +518,15 @@ def _cuda_core_entries(H, sm_scale):
             raise RuntimeError(f"flash_fwd: cudaError {err}")
         return out, lse
 
+    def dq(q, k, v, do, lse, delta):
+        out = torch.empty_like(q)
+        err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                               lse.data_ptr(), delta.data_ptr(), None, out.data_ptr(),
+                               *fa._tail(q, H, sm_scale, True, 0.0, None, 0, 0))
+        if err:
+            raise RuntimeError(f"flash_bwd_dq: cudaError {err}")
+        return out
+
     def dkv(q, k, v, do, lse, delta):
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -519,14 +536,14 @@ def _cuda_core_entries(H, sm_scale):
             raise RuntimeError(f"flash_bwd_dkv: cudaError {err}")
         return dk, dv
 
-    return fwd, dkv
+    return fwd, dq, dkv
 
 
 def time_flash(main_err, worst):
     """Device times at the main shape, inputs rotating over 4 sets (52 MB a
     set, beyond the 50 MB L2); the plain version and SDPA (forward, and its
     backward for both backward kernels) beside them, and the CUDA-core design
-    of the forward and dk/dv (the earlier design) on the same inputs."""
+    of each kernel (the earlier design) on the same inputs."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     B, H, T, D = FLASH_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -543,20 +560,23 @@ def time_flash(main_err, worst):
         "dq": time_ms(lambda i: fa.flash_attention_bwd_dq(*sets[i % 4], **kw), 40),
         "dkv": time_ms(lambda i: fa.flash_attention_bwd_dkv(*sets[i % 4], **kw), 40),
     }
-    fma_fwd, fma_dkv = _cuda_core_entries(H, D ** -0.5)
+    fma_fwd, fma_dq, fma_dkv = _cuda_core_entries(H, D ** -0.5)
     q, k, v, do, lse, delta = sets[0]
-    out_tc, lse_tc = fa.flash_attention_fwd(q, k, v, **kw)
-    dk_tc, dv_tc = fa.flash_attention_bwd_dkv(*sets[0], **kw)
-    out_f, lse_f = fma_fwd(q, k, v)
-    dk_f, dv_f = fma_dkv(*sets[0])
-    designs_err = max(_scaled_err(a.float(), b.float()) for a, b in
-                      ((out_tc, out_f), (lse_tc, lse_f), (dk_tc, dk_f), (dv_tc, dv_f)))
-    del out_tc, lse_tc, dk_tc, dv_tc, out_f, lse_f, dk_f, dv_f
+    tc_outs = [*fa.flash_attention_fwd(q, k, v, **kw), fa.flash_attention_bwd_dq(*sets[0], **kw),
+               *fa.flash_attention_bwd_dkv(*sets[0], **kw)]
+    fma_outs = [*fma_fwd(q, k, v), fma_dq(*sets[0]), *fma_dkv(*sets[0])]
+    designs_err = {n: _scaled_err(a.float(), b.float()) for n, a, b in
+                   zip(("out", "lse", "dq", "dk", "dv"), tc_outs, fma_outs)}
+    del tc_outs, fma_outs
+    if max(designs_err.values()) > FLASH_TOL[torch.bfloat16]:
+        raise AssertionError(f"tensor-core vs CUDA-core flash outputs: {designs_err}")
     earlier = {"fwd": time_ms(lambda i: fma_fwd(*sets[i % 4][:3]), 20),
+               "dq": time_ms(lambda i: fma_dq(*sets[i % 4]), 20),
                "dkv": time_ms(lambda i: fma_dkv(*sets[i % 4]), 20)}
     log(f"[flash] the CUDA-core design on the same inputs: fwd {earlier['fwd']!r} ms, "
-        f"dk/dv {earlier['dkv']!r} ms; tensor-core vs CUDA-core outputs within "
-        f"{designs_err:.2e} of max |value|")
+        f"dq {earlier['dq']!r} ms, dk/dv {earlier['dkv']!r} ms; tensor-core vs CUDA-core "
+        f"outputs (scaled by max |value|): "
+        + ", ".join(f"{n} {e:.2e}" for n, e in designs_err.items()))
 
     def fwd_bwd(fn):
         """(forward ms, backward ms) of fn(q, k, v): the backward is the
@@ -587,7 +607,7 @@ def time_flash(main_err, worst):
     entries = []
     for name, body, line, plain, lib, outs, design in (
             ("fwd", "_fwd_kernel", 132, plain_fwd, sdpa_fwd, ("out", "lse"), "wgmma"),
-            ("dq", "_bwd_dq_kernel", 289, plain_bwd, sdpa_bwd, ("dq",), "fma"),
+            ("dq", "_bwd_dq_kernel", 289, plain_bwd, sdpa_bwd, ("dq",), "wgmma"),
             ("dkv", "_bwd_dkv_kernel", 352, plain_bwd, sdpa_bwd, ("dk", "dv"), "wgmma")):
         flops, nbytes = work[name]
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -599,12 +619,11 @@ def time_flash(main_err, worst):
              "launches": None, "max_abs_err": max(main_err[n][0] for n in outs),
              "scaled_err": max(main_err[n][1] for n in outs),
              "worst_scaled_err": worst[name], "tol": FLASH_TOL[torch.bfloat16],
-             "kernel_ms": ms[name], "ms": ms[name],
+             "kernel_ms": ms[name], "ms": ms[name], "tflop_s": flops / ms[name] / 1e9,
+             "fma_ms": earlier[name],        # the CUDA-core design, same inputs
              "plain_ms": plain, "library_ms": lib,
              "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        if name in earlier:
-            e["fma_ms"] = earlier[name]      # the CUDA-core design, same inputs
         log(f"[flash] {json.dumps(e)}")
         entries.append(e)
     return entries
@@ -703,9 +722,7 @@ def phase_training():
     gas = engine.gradient_accumulation_steps()
     launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
     for f in launchers:
-        f.launches = 0
-    fa.flash_attention_fwd.tensor_core_launches = 0
-    fa.flash_attention_bwd_dkv.tensor_core_launches = 0
+        f.launches = f.tensor_core_launches = 0
     losses, step_s = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -727,9 +744,9 @@ def phase_training():
     if launches != [cfg.n_layer * micro] * 3:
         raise AssertionError(f"flash launches {launches} != {cfg.n_layer} x {micro} "
                              "micro-steps each")
-    if _tensor_core_launches() != [launches[0], launches[2]]:
-        raise AssertionError(f"tensor-core launches (fwd, dk/dv) {_tensor_core_launches()}: "
-                             f"not every launch of {launches[0]} ran the tensor cores")
+    if _tensor_core_launches() != launches:
+        raise AssertionError(f"tensor-core launches (fwd, dq, dk/dv) {_tensor_core_launches()}: "
+                             f"not every launch of {launches} ran the tensor cores")
     step = statistics.median(step_s[2:])
     tok_s = TRAIN_CONFIG["train_batch_size"] * cfg.n_positions / step
     res = {"steps": TRAIN_STEPS, "micro_steps": micro, "loss_first": losses[0],
@@ -1472,9 +1489,7 @@ def phase_bert_training():
 
     torch.cuda.reset_peak_memory_stats()      # the training steps' peak, not the check's
     for f in launchers:
-        f.launches = 0
-    fa.flash_attention_fwd.tensor_core_launches = 0
-    fa.flash_attention_bwd_dkv.tensor_core_launches = 0
+        f.launches = f.tensor_core_launches = 0
     losses, step_s = _train_steps(engine, *batch, steps=BERT_STEPS)
     launches = [f.launches for f in launchers]
     log(f"[bert] step losses {losses}")
@@ -1484,9 +1499,9 @@ def phase_bert_training():
     if launches != [n_layer * BERT_STEPS] * 3:
         raise AssertionError(f"flash launches {launches} != {n_layer} x {BERT_STEPS} "
                              "micro-steps each")
-    if _tensor_core_launches() != [launches[0], launches[2]]:
-        raise AssertionError(f"tensor-core launches (fwd, dk/dv) {_tensor_core_launches()}: "
-                             f"not every launch of {launches[0]} ran the tensor cores")
+    if _tensor_core_launches() != launches:
+        raise AssertionError(f"tensor-core launches (fwd, dq, dk/dv) {_tensor_core_launches()}: "
+                             f"not every launch of {launches} ran the tensor cores")
     res = {"steps": BERT_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
            **_step_stats(step_s, BERT_BATCH * BERT_SEQ, n_params),
            "masked_positions": int((batch[1] >= 0).sum()),

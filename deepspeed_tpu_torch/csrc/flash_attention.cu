@@ -25,12 +25,11 @@
 //
 // Two designs; the wrapper picks one by shape (ops/flash_attention.py,
 // _tensor_core_path), never by a failure:
-// - tensor cores (flash_fwd_tc, flash_bwd_dkv_tc): bf16/fp16 with D <= 128 a
-//   multiple of 8 — every model of the repository. Described at the
-//   tensor-core section below.
+// - tensor cores (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkv_tc): bf16/fp16
+//   with D <= 128 a multiple of 8 — every model of the repository. Described
+//   at the tensor-core section below.
 // - CUDA cores (flash_fwd, flash_bwd_dq, flash_bwd_dkv): every dtype and even
-//   D <= 256; float32 and D > 128 take it, and dq always (its redesign is
-//   queued next).
+//   D <= 256; float32 and the other head dims take it.
 //
 // CUDA-core design (the simple one): float tiles in shared memory and f32 FMA
 // on the CUDA cores. A CTA of 256 threads owns a tile of BM
@@ -583,7 +582,8 @@ int run(int pass, const void* q, const void* k, const void* v, const void* dout,
 }
 
 // ============================================================================
-// Tensor-core design (flash_fwd_tc, flash_bwd_dkv_tc): bf16/fp16, D <= 128 a
+// Tensor-core design (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkv_tc):
+// bf16/fp16, D <= 128 a
 // multiple of 8, padded to DP = 64 or 128 by TMA's zero fill. Same function as
 // the CUDA-core kernels above, element for element: the masks, bias, dropout
 // hash and roundings sit at the same points.
@@ -617,10 +617,21 @@ int run(int pass, const void* q, const void* k, const void* v, const void* dout,
 // consumers (24 + 2 x 240). At DP = 128 one consumer warpgroup and a
 // producer warp, 160 threads, may use 255 a thread (ptxas: 240).
 //
+// dq (replaces _bwd_dq_kernel): the forward's CTA (128 query rows in two
+// consumer warpgroups, one producer warp) with Q (scaled, rounded) and dO
+// resident, loaded once by TMA, and each row's lse * log2(e) and delta in
+// registers; the producer streams 64-key K and V tiles and the key bias
+// through the ring. Per key tile: S = Q K^T and dP = dO V^T by wgmma from
+// shared memory; dS = P (dP keep - delta), P = exp2(S - lse2), masked on the
+// diagonal tile, on the fragments; dS packed into the A registers of
+// dQ += dS K, K read a second time from the same shared-memory tile as an
+// MN-major B operand. One CTA owns its rows: no atomics, dq stored once,
+// deterministic. Registers at DP = 128: dQ 64, S 32, dP 32, dS as A 16.
+//
 // Bound at GPT-2 1.5B's shape: operations (the tensor cores' 989 TFLOP/s),
 // as above. On the card the elementwise softmax work per score, not the
-// tensor cores, bounds both kernels (a build without it ran several times
-// faster), so the tiles inside the diagonal and the keys are compiled
+// tensor cores, bounds the forward and dk/dv (a build without it ran several
+// times faster), so the tiles inside the diagonal and the keys are compiled
 // without per-element tests, and exp2 is the SFU's ex2.approx. Left for a
 // later change: overlapping one tile's softmax with the next tile's wgmma
 // (two score buffers, or ping-pong between the warpgroups), a TMA store
@@ -650,6 +661,8 @@ constexpr int dkv_smem() {            // K and V x NWG, Q and dO x kStages, lse 
   return 1024 + 2 * (NWG + kStages) * tile_bytes<DP>() + 2 * kStages * kRows * 4 +
          (2 * kStages + 1) * 8;
 }
+template <int DP>
+constexpr int dq_smem() { return fwd_smem<DP>() + 2 * tile_bytes<DP>(); }   // and dO x 2
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (tc::smem_u32(p) & 1023)) & 1023);
@@ -754,6 +767,73 @@ __device__ __forceinline__ void dkv_probs(float (&sc)[32], float (&dp)[32], cons
   }
 }
 
+// dq's dS of one key tile, in place of S; kEdge as in the forward (the
+// diagonal's tile, or keys past T, whose dS is 0).
+template <bool kEdge>
+__device__ __forceinline__ void dq_grads(float (&sc)[32], const float (&dp)[32], const Params& P,
+                                         const float* bias_s, const float (&lse2)[2],
+                                         const float (&dlt)[2], int k0, int r0, int t,
+                                         bool diag, uint32_t bh, float inv_keep) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int kj = k0 + col(e, t);
+    const int r = row8(e);
+    float ds = 0.f;
+    if (!kEdge || kj < P.T) {
+      float x = sc[e];
+      if (P.bias) x += bias_s[col(e, t)];
+      if (kEdge && diag && r0 + 8 * r + P.q_off < kj + P.k_off) x = kMaskValue;
+      const float p = exp2_(x - lse2[r]);
+      float g = dp[e];
+      if (P.rate > 0.f) {
+        const uint32_t bits = dropout_bits(P.seed, bh, r0 + 8 * r + P.q_off, kj + P.k_off);
+        g = bits >= P.threshold ? g * inv_keep : 0.f;
+      }
+      ds = p * (g - dlt[r]);
+    }
+    sc[e] = ds;
+  }
+}
+
+// The producer warp of the forward and dq: the resident tiles of the CTA's
+// n_wg warpgroups once (Q, and dO when mdo is given) on q_full, then each key
+// tile's K and V by TMA and its key bias by the lanes through the ring.
+template <int DP>
+__device__ __forceinline__ void produce_rows_and_keys(
+    const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk, const CUtensorMap* mv,
+    uint8_t* sQ, uint8_t* sO, uint8_t* sK, uint8_t* sV, float* sBias, uint64_t* full,
+    uint64_t* empty, uint64_t* q_full, const Params& P, int bh, int q0, int n_wg, int n_tiles,
+    int lane) {
+  constexpr int kTile = tile_bytes<DP>();
+  const float* bias_row = P.bias ? P.bias + static_cast<long long>(bh / P.H) * P.T : nullptr;
+  if (lane == 0) {
+    tc::mbar_arrive_expect_tx(q_full, (mdo ? 2 : 1) * n_wg * kTile);
+    for (int w = 0; w < n_wg; ++w)
+      for (int a = 0; a < DP / 64; ++a) {
+        tc::tma_load(sQ + w * kTile + a * kAtom, mq, q_full, 64 * a, q0 + kRows * w, bh);
+        if (mdo) tc::tma_load(sO + w * kTile + a * kAtom, mdo, q_full, 64 * a, q0 + kRows * w, bh);
+      }
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    if (i >= kStages) tc::mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+    const int k0 = i * kRows;
+    if (bias_row) {
+      for (int c = lane; c < kRows; c += 32)
+        sBias[s * kRows + c] = k0 + c < P.T ? bias_row[k0 + c] * kLog2e : 0.f;
+    }
+    if (lane == 0) {
+      tc::mbar_arrive_expect_tx(&full[s], 2 * kTile);
+      for (int a = 0; a < DP / 64; ++a) {
+        tc::tma_load(sK + s * kTile + a * kAtom, mk, &full[s], 64 * a, k0, bh);
+        tc::tma_load(sV + s * kTile + a * kAtom, mv, &full[s], 64 * a, k0, bh);
+      }
+    } else {
+      tc::mbar_arrive(&full[s]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- forward
 template <typename T, int DP>
 __global__ void __launch_bounds__(288, 1)
@@ -791,31 +871,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
   __syncthreads();
 
   if (warp == 8) {  // ------------------------------------------- producer
-    const float* bias_row = P.bias ? P.bias + static_cast<long long>(bh / P.H) * P.T : nullptr;
-    if (lane == 0) {
-      tc::mbar_arrive_expect_tx(q_full, n_wg * kTile);
-      for (int w = 0; w < n_wg; ++w)
-        for (int a = 0; a < DP / 64; ++a)
-          tc::tma_load(sQ + w * kTile + a * kAtom, &mq, q_full, 64 * a, q0 + kRows * w, bh);
-    }
-    for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages;
-      if (i >= kStages) tc::mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
-      const int k0 = i * kRows;
-      if (bias_row) {
-        for (int c = lane; c < kRows; c += 32)
-          sBias[s * kRows + c] = k0 + c < P.T ? bias_row[k0 + c] * kLog2e : 0.f;
-      }
-      if (lane == 0) {
-        tc::mbar_arrive_expect_tx(&full[s], 2 * kTile);
-        for (int a = 0; a < DP / 64; ++a) {
-          tc::tma_load(sK + s * kTile + a * kAtom, &mk, &full[s], 64 * a, k0, bh);
-          tc::tma_load(sV + s * kTile + a * kAtom, &mv, &full[s], 64 * a, k0, bh);
-        }
-      } else {
-        tc::mbar_arrive(&full[s]);
-      }
-    }
+    produce_rows_and_keys<DP>(&mq, nullptr, &mk, &mv, sQ, nullptr, sK, sV, sBias, full, empty,
+                              q_full, P, bh, q0, n_wg, n_tiles, lane);
     return;
   }
 
@@ -1095,6 +1152,137 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// ---------------------------------------------------------------- dq
+// The forward's roles: Q (scaled, rounded) and dO resident, K and V streamed.
+template <typename T, int DP>
+__global__ void __launch_bounds__(288, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dq, Params P) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  constexpr int kTile = tile_bytes<DP>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);               // one tile per consumer warpgroup
+  uint8_t* sO = sQ + 2 * kTile;                    // dO, one tile per consumer warpgroup
+  uint8_t* sK = sO + 2 * kTile;                    // kStages tiles
+  uint8_t* sV = sK + kStages * kTile;              // kStages tiles
+  float* sBias = reinterpret_cast<float*>(sV + kStages * kTile);   // [kStages][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sBias + kStages * kRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int q0 = qt * 2 * kRows;
+  const int n_wg = q0 + kRows < P.T ? 2 : 1;       // warpgroups with a row below T
+  const int n_kt = (P.T + kRows - 1) / kRows;
+  const int n_tiles = P.causal ? q0 / kRows + n_wg : n_kt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&full[s], 32);
+      tc::mbar_init(&empty[s], 4 * n_wg);
+    }
+    tc::mbar_init(q_full, 1);
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ------------------------------------------- producer
+    produce_rows_and_keys<DP>(&mq, &mdo, &mk, &mv, sQ, sO, sK, sV, sBias, full, empty, q_full,
+                              P, bh, q0, n_wg, n_tiles, lane);
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  const int wg = warp / 4;
+  if (wg >= n_wg) return;
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, g = lane / 4, t = lane % 4;
+  const int q0w = q0 + kRows * wg;
+  const int n_mine = P.causal ? q0w / kRows + 1 : n_kt;   // key tiles this warpgroup needs
+  const int r0 = q0w + 16 * w + g;                         // this thread's rows r0, r0 + 8
+  const float inv_keep = P.rate > 0.f ? 1.f / (1.f - P.rate) : 1.f;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    const long long row = static_cast<long long>(bh) * P.T + qi;
+    lse2[r] = qi < P.T ? lse[row] * kLog2e : 0.f;
+    dlt[r] = qi < P.T ? delta[row] : 0.f;
+  }
+  uint8_t* myQ = sQ + wg * kTile;
+  const uint8_t* myO = sO + wg * kTile;
+
+  tc::mbar_wait(q_full, 0);
+  scale_tile<T>(myQ, kTile, P.op_scale, tid);
+  tc::fence_proxy_async();
+  tc::named_sync(1 + wg, 128);
+
+  float dqa[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) dqa[e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    tc::mbar_wait(&full[s], (i / kStages) & 1);
+    if (i < n_mine) {
+      const uint8_t* ktile = sK + s * kTile;
+      const uint8_t* vtile = sV + s * kTile;
+      float sc[32], dp[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::wgmma_ss_n64<kHalf>(sc, tc::desc_k(myQ, kk, kAtom), tc::desc_k(ktile, kk, kAtom), kk);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::wgmma_ss_n64<kHalf>(dp, tc::desc_k(myO, kk, kAtom), tc::desc_k(vtile, kk, kAtom), kk);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(sc);
+      tc::fence_regs(dp);
+
+      const int k0 = i * kRows;
+      const float* bias_s = sBias + s * kRows;
+      const bool diag = P.causal && k0 + kRows - 1 > q0w;
+      if (diag || k0 + kRows > P.T)
+        dq_grads<true>(sc, dp, P, bias_s, lse2, dlt, k0, r0, t, diag, bh, inv_keep);
+      else
+        dq_grads<false>(sc, dp, P, bias_s, lse2, dlt, k0, r0, t, diag, bh, inv_keep);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tc::acc_to_a<kHalf>(sc, kk, da[kk]);
+      tc::fence_regs(dqa);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_rs<kHalf>(dqa, da[kk], tc::desc_mn(ktile, kk, kAtom), 1);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(dqa);
+    }
+    if (lane == 0) tc::mbar_arrive(&empty[s]);
+  }
+
+  const long long base = static_cast<long long>(bh) * P.T * P.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    if (qi >= P.T) continue;
+    T* row = dq + base + static_cast<long long>(qi) * P.D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < P.D)
+        store2(row + c, dqa[4 * j + 2 * r] * P.sm_scale, dqa[4 * j + 2 * r + 1] * P.sm_scale);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 template <typename T, int DP>
 cudaError_t launch_tc(int pass, int BH, const void* q, const void* k, const void* v,
@@ -1115,9 +1303,18 @@ cudaError_t launch_tc(int pass, int BH, const void* q, const void* k, const void
     if (err != cudaSuccess) return err;
     const dim3 grid((P.T + 2 * kRows - 1) / (2 * kRows), BH);
     kernel<<<grid, 288, smem, st>>>(mq, mk, mv, static_cast<T*>(o1), lse, P);
-  } else {
-    err = tc::make_map(&mdo, dout, kHalf, BH, P.T, P.D, kRows);
+    return cudaGetLastError();
+  }
+  err = tc::make_map(&mdo, dout, kHalf, BH, P.T, P.D, kRows);
+  if (err != cudaSuccess) return err;
+  if (pass == kDq) {
+    constexpr int smem = dq_smem<DP>();
+    auto kernel = flash_bwd_dq_tc_kernel<T, DP>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    const dim3 grid((P.T + 2 * kRows - 1) / (2 * kRows), BH);
+    kernel<<<grid, 288, smem, st>>>(mq, mk, mv, mdo, lse, delta, static_cast<T*>(o1), P);
+  } else {
     constexpr int NWG = DP == 64 ? 2 : 1;
     constexpr int smem = dkv_smem<DP, NWG>();
     auto kernel = flash_bwd_dkv_tc_kernel<T, DP, NWG>;
@@ -1195,9 +1392,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
              dtype, stream);
 }
 
-// The tensor-core entries: the arguments of flash_fwd and flash_bwd_dkv, for
-// dtype 1 (bfloat16) or 2 (float16), D <= 128 a multiple of 8, and q, k, v,
-// dout 16-byte aligned; anything else returns cudaErrorInvalidValue.
+// The tensor-core entries: the arguments of flash_fwd, flash_bwd_dq and
+// flash_bwd_dkv, for dtype 1 (bfloat16) or 2 (float16), D <= 128 a multiple
+// of 8, and q, k, v, dout 16-byte aligned; anything else returns
+// cudaErrorInvalidValue.
 extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
                             const float* bias, void* out, float* lse, int BH, int H,
                             int T, int D, float sm_scale, float op_scale, int causal,
@@ -1206,6 +1404,17 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
   return tcfa::run_tc(kFwd, q, k, v, nullptr, lse, nullptr, bias, out, nullptr, BH, H, T, D,
                       sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off, dtype,
                       stream);
+}
+
+extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
+                               const void* dout, const float* lse, const float* delta,
+                               const float* bias, void* dq, int BH, int H, int T, int D,
+                               float sm_scale, float op_scale, int causal, float rate,
+                               unsigned threshold, unsigned seed, int q_off, int k_off,
+                               int dtype, void* stream) {
+  return tcfa::run_tc(kDq, q, k, v, dout, const_cast<float*>(lse), delta, bias, dq, nullptr, BH,
+                      H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off,
+                      dtype, stream);
 }
 
 extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,

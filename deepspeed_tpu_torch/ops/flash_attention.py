@@ -7,12 +7,12 @@ are ``csrc/flash_attention.cu``: the forward (replaces the TPU kernel
 They take q, k, v ``[B, H, T, D]`` with one T, in float32, bfloat16 or
 float16, any T, and an even D <= 256.
 
-The forward and dk/dv come in two designs, chosen by shape alone
-(``_tensor_core_path``): bfloat16/float16 with D <= 128 a multiple of 8 run
-the tensor-core kernels (``flash_fwd_tc``, ``flash_bwd_dkv_tc``: TMA-fed
+Each comes in two designs, chosen by shape alone (``_tensor_core_path``):
+bfloat16/float16 with D <= 128 a multiple of 8 run the tensor-core kernels
+(``flash_fwd_tc``, ``flash_bwd_dq_tc``, ``flash_bwd_dkv_tc``: TMA-fed
 ``wgmma`` tiles); float32 and the other head dims the CUDA-core kernels
-(``flash_fwd``, ``flash_bwd_dkv``). dq always runs ``flash_bwd_dq`` on the
-CUDA cores. A failed build or launch raises; nothing falls back.
+(``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``). A failed build or
+launch raises; nothing falls back.
 
 ``flash_attention`` and ``flash_attention_with_lse`` keep the JAX signatures.
 For CUDA tensors they run the kernels through ``_FlashAttention`` (a
@@ -22,8 +22,8 @@ backward kernels). For CPU tensors they run the plain version
 (``flash_attention_reference``: dense float32 softmax, autograd for the
 backward). There is no other fallback. Each launch function counts its
 launches in ``<function>.launches`` (a plain integer; set it to 0 to start a
-count); the forward and dk/dv also count those that ran the tensor-core
-design in ``<function>.tensor_core_launches``.
+count), and those that ran the tensor-core design in
+``<function>.tensor_core_launches``.
 
 The TPU package's ``_RESIDENT_T_LIMIT`` / ``_flash_attention_chunked`` and
 its v5e block table exist for the TPU's scoped VMEM: the CUDA kernels take
@@ -145,9 +145,9 @@ def flash_attention_reference(q, k, v, causal=False, sm_scale=None, bias=None,
 # ---------------------------------------------------------------------------
 
 def _tensor_core_path(dtype, D) -> bool:
-    """The shape rule between the two designs of the forward and dk/dv
-    kernels: 16-bit operands (what ``wgmma`` multiplies) and a head dim that
-    fits one 128-wide tile and gives TMA rows of a multiple of 16 bytes."""
+    """The shape rule between the two designs of each kernel: 16-bit
+    operands (what ``wgmma`` multiplies) and a head dim that fits one
+    128-wide tile and gives TMA rows of a multiple of 16 bytes."""
     return dtype in (torch.bfloat16, torch.float16) and D <= 128 and D % 8 == 0
 
 
@@ -160,10 +160,10 @@ def _lib():
                 f32, u32, u32, i32, i32,     # rate, threshold, seed, q_off, k_off
                 i32, vp]                     # dtype, stream
         lib.flash_fwd.argtypes = lib.flash_fwd_tc.argtypes = [vp] * 6 + tail
-        lib.flash_bwd_dq.argtypes = [vp] * 8 + tail
+        lib.flash_bwd_dq.argtypes = lib.flash_bwd_dq_tc.argtypes = [vp] * 8 + tail
         lib.flash_bwd_dkv.argtypes = lib.flash_bwd_dkv_tc.argtypes = [vp] * 9 + tail
-        for fn in (lib.flash_fwd, lib.flash_fwd_tc, lib.flash_bwd_dq, lib.flash_bwd_dkv,
-                   lib.flash_bwd_dkv_tc):
+        for fn in (lib.flash_fwd, lib.flash_fwd_tc, lib.flash_bwd_dq, lib.flash_bwd_dq_tc,
+                   lib.flash_bwd_dkv, lib.flash_bwd_dkv_tc):
             fn.restype = ctypes.c_int
     return lib
 
@@ -204,8 +204,19 @@ def _tail(q, H, sm_scale, causal, rate, seed, q_off, k_off):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _bias_ptr(bias):
-    return None if bias is None else bias.data_ptr()
+def _launch(launcher, name, q, tensors, causal, sm_scale, rate, seed, q_off, k_off):
+    """Launch ``<name>_tc`` or ``<name>`` by the shape rule
+    (``_tensor_core_path``) on the data pointers of ``tensors`` (None stays a
+    null pointer), count it on ``launcher``, and raise if the launch failed."""
+    tensor_cores = _tensor_core_path(q.dtype, q.shape[3])
+    entry = getattr(_lib(), f"{name}_tc" if tensor_cores else name)
+    with torch.cuda.device(q.device):
+        err = entry(*(None if t is None else t.data_ptr() for t in tensors),
+                    *_tail(q, q.shape[1], sm_scale, causal, rate, seed, q_off, k_off))
+    if err != 0:
+        raise RuntimeError(f"{entry.__name__} kernel launch failed: cudaError {err}")
+    launcher.launches += 1
+    launcher.tensor_core_launches += tensor_cores
 
 
 def flash_attention_fwd(q, k, v, *, causal, sm_scale, bias=None, dropout_rate=0.0,
@@ -215,40 +226,22 @@ def flash_attention_fwd(q, k, v, *, causal, sm_scale, bias=None, dropout_rate=0.
     float32 ``[B, H, T]`` (natural log). q, k, v contiguous ``[B, H, T, D]``
     on one card; bias contiguous float32 ``[B, T]`` or None."""
     _check_launch(q, k, v, bias=bias)
-    lib = _lib()
-    B, H, T, D = q.shape
-    tensor_cores = _tensor_core_path(q.dtype, D)
-    entry = lib.flash_fwd_tc if tensor_cores else lib.flash_fwd
     out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), _bias_ptr(bias),
-                    out.data_ptr(), lse.data_ptr(),
-                    *_tail(q, H, sm_scale, causal, dropout_rate, dropout_seed,
-                           q_offset, k_offset))
-    if err != 0:
-        raise RuntimeError(f"{entry.__name__} kernel launch failed: cudaError {err}")
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.tensor_core_launches += tensor_cores
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch(flash_attention_fwd, "flash_fwd", q, (q, k, v, bias, out, lse), causal,
+            sm_scale, dropout_rate, dropout_seed, q_offset, k_offset)
     return out, lse
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, bias=None,
                            dropout_rate=0.0, dropout_seed=None, q_offset=0, k_offset=0):
-    """Launch ``flash_bwd_dq``: returns dq in q's dtype. ``do`` as q; ``lse``
-    and ``delta`` contiguous float32 ``[B, H, T]``."""
+    """Launch ``flash_bwd_dq_tc`` or ``flash_bwd_dq`` by the shape rule:
+    returns dq in q's dtype. ``do`` as q; ``lse`` and ``delta`` contiguous
+    float32 ``[B, H, T]``."""
     _check_launch(q, k, v, do, lse, delta, bias)
-    lib = _lib()
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                               lse.data_ptr(), delta.data_ptr(), _bias_ptr(bias),
-                               dq.data_ptr(),
-                               *_tail(q, q.shape[1], sm_scale, causal, dropout_rate,
-                                      dropout_seed, q_offset, k_offset))
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: cudaError {err}")
-    flash_attention_bwd_dq.launches += 1
+    _launch(flash_attention_bwd_dq, "flash_bwd_dq", q, (q, k, v, do, lse, delta, bias, dq),
+            causal, sm_scale, dropout_rate, dropout_seed, q_offset, k_offset)
     return dq
 
 
@@ -257,25 +250,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, bias=N
     """Launch ``flash_bwd_dkv_tc`` or ``flash_bwd_dkv`` by the shape rule:
     returns ``(dk, dv)`` in k's dtype."""
     _check_launch(q, k, v, do, lse, delta, bias)
-    lib = _lib()
-    tensor_cores = _tensor_core_path(q.dtype, q.shape[3])
-    entry = lib.flash_bwd_dkv_tc if tensor_cores else lib.flash_bwd_dkv
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), _bias_ptr(bias),
-                    dk.data_ptr(), dv.data_ptr(),
-                    *_tail(q, q.shape[1], sm_scale, causal, dropout_rate,
-                           dropout_seed, q_offset, k_offset))
-    if err != 0:
-        raise RuntimeError(f"{entry.__name__} kernel launch failed: cudaError {err}")
-    flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.tensor_core_launches += tensor_cores
+    _launch(flash_attention_bwd_dkv, "flash_bwd_dkv", q,
+            (q, k, v, do, lse, delta, bias, dk, dv), causal, sm_scale, dropout_rate,
+            dropout_seed, q_offset, k_offset)
     return dk, dv
 
 
 flash_attention_fwd.launches = flash_attention_fwd.tensor_core_launches = 0
-flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches = flash_attention_bwd_dq.tensor_core_launches = 0
 flash_attention_bwd_dkv.launches = flash_attention_bwd_dkv.tensor_core_launches = 0
 
 
@@ -322,6 +305,13 @@ def _attend(q, k, v, causal, sm_scale, bias, rate, seed, q_off, k_off):
     rate = float(rate)
     if rate > 0 and seed is None:
         raise ValueError("dropout_rate > 0 requires a dropout_seed")
+    if causal and int(q_off) != int(k_off):
+        # the JAX kernels mask such a call in local coordinates without
+        # dropout and in global ones only inside their diagonal k-block band
+        # with it, so no single answer exists to match
+        raise ValueError(
+            f"causal attention with unequal offsets (q {q_off}, k {k_off}) is not "
+            "supported: the sequence-parallel ring, ROADMAP.md item 14, settles it")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     if bias is not None:
@@ -359,8 +349,8 @@ def flash_attention_with_lse(q, k, v, causal=False, sm_scale=None, block_q=None,
                              q_segments=None, k_segments=None):
     """``(out, lse)``, both differentiable; ``lse`` is the natural-log
     logsumexp of the scaled scores ``[B, H, T]``. ``dropout_*_offset`` place
-    this call's positions in global coordinates for the dropout hash and the
-    causal mask. The segmented zigzag layout (``q_segments`` /
+    this call's positions in global coordinates for the dropout hash; a
+    causal call must give equal offsets (else ``ValueError``). The segmented zigzag layout (``q_segments`` /
     ``k_segments``, the (7,) seed operand) belongs to the sequence-parallel
     ring and is not ported yet. ``block_q``, ``block_k`` and ``interpret``
     are ignored, as in ``flash_attention``."""

@@ -154,6 +154,41 @@ def test_dropout_matches_jax_kernel(causal):
     _close(got, want, 2e-4, rtol=2e-4)
 
 
+@pytest.mark.parametrize("causal,rate,offsets", [
+    (False, 0.15, (128, 0)),    # offsets move the dropout hash only
+    (True, 0.0, (64, 64)),      # equal offsets: the causal mask as at (0, 0)
+    (True, 0.15, (64, 64))])
+def test_offsets_match_jax_kernel(causal, rate, offsets):
+    """``flash_attention_with_lse`` with global offsets against the JAX
+    kernel (out, dq, dk, dv under an lse cotangent too), at the dropout
+    tolerance of test_dropout_matches_jax_kernel."""
+    q, k, v, g, g_lse, _ = _inputs((2, 2, 128, 32), seed=8)
+    kw = dict(causal=causal, dropout_rate=rate, dropout_seed=4242 if rate else None,
+              dropout_q_offset=offsets[0], dropout_k_offset=offsets[1])
+    got = _port(q, k, v, g, "float32", g_lse=g_lse, fn=fa.flash_attention_with_lse, **kw)
+    want = _jax(q, k, v, g, "float32", g_lse=g_lse, block_q=64, block_k=64, **kw)
+    _close(got, want, 2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("rate,offsets", [
+    (0.0, (128, 0)), (0.1, (128, 0)), (0.0, (0, 128)), (0.1, (64, 0))])
+def test_causal_unequal_offsets_refused(rate, offsets):
+    """Fault C1: the JAX kernels give no single answer for a causal call
+    with unequal offsets (local coordinates without dropout, global ones only
+    inside their diagonal k-block band with it), so the port refuses it."""
+    q = torch.zeros(1, 1, 8, 4)
+    with pytest.raises(ValueError, match="item 14"):
+        fa.flash_attention_with_lse(q, q, q, causal=True, dropout_rate=rate,
+                                    dropout_seed=1 if rate else None,
+                                    dropout_q_offset=offsets[0], dropout_k_offset=offsets[1])
+    # the same offsets without the causal mask are fine
+    out, _ = fa.flash_attention_with_lse(q, q, q, dropout_rate=rate,
+                                         dropout_seed=1 if rate else None,
+                                         dropout_q_offset=offsets[0],
+                                         dropout_k_offset=offsets[1])
+    assert out.shape == q.shape
+
+
 def test_long_sequence_takes_the_plain_version_directly():
     """No VMEM ceiling: T > 8192 runs as one call (B = H = 1, tiny D)."""
     rng = np.random.RandomState(5)
@@ -215,44 +250,51 @@ def test_cpu_tensors_of_a_tensor_core_shape_take_the_plain_version():
     plain version's."""
     q, k, v, _, _, _ = _inputs((1, 2, 48, 64), seed=7)
     qt, kt, vt = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
-    counts = [fa.flash_attention_fwd.launches, fa.flash_attention_fwd.tensor_core_launches,
-              fa.flash_attention_bwd_dkv.launches,
-              fa.flash_attention_bwd_dkv.tensor_core_launches]
-    out, lse = fa.flash_attention_with_lse(qt, kt, vt, causal=True)
+    launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+
+    def counts():
+        return [(f.launches, f.tensor_core_launches) for f in launchers]
+
+    before = counts()
+    qs, ks, vs = (t.clone().requires_grad_() for t in (qt, kt, vt))
+    out, lse = fa.flash_attention_with_lse(qs, ks, vs, causal=True)
     want_out, want_lse = fa.flash_attention_reference(qt, kt, vt, causal=True)
     torch.testing.assert_close(out, want_out, atol=0, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=0, rtol=0)
-    assert counts == [fa.flash_attention_fwd.launches,
-                      fa.flash_attention_fwd.tensor_core_launches,
-                      fa.flash_attention_bwd_dkv.launches,
-                      fa.flash_attention_bwd_dkv.tensor_core_launches]
+    (out.float().sum() + lse.sum()).backward()    # the backward: no dq or dk/dv kernel
+    assert counts() == before
 
 
 # --------------------------------------------------------------------- card
 CUDA_CASES = [
-    # (B, H, T, D, dtype, causal, bias, rate)
-    (2, 3, 128, 64, torch.bfloat16, True, False, 0.0),
-    (2, 3, 200, 64, torch.bfloat16, True, False, 0.0),      # ragged tail
-    (1, 2, 130, 128, torch.float16, False, True, 0.0),      # key bias
-    (1, 2, 96, 256, torch.float32, True, False, 0.0),       # D = 256
-    (2, 2, 160, 32, torch.float32, False, False, 0.1),      # dropout
-    (1, 2, 77, 40, torch.float32, True, False, 0.0),        # D not a tile width
-    (2, 2, 192, 64, torch.bfloat16, False, True, 0.0),      # tensor cores: bias
-    (1, 2, 320, 128, torch.float16, False, True, 0.0),      # tensor cores: D 128, bias
-    (2, 2, 256, 64, torch.bfloat16, True, False, 0.1),      # tensor cores: dropout
-    (2, 2, 256, 64, torch.bfloat16, True, False, 0.5),
-    (1, 2, 1, 64, torch.bfloat16, True, False, 0.0),        # tensor cores: T = 1
-    (1, 2, 17, 64, torch.bfloat16, True, False, 0.0),       # T = 17
-    (1, 2, 64, 256, torch.bfloat16, True, False, 0.0),      # bf16 past the rule: CUDA cores
+    # (B, H, T, D, dtype, causal, bias, rate, (q_offset, k_offset))
+    (2, 3, 128, 64, torch.bfloat16, True, False, 0.0, (0, 0)),
+    (2, 3, 200, 64, torch.bfloat16, True, False, 0.0, (0, 0)),      # ragged tail
+    (1, 2, 130, 128, torch.float16, False, True, 0.0, (0, 0)),      # key bias
+    (1, 2, 96, 256, torch.float32, True, False, 0.0, (0, 0)),       # D = 256
+    (2, 2, 160, 32, torch.float32, False, False, 0.1, (0, 0)),      # dropout
+    (1, 2, 77, 40, torch.float32, True, False, 0.0, (0, 0)),        # D not a tile width
+    (2, 2, 192, 64, torch.bfloat16, False, True, 0.0, (0, 0)),      # tensor cores: bias
+    (1, 2, 320, 128, torch.float16, False, True, 0.0, (0, 0)),      # tensor cores: D 128, bias
+    (2, 2, 256, 64, torch.bfloat16, True, False, 0.1, (0, 0)),      # tensor cores: dropout
+    (2, 2, 256, 64, torch.bfloat16, True, False, 0.5, (0, 0)),
+    (1, 2, 1, 64, torch.bfloat16, True, False, 0.0, (0, 0)),        # tensor cores: T = 1
+    (1, 2, 17, 64, torch.bfloat16, True, False, 0.0, (0, 0)),       # T = 17
+    (1, 2, 64, 256, torch.bfloat16, True, False, 0.0, (0, 0)),      # bf16 past the rule: CUDA cores
+    (2, 2, 192, 32, torch.bfloat16, True, False, 0.0, (0, 0)),      # tensor cores: D = 32
+    (1, 3, 150, 32, torch.float16, False, True, 0.0, (0, 0)),       # D = 32, bias
+    (2, 2, 256, 64, torch.bfloat16, False, False, 0.1, (128, 0)),   # offsets: dropout hash
+    (2, 2, 256, 64, torch.bfloat16, True, False, 0.1, (256, 256)),  # offsets: causal, equal
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CUDA_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", CUDA_CASES,
+                         ids=lambda c: "-".join(map(str, c if any(c[8]) else c[:8])))
 def test_cuda_kernels_match_plain_version(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    Bc, Hc, Tc, Dc, dtype, causal, with_bias, rate = case
+    Bc, Hc, Tc, Dc, dtype, causal, with_bias, rate, (q_off, k_off) = case
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, g = (torch.randn((Bc, Hc, Tc, Dc), generator=gen, device="cuda")
                   for _ in range(4))
@@ -265,22 +307,22 @@ def test_cuda_kernels_match_plain_version(case):
         qs, ks, vs = (t.to(dtype).requires_grad_() for t in (q, k, v))
         if kernel:
             out, lse = fa._attend(qs, ks, vs, causal, None, bias, rate, kw["dropout_seed"],
-                                  0, 0)
+                                  q_off, k_off)
         else:
             b = None if bias is None else bias.reshape(Bc, Tc)
-            out, lse = fa.flash_attention_reference(qs, ks, vs, bias=b, **kw)
+            out, lse = fa.flash_attention_reference(qs, ks, vs, bias=b, q_offset=q_off,
+                                                    k_offset=k_off, **kw)
         ((out.float() * g).sum() + (lse * g_lse).sum()).backward()
         return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
 
-    before = [fa.flash_attention_fwd.launches, fa.flash_attention_fwd.tensor_core_launches,
-              fa.flash_attention_bwd_dkv.tensor_core_launches]
+    launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [(f.launches, f.tensor_core_launches) for f in launchers]
     got, want = run(True), run(False)
     torch.cuda.synchronize()
     # which design ran: the shape rule, counted by the wrappers
     tc = int(fa._tensor_core_path(dtype, Dc))
-    assert [fa.flash_attention_fwd.launches, fa.flash_attention_fwd.tensor_core_launches,
-            fa.flash_attention_bwd_dkv.tensor_core_launches] == [
-        before[0] + 1, before[1] + tc, before[2] + tc]
+    assert [(f.launches, f.tensor_core_launches) for f in launchers] == [
+        (n + 1, n_tc + tc) for n, n_tc in before]
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b, name in zip(got, want, ("out", "lse", "dq", "dk", "dv")):
         scale = float(b.abs().max()) + 1e-6
