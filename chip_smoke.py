@@ -9,17 +9,26 @@ result line):
 1. device — requires ``torch.cuda.is_available()``; prints the card's name
    and power limit as ``nvidia-smi`` reports them;
 2. build — compiles every CUDA kernel of the serving and training paths
-   from ``csrc/`` (one ``nvcc`` per source, all at once);
-3. kernels — holds the paged-decode kernel against its plain PyTorch
-   version on card tensors at GPT-2 1.5B's serving shapes, and times the
-   kernel, the plain version and the closest single PyTorch call (CUDA
-   events);
+   from ``csrc/`` (one ``nvcc`` per source, all at once); prints each
+   file's registers and spills, and each paged-decode kernel's;
+3. kernels — holds the paged-decode kernel's cluster design (each history
+   split across a thread-block cluster, pages staged by TMA) against its
+   plain PyTorch version on card tensors at GPT-2 1.5B's serving shapes in
+   bf16, float16 and float32, checking that each launch ran that design,
+   and the first design in bf16; then times both designs (in turns), the
+   plain version and SDPA on the pre-gathered view at the serving mix of
+   lengths and with every slot at 1024, beside the byte bound of each:
+   device times by CUDA events around CUDA-graph replays of the calls
+   (layers rotating), and the cluster design's eager loop, which the host's
+   enqueue cost bounds;
 4. serving — GPT-2 1.5B (48 x 1600, 25 heads, vocab 50304, bf16, random
    weights from seed 0) through ``init_inference`` with the paged-decode
    kernel on, over a seeded trace of 10 requests; checks that every request
-   finishes, that the kernel ran once per layer per decode step, and that
-   the first decode step's logits agree with the gather path on the same
-   pools; then a short ``torch.profiler`` window for where the time goes;
+   finishes, that the kernel ran once per layer per decode step, each time
+   in the cluster design, and that the first decode step's logits agree
+   with the gather path on the same pools (bf16, and float32 pools through
+   the same kernel); then a short ``torch.profiler`` window for where the
+   time goes;
 5. flash kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the training shape and at edge cases
    (ragged T, T = 9000, D = 32 and 128, float32, float16, key bias, dropout at
@@ -82,6 +91,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -153,6 +163,32 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, n, replays=20):
+    """Mean device time of one of ``fn(0) .. fn(n - 1)``: the n calls
+    captured once as a CUDA graph and replayed between CUDA events, so that
+    the host's enqueue cost (more than a 10 us kernel takes, in an eager loop
+    of Python calls) drops out."""
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * n)
+    del graph
+    return ms
+
+
 def phase_device():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -182,6 +218,17 @@ def phase_build():
         log(f"[build] {b.name}: {len(kernels)} kernels, {min(regs, default=0)}-"
             f"{max(regs, default=0)} registers; spilling: "
             + (", ".join(f"{n} ({s} B)" for n, _, s in kernels if s) or "none"))
+        if b.name == "paged_decode":
+            log("[build] paged_decode per kernel (registers, spill-store bytes): " + "; ".join(
+                f"{_demangle(n)} {r}, {s}" for n, r, s in kernels))
+
+
+def _demangle(name):
+    """A short label for a paged-decode kernel's mangled name."""
+    design = "cluster" if "cluster" in name else "first"
+    dtype = ("bf16" if "bfloat16" in name else "f16" if "half" in name else "f32")
+    pairs = re.search(r"Li(\d+)E", name)
+    return f"{design}<{dtype}{', NP ' + pairs.group(1) if pairs else ''}>"
 
 
 def _ptxas_kernels(log_text):
@@ -205,9 +252,12 @@ def _within(y, ref, tol):
 
 
 def phase_kernels():
-    """paged_decode against its plain version at the serving path's shapes."""
-    from deepspeed_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_reference)
+    """paged_decode against its plain version at the serving path's shapes in
+    bf16, float16 and float32, each on the design the shape rule names (the
+    cluster design) and the bf16 case on the first design too; then times at
+    the mixed and the all-full lengths: both designs, the plain version and
+    SDPA on the pre-gathered view."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
     c = MODEL
     S, NH, HD, NL = SERVING["max_seqs"], c["n_head"], c["n_embd"] // c["n_head"], c["n_layer"]
     NB, BS = SERVING["num_blocks"], SERVING["block_size"]
@@ -220,25 +270,37 @@ def phase_kernels():
     tables = (torch.randperm(NB - 1, generator=gen, device=dev) + 1)[:S * MB]
     tables = tables.reshape(S, MB).to(torch.int32).contiguous()
     lengths = torch.tensor(KERNEL_LENGTHS, dtype=torch.int32, device=dev)
+    if not pa.cluster_design(torch.bfloat16, HD):
+        raise AssertionError("the shape rule does not send the serving shape to the "
+                             "cluster design")
 
-    worst = 0.0
-    for li in (0, NL // 2, NL - 1):
-        y = paged_decode_attention(q, kp, vp, li, tables, lengths, block_size=BS)
-        ref = paged_decode_reference(q, kp, vp, li, tables, lengths, block_size=BS)
-        torch.cuda.synchronize()
-        err, ok = _within(y, ref, BF16_TOL)
-        worst = max(worst, err)
-        if not ok or not torch.isfinite(y).all():
-            raise AssertionError(f"paged_decode bf16 layer {li}: max abs err {err}")
-    kf, vf, qf = kp[:2].float(), vp[:2].float(), q.float()
-    for li in (0, 1):
-        err, ok = _within(
-            paged_decode_attention(qf, kf, vf, li, tables, lengths, block_size=BS),
-            paged_decode_reference(qf, kf, vf, li, tables, lengths, block_size=BS), F32_TOL)
-        if not ok:
-            raise AssertionError(f"paged_decode f32 layer {li}: max abs err {err}")
-    del kf, vf
-    log(f"[kernels] paged_decode bf16 max abs err {worst!r} (tol {BF16_TOL}); f32 ok")
+    def check(qd, kd, vd, layers, tol):
+        worst = 0.0
+        before = pa.paged_decode_attention.cluster_launches
+        for li in layers:
+            y = pa.paged_decode_attention(qd, kd, vd, li, tables, lengths, block_size=BS)
+            ref = pa.paged_decode_reference(qd, kd, vd, li, tables, lengths, block_size=BS)
+            torch.cuda.synchronize()
+            err, ok = _within(y, ref, tol)
+            worst = max(worst, err)
+            if not ok or not torch.isfinite(y).all():
+                raise AssertionError(f"paged_decode {qd.dtype} layer {li}: max abs err {err}")
+        if pa.paged_decode_attention.cluster_launches - before != len(layers):
+            raise AssertionError(f"paged_decode {qd.dtype}: not every launch ran the "
+                                 "cluster design")
+        return worst
+
+    worst = check(q, kp, vp, (0, NL // 2, NL - 1), BF16_TOL)
+    err_f16 = check(q.half(), kp[:2].half(), vp[:2].half(), (0, 1), BF16_TOL)
+    err_f32 = check(q.float(), kp[:2].float(), vp[:2].float(), (0, 1), F32_TOL)
+    old = pa._launch(q, kp, vp, NL - 1, tables, lengths, BS, cluster=False)
+    err_old, ok = _within(old, pa.paged_decode_reference(q, kp, vp, NL - 1, tables, lengths,
+                                                         block_size=BS), BF16_TOL)
+    if not ok:
+        raise AssertionError(f"paged_decode, first design: max abs err {err_old}")
+    log(f"[kernels] paged_decode cluster design, max abs err: bf16 {worst!r}, f16 "
+        f"{err_f16!r} (tol {BF16_TOL}), f32 {err_f32!r} (tol {F32_TOL}); first design bf16 "
+        f"{err_old!r}")
 
     def bound(lens):
         live = sum(min(int(n), MB * BS) for n in lens)
@@ -251,22 +313,30 @@ def phase_kernels():
 
     def timings(lens):
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-        # rotate through the layers so each launch finds its pages outside L2
-        kernel = time_ms(lambda i: paged_decode_attention(
-            q, kp, vp, i % NL, tables, ln, block_size=BS), 480)
-        plain = time_ms(lambda i: paged_decode_reference(
-            q, kp, vp, i % NL, tables, ln, block_size=BS), 48)
+        # device times from CUDA-graph replays, the launches rotating through
+        # the layers so each finds its pages outside L2; the two designs in
+        # turns (cluster, first, first, cluster); then the eager loop of the
+        # cluster design, which the host's enqueue cost bounds
+        new = lambda i: pa.paged_decode_attention(q, kp, vp, i % NL, tables, ln, block_size=BS)
+        first = lambda i: pa._launch(q, kp, vp, i % NL, tables, ln, BS, cluster=False)
+        kernel_a, old_a, old_b, kernel_b = (graph_ms(f, NL) for f in (new, first, first, new))
+        eager = time_ms(new, 480)
+        plain = graph_ms(lambda i: pa.paged_decode_reference(
+            q, kp, vp, i % NL, tables, ln, block_size=BS), 8, replays=4)
         # SDPA on the pre-gathered dense view of 4 layers (the port never calls it)
         pos = torch.arange(MB * BS, device=dev)
         mask = (pos[None, :] < ln[:, None].long())[:, None, None, :]
         views = [(kp[li][tables.long()].reshape(S, MB * BS, NH, HD).transpose(1, 2).contiguous(),
                   vp[li][tables.long()].reshape(S, MB * BS, NH, HD).transpose(1, 2).contiguous())
                  for li in range(4)]
-        library = time_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-            q, views[i % 4][0], views[i % 4][1], attn_mask=mask), 48)
+        library = graph_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+            q, views[i % 4][0], views[i % 4][1], attn_mask=mask), 4)
         b_ms, b_by = bound(lens)
-        return {"ms": kernel, "plain_ms": plain, "library_ms": library,
-                "bound_ms": b_ms, "bound_by": b_by}
+        ms = (kernel_a + kernel_b) / 2
+        return {"ms": ms, "ms_runs": [kernel_a, kernel_b], "eager_ms": eager,
+                "old_ms": (old_a + old_b) / 2, "old_ms_runs": [old_a, old_b],
+                "plain_ms": plain, "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
+                "share_of_bound": b_ms / ms}
 
     mixed = timings(KERNEL_LENGTHS)
     full = timings([MB * BS] * S)
@@ -274,11 +344,17 @@ def phase_kernels():
     log(f"[kernels] paged_decode lengths all {MB * BS}: {json.dumps(full)}")
     del kp, vp
     torch.cuda.empty_cache()
-    return {"name": "paged_decode", "route": "cuda",
+    return {"name": "paged_decode", "route": "cuda", "design": "cluster",
             "source": "deepspeed_tpu_torch/csrc/paged_decode.cu",
             "replaces": "deepspeed_tpu/ops/pallas/paged_attention.py:45:_decode_kernel",
-            "launches": None, "max_abs_err": worst, "tol": list(BF16_TOL),
-            "kernel_ms": mixed["ms"], **mixed}
+            "launches": None, "max_abs_err": worst, "max_abs_err_f16": err_f16,
+            "max_abs_err_f32": err_f32, "tol": list(BF16_TOL), "kernel_ms": mixed["ms"],
+            "ms": mixed["ms"], "eager_ms": mixed["eager_ms"], "old_ms": mixed["old_ms"],
+            "plain_ms": mixed["plain_ms"],
+            "library_ms": mixed["library_ms"], "bound_ms": mixed["bound_ms"],
+            "bound_by": mixed["bound_by"], "full_ms": full["ms"], "full_old_ms": full["old_ms"],
+            "full_plain_ms": full["plain_ms"], "full_bound_ms": full["bound_ms"],
+            "full_library_ms": full["library_ms"]}
 
 
 def _trace(vocab):
@@ -348,20 +424,23 @@ def phase_serving():
         torch.cuda.synchronize()
         st["seconds"] += time.perf_counter() - t
         if pre is not None:
-            launched = paged_decode_attention.launches
+            launched = (paged_decode_attention.launches,
+                        paged_decode_attention.cluster_launches)
             first_step_check(p, toks, pos, tables, active, *pre, out)
-            paged_decode_attention.launches = launched   # checks are not the main path
+            # checks are not the main path
+            paged_decode_attention.launches, paged_decode_attention.cluster_launches = launched
         st["steps"] += 1
         return out
 
     eng._decode = decode
     reqs = _trace(cfg.vocab_size)
-    paged_decode_attention.launches = 0
+    paged_decode_attention.launches = paged_decode_attention.cluster_launches = 0
     t0 = time.perf_counter()
     outs, logs = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_decode_attention.launches
+    cluster_launches = paged_decode_attention.cluster_launches
 
     if [o.status for o in outs] != ["finished"] * len(reqs):
         raise AssertionError(f"unfinished requests: {[(o.req_id, o.status) for o in outs]}")
@@ -372,6 +451,9 @@ def phase_serving():
     if st["steps"] == 0 or launches != cfg.n_layer * st["steps"]:
         raise AssertionError(f"paged_decode launches {launches} != {cfg.n_layer} x "
                              f"{st['steps']} decode steps")
+    if cluster_launches != launches:
+        raise AssertionError(f"only {cluster_launches} of {launches} paged_decode launches "
+                             "ran the cluster design")
     n_tok = sum(len(o.tokens) for o in outs)
     ttft = [o.ttft_ms for o in outs]
     res = {"requests": len(outs), "iterations": len(logs), "decode_steps": st["steps"],
@@ -381,7 +463,7 @@ def phase_serving():
            "decode_step_ms": st["seconds"] / st["steps"] * 1e3,
            "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": max(ttft),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "paged_decode_launches": launches,
+           "paged_decode_launches": launches, "cluster_launches": cluster_launches,
            "first_step_logits_max_abs_diff": st["first_err"],
            "first_step_logits_max_abs_diff_f32": st["first_err_f32"],
            "first_step_logit_std": st["logit_std"],

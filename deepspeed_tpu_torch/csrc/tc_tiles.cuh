@@ -60,6 +60,35 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, bool half, int BH
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A contiguous layer-major page pool [L, NB, BS, NH, D] (dtype 0 float32,
+// 1 bfloat16, 2 float16) as a 5-D map whose box is `rows` tokens of one page
+// for `heads` heads: it lands in shared memory as row-major
+// [rows][heads][D] without swizzle. The layer and the page are coordinates,
+// so one map serves every layer and page; rows past BS arrive as zeros.
+// D * element size must be a multiple of 16 bytes and ptr 16-aligned.
+inline cudaError_t make_pool_map(CUtensorMap* map, const void* ptr, int dtype, long long L,
+                                 long long NB, int BS, int NH, int D, int heads, int rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t es = dtype == 0 ? 4 : 2;
+  cuuint64_t dims[5] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(NH),
+                        static_cast<cuuint64_t>(BS), static_cast<cuuint64_t>(NB),
+                        static_cast<cuuint64_t>(L)};
+  cuuint64_t strides[4] = {dims[0] * es, dims[0] * dims[1] * es,
+                           dims[0] * dims[1] * dims[2] * es,
+                           dims[0] * dims[1] * dims[2] * dims[3] * es};
+  cuuint32_t box[5] = {static_cast<cuuint32_t>(D), static_cast<cuuint32_t>(heads),
+                       static_cast<cuuint32_t>(rows), 1, 1};
+  cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapDataType type = dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  CUresult r = encode(map, type, 5, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- device
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -110,6 +139,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%3, %4, %5}], [%2];"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of a 5-D map (make_pool_map) at coordinates c0 (innermost) .. c4.
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
 }
 

@@ -5,11 +5,13 @@ against the dense gather formula of tests/unit/test_paged_attention.py,
 computed in JAX, on the same numpy inputs. The JAX Pallas kernel is not the
 oracle: it does not run on this tree's jax (see ROADMAP.md, section C).
 
-The CUDA kernel itself runs only on the card: the ``cuda``-marked test holds
-it against the plain version there and skips elsewhere. JAX is imported only
-by the tests that use it, so that on a machine with a card and no JAX
-``python -m pytest -m cuda --noconftest tests/test_torch_paged_attention.py``
-runs the kernel test.
+The CUDA kernels run only on the card: the ``cuda``-marked tests hold them
+against the plain version there (each asserting the design the shape rule
+``cluster_design`` names) and skip elsewhere; the rule and the cluster
+design's geometry (``cluster_plan``) are checked here on the CPU. JAX is
+imported only by the tests that use it, so that on a machine with a card and
+no JAX ``python -m pytest -m cuda --noconftest tests/test_torch_paged_attention.py``
+runs the kernel tests.
 """
 
 import math
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from deepspeed_tpu_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_reference)
+    cluster_design, cluster_plan, paged_decode_attention, paged_decode_reference)
 
 S, BS, MB = 4, 4, 8
 ML = MB * BS
@@ -62,7 +64,11 @@ def _torch(a, dtype=None):
     return t.to(dtype) if dtype is not None else t
 
 
-@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+# float16: both sides sum in float32 and round once to the pool type, so they
+# differ by at most about one float16 ulp (2^-11 relative) at values of O(1);
+# 1e-2 is the kernels' 16-bit tolerance on the card.
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 2e-2),
+                                        ("float16", 1e-2)])
 @pytest.mark.parametrize("li", [0, 1])
 def test_plain_paged_decode_matches_jax_dense_gather(dtype, atol, li):
     q, kp, vp, tables, lengths = _inputs()
@@ -121,7 +127,7 @@ def test_wrapper_refuses_bad_inputs(bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", ["small", "gpt2_1.5b"])
 def test_cuda_kernel_matches_plain_version(dtype, shape):
     """The CUDA kernel against the plain version on the same card tensors.
@@ -156,3 +162,165 @@ def test_cuda_kernel_matches_plain_version(dtype, shape):
         else:
             torch.testing.assert_close(y.float(), ref.float(), atol=1e-2, rtol=1e-2)
     assert paged_decode_attention.launches == before + nl
+
+
+# ------------------------------------------------------------ the shape rule
+@pytest.mark.parametrize("dtype,head_dim,cluster", [
+    (torch.bfloat16, 64, True), (torch.float16, 64, True), (torch.float32, 64, True),
+    (torch.bfloat16, 8, True), (torch.float32, 4, True), (torch.bfloat16, 256, True),
+    (torch.float32, 256, True), (torch.bfloat16, 2, False), (torch.float16, 6, False),
+    (torch.float32, 2, False), (torch.bfloat16, 20, False), (torch.bfloat16, 96, False),
+    (torch.float32, 24, False)])
+def test_shape_rule_names_the_cluster_design_where_rows_split_in_16_bytes(dtype, head_dim,
+                                                                        cluster):
+    """The cluster design takes a head_dim whose row is 16 bytes times a
+    power of two (a TMA box row, split over the lanes of a warp); every other
+    even head_dim takes the first design."""
+    assert cluster_design(dtype, head_dim) is cluster
+
+
+def test_cluster_plan_at_the_serving_widths():
+    """GPT-2 1.5B (25 heads of 64, pages of 16, 64 pages a slot): groups of 5
+    heads, one warp each beside the producer warp, 8 splits of at most 8
+    pages; a stage is a whole
+    page of the group in bf16 and fp16 (20 KB of K + V) and half a page in
+    float32; 4 lanes share a token's row of 64 values."""
+    for dtype, tb, boxes, lanes in ((torch.bfloat16, 16, 1, 4), (torch.float16, 16, 1, 4),
+                                    (torch.float32, 8, 2, 4)):
+        plan = cluster_plan(25, 64, 16, 64, dtype)
+        assert (plan.heads_per_group, plan.tokens_per_box, plan.boxes_per_page) == (5, tb, boxes)
+        assert (plan.splits, plan.lanes) == (8, lanes)
+        assert 2 * tb * 5 * 64 * dtype.itemsize == 20480          # K + V of one stage
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cluster_plan_fits_the_kernel(dtype):
+    """What paged_decode_cluster checks and assumes, for every plan over a
+    sweep of shapes: groups of at most 8 heads divide the heads, boxes cover
+    a page within TMA's 256 rows and 4 passes of the warp, a stage stays
+    within 20 KB, lanes x loads of at most 16 values tile a row, at most 8
+    splits."""
+    es = dtype.itemsize
+    for n_head in (1, 2, 7, 12, 16, 25, 40):
+        for head_dim in (8, 16, 32, 64, 128, 256):
+            for block_size, max_blocks in ((1, 5), (4, 8), (16, 64), (512, 3)):
+                assert cluster_design(dtype, head_dim)
+                p = cluster_plan(n_head, head_dim, block_size, max_blocks, dtype)
+                g, loads = p.heads_per_group, head_dim * es // 16
+                assert n_head % g == 0 and g <= 8 and g * head_dim * es <= 2048
+                assert 1 <= p.tokens_per_box <= min(256, block_size, 4 * (32 // p.lanes))
+                assert p.tokens_per_box * p.boxes_per_page >= block_size
+                assert (p.boxes_per_page - 1) * p.tokens_per_box < block_size  # no empty box
+                assert 2 * p.tokens_per_box * g * head_dim * es <= 20480   # a stage
+                per_lane = min(loads, es)     # 16 values: 2 loads in 16 bits, 4 in float32
+                assert p.lanes * per_lane == loads and p.lanes <= 16
+                assert p.splits == min(8, max_blocks)
+
+
+# ------------------------------------------------------- kernels on the card
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the paged-decode kernels have no CPU mode")
+
+
+def _card_inputs(nl, nb, bs, nh, hd, mb, lengths, dtype, seed=0, tables=None):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kp = torch.randn(nl, nb, bs, nh, hd, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(nl, nb, bs, nh, hd, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(len(lengths), nh, 1, hd, generator=gen, device="cuda").to(dtype)
+    if tables is None:
+        tables = torch.randperm(nb - 1, generator=gen, device="cuda")[:len(lengths) * mb] + 1
+    tables = torch.as_tensor(tables, device="cuda").reshape(len(lengths), mb)
+    return (q, kp, vp, tables.to(torch.int32).contiguous(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def _check_on_card(q, kp, vp, tables, lengths, bs, layers=(0,)):
+    """Kernel vs plain version at each layer, and the design the rule names."""
+    cluster = cluster_design(q.dtype, q.shape[3])
+    launches = paged_decode_attention.launches
+    clustered = paged_decode_attention.cluster_launches
+    for li in layers:
+        y = paged_decode_attention(q, kp, vp, li, tables, lengths, block_size=bs)
+        ref = paged_decode_reference(q, kp, vp, li, tables, lengths, block_size=bs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all()
+        tol = 1e-5 if q.dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
+    assert paged_decode_attention.launches == launches + len(layers)
+    assert paged_decode_attention.cluster_launches == clustered + cluster * len(layers)
+
+
+# nl, nb, bs, nh, hd, mb, lengths: 8 splits at 64 pages of 16, so split r
+# owns pages r, r + 8, ...: lengths at a page's edge, at one page for every
+# split (8 x 16) and one token past it, and at the table's end
+EDGES = (2, 520, 16, 4, 64, 64, [1, 16, 17, 128, 129, 1024, 1023, 261])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("case", ["edges", "all_full", "all_one", "gpt2_1.5b"])
+def test_cuda_cluster_design_lengths(dtype, case):
+    """Lengths at page and split edges, every slot full, every slot at one
+    token, and the serving widths (25 heads of 64: float16 and float32 take
+    boxes of a whole and of half a page)."""
+    _card()
+    nl, nb, bs, nh, hd, mb, lengths = EDGES
+    if case == "all_full":
+        lengths = [mb * bs] * 8
+    elif case == "all_one":
+        lengths = [1] * 8
+    elif case == "gpt2_1.5b":
+        nh = 25
+        lengths = [1, 17, 300, 1024, 64, 511, 777, 1000]
+    tdt = getattr(torch, dtype)
+    _check_on_card(*_card_inputs(nl, nb, bs, nh, hd, mb, lengths, tdt), bs, layers=(1,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nh,hd", [(8, 32), (4, 128), (2, 256), (1, 64)])
+def test_cuda_cluster_design_head_dims(dtype, nh, hd):
+    """head_dim 32, 128 and 256 (groups of 8, 4 and 2 heads), and one head."""
+    _card()
+    lengths = [5, 300, 64, 1]
+    _check_on_card(*_card_inputs(2, 140, 16, nh, hd, 32, lengths, getattr(torch, dtype)), 16,
+                   layers=(0, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_design_repeated_pages_and_page_edges():
+    """A table that repeats page ids (shared prefix pages, beam forks), with
+    pages of 512 tokens: boxes of part of a page, the last one past its end."""
+    _card()
+    rng = np.random.RandomState(0)
+    tables = rng.randint(1, 6, size=(3, 4))
+    tables[1] = tables[0]
+    q, kp, vp, tb, ln = _card_inputs(3, 8, 512, 2, 128, 4, [700, 2048, 1], torch.float32,
+                                     tables=tables)
+    _check_on_card(q, kp, vp, tb, ln, 512, layers=(2,))
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_design_is_deterministic():
+    """Two launches on the same inputs give the same bits: the splits merge
+    in rank order inside the cluster, with no atomics."""
+    _card()
+    nl, nb, bs, nh, hd, mb, lengths = EDGES
+    q, kp, vp, tb, ln = _card_inputs(nl, nb, bs, 25, hd, mb, [1, 17, 300, 1024, 64, 511, 777,
+                                                              1000], torch.bfloat16)
+    a = paged_decode_attention(q, kp, vp, 1, tb, ln, block_size=bs)
+    b = paged_decode_attention(q, kp, vp, 1, tb, ln, block_size=bs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [("bfloat16", 2), ("float16", 6), ("float32", 2),
+                                      ("bfloat16", 96)])
+def test_cuda_first_design_takes_the_other_shapes(dtype, hd):
+    """Rows under 16 bytes, or not 16 bytes times a power of two, run the
+    first design."""
+    _card()
+    _check_on_card(*_card_inputs(2, 70, 16, 3, hd, 8, [1, 17, 128, 100],
+                                 getattr(torch, dtype)), 16, layers=(0, 1))
