@@ -10,7 +10,8 @@ result line):
    and power limit as ``nvidia-smi`` reports them;
 2. build — compiles every CUDA kernel of the serving and training paths
    from ``csrc/`` (one ``nvcc`` per source, all at once); prints each
-   file's registers and spills, and each paged-decode kernel's;
+   file's registers and spills, and each paged-decode and tensor-core
+   fused-block kernel's;
 3. kernels — holds the paged-decode kernel's cluster design (each history
    split across a thread-block cluster, pages staged by TMA) against its
    plain PyTorch version on card tensors at GPT-2 1.5B's serving shapes in
@@ -61,20 +62,25 @@ result line):
    and fall, and that each block-sparse kernel ran once per layer per step;
    a profiler window of one step; then the same model with dense flash
    attention for 6 steps, for the sparse/dense step ratio;
-9. fused-block kernels — the two entries of the fused transformer block
-   (K/V pass, q pass) and the wrapper against their plain versions at GPT-2
-   124M's shape (x [8, 1024, 768], 12 heads, bf16, causal) and at the JAX
-   tests' shape in float32 (causal and not), a ragged T, float16, E = 1024
-   with 16 heads, and B = 1 at T = 4096; gradients through the wrapper
-   against autograd of the plain version; times beside the plain version and
-   the unfused composition the model would otherwise run;
+9. fused-block kernels — the two entries of the fused transformer block in
+   the design the shape rule names (tensor cores: LayerNorm + qkv, then
+   attention + projection; CUDA cores: K/V pass, q pass) and the wrapper
+   against their plain versions at GPT-2 124M's shape (x [8, 1024, 768], 12
+   heads, bf16, causal) and at the JAX tests' shape in float32 (causal and
+   not), a ragged T, float16, E = 1024 with 16 heads, B = 1 at T = 4096,
+   E = 1600 with 25 heads and head dim 128, checking by the launch counts
+   that each case ran that design; gradients through the wrapper against
+   autograd of the plain version; times of the tensor-core design, of the
+   CUDA-core design on the same inputs and of the unfused composition the
+   model would otherwise run, in turns, beside the plain versions;
 10. fused training — GPT-2 124M (768 x 12, 12 heads, vocab 50304, T = 1024,
    ``fused_block``) through ``initialize`` at ZeRO-2 in bf16 with AdamW,
    micro-batch 8, 10 steps on one seeded batch; checks the first
    micro-batch's loss and per-layer grad norms against the plain path (bf16
    at full depth, float32 at 2 layers), that the losses are finite and fall
-   and that the wrapper ran 12 times per micro-step; a profiler window; then
-   the same model with flash attention for the fused/unfused step ratio;
+   and that the wrapper ran 12 times per micro-step, each time on the
+   tensor-core design; a profiler window; then the same model with flash
+   attention for the fused/unfused step ratio;
 11. BERT training — BERT-large (24 x 1024, 16 heads, vocab 30522, seq 512,
    micro-batch 16, flash attention with the padding mask as a key bias)
    through ``initialize`` at ZeRO-2 in bf16 with LAMB, 10 steps on one seeded
@@ -210,7 +216,7 @@ def phase_build():
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
     builds = _build.build("paged_decode", "flash_attention", "block_sparse_attention",
-                          "fused_block")
+                          "fused_block", "fused_block_tc")
     log(f"[build] {sorted(builds)} in {time.perf_counter() - t0:.2f} s")
     for b in builds.values():
         kernels = _ptxas_kernels(b.log)
@@ -218,17 +224,19 @@ def phase_build():
         log(f"[build] {b.name}: {len(kernels)} kernels, {min(regs, default=0)}-"
             f"{max(regs, default=0)} registers; spilling: "
             + (", ".join(f"{n} ({s} B)" for n, _, s in kernels if s) or "none"))
-        if b.name == "paged_decode":
-            log("[build] paged_decode per kernel (registers, spill-store bytes): " + "; ".join(
+        if b.name in ("paged_decode", "fused_block_tc"):
+            log(f"[build] {b.name} per kernel (registers, spill-store bytes): " + "; ".join(
                 f"{_demangle(n)} {r}, {s}" for n, r, s in kernels))
 
 
 def _demangle(name):
-    """A short label for a paged-decode kernel's mangled name."""
-    design = "cluster" if "cluster" in name else "first"
+    """A short label for a paged-decode or tensor-core fused-block kernel's
+    mangled name: its kind, dtype and integer template arguments."""
+    kind = next(k for k in ("cluster", "qkv", "attn", "") if k in name) or "first"
     dtype = ("bf16" if "bfloat16" in name else "f16" if "half" in name else "f32")
-    pairs = re.search(r"Li(\d+)E", name)
-    return f"{design}<{dtype}{', NP ' + pairs.group(1) if pairs else ''}>"
+    ints = re.findall(r"Li(\d+)E", name)
+    label = {"cluster": ", NP ", "qkv": ", NC ", "attn": ", DP/NC "}.get(kind, "")
+    return f"{kind}<{dtype}{label + '/'.join(ints) if ints else ''}>"
 
 
 def _ptxas_kernels(log_text):
@@ -1240,14 +1248,15 @@ def _fused_operands(B, T, E, dtype, seed=0):
 
 
 def _fused_bounds(B, T, E, H, itemsize, causal):
-    """(flops, bytes) of the K/V entry, the q entry and the whole op: each
-    input read once, each output written once."""
+    """(flops, bytes) of the tensor-core design's two entries and of the
+    whole op: each input read once, each output written once (the first
+    entry writes q, k and v; the second reads them)."""
     tile, vec = B * T * E * itemsize, 4 * E
     attn = 4 * B * H * T * T * (E // H) // (2 if causal else 1)
-    kv = (2 * B * T * E * 2 * E, tile + 2 * E * E * itemsize + 4 * vec + 2 * tile)
-    q = (4 * B * T * E * E + attn, tile + 2 * tile + 2 * E * E * itemsize + 4 * vec + tile)
-    whole = (kv[0] + q[0], 2 * tile + 4 * E * E * itemsize + 6 * vec)
-    return kv, q, whole
+    qkv = (2 * B * T * E * 3 * E, tile + 3 * E * E * itemsize + 5 * vec + 3 * tile)
+    out = (2 * B * T * E * E + attn, 3 * tile + tile + E * E * itemsize + vec + tile)
+    whole = (qkv[0] + out[0], 2 * tile + 4 * E * E * itemsize + 6 * vec)
+    return qkv, out, whole
 
 
 def _bound_ms(flops, nbytes, peak):
@@ -1255,9 +1264,34 @@ def _bound_ms(flops, nbytes, peak):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _fused_counts():
+    from deepspeed_tpu_torch.ops import fused_block as fb
+    return (fb.fused_transformer_block.launches, fb.fused_transformer_block.tc_launches,
+            fb.fused_block_kv.launches, fb.fused_block_q.launches,
+            fb.fused_block_qkv_tc.launches, fb.fused_block_attn_tc.launches)
+
+
+def _fused_entries(tc):
+    """The two entries of a design, each (kernel, plain version), over x, the
+    operands and a workspace of the design's layout; the second entry takes
+    the workspace ``ws``."""
+    from deepspeed_tpu_torch.ops import fused_block as fb
+    if tc:
+        return ((lambda ops, H: fb.fused_block_qkv_tc(*ops[:5], n_head=H),
+                 lambda ops, H: fb.fused_block_qkv_plain(*ops[:5], H)),
+                (lambda ops, ws, H, c: fb.fused_block_attn_tc(ops[0], ws, *ops[5:], n_head=H,
+                                                              causal=c),
+                 lambda ops, ws, H, c: fb.fused_block_attn_plain(ops[0], ws, *ops[5:], H, c)))
+    return ((lambda ops, H: fb.fused_block_kv(*ops[:5]),
+             lambda ops, H: fb.fused_block_kv_plain(*ops[:5])),
+            (lambda ops, ws, H, c: fb.fused_block_q(ops[0], ws, *ops[1:], n_head=H, causal=c),
+             lambda ops, ws, H, c: fb.fused_block_q_plain(ops[0], ws, *ops[1:], H, c)))
+
+
 def phase_fused_block_kernels():
     """The fused-block entries and their wrapper against the plain versions
-    at the fused path's shape and at other shapes; gradients; times."""
+    at the fused path's shape and at other shapes, each case on the design
+    the shape rule names (checked by the launch counts); gradients; times."""
     from deepspeed_tpu_torch.ops import fused_block as fb
     cases = [  # (B, T, E, heads, dtype, causal)
         (*FUSED_SHAPE, torch.bfloat16, True),         # the main path
@@ -1267,33 +1301,44 @@ def phase_fused_block_kernels():
         (2, 512, 768, 12, torch.float16, False),
         (2, 512, 1024, 16, torch.bfloat16, True),     # E = 1024
         (1, 4096, 768, 12, torch.bfloat16, True),     # one long row
+        (2, 1024, 1600, 25, torch.bfloat16, True),    # GPT-2 1.5B's width (fault C3)
+        (2, 512, 768, 6, torch.bfloat16, True),       # head dim 128 (fault C3)
     ]
-    main, worst = None, {"kv": 0.0, "q": 0.0}
+    main, worst = None, {"qkv": 0.0, "attn": 0.0}
     for case in cases:
         B, T, E, H, dtype, causal = case
-        x, scale, bias, wq, bq, wp, bp = ops = _fused_operands(B, T, E, dtype)
-        ws = fb.fused_block_kv(x, scale, bias, wq, bq)
-        ws_p = fb.fused_block_kv_plain(x, scale, bias, wq, bq)
-        out = fb.fused_block_q(x, ws_p, scale, bias, wq, bq, wp, bp, n_head=H, causal=causal)
-        out_p = fb.fused_block_q_plain(x, ws_p, scale, bias, wq, bq, wp, bp, H, causal)
+        ops = _fused_operands(B, T, E, dtype)
+        tc = fb.tensor_core_design(dtype, E, H)
+        (first, first_p), (second, second_p) = _fused_entries(tc)
+        ws = first(ops, H)
+        ws_p = first_p(ops, H)
+        out = second(ops, ws_p, H, causal)
+        out_p = second_p(ops, ws_p, H, causal)
+        before = _fused_counts()
         full = fb.fused_transformer_block(*ops, H, causal=causal)
+        ran = [a - b for a, b in zip(_fused_counts(), before)]
         full_p = fb.fused_block_plain(*ops, H, causal)
         torch.cuda.synchronize()
+        design = "tensor cores" if tc else "CUDA cores"
+        if ran != ([1, 1, 0, 0, 1, 1] if tc else [1, 0, 1, 1, 0, 0]):
+            raise AssertionError(f"fused block {case}: launches {ran} are not the {design} "
+                                 "design's that the shape rule names")
         tol = FLASH_TOL[dtype]
-        errs = {"kv": _scaled_err(ws.float(), ws_p.float()),
-                "q": _scaled_err(out.float(), out_p.float()),
+        errs = {"qkv": _scaled_err(ws.float(), ws_p.float()),
+                "attn": _scaled_err(out.float(), out_p.float()),
                 "wrapper": _scaled_err(full.float(), full_p.float())}
-        log(f"[fused] {case}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        log(f"[fused] {case} {design}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
             + f" (scaled by max |ref|, tol {tol})")
         if not all(torch.isfinite(t).all() for t in (ws, out, full)):
             raise AssertionError(f"fused block {case}: non-finite output")
         if max(errs.values()) > tol:
             raise AssertionError(f"fused-block kernels vs plain, case {case}: {errs} > {tol}")
         if main is None:
-            main = {"kv": (float((ws.float() - ws_p.float()).abs().max()), errs["kv"]),
-                    "q": (float((out.float() - out_p.float()).abs().max()), errs["q"])}
-        for k in worst:
-            worst[k] = max(worst[k], errs[k])
+            main = {"qkv": (float((ws.float() - ws_p.float()).abs().max()), errs["qkv"]),
+                    "attn": (float((out.float() - out_p.float()).abs().max()), errs["attn"])}
+        if tc:
+            for k in worst:
+                worst[k] = max(worst[k], errs[k])
         del ws, ws_p, out, out_p, full, full_p, ops
     torch.cuda.empty_cache()
 
@@ -1321,15 +1366,21 @@ def phase_fused_block_kernels():
 
 def time_fused(main_err, worst):
     """Device times at the main shape, x rotating over 4 sets (x, workspace
-    and output 50 MB a set); the plain versions and the unfused composition
-    (LayerNorm, bf16 GEMMs and the flash forward kernel) beside them."""
+    and output 63 MB a set), each by CUDA-graph replays of the 4 calls
+    (``graph_ms``: the unfused composition is some 20 small kernels, and an
+    eager loop of it times the host's enqueue): the tensor-core design's
+    entries, the CUDA-core design's on the same inputs and the unfused
+    composition (LayerNorm, bf16 GEMMs and the flash forward kernel), in
+    turns (new, old, unfused, unfused, old, new; the mean of the two); then
+    eager loops of the wrapper and the unfused composition, and the plain
+    versions, once."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import fused_block as fb
     B, T, E, H = FUSED_SHAPE
     sets = []
     for i in range(4):
         ops = _fused_operands(B, T, E, torch.bfloat16, seed=10 + i)
-        sets.append((ops, fb.fused_block_kv(*ops[:5])))
+        sets.append((ops, fb.fused_block_qkv_tc(*ops[:5], n_head=H), fb.fused_block_kv(*ops[:5])))
 
     def unfused(x, scale, bias, wq, bq, wp, bp):
         h = fb._layer_norm_f32(x, scale, bias, 1e-5).to(x.dtype)
@@ -1338,39 +1389,56 @@ def time_fused(main_err, worst):
         y = fa.flash_attention(q, k, v, True).transpose(1, 2).reshape(B, T, E)
         return x + (torch.matmul(y, wp) + bp.to(x.dtype))
 
+    (new_qkv, new_qkv_p), (new_attn, new_attn_p) = _fused_entries(True)
+    (old_kv, old_kv_p), (old_q, old_q_p) = _fused_entries(False)
+    timers = {
+        "new": lambda: (graph_ms(lambda i: new_qkv(sets[i][0], H), 4),
+                        graph_ms(lambda i: new_attn(sets[i][0], sets[i][1], H, True), 4)),
+        "old": lambda: (graph_ms(lambda i: old_kv(sets[i][0], H), 4, replays=5),
+                        graph_ms(lambda i: old_q(sets[i][0], sets[i][2], H, True), 4, replays=5)),
+        "unfused": lambda: graph_ms(lambda i: unfused(*sets[i][0]), 4),
+    }
+    turns = {k: [] for k in timers}
     with torch.no_grad():
-        ms = {
-            "kv": time_ms(lambda i: fb.fused_block_kv(*sets[i % 4][0][:5]), 20),
-            "q": time_ms(lambda i: fb.fused_block_q(sets[i % 4][0][0], sets[i % 4][1],
-                                                    *sets[i % 4][0][1:], n_head=H), 20),
-            "wrapper": time_ms(lambda i: fb.fused_transformer_block(*sets[i % 4][0], H), 20),
-        }
-        plain = {
-            "kv": time_ms(lambda i: fb.fused_block_kv_plain(*sets[i % 4][0][:5]), 8),
-            "q": time_ms(lambda i: fb.fused_block_q_plain(sets[i % 4][0][0], sets[i % 4][1],
-                                                          *sets[i % 4][0][1:], H), 8),
-        }
-        unfused_ms = time_ms(lambda i: unfused(*sets[i % 4][0]), 20)
+        for name in ("new", "old", "unfused", "unfused", "old", "new"):
+            turns[name].append(timers[name]())
+        ms = {name: [statistics.mean(t[j] for t in turns[name]) for j in range(2)]
+              for name in ("new", "old")}
+        unfused_ms = statistics.mean(turns["unfused"])
+        wrapper_ms = time_ms(lambda i: fb.fused_transformer_block(*sets[i % 4][0], H), 20)
+        unfused_eager_ms = time_ms(lambda i: unfused(*sets[i % 4][0]), 20)
+        # the first entry at half the CTAs: if its time holds, each CTA's own
+        # chain bounds it, not the card's shared L2 or memory bandwidth
+        qkv_half_batch_ms = graph_ms(lambda i: new_qkv([sets[i][0][0][:B // 2],
+                                                        *sets[i][0][1:]], H), 4)
+        plain = [time_ms(lambda i: new_qkv_p(sets[i % 4][0], H), 8),
+                 time_ms(lambda i: new_attn_p(sets[i % 4][0], sets[i % 4][1], H, True), 8)]
     del sets
     torch.cuda.empty_cache()
 
-    kv_w, q_w, whole_w = _fused_bounds(B, T, E, H, 2, True)
+    qkv_w, attn_w, whole_w = _fused_bounds(B, T, E, H, 2, True)
     whole_ms, whole_by = _bound_ms(*whole_w, BF16_FLOPS)
     log("[fused] " + json.dumps({
-        "name": "fused_transformer_block", "shape": FUSED_SHAPE, "ms": ms["wrapper"],
-        "entries_ms": ms["kv"] + ms["q"], "plain_ms": plain["kv"] + plain["q"],
-        "unfused_composition_ms": unfused_ms, "gflop": whole_w[0] / 1e9,
+        "name": "fused_transformer_block", "shape": FUSED_SHAPE, "design": "tensor cores",
+        "ms": sum(ms["new"]), "old_ms": sum(ms["old"]), "turns_ms": turns,
+        "plain_ms": sum(plain), "unfused_composition_ms": unfused_ms,
+        "eager_loop_ms": {"wrapper": wrapper_ms, "unfused_composition": unfused_eager_ms},
+        "qkv_ms_at_half_batch": qkv_half_batch_ms,
+        "gflop": whole_w[0] / 1e9,
         "mbytes": whole_w[1] / 1e6, "bound_ms": whole_ms, "bound_by": whole_by}))
     entries = []
-    for name, work in (("kv", kv_w), ("q", q_w)):
+    for j, (name, work) in enumerate((("fused_block_qkv_tc", qkv_w),
+                                      ("fused_block_attn_tc", attn_w))):
+        key = ("qkv", "attn")[j]
         b_ms, b_by = _bound_ms(*work, BF16_FLOPS)
-        e = {"name": f"fused_block_{name}", "route": "cuda",
-             "source": "deepspeed_tpu_torch/csrc/fused_block.cu",
+        e = {"name": name, "route": "cuda", "design": "tensor cores",
+             "source": "deepspeed_tpu_torch/csrc/fused_block_tc.cu",
              "replaces": "deepspeed_tpu/ops/pallas/fused_block.py:86:_fused_block_kernel",
-             "launches": None, "max_abs_err": main_err[name][0],
-             "scaled_err": main_err[name][1], "worst_scaled_err": worst[name],
-             "tol": FLASH_TOL[torch.bfloat16], "kernel_ms": ms[name], "ms": ms[name],
-             "plain_ms": plain[name], "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+             "launches": None, "max_abs_err": main_err[key][0],
+             "scaled_err": main_err[key][1], "worst_scaled_err": worst[key],
+             "tol": FLASH_TOL[torch.bfloat16], "kernel_ms": ms["new"][j], "ms": ms["new"][j],
+             "old_ms": ms["old"][j], "plain_ms": plain[j], "library_ms": None,
+             "unfused_composition_ms": unfused_ms, "bound_ms": b_ms, "bound_by": b_by}
         log(f"[fused] {json.dumps(e)}")
         entries.append(e)
     return entries
@@ -1426,18 +1494,22 @@ def phase_fused_training():
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()      # the training steps' peak, not the check's
-    launchers = (fb.fused_block_kv, fb.fused_block_q, fb.fused_transformer_block)
-    for f in launchers:
+    for f in (fb.fused_block_kv, fb.fused_block_q, fb.fused_block_qkv_tc,
+              fb.fused_block_attn_tc, fb.fused_transformer_block):
         f.launches = 0
+    fb.fused_transformer_block.tc_launches = 0
     losses, step_s = _train_steps(engine, tokens, labels, steps=FUSED_STEPS)
-    launches = [f.launches for f in launchers]
+    launches = [fb.fused_block_qkv_tc.launches, fb.fused_block_attn_tc.launches,
+                fb.fused_transformer_block.launches, fb.fused_transformer_block.tc_launches]
     log(f"[fused-train] step losses {losses}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"fused training losses not finite and decreasing: {losses}")
     n_layer = FUSED_MODEL["n_layer"]
-    if launches != [n_layer * FUSED_STEPS] * 3:
-        raise AssertionError(f"fused-block launches {launches} != {n_layer} x "
-                             f"{FUSED_STEPS} micro-steps each")
+    if (launches != [n_layer * FUSED_STEPS] * 4
+            or fb.fused_block_kv.launches or fb.fused_block_q.launches):
+        raise AssertionError(f"fused-block launches {launches} (entries, wrapper, tensor-core "
+                             f"design) != {n_layer} x {FUSED_STEPS} micro-steps each, all on "
+                             "the tensor-core design")
     res = {"steps": FUSED_STEPS, "loss_first": losses[0], "loss_last": losses[-1],
            **_step_stats(step_s, tokens.numel(), n_params),
            "fused_block_launches": launches, "first_micro_loss_kernel": lk,
@@ -1464,6 +1536,8 @@ def phase_fused_training():
              **_step_stats(u_step_s, tokens.numel(), n_params)}
     u_res["fused_over_unfused_step"] = res["step_ms_median"] / u_res["step_ms_median"]
     log(f"[fused-train-unfused] {json.dumps(u_res)}")
+    log(f"[fused-train] GPT-2 124M step: fused {res['step_ms_median']:.1f} ms, unfused "
+        f"{u_res['step_ms_median']:.1f} ms, fused/unfused {u_res['fused_over_unfused_step']:.3f}")
     del engine, unfused
     gc.collect()
     torch.cuda.empty_cache()

@@ -10,7 +10,8 @@ with the flash-attention kernels in CUDA (``csrc/flash_attention.cu``); and
 long-sequence training with block-sparse attention over a ``SparsityConfig``
 layout (``ops.sparse_attention``), its kernels in CUDA
 (``csrc/block_sparse_attention.cu``); and the fused attention half of a
-GPT-2 block (``GPT2Config.fused_block``, ``csrc/fused_block.cu``) with the
+GPT-2 block (``GPT2Config.fused_block``, ``csrc/fused_block_tc.cu`` on the
+tensor cores, ``csrc/fused_block.cu`` on the CUDA cores) with the
 BERT family (``models.bert`` over ``ops.transformer``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ROADMAP.md lists what later slices bring.

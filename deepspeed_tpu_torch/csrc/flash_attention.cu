@@ -664,19 +664,13 @@ constexpr int dkv_smem() {            // K and V x NWG, Q and dO x kStages, lse 
 template <int DP>
 constexpr int dq_smem() { return fwd_smem<DP>() + 2 * tile_bytes<DP>(); }   // and dO x 2
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (tc::smem_u32(p) & 1023)) & 1023);
-}
-
-// 2^x by the SFU alone (ex2.approx: relative error about 2^-22, far below
-// the 16-bit operands' rounding); exp2f's exact path costs several times as
-// many instructions, and the softmax, not the tensor cores, bounds these
-// kernels.
-__device__ __forceinline__ float exp2_(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using tc::align1024;
+using tc::col;
+using tc::exp2_;
+using tc::quad_max;
+using tc::quad_sum;
+using tc::row8;
+using tc::store2;
 
 // x * scale rounded back to T over a tile, 16 bytes a thread at a time
 // (elementwise, so the swizzle does not matter)
@@ -690,29 +684,6 @@ __device__ __forceinline__ void scale_tile(uint8_t* tile, int bytes, float scale
     *reinterpret_cast<uint4*>(tile + i) = v;
   }
 }
-
-template <typename T>
-__device__ __forceinline__ void store2(T* dst, float a, float b) {
-  if constexpr (std::is_same<T, __half>::value) {
-    *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(a, b);
-  } else {
-    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Element e of a thread's 64 x 64 accumulator: row offset 8 * row8(e) from
-// the thread's first row, column col(e, t).
-__device__ __forceinline__ int row8(int e) { return (e % 4) / 2; }
-__device__ __forceinline__ int col(int e, int t) { return 8 * (e / 4) + 2 * t + (e % 2); }
 
 // The forward's scores of one key tile, in place: bias added, masked, and
 // each of the thread's two rows' maximum. kEdge: the tile is the causal

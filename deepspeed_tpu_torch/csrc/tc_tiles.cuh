@@ -16,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tc {
 
 // ------------------------------------------------------------------ host
@@ -113,21 +115,39 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-// Wait for the completion of the barrier's phase of the given parity
-// (0 for its first phase, then alternating). A wait of more than about ten
-// seconds can only be a fault in the pipeline: it traps, so that the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long start = clock64();
+// One test of the barrier's phase of the given parity (0 for its first
+// phase, then alternating): 1 when it has completed. kCluster: acquire at
+// cluster scope, so that what another CTA of the cluster released with its
+// arrivals is visible after it.
+template <bool kCluster>
+__device__ __forceinline__ uint32_t mbar_test(uint32_t addr, uint32_t parity) {
   uint32_t done;
-  do {
+  if constexpr (kCluster) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } else {
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (!done && clock64() - start > 20000000000ll) __trap();
-  } while (!done);
+  }
+  return done;
+}
+
+// Wait for the completion of the barrier's phase of the given parity
+// (kCluster: as mbar_test). A wait of more than about ten seconds can only be
+// a fault in the pipeline: it traps, so that the launch fails with an error
+// instead of hanging the card. The clock is read only once a first test has
+// failed, so a wait whose phase has already completed reads none.
+template <bool kCluster = false>
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_test<kCluster>(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_test<kCluster>(addr, parity))
+    if (clock64() - start > 20000000000ll) __trap();
 }
 
 // One TMA box at (column c0, row c1, head c2) into shared memory; completion
@@ -142,6 +162,38 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// This CTA's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// One arrival on the barrier at bar's offset in the shared memory of the
+// cluster's CTA `rank` (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}"
+      ::"r"(smem_u32(bar)), "r"(rank) : "memory");
+}
+
+// 16 bytes at p's offset in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ uint4 ld_cluster_v4(const void* p, uint32_t rank) {
+  uint4 v;
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %4, %5;\n"
+      "ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [ra];\n}"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(smem_u32(p)), "r"(rank) : "memory");
+  return v;
+}
+
+// Every thread of the cluster that has not exited arrives, then waits for
+// the others: a CTA's shared memory stays until its peers are done with it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
 // One box of a 5-D map (make_pool_map) at coordinates c0 (innermost) .. c4.
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3, int c4) {
@@ -151,6 +203,19 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
       : "memory");
+}
+
+// The first 1024-byte aligned address at or after p (a swizzled atom's base).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Byte offset of 16-bit element (row, col) in a [64, n * 64] tile of
+// 128-byte-swizzled atoms (atom col / 64, 16-byte chunk XOR row % 8): where
+// TMA puts it, and where a thread writes an operand that wgmma reads.
+__host__ __device__ __forceinline__ uint32_t sw128(int row, int col) {
+  return (col >> 6) * (64 * 128) + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+         ((col & 7) << 1);
 }
 
 // Thread-written shared memory made visible to the async proxy (wgmma).
@@ -191,6 +256,11 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// Wait until at most one committed group is in flight: the group before the
+// last one has finished reading its operands.
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
 
 // Keep the compiler from moving reads or writes of accumulator registers
 // between a wgmma and its wait.
@@ -213,13 +283,70 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// 2^x by the SFU alone (ex2.approx: relative error about 2^-22, far below
+// the 16-bit operands' rounding; 2^-inf = 0); exp2f's exact path costs
+// several times as many instructions, and the softmax, not the tensor cores,
+// bounds the attention kernels.
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to T (float16 or bfloat16) and stored as a pair.
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b) {
+  if constexpr (std::is_same<T, __half>::value) {
+    *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(a, b);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  }
+}
+
+// A row of a 64 x N accumulator lives in the 4 threads of a quad.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Sixteen 32-bit words a quad, four a lane, w[k] being lane t's word of
+// "combo" k, exchanged so that lane t ends with combo t's four words, lane
+// s's in w[s]. An accumulator fragment's pairs rounded to 16 bits, combos
+// being (row r, column group j) of 8 columns: each lane then holds one row's
+// 8 consecutive values, 16 bytes to store at once.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t) {
+  uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // round k: lane t reads lane (t + k) & 3's word of combo t, and so
+    // sends its own word of combo (t - k) & 3
+    const int give = (t - k) & 3, from = (t + k) & 3;
+    const uint32_t send = give == 0 ? w[0] : give == 1 ? w[1] : give == 2 ? w[2] : w[3];
+    const uint32_t got = __shfl_sync(0xffffffffu, send, from, 4);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) out[s] = from == s ? got : out[s];
+  }
+#pragma unroll
+  for (int s = 0; s < 4; ++s) w[s] = out[s];
+}
+
+// Element e of a thread's 64 x 64 accumulator: row offset 8 * row8(e) from
+// the thread's first row, column col(e, t).
+__device__ __forceinline__ int row8(int e) { return (e % 4) / 2; }
+__device__ __forceinline__ int col(int e, int t) { return 8 * (e / 4) + 2 * t + (e % 2); }
+
 // ------------------------------------------------------------------ wgmma
 // D[64, N] (+)= A[64, 16] * B[16, N], f32 accumulators. The accumulator
 // fragment: thread (warp w, lane 4g + t) holds d[4j + c] at row 16w + g +
 // 8 (c / 2), column 8j + 2t + c % 2. ss: A and B K-major in shared memory;
 // rs: A in registers (the same layout as a 64 x 16 slice of the
 // accumulator, packed in pairs), B MN-major in shared memory (transposed).
-// acc = 0 overwrites D.
+// ss_t: A K-major and B MN-major (a row-major [K, N] weight tile), both in
+// shared memory. acc = 0 overwrites D.
 #define TC_D8(i)                                                                           \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -239,6 +366,16 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " TC_R32 \
                ", %32, %33, p, 1, 1, 0, 0;\n}"                                     \
                : TC_D32 : "l"(da), "l"(db), "r"(acc))
+#define TC_SS_T_N64(TY)                                                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " TC_R32 \
+               ", %32, %33, p, 1, 1, 0, 1;\n}"                                     \
+               : TC_D32 : "l"(da), "l"(db), "r"(acc))
+#define TC_SS_T_N128(TY)                                                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " TC_R64 \
+               ", %64, %65, p, 1, 1, 0, 1;\n}"                                      \
+               : TC_D64 : "l"(da), "l"(db), "r"(acc))
 #define TC_RS_N64(TY)                                                              \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " TC_R32 \
@@ -256,6 +393,18 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
   else TC_SS_N64("bf16");
 }
 
+// N = 64 or 128 by the accumulator's size
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  if constexpr (kHalf) TC_SS_T_N64("f16");
+  else TC_SS_T_N64("bf16");
+}
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_ss_t(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  if constexpr (kHalf) TC_SS_T_N128("f16");
+  else TC_SS_T_N128("bf16");
+}
+
 // N = 64 or 128 (the padded head dim) by the accumulator's size
 template <bool kHalf>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
@@ -271,6 +420,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 }
 
 #undef TC_SS_N64
+#undef TC_SS_T_N64
+#undef TC_SS_T_N128
 #undef TC_RS_N64
 #undef TC_RS_N128
 #undef TC_R64

@@ -158,11 +158,17 @@ def test_plain_version_rounds_where_the_kernel_rounds():
 
 @pytest.mark.parametrize("case", ["width", "head_dim", "heads", "dtype", "rank", "shape"])
 def test_limits_and_operand_checks_raise(case):
+    """The CUDA-core design's limits hold in ``check_limits`` (the card's
+    wrapper applies them where the tensor-core design does not take the
+    shape); the CPU wrapper computes every width and head dim the JAX
+    function takes. The argument checks raise on every device."""
     if case == "width":       # E * itemsize > 3072
         x = torch.zeros(1, 4, 800)
         with pytest.raises(ValueError, match="3072"):
-            fb.fused_transformer_block(x, *(torch.zeros(s) for s in (
-                (800,), (800,), (800, 2400), (2400,), (800, 800), (800,))), 16)
+            fb.check_limits(x, 16)
+        out = fb.fused_transformer_block(x, *(torch.zeros(s) for s in (
+            (800,), (800,), (800, 2400), (2400,), (800, 800), (800,))), 16)
+        assert out.shape == (1, 4, 800) and torch.isfinite(out).all()
         fb.check_limits(torch.zeros(1, 4, 1536, dtype=torch.bfloat16), 24)
         return
     ops = _operands()
@@ -170,7 +176,9 @@ def test_limits_and_operand_checks_raise(case):
     if case == "head_dim":
         wide = _torch_args(_operands(e=256))
         with pytest.raises(ValueError, match="head dim <= 64"):
-            fb.fused_transformer_block(*wide, 2)
+            fb.check_limits(wide[0], 2)
+        out = fb.fused_transformer_block(*wide, 2)
+        torch.testing.assert_close(out, fb.fused_block_reference(*wide, 2), rtol=0, atol=1e-5)
     elif case == "heads":
         with pytest.raises(ValueError, match="must divide"):
             fb.fused_transformer_block(*args, 5)
@@ -188,42 +196,217 @@ def test_limits_and_operand_checks_raise(case):
             fb.fused_transformer_block(*args, H)
 
 
+WIDE_CASES = [  # (E, heads, dtype): shapes the CUDA-core design refuses
+    (768, 6, "bfloat16"),      # head dim 128
+    (1600, 25, "bfloat16"),    # GPT-2 1.5B's width
+    (1024, 16, "float32"),     # E * 4 > 3072
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_wrapper_matches_jax_where_the_cuda_cores_refuse(case):
+    """Fault C3: at these shapes JAX's ``fused_transformer_block`` (Pallas,
+    interpret mode) returns an answer, and so must the port on the CPU."""
+    import jax.numpy as jnp
+    from deepspeed_tpu.ops.pallas.fused_block import fused_transformer_block as jax_fused
+    e, heads, dtype = case
+    ops = _operands(11, 1, 16, e)
+    want = np.asarray(jax_fused(*_jax_args(ops, getattr(jnp, dtype)), heads), np.float32)
+    got = fb.fused_transformer_block(*_torch_args(ops, getattr(torch, dtype)), heads)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (1, 16, e)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    else:
+        err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+        assert err <= 2e-2, err
+
+
+RULE_CASES = [  # (dtype, E, heads, tensor-core design?)
+    (torch.bfloat16, 768, 12, True),     # GPT-2 124M
+    (torch.bfloat16, 1024, 16, True),    # GPT-2 355M
+    (torch.float16, 1280, 20, True),     # GPT-2 774M
+    (torch.bfloat16, 1600, 25, True),    # GPT-2 1.5B
+    (torch.bfloat16, 768, 6, True),      # head dim 128
+    (torch.bfloat16, 768, 24, True),     # head dim 32: q in a tile of its own
+    (torch.float32, 768, 12, False),     # float32: the CUDA cores
+    (torch.bfloat16, 800, 16, False),    # E not a multiple of 64
+    (torch.bfloat16, 1600, 20, False),   # head dim 80: a q tile of its own does not fit
+    (torch.bfloat16, 1152, 8, False),    # head dim 144
+    (torch.bfloat16, 2048, 16, False),   # the [64, E] tile alone takes 256 KB
+]
+
+
+@pytest.mark.parametrize("case", RULE_CASES, ids=lambda c: f"{str(c[0])[6:]}-{c[1]}-{c[2]}")
+def test_shape_rule_picks_the_design(case):
+    dtype, e, heads, tc = case
+    assert fb.tensor_core_design(dtype, e, heads) is tc
+    if tc or dtype == torch.float32:
+        assert (fb.tensor_core_plan(e, e // heads) is not None) is (e % 64 == 0)
+
+
+@pytest.mark.parametrize("e,d", [(768, 64), (1024, 64), (1280, 64), (1600, 64), (1600, 32),
+                                 (768, 128), (1536, 128), (192, 96), (64, 8)])
+def test_tensor_core_plan_fits_shared_memory(e, d):
+    """Each plan's two launches fit a CTA's 227 KB, the projection's stages
+    fit the ring the K/V stages leave, and the plan takes the most
+    warpgroups and stages that fit (one more stage would not)."""
+    plan = fb.tensor_core_plan(e, d)
+    tiles = 1 if d <= 64 else 2
+    assert plan.nc == (128 if e % 128 == 0 else 64)
+    assert fb._qkv_smem(e, plan.nc, plan.qkv_wg, plan.qkv_stages) <= fb._SMEM_MAX
+    assert fb._attn_smem(e, d, plan.attn_wg, plan.kv_stages, plan.proj_stages) <= fb._SMEM_MAX
+    assert plan.proj_stages * plan.nc // 64 <= plan.kv_stages * 2 * tiles
+    for wg, st, smem in ((plan.qkv_wg, plan.qkv_stages,
+                          lambda w, s: fb._qkv_smem(e, plan.nc, w, s)),
+                         (plan.attn_wg, plan.kv_stages,
+                          lambda w, s: fb._attn_smem(e, d, w, s, plan.proj_stages))):
+        assert st == 4 or smem(wg, st + 1) > fb._SMEM_MAX
+        assert wg == 2 or smem(2, 2) > fb._SMEM_MAX
+
+
+def test_tensor_core_plans_of_the_gpt2_widths():
+    """GPT-2 124M: two warpgroups and 4 stages in both entries; 1.5B: one
+    warpgroup, 64-column weight tiles, one K/V stage."""
+    assert fb.tensor_core_plan(768, 64) == fb.TensorCorePlan(128, 2, 4, 2, 4, 4)
+    assert fb.tensor_core_plan(1600, 64) == fb.TensorCorePlan(64, 1, 3, 1, 1, 2)
+    assert fb.tensor_core_plan(1600, 80) is None
+    assert fb.tensor_core_plan(800, 50) is None
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_tensor_core_plain_versions_follow_their_entries(causal):
+    """``fused_block_qkv_plain`` lays q, k and v out head-major as the first
+    entry writes them; with ``fused_block_attn_plain`` it gives the CUDA-core
+    entries' plain result."""
+    ops = _operands(12, 2, 40, 128)
+    args = _torch_args(ops, torch.bfloat16)
+    x, scale, bias, w_qkv, b_qkv, w_proj, b_proj = args
+    ws = fb.fused_block_qkv_plain(x, scale, bias, w_qkv, b_qkv, 2)
+    assert ws.dtype == torch.bfloat16 and tuple(ws.shape) == (3, 2, 2, 40, 64)
+    kv = fb.fused_block_kv_plain(x, scale, bias, w_qkv, b_qkv)
+    torch.testing.assert_close(ws[1].transpose(1, 2).reshape(2, 40, 128).float(), kv[0].float(),
+                               rtol=0, atol=2e-2)
+    got = fb.fused_block_attn_plain(x, ws, w_proj, b_proj, 2, causal)
+    want = fb.fused_block_q_plain(x, kv, *args[1:], 2, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(fb.fused_block_plain(*args, 2, causal), got, rtol=0, atol=0)
+
+
 def test_launchers_refuse_cpu_tensors():
-    """The launch functions never fall back: a CPU tensor raises."""
+    """The launch functions never fall back: a CPU tensor raises, and the
+    tensor-core entries refuse what their shape rule does not take."""
     args = _torch_args(_operands())
     with pytest.raises(ValueError, match="CUDA"):
         fb.fused_block_kv(*args[:5])
     with pytest.raises(ValueError, match="CUDA"):
         fb.fused_block_q(args[0], torch.zeros(2, B, T, E), *args[1:], n_head=H)
+    wide = _torch_args(_operands(e=128), torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.fused_block_qkv_tc(*wide[:5], n_head=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.fused_block_attn_tc(wide[0], torch.zeros(3, B, 2, T, 64), *wide[5:], n_head=2)
+    with pytest.raises(ValueError, match="tensor-core"):
+        fb.fused_block_qkv_tc(*args[:5], n_head=H)     # float32, E 32
 
 
 CUDA_CASES = [  # (B, T, E, heads, dtype, causal)
     (2, 64, 32, 4, torch.float32, True),
     (2, 64, 32, 4, torch.float32, False),
-    (2, 1000, 768, 12, torch.bfloat16, True),
+    (2, 1000, 768, 12, torch.bfloat16, True),     # ragged T
     (1, 300, 1024, 16, torch.float16, False),
     (1, 100, 96, 3, torch.float32, True),
+    (2, 512, 768, 12, torch.float32, True),       # float32 at a GPT-2 width: the CUDA cores
+    (2, 256, 768, 12, torch.bfloat16, True),
+    (2, 256, 1024, 16, torch.bfloat16, True),
+    (1, 256, 1600, 25, torch.bfloat16, True),     # GPT-2 1.5B's width
+    (2, 200, 768, 6, torch.bfloat16, True),       # head dim 128
+    (2, 200, 768, 24, torch.bfloat16, True),      # head dim 32
+    (2, 256, 768, 12, torch.float16, True),
+    (3, 37, 768, 12, torch.bfloat16, True),       # T < 64
+    (2, 300, 768, 12, torch.bfloat16, False),     # not causal
+    (1, 1024, 768, 12, torch.bfloat16, True),     # B 1
 ]
+
+
+def _counts():
+    return (fb.fused_transformer_block.launches, fb.fused_transformer_block.tc_launches,
+            fb.fused_block_kv.launches, fb.fused_block_q.launches,
+            fb.fused_block_qkv_tc.launches, fb.fused_block_attn_tc.launches)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CUDA_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_cuda_kernels_match_plain_version(case):
+    """Each case runs the design the shape rule names, once, within 2e-2 of
+    max |ref| of the plain version in bf16/fp16 and 1e-4 in float32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     b, t, e, heads, dtype, causal = case
     args = [a.cuda() for a in _torch_args(_operands(8, b, t, e), dtype)]
-    before = (fb.fused_transformer_block.launches, fb.fused_block_kv.launches,
-              fb.fused_block_q.launches)
+    before = _counts()
     got = fb.fused_transformer_block(*args, heads, causal=causal)
     torch.cuda.synchronize()
-    assert (fb.fused_transformer_block.launches, fb.fused_block_kv.launches,
-            fb.fused_block_q.launches) == tuple(n + 1 for n in before)
+    tc = fb.tensor_core_design(dtype, e, heads)
+    assert tc is (dtype != torch.float32 and e % 64 == 0)
+    step = (1, 1, 0, 0, 1, 1) if tc else (1, 0, 1, 1, 0, 0)
+    assert _counts() == tuple(n + d for n, d in zip(before, step))
     cast = [args[0], args[1], args[2], args[3].to(dtype), args[4], args[5].to(dtype), args[6]]
     want = fb.fused_block_plain(*cast, heads, causal)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
     assert torch.isfinite(got).all() and err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [256, 1000])
+def test_cuda_tensor_core_entries_match_their_plain_versions(t):
+    """Each entry of the tensor-core design against its plain version on the
+    same inputs: the workspace within a bf16 ulp or two, the output within
+    2e-2 of max |ref|; two launches are equal bit for bit (one CTA owns its
+    rows: no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, scale, bias, w_qkv, b_qkv, w_proj, b_proj = (
+        a.cuda() for a in _torch_args(_operands(13, 2, t, 768), torch.bfloat16))
+    wq, wp = w_qkv.bfloat16(), w_proj.bfloat16()
+    ws = fb.fused_block_qkv_tc(x, scale, bias, wq, b_qkv, n_head=12)
+    ws_p = fb.fused_block_qkv_plain(x, scale, bias, wq, b_qkv, 12)
+    out = fb.fused_block_attn_tc(x, ws_p, wp, b_proj, n_head=12)
+    out_p = fb.fused_block_attn_plain(x, ws_p, wp, b_proj, 12)
+    torch.cuda.synchronize()
+    assert float((ws.float() - ws_p.float()).abs().max()) <= 2e-2 * float(ws_p.float().abs().max())
+    assert float((out.float() - out_p.float()).abs().max()) <= 2e-2 * float(out_p.float().abs().max())
+    again = fb.fused_block_attn_tc(x, fb.fused_block_qkv_tc(x, scale, bias, wq, b_qkv, n_head=12),
+                                   wp, b_proj, n_head=12)
+    first = fb.fused_block_attn_tc(x, ws, wp, b_proj, n_head=12)
+    torch.cuda.synchronize()
+    assert torch.equal(again, first)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_design_takes_operands_off_16_byte_boundaries():
+    """Views that start 4 or 2 bytes into their storage (as slices of a flat
+    parameter buffer may): the wrapper copies what TMA reads to an aligned
+    start, and the kernels read the rest as they lie."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = [a.cuda() for a in _torch_args(_operands(14, 2, 130, 768), torch.bfloat16)]
+    shifted = []
+    for i, a in enumerate(args):
+        a = a.to(torch.bfloat16) if i in (3, 5) else a
+        flat = torch.empty(a.numel() + 8, dtype=a.dtype, device="cuda")
+        view = flat[1:1 + a.numel()].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16
+        shifted.append(view)
+    before = fb.fused_transformer_block.tc_launches
+    got = fb.fused_transformer_block(*shifted, 12)
+    want = fb.fused_block_plain(*args[:3], args[3].bfloat16(), args[4], args[5].bfloat16(),
+                                args[6], 12)
+    torch.cuda.synchronize()
+    assert fb.fused_transformer_block.tc_launches == before + 1
+    err = float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+    assert err <= 2e-2, err
 
 
 @pytest.mark.cuda
@@ -244,8 +427,12 @@ def test_cuda_gradients_are_the_reference_gradients():
 def test_cuda_limits_raise_before_any_launch():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    before = fb.fused_block_kv.launches
+    before = _counts()
     args = [a.cuda() for a in _torch_args(_operands(e=1024))]   # float32 at E = 1024
     with pytest.raises(ValueError, match="3072"):
         fb.fused_transformer_block(*args, 16)
-    assert fb.fused_block_kv.launches == before
+    # bf16 at E 1600 with 20 heads of 80: no q tile fits beside the row tile
+    args = [a.cuda() for a in _torch_args(_operands(e=1600), torch.bfloat16)]
+    with pytest.raises(ValueError, match="3072"):
+        fb.fused_transformer_block(*args, 20)
+    assert _counts() == before

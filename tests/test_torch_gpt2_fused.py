@@ -8,7 +8,8 @@ bound) equal the JAX fused model's: its Pallas kernel runs in interpret
 mode, the port's wrapper on its plain version on the CPU, and both backward
 passes differentiate their ``fused_block_reference``. A 3-step ZeRO-2 loss
 trajectory through ``initialize`` equals the JAX engine's within 1e-5
-relative. The guards raise as the JAX model's assert.
+relative. The guards raise as the JAX model's assert; a width the CUDA-core
+kernels refuse computes on the CPU as the JAX model does.
 """
 
 import jax
@@ -139,8 +140,15 @@ def test_guards_raise():
         GPT2Model(GPT2Config(**DIMS, n_layer=1, fused_block=True,
                              sparse_attention=FixedSparsityConfig(num_heads=NH, block=16)),
                   device="cpu")
-    # a width past the kernels' limit raises at the first forward
-    wide = GPT2Model(GPT2Config(vocab_size=V, n_positions=8, n_embd=1024, n_head=16, n_layer=1,
-                                compute_dtype=torch.float32, fused_block=True), device="cpu")
-    with pytest.raises(ValueError, match="unfused path"):
-        wide(torch.zeros(1, 8, dtype=torch.long))
+    # a width past the CUDA-core kernels' limit (float32 at E 1024) computes
+    # on the CPU, as the JAX fused model does
+    wide = dict(vocab_size=V, n_positions=8, n_embd=1024, n_head=16, n_layer=1,
+                fused_block=True)
+    jm = JaxGPT2Model(JaxGPT2Config(**wide, compute_dtype=jnp.float32))
+    jp = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    tm = GPT2Model(GPT2Config(**wide, compute_dtype=torch.float32), device="cpu")
+    tm.load_parameters(params_from_jax(jp, device="cpu"))
+    tokens = np.arange(8, dtype=np.int32)[None] % V
+    want = np.asarray(jm.logits(jp, jnp.asarray(tokens)))
+    got = tm(torch.from_numpy(tokens)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
