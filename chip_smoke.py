@@ -49,17 +49,24 @@ result line):
 7. block-sparse kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the long-sequence path's shape (the
    Variable layout at block 256, T = 8192, causal) and at layouts of blocks
-   16 to 128 (Fixed in float32, BigBird with random blocks, float16 at
-   D = 128, D = 256, a bidirectional layout without the causal mask, a layout
-   with an empty row and column); times at the main shape beside the plain
-   version and SDPA with the layout as a boolean mask;
+   16 to 128 (Fixed in float32, a bidirectional BigBird under the causal
+   mask, float16 at D = 128 and D = 80, D = 256, a bidirectional layout
+   without the causal mask, a layout with an empty row and column in float32
+   and bf16, Longformer's global rows unmasked), checking by the launch counts that
+   each case's backward ran the design the shape rule names (tensor cores
+   for bf16/fp16 at D <= 128 a multiple of 8 and blocks of 64k); at the main
+   shape, the two designs against each other and two launches bit for bit;
+   times of the tensor-core backward and, on the same inputs in turns, of
+   the CUDA-core one, both with and without the layout's global column,
+   beside the plain version and SDPA with the layout as a boolean mask;
 8. long-sequence training — GPT-2 at n_embd 1024 (16 heads, 12 layers, vocab
    50304, T = 8192, bf16, no remat) with block-sparse attention
    (``tests/perf/long_seq_model_perf.py``'s layout) through ``initialize`` at
    ZeRO-2 with Adam, 10 optimizer steps on one seeded batch; checks the loss
    and per-layer grad norms of the kernel path against the plain path at 2
    layers (bf16 at T = 8192, float32 at T = 2048), that the losses are finite
-   and fall, and that each block-sparse kernel ran once per layer per step;
+   and fall, and that each block-sparse kernel ran once per layer per step,
+   the backward ones on the tensor cores each time;
    a profiler window of one step; then the same model with dense flash
    attention for 6 steps, for the sparse/dense step ratio;
 9. fused-block kernels — the two entries of the fused transformer block in
@@ -68,7 +75,9 @@ result line):
    against their plain versions at GPT-2 124M's shape (x [8, 1024, 768], 12
    heads, bf16, causal) and at the JAX tests' shape in float32 (causal and
    not), a ragged T, float16, E = 1024 with 16 heads, B = 1 at T = 4096,
-   E = 1600 with 25 heads and head dim 128, checking by the launch counts
+   E = 1600 with 25 heads and head dim 128, float32 at E = 1024 (the
+   CUDA-core design at 16 rows a CTA) and bf16 at E = 1600 with 20 heads of
+   80 (the CUDA-core design at head dim 128), checking by the launch counts
    that each case ran that design; gradients through the wrapper against
    autograd of the plain version; times of the tensor-core design, of the
    CUDA-core design on the same inputs and of the unfused composition the
@@ -216,7 +225,7 @@ def phase_build():
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
     builds = _build.build("paged_decode", "flash_attention", "block_sparse_attention",
-                          "fused_block", "fused_block_tc")
+                          "block_sparse_attention_tc", "fused_block", "fused_block_tc")
     log(f"[build] {sorted(builds)} in {time.perf_counter() - t0:.2f} s")
     for b in builds.values():
         kernels = _ptxas_kernels(b.log)
@@ -224,18 +233,21 @@ def phase_build():
         log(f"[build] {b.name}: {len(kernels)} kernels, {min(regs, default=0)}-"
             f"{max(regs, default=0)} registers; spilling: "
             + (", ".join(f"{n} ({s} B)" for n, _, s in kernels if s) or "none"))
-        if b.name in ("paged_decode", "fused_block_tc"):
+        if b.name in ("paged_decode", "fused_block_tc", "block_sparse_attention_tc"):
             log(f"[build] {b.name} per kernel (registers, spill-store bytes): " + "; ".join(
                 f"{_demangle(n)} {r}, {s}" for n, r, s in kernels))
 
 
 def _demangle(name):
-    """A short label for a paged-decode or tensor-core fused-block kernel's
-    mangled name: its kind, dtype and integer template arguments."""
-    kind = next(k for k in ("cluster", "qkv", "attn", "") if k in name) or "first"
+    """A short label for a paged-decode, tensor-core fused-block or
+    tensor-core block-sparse kernel's mangled name: its kind, dtype and
+    integer template arguments."""
+    kind = next(k for k in ("cluster", "qkv", "attn", "bs_dkv", "bs_dq", "") if k in name) \
+        or "first"
     dtype = ("bf16" if "bfloat16" in name else "f16" if "half" in name else "f32")
     ints = re.findall(r"Li(\d+)E", name)
-    label = {"cluster": ", NP ", "qkv": ", NC ", "attn": ", DP/NC "}.get(kind, "")
+    label = {"cluster": ", NP ", "qkv": ", NC ", "attn": ", DP/NC ", "bs_dkv": ", DP/NWG ",
+             "bs_dq": ", DP/NWG "}.get(kind, "")
     return f"{kind}<{dtype}{label + '/'.join(ints) if ints else ''}>"
 
 
@@ -919,6 +931,7 @@ def _bs_cases():
         ("fixed-16", (2, 4, 512, 64), torch.float32,
          sa.FixedSparsityConfig(num_heads=4, block=16, attention="unidirectional")
          .make_layout(512), 16, True),
+        # bidirectional: under causal its LUT holds blocks above the diagonal
         ("bigbird-64", (2, 4, 2048, 64), torch.bfloat16,
          sa.BigBirdSparsityConfig(num_heads=4, block=64, num_random_blocks=2,
                                   different_layout_per_head=True).make_layout(2048), 64, True),
@@ -930,6 +943,15 @@ def _bs_cases():
         ("fixed-32-bidirectional", (2, 4, 1024, 64), torch.bfloat16,
          sa.FixedSparsityConfig(num_heads=4, block=32).make_layout(1024), 32, False),
         ("empty-row-col-64-d40", (2, 2, 512, 40), torch.float32, empty, 64, False),
+        # the tensor-core design: rows with no allowed key (lse -inf) in bf16
+        ("empty-row-col-64-bf16", (2, 2, 512, 64), torch.bfloat16, empty, 64, False),
+        ("variable-128-d80", (1, 4, 2048, 80), torch.float16,
+         sa.VariableSparsityConfig(num_heads=4, block=128, local_window_blocks=[3],
+                                   global_block_indices=[0],
+                                   attention="unidirectional").make_layout(2048), 128, True),
+        # global rows without the causal mask: dq splits them across CTAs
+        ("longformer-128-global-rows", (2, 4, 4096, 64), torch.bfloat16,
+         sa.BSLongformerSparsityConfig(num_heads=4, block=128).make_layout(4096), 128, False),
     ]
 
 
@@ -969,18 +991,27 @@ def _bs_case(shape, dtype, layout, block, causal, seed=0):
 def phase_block_sparse_kernels():
     """The three block-sparse kernels against their plain version at the
     long-sequence path's shape and at other layouts; then times."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     main = None
     for name, shape, dtype, layout, block, causal in _bs_cases():
+        before = _bs_tensor_core_launches()
         got, want = _bs_case(shape, dtype, layout, block, causal)
         torch.cuda.synchronize()
+        tc = bsa.tensor_core_path(dtype, shape[-1], block)
+        ran = [a - b for a, b in zip(_bs_tensor_core_launches(), before)]
+        if ran != [int(tc)] * 2:
+            raise AssertionError(f"block-sparse {name}: tensor-core backward launches {ran}, "
+                                 f"but the shape rule names the "
+                                 f"{'tensor-core' if tc else 'CUDA-core'} design")
         tol = FLASH_TOL[dtype]
         errs = {}
         for out, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
             if out != "lse" and not torch.isfinite(a).all():
                 raise AssertionError(f"block-sparse {name}: non-finite {out}")
             errs[out] = _scaled_err(a, b)
-        log(f"[block-sparse] {name} {shape} {dtype} block {block} causal {causal}: "
+        log(f"[block-sparse] {name} {shape} {dtype} block {block} causal {causal}, backward on "
+            f"the {'tensor' if tc else 'CUDA'} cores: "
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
             + f" (scaled by max |ref|, tol {tol})")
         if name.startswith("empty"):
@@ -1000,11 +1031,50 @@ def phase_block_sparse_kernels():
     return time_block_sparse(main, worst)
 
 
+def _bs_tensor_core_launches():
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    return [bsa.block_sparse_bwd_dq.tensor_core_launches,
+            bsa.block_sparse_bwd_dkv.tensor_core_launches]
+
+
+def _bs_cuda_core_entries(block, causal, sm_scale):
+    """The CUDA-core dq and dk/dv entries called directly on bf16 inputs that
+    the shape rule sends to the tensor cores: the earlier design, timed
+    beside its redesign on the same inputs (no launch counted)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    lib = bsa._lib()
+
+    def dq(q, k, v, do, lse, delta, luts):
+        out = torch.empty_like(q)
+        err = lib.bs_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        delta.data_ptr(), luts.counts.data_ptr(), luts.cols.data_ptr(),
+                        luts.cols.shape[1], out.data_ptr(),
+                        *bsa._tail(q, block, sm_scale, causal))
+        if err:
+            raise RuntimeError(f"bs_dq: cudaError {err}")
+        return out
+
+    def dkv(q, k, v, do, lse, delta, luts):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        err = lib.bs_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                         lse.data_ptr(), delta.data_ptr(), luts.counts_t.data_ptr(),
+                         luts.rows_t.data_ptr(), luts.rows_t.shape[1], dk.data_ptr(),
+                         dv.data_ptr(), *bsa._tail(q, block, sm_scale, causal))
+        if err:
+            raise RuntimeError(f"bs_dkv: cudaError {err}")
+        return dk, dv
+
+    return dq, dkv
+
+
 def time_block_sparse(main_err, worst):
     """Device times at the main shape, inputs rotating over 3 sets (68 MB a
-    set, beyond the 50 MB L2); beside them the plain version and SDPA with
-    the layout (causal included) as a boolean mask, forward and backward;
-    and the dk/dv kernel on the layout without its global column."""
+    set, beyond the 50 MB L2): the forward; the backward kernels' tensor-core
+    design (the wrapper's) and, on the same inputs in turns (new, old, old,
+    new), their CUDA-core design, both also on the layout without its global
+    column; beside them the plain version and SDPA with the layout (causal
+    included) as a boolean mask, forward and backward. First, the two
+    designs' outputs against each other and two launches bit for bit."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     B, H, T, D = BS_SHAPE
     layout = long_sparsity().make_layout(T)
@@ -1018,20 +1088,51 @@ def time_block_sparse(main_err, worst):
         out, lse = bsa.block_sparse_fwd(q, k, v, luts, **kw)
         delta = (do.float() * out.float()).sum(-1).contiguous()
         sets.append((q, k, v, do, lse, delta))
-    ms = {
-        "fwd": time_ms(lambda i: bsa.block_sparse_fwd(*sets[i % 3][:3], luts, **kw), 60),
-        "dq": time_ms(lambda i: bsa.block_sparse_bwd_dq(*sets[i % 3], luts, **kw), 60),
-        "dkv": time_ms(lambda i: bsa.block_sparse_bwd_dkv(*sets[i % 3], luts, **kw), 60),
-    }
     no_global = layout.copy()
     no_global[:, 1:, 0] = 0
     luts_ng = bsa.device_luts(no_global, "cuda")
-    dkv_ng = time_ms(lambda i: bsa.block_sparse_bwd_dkv(*sets[i % 3], luts_ng, **kw), 60)
+    fma_dq, fma_dkv = _bs_cuda_core_entries(block, True, D ** -0.5)
+
+    # the two designs of each backward kernel agree on the same inputs, and
+    # the tensor-core design's split column merges the same way every launch
+    tc_outs = [bsa.block_sparse_bwd_dq(*sets[0], luts, **kw),
+               *bsa.block_sparse_bwd_dkv(*sets[0], luts, **kw)]
+    fma_outs = [fma_dq(*sets[0], luts), *fma_dkv(*sets[0], luts)]
+    designs_err = {n: _scaled_err(a.float(), b.float()) for n, a, b in
+                   zip(("dq", "dk", "dv"), tc_outs, fma_outs)}
+    again = [bsa.block_sparse_bwd_dq(*sets[0], luts, **kw),
+             *bsa.block_sparse_bwd_dkv(*sets[0], luts, **kw)]
+    identical = [bool(torch.equal(a, b)) for a, b in zip(tc_outs, again)]
+    del tc_outs, fma_outs, again
+    log(f"[block-sparse] tensor-core vs CUDA-core backward outputs (scaled by max |value|): "
+        + ", ".join(f"{n} {e:.2e}" for n, e in designs_err.items())
+        + f"; two launches bit-identical (dq, dk, dv): {identical}")
+    if max(designs_err.values()) > FLASH_TOL[torch.bfloat16]:
+        raise AssertionError(f"tensor-core vs CUDA-core block-sparse backward: {designs_err}")
+    if not all(identical):
+        raise AssertionError(f"block-sparse backward launches differ bit-wise: {identical}")
+
+    def timers(l):
+        return {"dq": lambda i: bsa.block_sparse_bwd_dq(*sets[i % 3], l, **kw),
+                "dkv": lambda i: bsa.block_sparse_bwd_dkv(*sets[i % 3], l, **kw),
+                "dq_fma": lambda i: fma_dq(*sets[i % 3], l),
+                "dkv_fma": lambda i: fma_dkv(*sets[i % 3], l)}
+
+    ms = {"fwd": time_ms(lambda i: bsa.block_sparse_fwd(*sets[i % 3][:3], luts, **kw), 60)}
+    turns = {n: [] for n in ("dq", "dkv", "dq_fma", "dkv_fma")}
+    for names in (("dq", "dkv"), ("dq_fma", "dkv_fma"), ("dq_fma", "dkv_fma"), ("dq", "dkv")):
+        for n in names:     # in turns: new, old, old, new
+            turns[n].append(time_ms(timers(luts)[n], 20 if n.endswith("fma") else 60))
+    ms.update({n: statistics.mean(t) for n, t in turns.items()})
+    ng = {n: time_ms(timers(luts_ng)[n], 20 if n.endswith("fma") else 60) for n in turns}
+    work = {t: bsa.device_work(luts, "cuda", T=T, block=block, causal=True, transposed=t,
+                               batch=B, D=D) for t in (False, True)}
     mask = bsa.layout_mask(layout, block, True, "cuda")
     pairs = int(mask.sum()) * B          # (q, k) pairs the layout and causal mask keep
     pairs_ng = int(bsa.layout_mask(no_global, block, True, "cuda").sum()) * B
-    log(f"[block-sparse] dk/dv without the global column: {dkv_ng!r} ms for "
-        f"{pairs_ng / pairs:.3f} of the pairs ({ms['dkv']!r} ms with it)")
+    log(f"[block-sparse] turns (ms): {json.dumps(turns)}; without the global column: "
+        f"{json.dumps(ng)} for {pairs_ng / pairs!r} of the pairs; split groups dq "
+        f"{work[False].n_groups}, dk/dv {work[True].n_groups}")
 
     def fwd_bwd(fn, iters):
         fwd = time_ms(lambda i: fn(*sets[i % 3][:3]), iters, warmup=1)
@@ -1055,11 +1156,11 @@ def time_block_sparse(main_err, worst):
 
     tensor = B * H * T * D * 2      # one bf16 [B, H, T, D]
     row = B * H * T * 4             # one float32 [B, H, T]
-    lut_bytes = sum(t.numel() * 4 for t in luts)
+    lut_bytes = sum(t.numel() * 4 for t in (luts.counts, luts.cols, luts.counts_t, luts.rows_t))
     mm = 2 * pairs * D              # flops of one product over the kept pairs
-    work = {"fwd": (2 * mm, 3 * tensor + tensor + row + lut_bytes),
-            "dq": (3 * mm, 4 * tensor + 2 * row + tensor + lut_bytes),
-            "dkv": (4 * mm, 4 * tensor + 2 * row + 2 * tensor + lut_bytes)}
+    work_of = {"fwd": (2 * mm, 3 * tensor + tensor + row + lut_bytes),
+               "dq": (3 * mm, 4 * tensor + 2 * row + tensor + lut_bytes),
+               "dkv": (4 * mm, 4 * tensor + 2 * row + 2 * tensor + lut_bytes)}
     entries = []
     for name, body, line, other, plain, lib, outs in (
             ("fwd", "_bs_fwd_kernel_res", 135, "285:_bs_fwd_kernel", plain_fwd, sdpa_fwd,
@@ -1067,20 +1168,36 @@ def time_block_sparse(main_err, worst):
             ("dq", "_bs_dq_kernel_res", 174, "372:_bs_dq_kernel", plain_bwd, sdpa_bwd, ("dq",)),
             ("dkv", "_bs_dkv_kernel_res", 210, "442:_bs_dkv_kernel", plain_bwd, sdpa_bwd,
              ("dk", "dv"))):
-        flops, nbytes = work[name]
+        flops, nbytes = work_of[name]
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        tc = name != "fwd"
         e = {"name": f"block_sparse_{name}", "route": "cuda",
-             "source": "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+             "entry": f"bs_{name}_tc" if tc else "bs_fwd",
+             "design": "wgmma" if tc else "CUDA cores",
+             "source": "deepspeed_tpu_torch/csrc/block_sparse_attention"
+                       + ("_tc.cu" if tc else ".cu"),
              "replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{line}:{body}",
              "also_replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{other}",
              "launches": None, "max_abs_err": max(main_err[n][0] for n in outs),
              "scaled_err": max(main_err[n][1] for n in outs),
              "worst_scaled_err": worst[name], "tol": FLASH_TOL[torch.bfloat16],
              "kernel_ms": ms[name], "ms": ms[name], "plain_ms": plain, "library_ms": lib,
-             "bound_ms": max(t_ops, t_bytes),
-             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        if name == "dkv":
-            e["ms_without_global_column"] = dkv_ng
+             "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "pct_of_bound": 100 * bound / ms[name]}
+        if tc:
+            # the CUDA-core design on the same inputs, and both on the layout
+            # without its global column: the split balances the column if the
+            # time falls with the pairs, ms / ms_ng <= 1.25 pairs / pairs_ng
+            e.update({"fma_ms": ms[f"{name}_fma"], "speedup_vs_fma": ms[f"{name}_fma"] / ms[name],
+                      "fma_pct_of_bound": 100 * bound / ms[f"{name}_fma"],
+                      "turns_ms": turns[name], "fma_turns_ms": turns[f"{name}_fma"],
+                      "ms_without_global_column": ng[name],
+                      "fma_ms_without_global_column": ng[f"{name}_fma"],
+                      "ms_over_ms_without_global_column": ms[name] / ng[name],
+                      "pairs_over_pairs_without_global_column": pairs / pairs_ng,
+                      "split_groups": work[name == "dkv"].n_groups,
+                      "items": int(work[name == "dkv"].items.shape[0])})
         log(f"[block-sparse] {json.dumps(e)}")
         entries.append(e)
     return entries
@@ -1151,8 +1268,11 @@ def phase_long_training():
     launchers = (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq, bsa.block_sparse_bwd_dkv)
     for f in launchers:
         f.launches = 0
+    bsa.block_sparse_bwd_dq.tensor_core_launches = 0
+    bsa.block_sparse_bwd_dkv.tensor_core_launches = 0
     losses, step_s = _train_steps(engine, tokens, labels, steps=LONG_STEPS)
     launches = [f.launches for f in launchers]
+    tc_launches = _bs_tensor_core_launches()
     log(f"[long] step losses {losses}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"long-sequence losses not finite and decreasing: {losses}")
@@ -1160,6 +1280,9 @@ def phase_long_training():
     if launches != [n_layer * LONG_STEPS] * 3:
         raise AssertionError(f"block-sparse launches {launches} != {n_layer} x "
                              f"{LONG_STEPS} steps each")
+    if tc_launches != [n_layer * LONG_STEPS] * 2:
+        raise AssertionError(f"block-sparse backward launches on the tensor cores "
+                             f"{tc_launches}: not all of {n_layer * LONG_STEPS} each")
     steady = step_s[2:]
     step = statistics.median(steady)
     tok_s = LONG_MODEL["n_positions"] / step
@@ -1169,7 +1292,9 @@ def phase_long_training():
            "tokens_per_s": tok_s, "params": n_params,
            "mfu": tok_s * 6 * n_params / BF16_FLOPS,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "block_sparse_launches": launches, "kernel_vs_plain": checks}
+           "block_sparse_launches": launches,
+           "block_sparse_tensor_core_launches (dq, dkv)": tc_launches,
+           "kernel_vs_plain": checks}
     log(f"[long] {json.dumps(res)}")
     profile_step("profile-long", engine, tokens, labels)
     del engine, model
@@ -1303,6 +1428,8 @@ def phase_fused_block_kernels():
         (1, 4096, 768, 12, torch.bfloat16, True),     # one long row
         (2, 1024, 1600, 25, torch.bfloat16, True),    # GPT-2 1.5B's width (fault C3)
         (2, 512, 768, 6, torch.bfloat16, True),       # head dim 128 (fault C3)
+        (2, 512, 1024, 16, torch.float32, True),      # float32 E 1024: 16 rows (fault C3)
+        (2, 512, 1600, 20, torch.bfloat16, True),     # heads of 80 on the CUDA cores (C3)
     ]
     main, worst = None, {"qkv": 0.0, "attn": 0.0}
     for case in cases:

@@ -12,17 +12,28 @@ and ``bs_dkv`` (``_bs_dkv_kernel*``). They read the group-1 LUTs of
 tiles for its matrix unit and do not carry over), which ``device_luts``
 keeps on the card, cached by layout and device.
 
+The two backward kernels come in two designs each, chosen by shape alone
+(``tensor_core_path``): bfloat16/float16 with D <= 128 a multiple of 8 and a
+layout block that is a multiple of 64 run ``bs_dq_tc`` and ``bs_dkv_tc``
+(``csrc/block_sparse_attention_tc.cu``: TMA-fed ``wgmma`` tiles over a work
+list, ``build_work``, that splits a heavy row or column of the layout across
+CTAs and merges the parts deterministically); the rest run ``bs_dq`` and
+``bs_dkv``. The forward has one design. A failed build or launch raises;
+nothing falls back.
+
 ``block_sparse_attention`` keeps the JAX signature. For CUDA tensors it runs
 the kernels through ``_BlockSparseAttention`` (a ``torch.autograd.Function``
 whose backward forms ``delta = rowsum(dO * O)`` in float32 with torch ops and
 launches the two backward kernels). For CPU tensors it runs the plain
 version ``block_sparse_attention_reference``. There is no other fallback.
-Each launch function counts its launches in ``<function>.launches``.
+Each launch function counts its launches in ``<function>.launches``, and the
+backward ones those of the tensor-core design in
+``<function>.tensor_core_launches``.
 """
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,11 +100,15 @@ def build_grouped_luts(layout: np.ndarray, group: int):
 
 
 class DeviceLuts(NamedTuple):
-    """int32 LUTs of one layout on one card (``build_luts``)."""
+    """int32 LUTs of one layout on one card (``build_luts``), their host
+    copies, and the tensor-core design's work lists built from them
+    (``device_work``), cached beside them."""
     counts: torch.Tensor
     cols: torch.Tensor
     counts_t: torch.Tensor
     rows_t: torch.Tensor
+    host: Tuple[np.ndarray, ...]
+    work: Dict[tuple, "DeviceWork"]
 
 
 # A deep model calls block_sparse_attention once per layer with the same
@@ -109,11 +124,149 @@ def device_luts(layout: np.ndarray, device) -> DeviceLuts:
     key = (layout.shape, layout.dtype.str, layout.tobytes(), str(torch.device(device)))
     hit = _LUT_CACHE.pop(key, None)
     if hit is None:
-        hit = DeviceLuts(*(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-                           for a in build_luts(layout)))
+        host = tuple(np.ascontiguousarray(a, np.int32) for a in build_luts(layout))
+        hit = DeviceLuts(*(torch.from_numpy(a).to(device) for a in host), host, {})
         while len(_LUT_CACHE) >= _LUT_CACHE_MAX:
             _LUT_CACHE.pop(next(iter(_LUT_CACHE)))
     _LUT_CACHE[key] = hit  # re-insert = most recently used
+    return hit
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core design's work lists (host-side, static per layout and shape)
+# ---------------------------------------------------------------------------
+
+TC_TILE = 64        # rows of a streamed tile and of a consumer warpgroup (wgmma M)
+
+
+class WorkList(NamedTuple):
+    """One CTA per item. ``items`` int32 ``[n, 8]``: (line, tile, first,
+    last, group, part, parts, ws) — the CTA's rows are tile ``tile`` (of
+    ``rows``) of layout line ``line`` (``h * nb + r``), it walks slots
+    ``[first, last)`` of that line's list, and a split line's parts share
+    ``group`` (-1 for an unsplit line) with workspace slots ``ws + part``.
+    ``steps``: each item's 64-row tiles of the other side; ``bound``: the
+    most an item may take. Heaviest first."""
+    items: np.ndarray
+    steps: np.ndarray
+    n_groups: int
+    ws_parts: int
+    bound: int
+
+
+def build_work(counts, lut, nb: int, block: int, causal: bool, rows: int,
+               transposed: bool, batch: int = 1, n_sm: int = 132) -> WorkList:
+    """Work items of ``bs_dkv_tc`` (``transposed``: the lines are layout
+    columns, ``counts_t`` / ``rows_t``) or ``bs_dq_tc`` (rows, ``counts`` /
+    ``cols``) at ``rows`` rows a CTA (64 or 128, dividing ``block``).
+
+    An item's steps are the 64-row tiles of the other side it visits: each
+    block of its slots in ``block / 64`` tiles, without those the causal mask
+    drops wholly (dk/dv: every query before the CTA's first key; dq: every
+    key after its last query). The bound is the balanced share of all
+    ``batch`` copies' steps over ``n_sm`` CTAs at once, and at least one
+    slot's steps; a line whose steps exceed it is cut, at slot boundaries,
+    into the fewest parts the bound allows, each as near ``steps / parts``
+    as the slots allow. Items are ordered heaviest first."""
+    counts = np.asarray(counts, np.int64)
+    lut = np.asarray(lut, np.int64)
+    L, A = lut.shape
+    if block % TC_TILE or block % rows or rows % TC_TILE:
+        raise ValueError(f"build_work takes 64-row tiles: block {block}, rows {rows}")
+    r0 = lut[:, :, None] * block + TC_TILE * np.arange(block // TC_TILE)   # [L, A, sub]
+    valid = np.arange(A)[None, :] < counts[:, None]
+    own = (np.arange(L) % nb) * block
+    per_tile = []
+    for t in range(block // rows):
+        own0 = (own + t * rows)[:, None, None]
+        if not causal:
+            keep = np.ones(r0.shape, bool)
+        elif transposed:
+            keep = r0 + TC_TILE - 1 >= own0
+        else:
+            keep = r0 <= own0 + rows - 1
+        per_tile.append(keep.sum(-1) * valid)
+    steps = np.stack(per_tile, 1)                    # [L, tiles, A]
+    totals = steps.sum(-1)
+    bound = max(-(-int(totals.sum()) * batch // n_sm), int(steps.max(initial=0)), 1)
+    rows_out = []
+    n_groups = ws = 0
+    for line in range(L):
+        n = int(counts[line])
+        for t in range(steps.shape[1]):
+            total = int(totals[line, t])
+            if total <= bound:
+                rows_out.append((total, line, t, 0, n, -1, 0, 1, 0))
+                continue
+            slot_steps = [int(x) for x in steps[line, t, :n]]
+            fewest = len(_cut(slot_steps, bound))
+            cap = max(-(-total // fewest), max(slot_steps))
+            while len(_cut(slot_steps, cap)) > fewest:
+                cap += 1
+            cuts = _cut(slot_steps, cap)
+            for part, (f, l, a) in enumerate(cuts):
+                rows_out.append((a, line, t, f, l, n_groups, part, len(cuts), ws))
+            n_groups += 1
+            ws += len(cuts)
+    rows_out.sort(key=lambda r: -r[0])
+    items = np.array([r[1:] for r in rows_out], np.int32).reshape(-1, 8)
+    return WorkList(items, np.array([r[0] for r in rows_out], np.int64), n_groups, ws, bound)
+
+
+def _cut(slot_steps, cap):
+    """Greedy cut of a line's slots into parts of at most ``cap`` steps:
+    [(first, last, steps)]; the fewest parts any cut at ``cap`` allows."""
+    cuts, first, acc = [], 0, 0
+    for slot, st in enumerate(slot_steps):
+        if acc and acc + st > cap:
+            cuts.append((first, slot, acc))
+            first, acc = slot, 0
+        acc += st
+    cuts.append((first, len(slot_steps), acc))
+    return cuts
+
+
+class DeviceWork(NamedTuple):
+    """A ``WorkList`` with its items on the card."""
+    items: torch.Tensor
+    n_groups: int
+    ws_parts: int
+    rows: int
+
+
+def tensor_core_path(dtype, D: int, block: int) -> bool:
+    """The shape rule between the backward kernels' two designs: 16-bit
+    operands (what ``wgmma`` multiplies), a head dim that fits one 128-wide
+    tile and gives TMA rows of a multiple of 16 bytes, and a layout block of
+    whole 64-row tiles."""
+    return (dtype in (torch.bfloat16, torch.float16) and 8 <= D <= 128 and D % 8 == 0
+            and block % TC_TILE == 0)
+
+
+def cta_rows(transposed: bool, D: int, block: int) -> int:
+    """Rows a CTA of the tensor-core design owns: two warpgroups (128 rows)
+    where the layout block is a multiple of 128, so that they lie in one
+    layout row or column, and for dk/dv (``transposed``) D <= 64, whose
+    accumulators leave room for a second warpgroup; else one (64)."""
+    return 128 if block % 128 == 0 and (not transposed or D <= 64) else TC_TILE
+
+
+def device_work(luts: DeviceLuts, device, *, T: int, block: int, causal: bool,
+                transposed: bool, batch: int, D: int) -> DeviceWork:
+    """The work list of one backward kernel on ``luts``' card, built once per
+    (kernel, block, causal, batch, rows, SM count) and cached with the
+    LUTs."""
+    rows = cta_rows(transposed, D, block)
+    device = torch.device(device)
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else 132)
+    key = (transposed, int(block), bool(causal), int(batch), rows, n_sm)
+    hit = luts.work.get(key)
+    if hit is None:
+        counts, lut = (luts.host[2], luts.host[3]) if transposed else luts.host[:2]
+        w = build_work(counts, lut, T // block, block, causal, rows, transposed, batch, n_sm)
+        hit = luts.work[key] = DeviceWork(torch.from_numpy(w.items).to(device), w.n_groups,
+                                          w.ws_parts, rows)
     return hit
 
 
@@ -192,6 +345,20 @@ def _lib():
     return lib
 
 
+def _lib_tc():
+    lib = _build.load("block_sparse_attention_tc")
+    if lib.bs_dq_tc.argtypes is None:
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q k v do lse delta, lut width, items n_items ws ws_parts arrivals n_groups rows
+        head = [vp] * 6 + [vp, i32] + [vp, i32, vp, i32, vp, i32, i32]
+        tail = [i32, i32, i32, i32, i32, f32, i32, i32, vp]  # B H T D block scale causal dtype stream
+        lib.bs_dq_tc.argtypes = head + [vp] + tail
+        lib.bs_dkv_tc.argtypes = head + [vp, vp] + tail
+        for fn in (lib.bs_dq_tc, lib.bs_dkv_tc):
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def _check_launch(q, k, v, luts, block, do=None, lse=None, delta=None):
     """Raise on what the kernels do not take: q, k, v (and do) of one
     ``[B, H, T, D]`` shape and one dtype with D <= 256; a layout block that
@@ -255,45 +422,101 @@ def block_sparse_fwd(q, k, v, luts: DeviceLuts, *, block, causal, sm_scale):
     return out, lse
 
 
+def _launch_tc(name, q, k, v, do, lse, delta, luts, outs, *, block, causal, sm_scale):
+    """Launch ``bs_dq_tc`` or ``bs_dkv_tc`` (``name``) over its cached work
+    list: a float32 workspace for the split lines' parts and their zeroed
+    arrival counters come with the launch."""
+    B, H, T, D = q.shape
+    transposed = name == "bs_dkv_tc"
+    work = device_work(luts, q.device, T=T, block=block, causal=causal, transposed=transposed,
+                       batch=B, D=D)
+    lut = luts.rows_t if transposed else luts.cols
+    ws = arrivals = None
+    if work.n_groups:
+        part = work.rows * (64 if D <= 64 else 128) * (2 if transposed else 1)
+        ws = torch.empty(B * work.ws_parts * part, dtype=torch.float32, device=q.device)
+        arrivals = torch.zeros(B * work.n_groups, dtype=torch.int32, device=q.device)
+    entry = getattr(_lib_tc(), name)
+    with torch.cuda.device(q.device):
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), lut.data_ptr(), lut.shape[1], work.items.data_ptr(),
+                    work.items.shape[0], None if ws is None else ws.data_ptr(), work.ws_parts,
+                    None if arrivals is None else arrivals.data_ptr(), work.n_groups,
+                    work.rows, *(o.data_ptr() for o in outs), B, H, T, D, int(block),
+                    float(sm_scale), int(bool(causal)), _DTYPES[q.dtype],
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _aligned(*ts):
+    """The tensor-core entries' TMA operands start on 16 bytes."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("q, k, v and do must start on a 16-byte boundary for the "
+                             "tensor-core entries")
+
+
+def _aligned16(t):
+    """t, or a copy of it that starts on a 16-byte boundary (a contiguous
+    view may start anywhere in its storage)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def block_sparse_bwd_dq(q, k, v, do, lse, delta, luts: DeviceLuts, *, block, causal,
                         sm_scale):
-    """Launch ``bs_dq``: returns dq in q's dtype. ``do`` as q; ``lse`` and
+    """Launch ``bs_dq_tc`` or ``bs_dq`` by the shape rule
+    (``tensor_core_path``): returns dq in q's dtype. ``do`` as q; ``lse`` and
     ``delta`` contiguous float32 ``[B, H, T]``."""
     _check_launch(q, k, v, luts, block, do, lse, delta)
-    lib = _lib()
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.bs_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                        lse.data_ptr(), delta.data_ptr(), luts.counts.data_ptr(),
-                        luts.cols.data_ptr(), luts.cols.shape[1], dq.data_ptr(),
-                        *_tail(q, block, sm_scale, causal))
-    if err != 0:
-        raise RuntimeError(f"bs_dq kernel launch failed: cudaError {err}")
+    tensor_cores = tensor_core_path(q.dtype, q.shape[3], block)
+    if tensor_cores:
+        _aligned(q, k, v, do)
+        _launch_tc("bs_dq_tc", q, k, v, do, lse, delta, luts, (dq,), block=block,
+                   causal=causal, sm_scale=sm_scale)
+    else:
+        lib = _lib()
+        with torch.cuda.device(q.device):
+            err = lib.bs_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(), luts.counts.data_ptr(),
+                            luts.cols.data_ptr(), luts.cols.shape[1], dq.data_ptr(),
+                            *_tail(q, block, sm_scale, causal))
+        if err != 0:
+            raise RuntimeError(f"bs_dq kernel launch failed: cudaError {err}")
     block_sparse_bwd_dq.launches += 1
+    block_sparse_bwd_dq.tensor_core_launches += tensor_cores
     return dq
 
 
 def block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts: DeviceLuts, *, block, causal,
                          sm_scale):
-    """Launch ``bs_dkv`` over the transposed LUT: returns ``(dk, dv)`` in k's
-    dtype."""
+    """Launch ``bs_dkv_tc`` or ``bs_dkv`` by the shape rule over the
+    transposed LUT: returns ``(dk, dv)`` in k's dtype."""
     _check_launch(q, k, v, luts, block, do, lse, delta)
-    lib = _lib()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = lib.bs_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                         lse.data_ptr(), delta.data_ptr(), luts.counts_t.data_ptr(),
-                         luts.rows_t.data_ptr(), luts.rows_t.shape[1], dk.data_ptr(),
-                         dv.data_ptr(), *_tail(q, block, sm_scale, causal))
-    if err != 0:
-        raise RuntimeError(f"bs_dkv kernel launch failed: cudaError {err}")
+    tensor_cores = tensor_core_path(q.dtype, q.shape[3], block)
+    if tensor_cores:
+        _aligned(q, k, v, do)
+        _launch_tc("bs_dkv_tc", q, k, v, do, lse, delta, luts, (dk, dv), block=block,
+                   causal=causal, sm_scale=sm_scale)
+    else:
+        lib = _lib()
+        with torch.cuda.device(q.device):
+            err = lib.bs_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                             lse.data_ptr(), delta.data_ptr(), luts.counts_t.data_ptr(),
+                             luts.rows_t.data_ptr(), luts.rows_t.shape[1], dk.data_ptr(),
+                             dv.data_ptr(), *_tail(q, block, sm_scale, causal))
+        if err != 0:
+            raise RuntimeError(f"bs_dkv kernel launch failed: cudaError {err}")
     block_sparse_bwd_dkv.launches += 1
+    block_sparse_bwd_dkv.tensor_core_launches += tensor_cores
     return dk, dv
 
 
 block_sparse_fwd.launches = 0
-block_sparse_bwd_dq.launches = 0
-block_sparse_bwd_dkv.launches = 0
+block_sparse_bwd_dq.launches = block_sparse_bwd_dq.tensor_core_launches = 0
+block_sparse_bwd_dkv.launches = block_sparse_bwd_dkv.tensor_core_launches = 0
 
 
 class _BlockSparseAttention(torch.autograd.Function):
@@ -310,7 +533,7 @@ class _BlockSparseAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        do = g.contiguous()
+        do = _aligned16(g.contiguous())
         # the softmax-normalization term, in float32 from the rounded out
         delta = (do.float() * out.float()).sum(-1).contiguous()
         dq = block_sparse_bwd_dq(q, k, v, do, lse, delta, ctx.luts, **ctx.kw)
@@ -326,7 +549,8 @@ def block_sparse_attention(q, k, v, layout, block: int, causal: bool = False,
     give 0. ``interpret`` and ``group`` are accepted for the JAX signature
     and have no effect: CPU tensors always take the plain version, and the
     CUDA kernels read the ungrouped LUT. CUDA tensors launch the kernels,
-    which take a block that is a multiple of 16 and D <= 256."""
+    which take a block that is a multiple of 16 and D <= 256 (the backward
+    in the design ``tensor_core_path`` names)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, H, T, D] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -346,6 +570,6 @@ def block_sparse_attention(q, k, v, layout, block: int, causal: bool = False,
         return block_sparse_attention_reference(q, k, v, layout, block, causal, sm_scale)[0]
     if q.device.type != "cuda":
         raise ValueError(f"block-sparse attention runs on cuda or cpu, not {q.device}")
-    return _BlockSparseAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+    return _BlockSparseAttention.apply(*(_aligned16(t.contiguous()) for t in (q, k, v)),
                                        device_luts(layout, q.device), int(block),
                                        bool(causal), float(sm_scale))

@@ -17,13 +17,16 @@ picked by one shape rule (``tensor_core_plan``):
   device memory: the workspace and the output; not the normalized hidden
   states, the scores, the probabilities, the per-head contexts or the
   pre-residual output.
-- the CUDA-core design (``csrc/fused_block.cu``), for the rest within its
-  limits (float32 among them): ``fused_block_kv`` (LayerNorm + the k and v
-  thirds into a ``[2, B, T, E]`` workspace) and ``fused_block_q`` (LayerNorm +
-  the q third, attention, projection, bias and residual; q stays on chip).
-  Its limits (``check_limits``): ``E * itemsize <= 3072`` (E <= 1536 in
-  bfloat16/float16, E <= 768 in float32: two ``[32, E]`` buffers of x's dtype
-  share a CTA's shared memory) and head dim <= 64.
+- the CUDA-core design (``csrc/fused_block.cu``), for the rest (float32
+  among them): ``fused_block_kv`` (LayerNorm + the k and v thirds into a
+  ``[2, B, T, E]`` workspace) and ``fused_block_q`` (LayerNorm + the q third,
+  attention, projection, bias and residual; q stays on chip). Its geometry is
+  a shape rule too (``cuda_core_plan``): a tile of 32 rows, or of 16 where
+  two ``[32, E]`` buffers of x's dtype and the attention tiles do not fit a
+  CTA's shared memory, and the head dim padded to 16, 32, 64 or 128. It
+  takes float32 up to E 1688 (E 1024 and 1600 at 16 rows), 16-bit x up to
+  E 3376, and head dims up to 128; ``check_limits`` names the limit of what
+  it refuses (float32 at E 2048, head dims above 128).
 
 ``fused_transformer_block`` keeps the JAX signature and takes every shape the
 JAX function takes. For CPU tensors it runs the plain version. For CUDA
@@ -61,8 +64,7 @@ import torch
 from . import _build
 
 MASK_VALUE = -1e9   # the model's dense causal mask value, applied by a select
-MAX_ROW_BYTES = 3072   # the CUDA-core design's limits
-MAX_HEAD_DIM = 64
+MAX_HEAD_DIM = 128     # the CUDA-core design's widest head (DP 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ATOM = 64 * 128       # a [64 rows, 64 columns] 16-bit tile of the tensor-core design
 _SMEM_MAX = 232448     # dynamic shared memory a CTA may use (227 KB)
@@ -255,6 +257,45 @@ def tensor_core_plan(E: int, D: int) -> Optional[TensorCorePlan]:
     return TensorCorePlan(nc, *qkv, *attn, proj_stages(attn[1]))
 
 
+@dataclass(frozen=True)
+class CudaCorePlan:
+    """Geometry of the CUDA-core design's two launches: ``rows`` of x a CTA
+    (32 or 16) and the head dim padded to ``dp`` (16, 32, 64 or 128)."""
+    rows: int
+    dp: int
+
+
+_STAGE_BYTES = 4 * 32 * 128     # the CUDA-core design's float weight stage
+
+
+def _cuda_core_q_smem(E, itemsize, rows, dp):
+    """Shared memory of ``fused_block_q`` (``csrc/fused_block.cu``
+    ``smem_q``): two ``[rows, E]`` buffers of x's dtype, the second shared
+    with the weight stage or the float attention tiles (q ``rows x dp``, k
+    and v ``64 x dp`` padded to ``dp + 1``, p ``rows x 64`` padded to 65),
+    whichever is larger. The K/V entry needs less (one buffer and the
+    stage)."""
+    row_bytes = itemsize * rows * E
+    tiles = 4 * ((rows + 128) * (dp + 1) + rows * 65)
+    return row_bytes + max(row_bytes + _STAGE_BYTES, tiles)
+
+
+@functools.lru_cache(maxsize=64)
+def cuda_core_plan(E: int, D: int, itemsize: int) -> Optional[CudaCorePlan]:
+    """The CUDA-core design's geometry for width E, head dim D and x's
+    element size, or None where it does not take them: D <= 128, and the q
+    entry within a CTA's shared memory at 32 rows, else at 16. float32 E 768:
+    32 rows; float32 E 1024 (16 heads of 64, or 8 of 128) and bf16 E 2048:
+    16 rows; float32 E 2048: None."""
+    if E < 1 or D < 1 or D > MAX_HEAD_DIM:
+        return None
+    dp = next(p for p in (16, 32, 64, 128) if D <= p)
+    for rows in (32, 16):
+        if _cuda_core_q_smem(E, itemsize, rows, dp) <= _SMEM_MAX:
+            return CudaCorePlan(rows, dp)
+    return None
+
+
 def tensor_core_design(dtype, E, n_head) -> bool:
     """The shape rule between the two designs: 16-bit x (what ``wgmma``
     multiplies) at a width and head dim that ``tensor_core_plan`` takes.
@@ -271,8 +312,9 @@ def _lib():
     lib = _build.load("fused_block")
     if lib.fused_block_kv.argtypes is None:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_block_kv.argtypes = [vp] * 6 + [i32, i32, i32, f32, i32, vp]
-        lib.fused_block_q.argtypes = [vp] * 9 + [i32, i32, i32, i32, f32, f32, i32, i32, vp]
+        lib.fused_block_kv.argtypes = [vp] * 6 + [i32, i32, i32, f32, i32, i32, vp]
+        lib.fused_block_q.argtypes = [vp] * 9 + [i32, i32, i32, i32, f32, f32, i32, i32, i32,
+                                                 vp]
         for fn in (lib.fused_block_kv, lib.fused_block_q):
             fn.restype = ctypes.c_int
     return lib
@@ -290,24 +332,28 @@ def _lib_tc():
 
 
 def check_limits(x, n_head=None):
-    """Raise on an x the CUDA-core design does not take (see the module
-    docstring); without ``n_head``, on what its K/V entry does not take."""
+    """The CUDA-core design's plan for x (``cuda_core_plan``), or raise on an
+    x it does not take, naming the limit. Without ``n_head``, the plan of the
+    K/V entry, whose row tile the q entry's head dim does not change: the
+    plan at head dim 1."""
     _check_x(x)
     E = x.shape[-1]
-    if E * x.element_size() > MAX_ROW_BYTES:
+    if n_head is not None:
+        _check_heads(E, n_head)
+        D = E // n_head
+        if D > MAX_HEAD_DIM:
+            raise ValueError(
+                f"the fused-block kernels take a head dim <= {MAX_HEAD_DIM} on the CUDA cores, "
+                f"got {D}; keep this shape on the unfused path")
+    plan = cuda_core_plan(E, 1 if n_head is None else E // n_head, x.element_size())
+    if plan is None:
         raise ValueError(
-            f"the fused-block kernels take E * itemsize <= {MAX_ROW_BYTES} bytes on the CUDA "
-            f"cores (E <= {MAX_ROW_BYTES // x.element_size()} in {x.dtype}), got E {E}; the "
-            "tensor-core design takes bfloat16/float16 at E a multiple of 64 up to its "
-            "shared memory (tensor_core_plan): keep this width on the unfused path")
-    if n_head is None:
-        return
-    _check_heads(E, n_head)
-    if E // n_head > MAX_HEAD_DIM:
-        raise ValueError(
-            f"the fused-block kernels take a head dim <= {MAX_HEAD_DIM} on the CUDA cores, "
-            f"got {E // n_head}; the tensor-core design takes bfloat16/float16 with a head "
-            "dim <= 128 a multiple of 8 at E a multiple of 64 (tensor_core_plan)")
+            f"the fused-block kernels' CUDA-core design needs two [16, E] row buffers of "
+            f"{x.dtype} and the attention tiles within a CTA's 227 KB of shared memory, "
+            f"which E {E} exceeds; the tensor-core design takes bfloat16/float16 at E a "
+            "multiple of 64 up to its shared memory (tensor_core_plan): keep this width on "
+            "the unfused path")
+    return plan
 
 
 def _check_x(x):
@@ -371,8 +417,9 @@ def _aligned16(t):
 def fused_block_kv(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-5):
     """Launch ``fused_block_kv``: the ``[2, B, T, E]`` K/V workspace in x's
     dtype. ``w_qkv`` ``[E, 3E]`` in x's dtype; ``ln_scale``, ``ln_bias`` ``[E]``
-    and ``b_qkv`` ``[3E]`` float32; all contiguous on x's card."""
-    check_limits(x)
+    and ``b_qkv`` ``[3E]`` float32; all contiguous on x's card. Its row tile
+    is its own plan's (``check_limits`` without heads)."""
+    rows = check_limits(x).rows
     B, T, E = x.shape
     f32 = torch.float32
     _check_operands(x, ln_scale=(ln_scale, f32, (E,)), ln_bias=(ln_bias, f32, (E,)),
@@ -382,7 +429,7 @@ def fused_block_kv(x, ln_scale, ln_bias, w_qkv, b_qkv, *, eps=1e-5):
     with torch.cuda.device(x.device):
         err = lib.fused_block_kv(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                                  w_qkv.data_ptr(), b_qkv.data_ptr(), ws.data_ptr(),
-                                 B, T, E, float(eps), _DTYPES[x.dtype],
+                                 B, T, E, float(eps), rows, _DTYPES[x.dtype],
                                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_block_kv kernel launch failed: cudaError {err}")
@@ -395,7 +442,7 @@ def fused_block_q(x, ws, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, *, n_h
     """Launch ``fused_block_q``: the block's output in x's dtype, from x and
     the workspace ``fused_block_kv`` wrote for it. ``w_proj`` ``[E, E]`` in
     x's dtype, ``b_proj`` ``[E]`` float32."""
-    check_limits(x, n_head)
+    rows = check_limits(x, n_head).rows
     B, T, E = x.shape
     f32 = torch.float32
     _check_operands(x, ws=(ws, x.dtype, (2, B, T, E)),
@@ -411,7 +458,7 @@ def fused_block_q(x, ws, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, *, n_h
                                 ln_bias.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
                                 w_proj.data_ptr(), b_proj.data_ptr(), out.data_ptr(),
                                 B, T, E, int(n_head), float(sm_scale), float(eps),
-                                int(bool(causal)), _DTYPES[x.dtype],
+                                int(bool(causal)), rows, _DTYPES[x.dtype],
                                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_block_q kernel launch failed: cudaError {err}")

@@ -235,6 +235,192 @@ def test_launchers_validate_before_the_kernel():
     assert bsa.block_sparse_fwd.launches == 0
 
 
+# ------------------------------------------------- the tensor-core design's rule
+DESIGN_CASES = [  # (case, dtype, D, block, tensor cores?): chip_smoke.py's _bs_cases
+    ("variable-256 (main)", torch.bfloat16, 64, 256, True),
+    ("fixed-16", torch.float32, 64, 16, False),
+    ("bigbird-64", torch.bfloat16, 64, 64, True),
+    ("variable-128-d128", torch.float16, 128, 128, True),
+    ("longformer-64-d256", torch.bfloat16, 256, 64, False),
+    ("fixed-32-bidirectional", torch.bfloat16, 64, 32, False),
+    ("empty-row-col-64-d40", torch.float32, 40, 64, False),
+    ("empty-64-bf16", torch.bfloat16, 64, 64, True),
+    ("bigbird-bidirectional-causal", torch.bfloat16, 64, 64, True),
+    ("variable-128-d80", torch.float16, 80, 128, True),
+    ("d-not-multiple-of-8", torch.bfloat16, 36, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", DESIGN_CASES, ids=lambda c: c[0])
+def test_shape_rule_picks_the_design(case):
+    _, dtype, d, block, tc = case
+    assert bsa.tensor_core_path(dtype, d, block) is tc
+
+
+def test_cta_rows_lie_in_one_layout_line():
+    """Two warpgroups only where the block holds 128 rows whole, and for
+    dk/dv only at D <= 64."""
+    assert bsa.cta_rows(False, 128, 256) == 128 and bsa.cta_rows(True, 64, 256) == 128
+    assert bsa.cta_rows(True, 128, 256) == 64
+    assert bsa.cta_rows(False, 64, 64) == 64 and bsa.cta_rows(True, 64, 192) == 64
+
+
+def _work_layouts():
+    empty = np.ones((2, 8, 8), np.int64)
+    empty[:, 3, :] = 0
+    empty[:, :, 5] = 0
+    return {
+        "variable": (sa.VariableSparsityConfig(num_heads=4, block=256, local_window_blocks=[3],
+                                               global_block_indices=[0],
+                                               attention="unidirectional").make_layout(8192),
+                     256),
+        "bigbird": (sa.BigBirdSparsityConfig(num_heads=2, block=64, num_random_blocks=2,
+                                             different_layout_per_head=True).make_layout(2048),
+                    64),
+        "longformer": (sa.BSLongformerSparsityConfig(num_heads=2, block=128).make_layout(4096),
+                       128),
+        "empty": (empty, 64),
+    }
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("transposed", [True, False], ids=["dkv", "dq"])
+@pytest.mark.parametrize("name", ["variable", "bigbird", "longformer", "empty"])
+def test_work_list_covers_each_pair_once(name, transposed, causal):
+    """Every (row block, column block) pair of the LUT, for every CTA tile of
+    rows, is walked by exactly one item; no item takes more steps than the
+    bound, which is the balanced share over the SMs."""
+    layout, block = _work_layouts()[name]
+    counts, cols, counts_t, rows_t = bsa.build_luts(layout)
+    counts, lut = (counts_t, rows_t) if transposed else (counts, cols)
+    nb = layout.shape[1]
+    rows = bsa.cta_rows(transposed, 64, block)
+    w = bsa.build_work(counts, lut, nb, block, causal, rows, transposed)
+    seen = {}
+    for line, tile, first, last, group, part, parts, ws in w.items.tolist():
+        for slot in range(first, last):
+            key = (line, tile, int(lut[line, slot]))
+            assert key not in seen, key
+            seen[key] = (group, part)
+        assert 0 <= part < parts and (group == -1) is (parts == 1)
+    want = {(line, t, int(lut[line, s])) for line in range(len(counts))
+            for t in range(block // rows) for s in range(counts[line])}
+    assert set(seen) == want
+    # every (line, tile) has an item, even one with no slot: it writes zeros
+    assert {(i[0], i[1]) for i in w.items.tolist()} == {
+        (line, t) for line in range(len(counts)) for t in range(block // rows)}
+    assert (w.steps <= w.bound).all() and list(w.steps) == sorted(w.steps, reverse=True)
+    assert w.bound == max(-(-int(w.steps.sum()) // 132), block // 64)
+    assert w.ws_parts == sum(1 for i in w.items if i[4] >= 0)
+
+
+def test_long_path_global_column_is_split():
+    """The slice's layout (Variable, block 256, T 8192, 16 heads, causal):
+    column 0 holds 128 tile steps a CTA against a balanced share of 82 over
+    132 SMs, so each of its CTAs is cut in two of 64; no other column is."""
+    layout = sa.VariableSparsityConfig(num_heads=16, block=256, local_window_blocks=[3],
+                                       global_block_indices=[0],
+                                       attention="unidirectional").make_layout(8192)
+    _, _, counts_t, rows_t = bsa.build_luts(layout)
+    w = bsa.build_work(counts_t, rows_t, 32, 256, True, 128, True)
+    assert w.bound == 82 and int(w.steps.sum()) == 10752
+    split = w.items[w.items[:, 4] >= 0]
+    assert sorted(set(split[:, 0] % 32)) == [0] and w.n_groups == 32 and len(split) == 64
+    assert (split[:, 6] == 2).all() and int(w.steps.max()) == 64
+    # dq is balanced there: at most 4 active blocks a row, 16 tile steps
+    counts, cols = bsa.build_luts(layout)[:2]
+    wq = bsa.build_work(counts, cols, 32, 256, True, 128, False)
+    assert wq.n_groups == 0 and int(wq.steps.max()) == 16
+
+
+def _emulate_tc(q, k, v, do, lse, delta, layout, block, causal, transposed, n_sm):
+    """The tensor-core kernels' walk in float64 numpy: per work item, the
+    producer's tile skip, each warpgroup's skip and diagonal test, and the
+    split lines' parts summed in part order. Returns dq or (dk, dv)."""
+    B, H, T, D = q.shape
+    nb = T // block
+    counts, cols, counts_t, rows_t = bsa.build_luts(layout)
+    counts, lut = (counts_t, rows_t) if transposed else (counts, cols)
+    rows = bsa.cta_rows(transposed, D, block)
+    w = bsa.build_work(counts, lut, nb, block, causal, rows, transposed, B, n_sm)
+    scale = D ** -0.5
+    outs = [np.zeros_like(q) for _ in range(2 if transposed else 1)]
+    parts = {}
+    for b in range(B):
+        for line, tile, first, last, group, part, n_parts, _ in w.items.tolist():
+            h, r = divmod(line, nb)
+            own0 = r * block + tile * rows
+            acc = [np.zeros((rows, D)) for _ in outs]
+            for slot in range(first, last):
+                for j in range(block // 64):
+                    o0 = int(lut[line, slot]) * block + 64 * j
+                    if causal and (o0 + 63 < own0 if transposed else o0 > own0 + rows - 1):
+                        continue        # the producer's skip
+                    for wg in range(rows // 64):
+                        w0 = own0 + 64 * wg
+                        if causal and (o0 + 63 < w0 if transposed else o0 > w0 + 63):
+                            continue    # the warpgroup's skip
+                        qs = slice(o0, o0 + 64) if transposed else slice(w0, w0 + 64)
+                        ks = slice(w0, w0 + 64) if transposed else slice(o0, o0 + 64)
+                        s = q[b, h, qs] @ k[b, h, ks].T
+                        lrow = lse[b, h, qs][:, None]
+                        p = np.where(np.isneginf(lrow), 0.0, np.exp(s * scale - lrow))
+                        if causal and o0 == w0:
+                            p = np.where(np.arange(64)[:, None] >= np.arange(64)[None, :], p, 0.0)
+                        ds = p * (do[b, h, qs] @ v[b, h, ks].T - delta[b, h, qs][:, None])
+                        mine = slice(64 * wg, 64 * wg + 64)
+                        if transposed:
+                            acc[0][mine] += ds.T @ q[b, h, qs]
+                            acc[1][mine] += p.T @ do[b, h, qs]
+                        else:
+                            acc[0][mine] += ds @ k[b, h, ks]
+            if group >= 0:
+                parts.setdefault((b, group), {})[part] = acc
+                if len(parts[(b, group)]) < n_parts:
+                    continue
+                got = parts[(b, group)]
+                acc = [sum(got[p_][i] for p_ in range(n_parts)) for i in range(len(outs))]
+            for out, a, f in zip(outs, acc, (scale, 1.0)):
+                out[b, h, own0:own0 + rows] = a * f
+    return outs
+
+
+@pytest.mark.parametrize("case", [
+    ("variable", 4, 512, 128, True, 16), ("bigbird-bidirectional", 2, 512, 64, True, 64),
+    ("empty", 2, 512, 64, False, 64), ("longformer", 2, 1024, 128, True, 132)],
+    ids=lambda c: f"{c[0]}-{c[2]}-{c[3]}")
+def test_tensor_core_walk_matches_plain_version(case):
+    """The items, skips, diagonal tests and merges of the tensor-core
+    kernels, emulated in float64, give the plain version's gradients (few
+    SMs, so that heavy lines are split). The plain version computes in
+    float32: tolerance 1e-5 on values of magnitude ~0.1-1."""
+    name, h, t, block, causal, n_sm = case
+    if name == "variable":
+        layout = sa.VariableSparsityConfig(num_heads=h, block=block, local_window_blocks=[1],
+                                           global_block_indices=[0],
+                                           attention="unidirectional").make_layout(t)
+    elif name == "bigbird-bidirectional":
+        layout = sa.BigBirdSparsityConfig(num_heads=h, block=block, num_random_blocks=1,
+                                          different_layout_per_head=True).make_layout(t)
+    elif name == "longformer":
+        layout = sa.BSLongformerSparsityConfig(num_heads=h, block=block).make_layout(t)
+    else:
+        layout = np.ones((h, t // block, t // block), np.int64)
+        layout[:, 3, :] = 0
+        layout[:, :, 5] = 0
+    shape = (1, h, t, 64)
+    q, k, v, do = (torch.from_numpy(a).double() for a in _inputs(shape, seed=7))
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    out, lse = bsa.block_sparse_attention_reference(qs, ks, vs, layout, block, causal)
+    (out * do).sum().backward()
+    delta = (do * out.detach()).sum(-1)
+    args = [x.numpy() for x in (q, k, v, do, lse, delta)]
+    for transposed, want in ((False, (qs.grad,)), (True, (ks.grad, vs.grad))):
+        got = _emulate_tc(*args, layout, block, causal, transposed, n_sm)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b.numpy(), atol=1e-5, rtol=1e-5)
+
+
 # --------------------------------------------------------------------- card
 CUDA_CASES = [
     # (B, H, T, D, dtype, config, block, causal)
@@ -243,6 +429,11 @@ CUDA_CASES = [
     (1, 2, 512, 128, torch.float16, "bigbird", 64, True),
     (2, 2, 256, 40, torch.float32, "empty", 32, False),
     (1, 2, 256, 256, torch.bfloat16, "longformer", 64, False),
+    # the tensor-core design: rows with no allowed key (lse -inf) in bf16
+    (2, 2, 512, 64, torch.bfloat16, "empty", 64, False),
+    (1, 4, 1024, 64, torch.bfloat16, "bigbird", 64, True),   # blocks above the diagonal
+    (1, 2, 1024, 80, torch.float16, "variable", 128, True),  # D 80, padded to 128
+    (2, 4, 2048, 64, torch.bfloat16, "longformer", 128, False),  # global rows: dq splits
 ]
 
 
@@ -288,16 +479,85 @@ def test_cuda_kernels_match_plain_version(case):
         (out.float() * g).sum().backward()
         return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
 
-    before = [f.launches for f in (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq,
-                                   bsa.block_sparse_bwd_dkv)]
+    counters = (bsa.block_sparse_fwd.launches, bsa.block_sparse_bwd_dq.launches,
+                bsa.block_sparse_bwd_dkv.launches, bsa.block_sparse_bwd_dq.tensor_core_launches,
+                bsa.block_sparse_bwd_dkv.tensor_core_launches)
+    before = list(counters)
     got, want = run(True), run(False)
     torch.cuda.synchronize()
-    assert [f.launches for f in (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq,
-                                 bsa.block_sparse_bwd_dkv)] == [before[0] + 2, before[1] + 1,
-                                                                before[2] + 1]
+    tc = int(bsa.tensor_core_path(dtype, Dc, block))
+    assert [bsa.block_sparse_fwd.launches, bsa.block_sparse_bwd_dq.launches,
+            bsa.block_sparse_bwd_dkv.launches, bsa.block_sparse_bwd_dq.tensor_core_launches,
+            bsa.block_sparse_bwd_dkv.tensor_core_launches] == [
+        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + tc, before[4] + tc]
+    if name == "empty":     # the empty row gives 0 (lse -inf), the empty column 0
+        rows, cols = slice(2 * block, 3 * block), slice(5 * block, 6 * block)
+        assert not got[0][:, :, rows].any() and not got[2][:, :, rows].any()
+        assert torch.isneginf(got[1][:, :, rows]).all()
+        assert not got[3][:, :, cols].any() and not got[4][:, :, cols].any()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b, out_name in zip(got, want, ("out", "lse", "dq", "dk", "dv")):
         assert torch.isfinite(a).all() or out_name == "lse", out_name
         err = torch.where(a == b, 0.0, (a - b).abs())
         scale = float(b[torch.isfinite(b)].abs().max()) + 1e-6
         assert float(err.max()) / scale <= tol, f"{out_name}: {float(err.max()) / scale} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,causal", [("variable", True), ("longformer", False)])
+def test_cuda_tensor_core_dkv_launches_are_bit_identical(name, causal):
+    """Split lines merge their parts in part order, whichever CTA arrives
+    last: two dk/dv launches (and two dq launches) agree bit for bit. At this
+    size both kernels split lines of both layouts: the Variable layout's
+    global column, the unmasked Longformer layout's global rows and
+    columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    block = 256 if name == "variable" else 128
+    layout = _cuda_layout(name, 4, 2048, block)
+    luts = bsa.device_luts(layout, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn((1, 4, 2048, 64), generator=gen, device="cuda").bfloat16()
+                   for _ in range(4))
+    kw = dict(block=block, causal=causal, sm_scale=0.125)
+    out, lse = bsa.block_sparse_fwd(q, k, v, luts, **kw)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    splits = [bsa.device_work(luts, "cuda", T=2048, block=block, causal=causal, transposed=t,
+                              batch=1, D=64).n_groups for t in (True, False)]
+    assert min(splits) > 0
+    first = bsa.block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts, **kw)
+    dq = bsa.block_sparse_bwd_dq(q, k, v, do, lse, delta, luts, **kw)
+    for _ in range(3):
+        again = bsa.block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts, **kw)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+        assert torch.equal(bsa.block_sparse_bwd_dq(q, k, v, do, lse, delta, luts, **kw), dq)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_core_design_takes_operands_off_16_byte_boundaries():
+    """Contiguous views that start 2 bytes into their storage: the wrapper
+    copies them to an aligned start for the tensor-core backward's TMA."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    layout = _cuda_layout("bigbird", 2, 512, 64)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    base = [torch.randn((1, 2, 512, 64), generator=gen, device="cuda").bfloat16()
+            for _ in range(3)]
+    views = []
+    for t in base:
+        flat = torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")
+        view = flat[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        views.append(view.requires_grad_())
+    before = bsa.block_sparse_bwd_dkv.tensor_core_launches
+    out = bsa.block_sparse_attention(*views, layout, 64, causal=True)
+    out.float().sum().backward()
+    leaves = [t.clone().requires_grad_() for t in base]
+    ref, _ = bsa.block_sparse_attention_reference(*leaves, layout, 64, True)
+    ref.float().sum().backward()
+    torch.cuda.synchronize()
+    assert bsa.block_sparse_bwd_dkv.tensor_core_launches == before + 1
+    for a, b in zip(views, leaves):
+        err = float((a.grad.float() - b.grad.float()).abs().max())
+        assert err <= 2e-2 * float(b.grad.float().abs().max()), err

@@ -162,20 +162,21 @@ def test_limits_and_operand_checks_raise(case):
     wrapper applies them where the tensor-core design does not take the
     shape); the CPU wrapper computes every width and head dim the JAX
     function takes. The argument checks raise on every device."""
-    if case == "width":       # E * itemsize > 3072
-        x = torch.zeros(1, 4, 800)
-        with pytest.raises(ValueError, match="3072"):
+    if case == "width":       # float32 past E 1688: two [16, E] buffers outgrow 227 KB
+        x = torch.zeros(1, 4, 1728)
+        with pytest.raises(ValueError, match="227 KB"):
             fb.check_limits(x, 16)
         out = fb.fused_transformer_block(x, *(torch.zeros(s) for s in (
-            (800,), (800,), (800, 2400), (2400,), (800, 800), (800,))), 16)
-        assert out.shape == (1, 4, 800) and torch.isfinite(out).all()
-        fb.check_limits(torch.zeros(1, 4, 1536, dtype=torch.bfloat16), 24)
+            (1728,), (1728,), (1728, 5184), (5184,), (1728, 1728), (1728,))), 16)
+        assert out.shape == (1, 4, 1728) and torch.isfinite(out).all()
+        assert fb.check_limits(torch.zeros(1, 4, 1536, dtype=torch.bfloat16), 24).rows == 32
+        assert fb.check_limits(torch.zeros(1, 4, 1024), 16).rows == 16
         return
     ops = _operands()
     args = _torch_args(ops)
-    if case == "head_dim":
-        wide = _torch_args(_operands(e=256))
-        with pytest.raises(ValueError, match="head dim <= 64"):
+    if case == "head_dim":    # head dim 256
+        wide = _torch_args(_operands(e=512))
+        with pytest.raises(ValueError, match="head dim <= 128"):
             fb.check_limits(wide[0], 2)
         out = fb.fused_transformer_block(*wide, 2)
         torch.testing.assert_close(out, fb.fused_block_reference(*wide, 2), rtol=0, atol=1e-5)
@@ -196,10 +197,11 @@ def test_limits_and_operand_checks_raise(case):
             fb.fused_transformer_block(*args, H)
 
 
-WIDE_CASES = [  # (E, heads, dtype): shapes the CUDA-core design refuses
+WIDE_CASES = [  # (E, heads, dtype): shapes the CUDA-core design refused before its plan
     (768, 6, "bfloat16"),      # head dim 128
     (1600, 25, "bfloat16"),    # GPT-2 1.5B's width
-    (1024, 16, "float32"),     # E * 4 > 3072
+    (1024, 16, "float32"),     # float32 at GPT-2 medium's width: 16 rows a CTA
+    (1600, 20, "bfloat16"),    # heads of 80, outside the tensor-core plan
 ]
 
 
@@ -219,6 +221,20 @@ def test_wrapper_matches_jax_where_the_cuda_cores_refuse(case):
     else:
         err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
         assert err <= 2e-2, err
+
+
+def test_wrapper_matches_jax_with_float32_heads_of_128():
+    """Fault C3: float32 at E 1024 with 8 heads of 128, which the CUDA-core
+    design takes since its plan pads heads to 128. Tolerance 1e-5 of max
+    |ref|: the two frameworks sum the 1024-long and 128-long products in
+    other orders (about 2e-6 of max |ref| here)."""
+    from deepspeed_tpu.ops.pallas.fused_block import fused_transformer_block as jax_fused
+    ops = _operands(11, 1, 16, 1024)
+    want = np.asarray(jax_fused(*_jax_args(ops), 8), np.float32)
+    got = fb.fused_transformer_block(*_torch_args(ops), 8)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (1, 16, 1024)
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= 1e-5, err
 
 
 RULE_CASES = [  # (dtype, E, heads, tensor-core design?)
@@ -242,6 +258,39 @@ def test_shape_rule_picks_the_design(case):
     assert fb.tensor_core_design(dtype, e, heads) is tc
     if tc or dtype == torch.float32:
         assert (fb.tensor_core_plan(e, e // heads) is not None) is (e % 64 == 0)
+
+
+PLAN_CASES = [  # (E, head dim, itemsize, rows, padded head dim) of cuda_core_plan
+    (768, 64, 4, 32, 64),        # float32 GPT-2 124M
+    (1024, 64, 4, 16, 64),       # float32 E 1024, 16 heads (fault C3)
+    (1024, 128, 4, 16, 128),     # float32 E 1024, 8 heads of 128 (fault C3)
+    (1600, 80, 2, 32, 128),      # bf16 E 1600, 20 heads of 80 (fault C3)
+    (1600, 64, 4, 16, 64),       # float32 GPT-2 1.5B
+    (2048, 128, 2, 16, 128),     # bf16 E 2048
+    (32, 8, 4, 32, 16),          # the JAX tests' shape
+    (2048, 64, 4, None, None),   # float32 E 2048: two [16, E] buffers take 256 KB
+    (3456, 64, 2, None, None),   # bf16 past E 3376
+    (1152, 144, 2, None, None),  # head dim 144
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "-".join(map(str, c[:3])))
+def test_cuda_core_plan_takes_the_widths_jax_computes(case):
+    """The CUDA-core design's geometry: 32 rows where the q entry fits 227 KB,
+    else 16, else refused; the plan's shared memory fits and 32 rows would
+    not where it takes 16. ``check_limits`` names what it refuses."""
+    e, d, itemsize, rows, dp = case
+    plan = fb.cuda_core_plan(e, d, itemsize)
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    if rows is None:
+        assert plan is None
+        with pytest.raises(ValueError, match="head dim <= 128" if d > 128 else "227 KB"):
+            fb.check_limits(torch.zeros(1, 1, e, dtype=dtype), e // d)
+        return
+    assert plan == fb.CudaCorePlan(rows, dp)
+    assert fb._cuda_core_q_smem(e, itemsize, rows, dp) <= fb._SMEM_MAX
+    assert rows == 32 or fb._cuda_core_q_smem(e, itemsize, 32, dp) > fb._SMEM_MAX
+    assert fb.check_limits(torch.zeros(1, 1, e, dtype=dtype), e // d) == plan
 
 
 @pytest.mark.parametrize("e,d", [(768, 64), (1024, 64), (1280, 64), (1600, 64), (1600, 32),
@@ -325,6 +374,9 @@ CUDA_CASES = [  # (B, T, E, heads, dtype, causal)
     (3, 37, 768, 12, torch.bfloat16, True),       # T < 64
     (2, 300, 768, 12, torch.bfloat16, False),     # not causal
     (1, 1024, 768, 12, torch.bfloat16, True),     # B 1
+    (1, 200, 1024, 16, torch.float32, True),      # fault C3: float32 E 1024, 16 rows
+    (2, 130, 1024, 8, torch.float32, False),      # fault C3: float32 heads of 128
+    (1, 256, 1600, 20, torch.bfloat16, True),     # fault C3: bf16 heads of 80, CUDA cores
 ]
 
 
@@ -347,7 +399,7 @@ def test_cuda_kernels_match_plain_version(case):
     got = fb.fused_transformer_block(*args, heads, causal=causal)
     torch.cuda.synchronize()
     tc = fb.tensor_core_design(dtype, e, heads)
-    assert tc is (dtype != torch.float32 and e % 64 == 0)
+    assert tc is (dtype != torch.float32 and fb.tensor_core_plan(e, e // heads) is not None)
     step = (1, 1, 0, 0, 1, 1) if tc else (1, 0, 1, 1, 0, 0)
     assert _counts() == tuple(n + d for n, d in zip(before, step))
     cast = [args[0], args[1], args[2], args[3].to(dtype), args[4], args[5].to(dtype), args[6]]
@@ -428,11 +480,11 @@ def test_cuda_limits_raise_before_any_launch():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     before = _counts()
-    args = [a.cuda() for a in _torch_args(_operands(e=1024))]   # float32 at E = 1024
-    with pytest.raises(ValueError, match="3072"):
+    args = [a.cuda() for a in _torch_args(_operands(b=1, t=8, e=2048))]   # float32 at E 2048
+    with pytest.raises(ValueError, match="227 KB"):
         fb.fused_transformer_block(*args, 16)
-    # bf16 at E 1600 with 20 heads of 80: no q tile fits beside the row tile
-    args = [a.cuda() for a in _torch_args(_operands(e=1600), torch.bfloat16)]
-    with pytest.raises(ValueError, match="3072"):
-        fb.fused_transformer_block(*args, 20)
+    # float32 heads of 256: past the CUDA-core design's widest head
+    args = [a.cuda() for a in _torch_args(_operands(e=512))]
+    with pytest.raises(ValueError, match="head dim <= 128"):
+        fb.fused_transformer_block(*args, 2)
     assert _counts() == before
