@@ -53,12 +53,15 @@ result line):
    mask, float16 at D = 128 and D = 80, D = 256, a bidirectional layout
    without the causal mask, a layout with an empty row and column in float32
    and bf16, Longformer's global rows unmasked), checking by the launch counts that
-   each case's backward ran the design the shape rule names (tensor cores
-   for bf16/fp16 at D <= 128 a multiple of 8 and blocks of 64k); at the main
-   shape, the two designs against each other and two launches bit for bit;
-   times of the tensor-core backward and, on the same inputs in turns, of
-   the CUDA-core one, both with and without the layout's global column,
-   beside the plain version and SDPA with the layout as a boolean mask;
+   each case's three kernels ran the design the shape rule names (tensor
+   cores for bf16/fp16 at D <= 128 a multiple of 8 and blocks of 64k); at the
+   main shape (and, for the forward, on the Longformer case, whose rows
+   split), each kernel's two designs against each other and two launches bit
+   for bit; times of the tensor-core forward and, on the same inputs in
+   turns, of the CUDA-core one by CUDA-graph replays; of the tensor-core
+   backward and, in turns, of the CUDA-core one, both with and without the
+   layout's global column; beside the plain version and SDPA with the layout
+   as a boolean mask;
 8. long-sequence training — GPT-2 at n_embd 1024 (16 heads, 12 layers, vocab
    50304, T = 8192, bf16, no remat) with block-sparse attention
    (``tests/perf/long_seq_model_perf.py``'s layout) through ``initialize`` at
@@ -66,7 +69,7 @@ result line):
    and per-layer grad norms of the kernel path against the plain path at 2
    layers (bf16 at T = 8192, float32 at T = 2048), that the losses are finite
    and fall, and that each block-sparse kernel ran once per layer per step,
-   the backward ones on the tensor cores each time;
+   on the tensor cores each time;
    a profiler window of one step; then the same model with dense flash
    attention for 6 steps, for the sparse/dense step ratio;
 9. fused-block kernels — the two entries of the fused transformer block in
@@ -242,12 +245,12 @@ def _demangle(name):
     """A short label for a paged-decode, tensor-core fused-block or
     tensor-core block-sparse kernel's mangled name: its kind, dtype and
     integer template arguments."""
-    kind = next(k for k in ("cluster", "qkv", "attn", "bs_dkv", "bs_dq", "") if k in name) \
-        or "first"
+    kind = next(k for k in ("cluster", "qkv", "attn", "bs_dkv", "bs_dq", "bs_fwd", "")
+                if k in name) or "first"
     dtype = ("bf16" if "bfloat16" in name else "f16" if "half" in name else "f32")
     ints = re.findall(r"Li(\d+)E", name)
     label = {"cluster": ", NP ", "qkv": ", NC ", "attn": ", DP/NC ", "bs_dkv": ", DP/NWG ",
-             "bs_dq": ", DP/NWG "}.get(kind, "")
+             "bs_dq": ", DP/NWG ", "bs_fwd": ", DP/NWG "}.get(kind, "")
     return f"{kind}<{dtype}{label + '/'.join(ints) if ints else ''}>"
 
 
@@ -1000,9 +1003,9 @@ def phase_block_sparse_kernels():
         torch.cuda.synchronize()
         tc = bsa.tensor_core_path(dtype, shape[-1], block)
         ran = [a - b for a, b in zip(_bs_tensor_core_launches(), before)]
-        if ran != [int(tc)] * 2:
-            raise AssertionError(f"block-sparse {name}: tensor-core backward launches {ran}, "
-                                 f"but the shape rule names the "
+        if ran != [2 * tc, tc, tc]:     # _bs_case runs the forward twice
+            raise AssertionError(f"block-sparse {name}: tensor-core launches (fwd, dq, dk/dv) "
+                                 f"{ran}, but the shape rule names the "
                                  f"{'tensor-core' if tc else 'CUDA-core'} design")
         tol = FLASH_TOL[dtype]
         errs = {}
@@ -1010,8 +1013,8 @@ def phase_block_sparse_kernels():
             if out != "lse" and not torch.isfinite(a).all():
                 raise AssertionError(f"block-sparse {name}: non-finite {out}")
             errs[out] = _scaled_err(a, b)
-        log(f"[block-sparse] {name} {shape} {dtype} block {block} causal {causal}, backward on "
-            f"the {'tensor' if tc else 'CUDA'} cores: "
+        log(f"[block-sparse] {name} {shape} {dtype} block {block} causal {causal}, all three "
+            f"on the {'tensor' if tc else 'CUDA'} cores: "
             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
             + f" (scaled by max |ref|, tol {tol})")
         if name.startswith("empty"):
@@ -1033,16 +1036,27 @@ def phase_block_sparse_kernels():
 
 def _bs_tensor_core_launches():
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
-    return [bsa.block_sparse_bwd_dq.tensor_core_launches,
+    return [bsa.block_sparse_fwd.tensor_core_launches,
+            bsa.block_sparse_bwd_dq.tensor_core_launches,
             bsa.block_sparse_bwd_dkv.tensor_core_launches]
 
 
 def _bs_cuda_core_entries(block, causal, sm_scale):
-    """The CUDA-core dq and dk/dv entries called directly on bf16 inputs that
-    the shape rule sends to the tensor cores: the earlier design, timed
-    beside its redesign on the same inputs (no launch counted)."""
+    """The CUDA-core forward, dq and dk/dv entries called directly on bf16
+    inputs that the shape rule sends to the tensor cores: the earlier design,
+    timed beside its redesign on the same inputs (no launch counted)."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     lib = bsa._lib()
+
+    def fwd(q, k, v, luts):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        err = lib.bs_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         lse.data_ptr(), luts.counts.data_ptr(), luts.cols.data_ptr(),
+                         luts.cols.shape[1], *bsa._tail(q, block, sm_scale, causal))
+        if err:
+            raise RuntimeError(f"bs_fwd: cudaError {err}")
+        return out, lse
 
     def dq(q, k, v, do, lse, delta, luts):
         out = torch.empty_like(q)
@@ -1064,17 +1078,34 @@ def _bs_cuda_core_entries(block, causal, sm_scale):
             raise RuntimeError(f"bs_dkv: cudaError {err}")
         return dk, dv
 
-    return dq, dkv
+    return fwd, dq, dkv
+
+
+def _bs_forward_designs(q, k, v, luts, kw):
+    """The two forward designs on the same inputs: (errors of the tensor-core
+    out and lse against the CUDA-core ones, scaled by max |value|; whether a
+    second tensor-core launch is bit-identical to the first)."""
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    fma_fwd = _bs_cuda_core_entries(kw["block"], kw["causal"], kw["sm_scale"])[0]
+    tc = bsa.block_sparse_fwd(q, k, v, luts, **kw)
+    fma = fma_fwd(q, k, v, luts)
+    again = bsa.block_sparse_fwd(q, k, v, luts, **kw)
+    errs = {n: _scaled_err(a.float(), b.float()) for n, a, b in zip(("out", "lse"), tc, fma)}
+    return errs, all(torch.equal(a, b) for a, b in zip(tc, again))
 
 
 def time_block_sparse(main_err, worst):
     """Device times at the main shape, inputs rotating over 3 sets (68 MB a
-    set, beyond the 50 MB L2): the forward; the backward kernels' tensor-core
-    design (the wrapper's) and, on the same inputs in turns (new, old, old,
-    new), their CUDA-core design, both also on the layout without its global
-    column; beside them the plain version and SDPA with the layout (causal
-    included) as a boolean mask, forward and backward. First, the two
-    designs' outputs against each other and two launches bit for bit."""
+    set, beyond the 50 MB L2): the forward's tensor-core design and, on the
+    same inputs in turns (new, old, old, new), its CUDA-core design, by
+    CUDA-graph replays (the new design's eager loop beside them); the
+    backward kernels' tensor-core design (the wrapper's) and, in turns, their
+    CUDA-core design, both also on the layout without its global column;
+    beside them the plain version and SDPA with the layout (causal included)
+    as a boolean mask, forward and backward. First, each kernel's two
+    designs' outputs against each other and two launches bit for bit (the
+    forward also on the case whose rows split, Longformer's global rows
+    without the causal mask)."""
     from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
     B, H, T, D = BS_SHAPE
     layout = long_sparsity().make_layout(T)
@@ -1091,7 +1122,30 @@ def time_block_sparse(main_err, worst):
     no_global = layout.copy()
     no_global[:, 1:, 0] = 0
     luts_ng = bsa.device_luts(no_global, "cuda")
-    fma_dq, fma_dkv = _bs_cuda_core_entries(block, True, D ** -0.5)
+    fma_fwd, fma_dq, fma_dkv = _bs_cuda_core_entries(block, True, D ** -0.5)
+
+    # the forward's two designs agree on the same inputs, and its split rows
+    # merge the same way every launch
+    fwd_checks = {}
+    for name, shape, dtype, lay, blk, causal in _bs_cases():
+        if name not in ("variable-256 (main)", "longformer-128-global-rows"):
+            continue
+        g = torch.Generator(device="cuda").manual_seed(2)
+        qkv = [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
+        lay_luts = bsa.device_luts(lay, "cuda")
+        fkw = dict(block=blk, causal=causal, sm_scale=shape[-1] ** -0.5)
+        errs, same = _bs_forward_designs(*qkv, lay_luts, fkw)
+        splits = bsa.device_work(lay_luts, "cuda", T=shape[2], block=blk, causal=causal,
+                                 transposed=False, batch=shape[0], D=shape[-1]).n_groups
+        fwd_checks[name] = {"errs": errs, "bit_identical": same, "split_groups": splits}
+        del qkv
+    log(f"[block-sparse] tensor-core vs CUDA-core forward (out, lse scaled by max |value|) "
+        f"and two launches bit-identical: {json.dumps(fwd_checks)}")
+    if fwd_checks["longformer-128-global-rows"]["split_groups"] == 0:
+        raise AssertionError("the Longformer case split no forward row")
+    for name, c in fwd_checks.items():
+        if max(c["errs"].values()) > FLASH_TOL[torch.bfloat16] or not c["bit_identical"]:
+            raise AssertionError(f"block-sparse forward designs, {name}: {c}")
 
     # the two designs of each backward kernel agree on the same inputs, and
     # the tensor-core design's split column merges the same way every launch
@@ -1118,7 +1172,13 @@ def time_block_sparse(main_err, worst):
                 "dq_fma": lambda i: fma_dq(*sets[i % 3], l),
                 "dkv_fma": lambda i: fma_dkv(*sets[i % 3], l)}
 
-    ms = {"fwd": time_ms(lambda i: bsa.block_sparse_fwd(*sets[i % 3][:3], luts, **kw), 60)}
+    eager_fwd = time_ms(lambda i: bsa.block_sparse_fwd(*sets[i % 3][:3], luts, **kw), 60)
+    fwd_turns = {"fwd": [], "fwd_fma": []}
+    for n in ("fwd", "fwd_fma", "fwd_fma", "fwd"):     # in turns: new, old, old, new
+        fn = bsa.block_sparse_fwd if n == "fwd" else \
+            (lambda q, k, v, l, **_: fma_fwd(q, k, v, l))
+        fwd_turns[n].append(graph_ms(lambda i: fn(*sets[i % 3][:3], luts, **kw), 3))
+    ms = {n: statistics.mean(t) for n, t in fwd_turns.items()}
     turns = {n: [] for n in ("dq", "dkv", "dq_fma", "dkv_fma")}
     for names in (("dq", "dkv"), ("dq_fma", "dkv_fma"), ("dq_fma", "dkv_fma"), ("dq", "dkv")):
         for n in names:     # in turns: new, old, old, new
@@ -1130,7 +1190,8 @@ def time_block_sparse(main_err, worst):
     mask = bsa.layout_mask(layout, block, True, "cuda")
     pairs = int(mask.sum()) * B          # (q, k) pairs the layout and causal mask keep
     pairs_ng = int(bsa.layout_mask(no_global, block, True, "cuda").sum()) * B
-    log(f"[block-sparse] turns (ms): {json.dumps(turns)}; without the global column: "
+    log(f"[block-sparse] forward turns (ms, graph replays): {json.dumps(fwd_turns)}, eager "
+        f"{eager_fwd!r}; backward turns (ms): {json.dumps(turns)}; without the global column: "
         f"{json.dumps(ng)} for {pairs_ng / pairs!r} of the pairs; split groups dq "
         f"{work[False].n_groups}, dk/dv {work[True].n_groups}")
 
@@ -1171,12 +1232,9 @@ def time_block_sparse(main_err, worst):
         flops, nbytes = work_of[name]
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(t_ops, t_bytes)
-        tc = name != "fwd"
-        e = {"name": f"block_sparse_{name}", "route": "cuda",
-             "entry": f"bs_{name}_tc" if tc else "bs_fwd",
-             "design": "wgmma" if tc else "CUDA cores",
-             "source": "deepspeed_tpu_torch/csrc/block_sparse_attention"
-                       + ("_tc.cu" if tc else ".cu"),
+        e = {"name": f"block_sparse_{name}", "route": "cuda", "entry": f"bs_{name}_tc",
+             "design": "wgmma",
+             "source": "deepspeed_tpu_torch/csrc/block_sparse_attention_tc.cu",
              "replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{line}:{body}",
              "also_replaces": f"deepspeed_tpu/ops/pallas/block_sparse_attention.py:{other}",
              "launches": None, "max_abs_err": max(main_err[n][0] for n in outs),
@@ -1185,19 +1243,25 @@ def time_block_sparse(main_err, worst):
              "kernel_ms": ms[name], "ms": ms[name], "plain_ms": plain, "library_ms": lib,
              "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "pct_of_bound": 100 * bound / ms[name]}
-        if tc:
-            # the CUDA-core design on the same inputs, and both on the layout
-            # without its global column: the split balances the column if the
-            # time falls with the pairs, ms / ms_ng <= 1.25 pairs / pairs_ng
-            e.update({"fma_ms": ms[f"{name}_fma"], "speedup_vs_fma": ms[f"{name}_fma"] / ms[name],
-                      "fma_pct_of_bound": 100 * bound / ms[f"{name}_fma"],
-                      "turns_ms": turns[name], "fma_turns_ms": turns[f"{name}_fma"],
+        # the CUDA-core design on the same inputs
+        e.update({"fma_ms": ms[f"{name}_fma"], "speedup_vs_fma": ms[f"{name}_fma"] / ms[name],
+                  "fma_pct_of_bound": 100 * bound / ms[f"{name}_fma"],
+                  "split_groups": work[name == "dkv"].n_groups,
+                  "items": int(work[name == "dkv"].items.shape[0])})
+        if name == "fwd":
+            e.update({"timing": "CUDA-graph replays", "turns_ms": fwd_turns["fwd"],
+                      "fma_turns_ms": fwd_turns["fwd_fma"], "eager_ms": eager_fwd,
+                      "designs": fwd_checks})
+        else:
+            # both also on the layout without its global column: the split
+            # balances the column if the time falls with the pairs, ms / ms_ng
+            # <= 1.25 pairs / pairs_ng
+            e.update({"timing": "eager loop", "turns_ms": turns[name],
+                      "fma_turns_ms": turns[f"{name}_fma"],
                       "ms_without_global_column": ng[name],
                       "fma_ms_without_global_column": ng[f"{name}_fma"],
                       "ms_over_ms_without_global_column": ms[name] / ng[name],
-                      "pairs_over_pairs_without_global_column": pairs / pairs_ng,
-                      "split_groups": work[name == "dkv"].n_groups,
-                      "items": int(work[name == "dkv"].items.shape[0])})
+                      "pairs_over_pairs_without_global_column": pairs / pairs_ng})
         log(f"[block-sparse] {json.dumps(e)}")
         entries.append(e)
     return entries
@@ -1246,11 +1310,15 @@ def phase_long_training():
     for dtype, T, tol in ((torch.float32, 2048, TRAIN_TOL_F32),
                           (torch.bfloat16, 8192, TRAIN_TOL_BF16)):
         m = _long_model(n_layer=2, compute_dtype=dtype)
-        before = bsa.block_sparse_fwd.launches
+        before = (bsa.block_sparse_fwd.launches, bsa.block_sparse_fwd.tensor_core_launches)
         lk, lp, nrel = _kernel_vs_plain(m, tokens[:, :T], labels[:, :T])
-        if bsa.block_sparse_fwd.launches - before != 2:
-            raise AssertionError("the kernel path did not launch the kernel once per layer, "
-                                 "or the plain path launched it")
+        # bf16 through the tensor-core forward, float32 through the CUDA-core one
+        tc = 2 * (dtype == torch.bfloat16)
+        if (bsa.block_sparse_fwd.launches - before[0],
+                bsa.block_sparse_fwd.tensor_core_launches - before[1]) != (2, tc):
+            raise AssertionError("the kernel path did not launch the forward once per layer "
+                                 "in the design the shape rule names, or the plain path "
+                                 "launched it")
         checks[str(dtype)] = [lk, lp, nrel]
         log(f"[long] {dtype} 2 layers T {T}, kernel vs plain: loss {lk!r} vs {lp!r}, "
             f"per-layer grad norms max rel diff {nrel!r} (tol {tol})")
@@ -1267,9 +1335,7 @@ def phase_long_training():
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=LONG_CONFIG)
     launchers = (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq, bsa.block_sparse_bwd_dkv)
     for f in launchers:
-        f.launches = 0
-    bsa.block_sparse_bwd_dq.tensor_core_launches = 0
-    bsa.block_sparse_bwd_dkv.tensor_core_launches = 0
+        f.launches = f.tensor_core_launches = 0
     losses, step_s = _train_steps(engine, tokens, labels, steps=LONG_STEPS)
     launches = [f.launches for f in launchers]
     tc_launches = _bs_tensor_core_launches()
@@ -1280,8 +1346,8 @@ def phase_long_training():
     if launches != [n_layer * LONG_STEPS] * 3:
         raise AssertionError(f"block-sparse launches {launches} != {n_layer} x "
                              f"{LONG_STEPS} steps each")
-    if tc_launches != [n_layer * LONG_STEPS] * 2:
-        raise AssertionError(f"block-sparse backward launches on the tensor cores "
+    if tc_launches != [n_layer * LONG_STEPS] * 3:
+        raise AssertionError(f"block-sparse launches on the tensor cores (fwd, dq, dk/dv) "
                              f"{tc_launches}: not all of {n_layer * LONG_STEPS} each")
     steady = step_s[2:]
     step = statistics.median(steady)
@@ -1293,7 +1359,7 @@ def phase_long_training():
            "mfu": tok_s * 6 * n_params / BF16_FLOPS,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
            "block_sparse_launches": launches,
-           "block_sparse_tensor_core_launches (dq, dkv)": tc_launches,
+           "block_sparse_tensor_core_launches (fwd, dq, dkv)": tc_launches,
            "kernel_vs_plain": checks}
     log(f"[long] {json.dumps(res)}")
     profile_step("profile-long", engine, tokens, labels)

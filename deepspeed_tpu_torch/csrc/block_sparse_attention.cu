@@ -38,10 +38,11 @@
 // the diagonal is skipped before it is loaded. The grid's x index is b * H + h
 // and its y index the tile, so that the tiles of layout row (column) 0, the
 // global row or column of the BigBird, Longformer and Variable layouts, are
-// the first to be scheduled. Left for a later change: wgmma on bf16/fp16
-// tiles staged by TMA, and splitting a heavy column (the global one, which
-// every q-block attends) across CTAs; in dk/dv the CTAs of that column walk
-// every q-block of the sequence while the others walk a few.
+// the first to be scheduled. bf16/fp16 at D <= 128 (a multiple of 8) and
+// layout blocks of a multiple of 64 take the tensor-core design instead
+// (block_sparse_attention_tc.cu: wgmma on tiles staged by TMA, a heavy row
+// or column split across CTAs); this file takes float32, the other head
+// dims and blocks of 16 or 32.
 
 #include <math.h>
 

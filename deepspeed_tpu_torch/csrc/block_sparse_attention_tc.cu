@@ -1,69 +1,86 @@
-// Block-sparse attention backward on Hopper's tensor cores (sm_90a): dq and
-// dk/dv over the active blocks of a [H, T/block, T/block] layout, bound
+// Block-sparse attention on Hopper's tensor cores (sm_90a): the forward, dq
+// and dk/dv over the active blocks of a [H, T/block, T/block] layout, bound
 // through ctypes.
 //
 // Replaces, for bf16/fp16 with D <= 128 a multiple of 8 and a layout block
 // that is a multiple of 64 (ops/block_sparse_attention.py,
 // tensor_core_path), the kernel bodies of
 // deepspeed_tpu/ops/pallas/block_sparse_attention.py:
+//   bs_fwd_tc <- _bs_fwd_kernel_res and _bs_fwd_kernel  (launched by _bs_fwd)
 //   bs_dq_tc  <- _bs_dq_kernel_res  and _bs_dq_kernel   (launched by _bs_bwd)
 //   bs_dkv_tc <- _bs_dkv_kernel_res and _bs_dkv_kernel  (launched by _bs_bwd)
 // The other shapes (float32, D > 128, blocks of 16 or 32) keep the CUDA-core
-// entries bs_dq / bs_dkv of block_sparse_attention.cu. Both designs compute
-// the same function, element for element: scores q.k in f32, then times
-// sm_scale (here sm_scale * log2(e) on the f32 score fragments, so that the
-// exponent is exp2(s2 - lse * log2(e)): no operand is scaled and rounded);
-// lanes that the causal mask drops (q < k, in blocks on the diagonal) set to
-// exactly 0 by a select; p = exp(s - lse), dS = p * (dO.v - delta); dv = p.dO
-// with p rounded to v's type; dS rounded to the operand type before dS.q and
-// dS.k; dq = sm_scale * dS.k and dk = sm_scale * dS.q in f32, then cast. A
-// row with no allowed key has lse -inf (bs_fwd writes it so); its lse * log2e
-// is taken as +inf, so that its p is exp2(-inf) = 0 and no inf * 0 arises. A
+// entries bs_fwd / bs_dq / bs_dkv of block_sparse_attention.cu. Both designs
+// compute the same function, element for element: scores q.k in f32, then
+// times sm_scale (here sm_scale * log2(e) on the f32 score fragments, so that
+// the exponents are powers of 2: no operand is scaled and rounded); lanes
+// that the causal mask drops (q < k, in blocks on the diagonal) set to
+// exactly 0 by a select. Forward: the online softmax, p rounded to v's type
+// before p.v, the normalizer l summed unrounded and floored at 1e-30, out =
+// acc / l, lse = m + log(l) in natural log; a row with no allowed key writes
+// out 0 and lse -inf (its running max stays -inf, and neither exp2(m - m_new)
+// nor exp2(s - m) is taken there). Backward: p = exp(s - lse), dS = p * (dO.v
+// - delta); dv = p.dO with p rounded to v's type; dS rounded to the operand
+// type before dS.q and dS.k; dq = sm_scale * dS.k and dk = sm_scale * dS.q in
+// f32, then cast. A row with no allowed key has lse -inf; its lse * log2e is
+// taken as +inf, so that its p is exp2(-inf) = 0 and no inf * 0 arises. A
 // column with no allowed query writes dk = dv = 0, a row dq = 0; nothing is
 // NaN.
 //
 // Bound: operations, barely. At the slice's shape (B 1, H 16, T 8192, D 64,
-// the Variable layout at block 256, 92 of 528 causal blocks a head) dq does
-// 3 and dk/dv 4 products of 10.2 GFLOP over the kept lanes, on 85-102 MB of
-// inputs and outputs: 0.031 and 0.041 ms at 989 TFLOP/s against 0.025-0.030
-// ms at 3.35 TB/s.
+// the Variable layout at block 256, 92 of 528 causal blocks a head) the
+// forward does 2, dq 3 and dk/dv 4 products of 10.2 GFLOP over the kept
+// lanes, on 68-102 MB of inputs and outputs: 0.021, 0.031 and 0.041 ms at 989
+// TFLOP/s against 0.020-0.030 ms at 3.35 TB/s.
 //
-// Design: the flash kernels' (flash_attention.cu, flash_bwd_dq_tc and
-// flash_bwd_dkv_tc): a CTA owns 64 rows of its own side per consumer
-// warpgroup (q for dq, k for dk/dv), resident in shared memory by TMA (3-D
-// maps [B*H, T, D], 128-byte swizzle); one producer warp streams the other
-// side's 64-row tiles through a ring of kStages stages with full/empty
-// mbarriers; S = Q K^T (S^T = K Q^T) and dP by wgmma.m64n64k16 from shared
-// memory into f32 registers; P and dS packed to 16-bit A fragments in
-// registers for the RS products (dQ += dS K; dV += P^T dO, dK += dS^T Q), B
-// read MN-major from the streamed tile. What differs:
+// Design: the flash kernels' (flash_attention.cu, flash_fwd_tc,
+// flash_bwd_dq_tc and flash_bwd_dkv_tc): a CTA owns 64 rows of its own side
+// per consumer warpgroup (q for the forward and dq, k for dk/dv), resident in
+// shared memory by TMA (3-D maps [B*H, T, D], 128-byte swizzle); one producer
+// warp streams the other side's 64-row tiles through a ring of kStages stages
+// with full/empty mbarriers; S = Q K^T (S^T = K Q^T) and dP by
+// wgmma.m64n64k16 from shared memory into f32 registers; P and dS packed to
+// 16-bit A fragments in registers for the RS products (O += P V; dQ += dS K;
+// dV += P^T dO, dK += dS^T Q), B read MN-major from the streamed tile. What
+// differs:
 // - The tile walk comes from the LUT. The producer walks the other side's
-//   blocks of its line in the LUT (dq: cols of its layout row; dk/dv: rows_t
-//   of its layout column), each block as block / 64 tiles, skipping under
-//   causal the tiles wholly on the masked side of the CTA's rows before
-//   loading them, and publishes each tile's first row in shared memory beside
-//   it; a stage whose row is -1 ends the walk. Only the diagonal block's tile
-//   that lines up with a warpgroup's rows is tested element by element; the
-//   others take the untested path.
+//   blocks of its line in the LUT (forward and dq: cols of its layout row;
+//   dk/dv: rows_t of its layout column), each block as block / 64 tiles,
+//   skipping under causal the tiles wholly on the masked side of the CTA's
+//   rows before loading them, and publishes each tile's first row in shared
+//   memory beside it; a stage whose row is -1 ends the walk. Only the
+//   diagonal block's tile that lines up with a warpgroup's rows is tested
+//   element by element; the others take the untested path, and a tile wholly
+//   on the masked side of one warpgroup's rows (staged for the other) is
+//   passed over by it.
 // - A CTA's rows lie in one layout row (column): two consumer warpgroups (128
 //   rows) where the block is a multiple of 128 (and, for dk/dv, D <= 64: at
 //   DP = 128 one warpgroup's registers are all a thread has), else one. Both
-//   warpgroups follow the CTA's one list.
-// - Work items from the host (ops/block_sparse_attention.py, build_work): a
-//   CTA runs one item, a range [first, last) of slots of its line's list for
-//   one tile of rows. A list whose tiles exceed the balanced share over the
-//   SMs (the global column of the BigBird, Longformer and Variable layouts,
-//   which every q-block attends: 128 tile steps a CTA at the slice's shape
-//   against 89 when spread evenly) is split into parts; items run heaviest
-//   first. Each part of a split list writes its f32 accumulators to a
-//   workspace slot of its own and counts its arrival on the group's integer
-//   counter; the last to arrive sums every part's slot in part order and
-//   stores the result. The sum is the same whichever part arrives last, and
-//   no float atomics are used: two launches are bit identical.
+//   warpgroups follow the CTA's one list, so each staged tile serves 128 rows.
+// - Work items from the host (ops/block_sparse_attention.py, build_work; the
+//   forward and dq share one list): a CTA runs one item, a range [first,
+//   last) of slots of its line's list for one tile of rows. A list whose
+//   tiles exceed the balanced share over the SMs (the global column of the
+//   BigBird, Longformer and Variable layouts, which every q-block attends:
+//   128 tile steps a CTA at the slice's shape against 89 when spread evenly;
+//   the global rows of Longformer and the bidirectional layouts, which attend
+//   every block) is split into parts; items run heaviest first. Each part of
+//   a split list writes its f32 accumulators (the forward: its unnormalised
+//   acc and each row's m and l) to a workspace slot of its own and counts its
+//   arrival on the group's integer counter; the last to arrive merges every
+//   part's slot in part order (the forward: M = max m_p, L = sum l_p 2^(m_p -
+//   M), acc = sum acc_p 2^(m_p - M), a part at m_p = -inf adding 0) and
+//   stores the result. The result is the same whichever part arrives last,
+//   and no float atomics are used: two launches are bit identical.
 // Registers: dk/dv at DP = 64 with two warpgroups takes a 384-thread CTA
 // whose producer warpgroup hands its registers to the consumers (setmaxnreg:
 // 24 + 2 x 240), as flash_bwd_dkv_tc; the others run NWG warpgroups and one
-// producer warp, and may use 224-255 registers a thread.
+// producer warp, and may use 224-255 registers a thread, except the forward
+// at DP = 64: held to two CTAs an SM (at most 112 registers a thread), so
+// that one CTA's softmax, prologue and epilogue overlap the other's wgmma
+// (0.114 -> 0.084 ms at the slice's shape on an H100 80GB HBM3 at 700 W,
+// for 24 bytes of spill; a third ring stage made it slower:
+// scripts/block_sparse_fwd_variants.py).
 
 #include <math.h>
 #include <stdint.h>
@@ -113,7 +130,7 @@ struct Params {
 template <int NWG>
 constexpr int dkv_threads() { return NWG == 2 ? 384 : 160; }
 template <int NWG>
-constexpr int dq_threads() { return NWG * 128 + 32; }
+constexpr int dq_threads() { return NWG * 128 + 32; }   // the forward's too
 
 template <int DP, int NWG>
 constexpr int dkv_smem() {   // K, V x NWG; Q, dO x kStages; lse2, delta; barriers; rows, flag
@@ -123,6 +140,11 @@ constexpr int dkv_smem() {   // K, V x NWG; Q, dO x kStages; lse2, delta; barrie
 template <int DP, int NWG>
 constexpr int dq_smem() {    // Q, dO x NWG; K, V x kStages; barriers; rows, flag
   return 1024 + 2 * (NWG + kStages) * tile_bytes<DP>() + (2 * kStages + 1) * 8 +
+         (kStages + 1) * 4;
+}
+template <int DP, int NWG>
+constexpr int fwd_smem() {   // Q x NWG; K, V x kStages; barriers; rows, flag
+  return 1024 + (NWG + 2 * kStages) * tile_bytes<DP>() + (2 * kStages + 1) * 8 +
          (kStages + 1) * 4;
 }
 
@@ -219,6 +241,45 @@ __device__ __forceinline__ void dq_grads(float (&sc)[32], const float (&dp)[32],
   }
 }
 
+// The forward's online softmax over one key tile, in place of S (unscaled
+// q.k): the scores times sm_scale * log2(e), lanes the causal mask drops
+// (kDiag: the tile lines up with the warpgroup's rows on the diagonal, and
+// lanes with q < k are dropped) at -inf; the running max m (log2 units) and
+// sum l of the thread's two rows updated and o rescaled; sc becomes p = 2^(s -
+// m). A row whose lanes so far are all dropped keeps m = -inf, p = 0 and its
+// l and o at 0.
+template <bool kDiag, int N>
+__device__ __forceinline__ void fwd_probs(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                          float (&o)[N], const Params& P, int k0, int r0,
+                                          int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    float x = sc[e] * P.scale2;
+    if (kDiag && r0 + 8 * row8(e) < k0 + col(e, t)) x = -INFINITY;
+    sc[e] = x;
+    mx[row8(e)] = fmaxf(mx[row8(e)], x);
+  }
+  float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], tc::quad_max(mx[r]));
+    alpha[r] = m_new == -INFINITY ? 1.f : exp2_(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int r = row8(e);
+    const float p = m[r] == -INFINITY ? 0.f : exp2_(sc[e] - m[r]);
+    rs[r] += p;
+    sc[e] = p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + tc::quad_sum(rs[r]);
+#pragma unroll
+  for (int e = 0; e < N; ++e) o[e] *= alpha[row8(e)];
+}
+
 // A split item's part of the sum: N accumulator floats a thread at ws[e *
 // stride], the consumer threads of a part side by side (stride = their count).
 template <int N>
@@ -256,6 +317,167 @@ __device__ __forceinline__ bool arrive_last(const Params& P, const Item& it, int
   const bool last = *flag != 0;
   if (last) __threadfence();
   return last;
+}
+
+// ---------------------------------------------------------------- forward
+template <typename T, int DP, int NWG>
+__global__ void __launch_bounds__(dq_threads<NWG>(), DP == 64 ? 2 : 1)
+bs_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, T* __restrict__ out,
+                 float* __restrict__ lse, Params P) {
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  constexpr int kTile = tile_bytes<DP>();
+  constexpr int kConsumers = NWG * 128;
+  constexpr int kCtaRows = NWG * kRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);               // NWG tiles, resident
+  uint8_t* sK = sQ + NWG * kTile;                  // kStages tiles
+  uint8_t* sV = sK + kStages * kTile;              // kStages tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  int* sPos = reinterpret_cast<int*>(q_full + 1);  // [kStages] first key
+  int* sFlag = sPos + kStages;
+
+  const Item it = P.items[blockIdx.x];
+  const int b = blockIdx.y;
+  const int h = it.line / P.nb;
+  const int bh = b * P.H + h;
+  const int q0 = (it.line % P.nb) * P.block + it.tile * kCtaRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&full[s], 32);
+      tc::mbar_init(&empty[s], 4 * NWG);
+    }
+    tc::mbar_init(q_full, 1);
+    tc::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {  // ------------------------------------- producer
+    if (lane == 0) {
+      tc::mbar_arrive_expect_tx(q_full, NWG * kTile);
+      for (int w = 0; w < NWG; ++w)
+        for (int a = 0; a < DP / 64; ++a)
+          tc::tma_load(sQ + w * kTile + a * kAtom, &mq, q_full, 64 * a, q0 + kRows * w, bh);
+    }
+    produce<DP, false>(&mk, &mv, sK, sV, nullptr, nullptr, sPos, full, empty, P, it, bh, q0,
+                       kCtaRows, nullptr, nullptr, lane);
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  const int wg = warp / 4;
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, g = lane / 4, t = lane % 4;
+  const int q0w = q0 + kRows * wg;
+  const int r0 = q0w + 16 * w + g;                         // this thread's rows r0, r0 + 8
+  const uint8_t* myQ = sQ + wg * kTile;
+  tc::mbar_wait(q_full, 0);
+
+  float o[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) o[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int i = 0;; ++i) {
+    const int s = i % kStages;
+    tc::mbar_wait(&full[s], (i / kStages) & 1);
+    const int k0 = sPos[s];
+    if (k0 < 0) break;
+    // a key tile wholly after this warpgroup's queries is all masked
+    if (!(P.causal && k0 > q0w + kRows - 1)) {
+      const uint8_t* ktile = sK + s * kTile;
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        tc::wgmma_ss_n64<kHalf>(sc, tc::desc_k(myQ, kk, kAtom), tc::desc_k(ktile, kk, kAtom), kk);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(sc);
+
+      if (P.causal && k0 == q0w)
+        fwd_probs<true>(sc, m, l, o, P, k0, r0, t);
+      else
+        fwd_probs<false>(sc, m, l, o, P, k0, r0, t);
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) tc::acc_to_a<kHalf>(sc, kk, pa[kk]);
+      const uint8_t* vtile = sV + s * kTile;
+      tc::fence_regs(o);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_rs<kHalf>(o, pa[kk], tc::desc_mn(vtile, kk, kAtom), 1);
+      tc::wg_commit();
+      tc::wg_wait();
+      tc::fence_regs(o);
+    }
+    if (lane == 0) tc::mbar_arrive(&empty[s]);
+  }
+
+  if (it.group >= 0) {     // a part of a split row: merge in part order
+    // a part's slot: acc at [e * kConsumers + thread], then m and l of each
+    // of the CTA's rows
+    const long long part_floats = static_cast<long long>(kConsumers) * (DP / 2 + 1);
+    const float* ws0 = P.ws + (static_cast<long long>(b) * P.ws_parts + it.ws) * part_floats;
+    float* mine = P.ws + (static_cast<long long>(b) * P.ws_parts + it.ws + it.part) * part_floats;
+    const int row = kRows * wg + 16 * w + g;               // the CTA's row of r0
+    store_part(o, mine + wg * 128 + tid, kConsumers);
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        __stcg(mine + kConsumers * (DP / 2) + row + 8 * r, m[r]);
+        __stcg(mine + kConsumers * (DP / 2) + kCtaRows + row + 8 * r, l[r]);
+      }
+    }
+    if (!arrive_last(P, it, b, sFlag, kConsumers)) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+    }
+    for (int p = 0; p < it.parts; ++p) {
+      const float* ml = ws0 + p * part_floats + kConsumers * (DP / 2);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], __ldcg(ml + row + 8 * r));
+    }
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) o[e] = 0.f;
+    for (int p = 0; p < it.parts; ++p) {
+      const float* part = ws0 + p * part_floats;
+      const float* ml = part + kConsumers * (DP / 2);
+      float f[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mp = __ldcg(ml + row + 8 * r);
+        f[r] = mp == -INFINITY ? 0.f : exp2_(mp - m[r]);
+        l[r] += __ldcg(ml + kCtaRows + row + 8 * r) * f[r];
+      }
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e)
+        o[e] += __ldcg(part + e * kConsumers + wg * 128 + tid) * f[row8(e)];
+    }
+  }
+
+  const long long base = static_cast<long long>(bh) * P.T * P.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + 8 * r;
+    const float li = fmaxf(l[r], 1e-30f);
+    T* orow = out + base + static_cast<long long>(qi) * P.D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      if (c < P.D) store2(orow + c, o[4 * j + 2 * r] / li, o[4 * j + 2 * r + 1] / li);
+    }
+    if (t == 0) lse[static_cast<long long>(bh) * P.T + qi] = m[r] / kLog2e + logf(li);
+  }
 }
 
 // ---------------------------------------------------------------- dk, dv
@@ -547,8 +769,9 @@ bs_dq_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
 }
 
 // ---------------------------------------------------------------- launch
-enum Pass { kDq = 1, kDkv = 2 };
+enum Pass { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// o1, o2: the forward's out and lse, dq's dq, or dk/dv's dk and dv
 template <int kPass, typename T, int DP, int NWG>
 cudaError_t launch(int B, int n_items, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta, void* o1, void* o2,
@@ -560,11 +783,20 @@ cudaError_t launch(int B, int n_items, const void* q, const void* k, const void*
   if ((err = tc::make_map(&mq, q, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess ||
       (err = tc::make_map(&mk, k, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess ||
       (err = tc::make_map(&mv, v, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess ||
-      (err = tc::make_map(&mdo, dout, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess) {
+      (kPass != kFwd &&
+       (err = tc::make_map(&mdo, dout, kHalf, BH, P.T, P.D, kRows)) != cudaSuccess)) {
     return err;
   }
   const dim3 grid(n_items, B);
-  if constexpr (kPass == kDq) {
+  if constexpr (kPass == kFwd) {
+    constexpr int smem = fwd_smem<DP, NWG>();
+    auto kernel = bs_fwd_tc_kernel<T, DP, NWG>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    constexpr int threads = dq_threads<NWG>();
+    kernel<<<grid, threads, smem, st>>>(mq, mk, mv, static_cast<T*>(o1), static_cast<float*>(o2),
+                                        P);
+  } else if constexpr (kPass == kDq) {
     constexpr int smem = dq_smem<DP, NWG>();
     auto kernel = bs_dq_tc_kernel<T, DP, NWG>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -593,7 +825,7 @@ cudaError_t dispatch(int rows, int B, int n_items, const void* q, const void* k,
                ? launch<kPass, T, 64, 2>(B, n_items, q, k, v, dout, lse, delta, o1, o2, P, st)
                : launch<kPass, T, 64, 1>(B, n_items, q, k, v, dout, lse, delta, o1, o2, P, st);
   }
-  if constexpr (kPass == kDq) {
+  if constexpr (kPass != kDkv) {
     if (rows == 128)
       return launch<kPass, T, 128, 2>(B, n_items, q, k, v, dout, lse, delta, o1, o2, P, st);
   }
@@ -602,59 +834,66 @@ cudaError_t dispatch(int rows, int B, int n_items, const void* q, const void* k,
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-int run(int pass, const void* q, const void* k, const void* v, const void* dout,
-        const float* lse, const float* delta, const int* lut, int width, const void* items,
-        int n_items, float* ws, int ws_parts, int* arrivals, int n_groups, int rows, void* o1,
-        void* o2, int B, int H, int T, int D, int block, float sm_scale, int causal, int dtype,
+template <int kPass>
+int run(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+        const float* delta, const int* lut, int width, const void* items, int n_items,
+        float* ws, int ws_parts, int* arrivals, int n_groups, int rows, void* o1, void* o2,
+        int B, int H, int T, int D, int block, float sm_scale, int causal, int dtype,
         void* stream) {
   // rows: the CTA's rows, 64 or 128 (two warpgroups: a block that is a
   // multiple of 128, and for dk/dv D <= 64)
   const bool rows_ok = rows == 64 || (rows == 128 && block % 128 == 0 &&
-                                      (pass == kDq || D <= 64));
+                                      (kPass != kDkv || D <= 64));
   if (B < 1 || B > 65535 || H < 1 || D < 8 || D > 128 || D % 8 != 0 || block < 64 ||
       block % 64 != 0 || T < block || T % block != 0 || width < 1 || n_items < 1 ||
       !rows_ok || (dtype != 1 && dtype != 2) || (n_groups > 0 && (!ws || !arrivals)) ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(dout)) {
+      !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      (kPass != kFwd && !aligned16(dout))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params P{H, T, D, block, T / block, sm_scale, sm_scale * kLog2e, causal, lut, width,
            static_cast<const Item*>(items), ws, ws_parts, arrivals, n_groups};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (pass == kDq) {
-    err = dtype == 1 ? dispatch<kDq, __nv_bfloat16>(rows, B, n_items, q, k, v, dout, lse, delta,
-                                                    o1, o2, P, st)
-                     : dispatch<kDq, __half>(rows, B, n_items, q, k, v, dout, lse, delta, o1,
-                                             o2, P, st);
-  } else {
-    err = dtype == 1 ? dispatch<kDkv, __nv_bfloat16>(rows, B, n_items, q, k, v, dout, lse,
-                                                     delta, o1, o2, P, st)
-                     : dispatch<kDkv, __half>(rows, B, n_items, q, k, v, dout, lse, delta, o1,
-                                              o2, P, st);
-  }
+  const cudaError_t err =
+      dtype == 1 ? dispatch<kPass, __nv_bfloat16>(rows, B, n_items, q, k, v, dout, lse, delta,
+                                                  o1, o2, P, st)
+                 : dispatch<kPass, __half>(rows, B, n_items, q, k, v, dout, lse, delta, o1, o2,
+                                           P, st);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// q, k, v, dout: [B*H, T, D] contiguous of one type (dtype 1 bfloat16, 2
+// q, k, v (, dout): [B*H, T, D] contiguous of one type (dtype 1 bfloat16, 2
 // float16), 16-byte aligned, D <= 128 a multiple of 8; lse, delta: float32
 // [B*H, T]; lut: int32 [H * nb, width] (nb = T / block, block a multiple of
-// 64), the forward's cols for dq, the transposed rows_t for dk/dv; items:
-// int32 [n_items, 8] from build_work at the same rows (the CTA's, 64 or 128);
-// ws: float32 [B, ws_parts, F] with F = rows * DP for dq and 2 * rows * DP
-// for dk/dv (DP = 64 or 128, D padded), and arrivals: int32 [B, n_groups],
-// zeroed, where n_groups > 0, else null. The grid is (n_items, B). Each
-// returns the launch's cudaError; anything else returns
-// cudaErrorInvalidValue.
+// 64), the forward's cols for the forward and dq, the transposed rows_t for
+// dk/dv; items: int32 [n_items, 8] from build_work at the same rows (the
+// CTA's, 64 or 128); ws: float32 [B, ws_parts, F] with F = rows * (DP + 2)
+// for the forward, rows * DP for dq and 2 * rows * DP for dk/dv (DP = 64 or
+// 128, D padded), and arrivals: int32 [B, n_groups], zeroed, where n_groups >
+// 0, else null. The grid is (n_items, B). Each returns the launch's
+// cudaError; anything else returns cudaErrorInvalidValue.
+
+// out: as q; lse: float32 [B*H, T], natural log.
+extern "C" int bs_fwd_tc(const void* q, const void* k, const void* v, const int* cols,
+                         int width, const void* items, int n_items, float* ws, int ws_parts,
+                         int* arrivals, int n_groups, int rows, void* out, float* lse, int B,
+                         int H, int T, int D, int block, float sm_scale, int causal, int dtype,
+                         void* stream) {
+  return run<kFwd>(q, k, v, nullptr, nullptr, nullptr, cols, width, items, n_items, ws,
+                   ws_parts, arrivals, n_groups, rows, out, lse, B, H, T, D, block, sm_scale,
+                   causal, dtype, stream);
+}
+
 extern "C" int bs_dq_tc(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, const int* cols, int width,
                         const void* items, int n_items, float* ws, int ws_parts, int* arrivals,
                         int n_groups, int rows, void* dq, int B, int H, int T, int D, int block,
                         float sm_scale, int causal, int dtype, void* stream) {
-  return run(kDq, q, k, v, dout, lse, delta, cols, width, items, n_items, ws, ws_parts,
-             arrivals, n_groups, rows, dq, nullptr, B, H, T, D, block, sm_scale, causal, dtype,
-             stream);
+  return run<kDq>(q, k, v, dout, lse, delta, cols, width, items, n_items, ws, ws_parts,
+                  arrivals, n_groups, rows, dq, nullptr, B, H, T, D, block, sm_scale, causal,
+                  dtype, stream);
 }
 
 // dk, dv: as k.
@@ -663,7 +902,7 @@ extern "C" int bs_dkv_tc(const void* q, const void* k, const void* v, const void
                          const void* items, int n_items, float* ws, int ws_parts, int* arrivals,
                          int n_groups, int rows, void* dk, void* dv, int B, int H, int T, int D,
                          int block, float sm_scale, int causal, int dtype, void* stream) {
-  return run(kDkv, q, k, v, dout, lse, delta, rows_t, width_t, items, n_items, ws, ws_parts,
-             arrivals, n_groups, rows, dk, dv, B, H, T, D, block, sm_scale, causal, dtype,
-             stream);
+  return run<kDkv>(q, k, v, dout, lse, delta, rows_t, width_t, items, n_items, ws, ws_parts,
+                   arrivals, n_groups, rows, dk, dv, B, H, T, D, block, sm_scale, causal, dtype,
+                   stream);
 }

@@ -12,23 +12,22 @@ and ``bs_dkv`` (``_bs_dkv_kernel*``). They read the group-1 LUTs of
 tiles for its matrix unit and do not carry over), which ``device_luts``
 keeps on the card, cached by layout and device.
 
-The two backward kernels come in two designs each, chosen by shape alone
+Each of the three kernels comes in two designs, chosen by shape alone
 (``tensor_core_path``): bfloat16/float16 with D <= 128 a multiple of 8 and a
-layout block that is a multiple of 64 run ``bs_dq_tc`` and ``bs_dkv_tc``
-(``csrc/block_sparse_attention_tc.cu``: TMA-fed ``wgmma`` tiles over a work
-list, ``build_work``, that splits a heavy row or column of the layout across
-CTAs and merges the parts deterministically); the rest run ``bs_dq`` and
-``bs_dkv``. The forward has one design. A failed build or launch raises;
-nothing falls back.
+layout block that is a multiple of 64 run ``bs_fwd_tc``, ``bs_dq_tc`` and
+``bs_dkv_tc`` (``csrc/block_sparse_attention_tc.cu``: TMA-fed ``wgmma``
+tiles over a work list, ``build_work``, that splits a heavy row or column of
+the layout across CTAs and merges the parts deterministically; the forward
+and dq share one list); the rest run ``bs_fwd``, ``bs_dq`` and ``bs_dkv``. A
+failed build or launch raises; nothing falls back.
 
 ``block_sparse_attention`` keeps the JAX signature. For CUDA tensors it runs
 the kernels through ``_BlockSparseAttention`` (a ``torch.autograd.Function``
 whose backward forms ``delta = rowsum(dO * O)`` in float32 with torch ops and
 launches the two backward kernels). For CPU tensors it runs the plain
 version ``block_sparse_attention_reference``. There is no other fallback.
-Each launch function counts its launches in ``<function>.launches``, and the
-backward ones those of the tensor-core design in
-``<function>.tensor_core_launches``.
+Each launch function counts its launches in ``<function>.launches``, and
+those of the tensor-core design in ``<function>.tensor_core_launches``.
 """
 
 import ctypes
@@ -235,7 +234,7 @@ class DeviceWork(NamedTuple):
 
 
 def tensor_core_path(dtype, D: int, block: int) -> bool:
-    """The shape rule between the backward kernels' two designs: 16-bit
+    """The shape rule between each kernel's two designs: 16-bit
     operands (what ``wgmma`` multiplies), a head dim that fits one 128-wide
     tile and gives TMA rows of a multiple of 16 bytes, and a layout block of
     whole 64-row tiles."""
@@ -247,15 +246,17 @@ def cta_rows(transposed: bool, D: int, block: int) -> int:
     """Rows a CTA of the tensor-core design owns: two warpgroups (128 rows)
     where the layout block is a multiple of 128, so that they lie in one
     layout row or column, and for dk/dv (``transposed``) D <= 64, whose
-    accumulators leave room for a second warpgroup; else one (64)."""
+    accumulators leave room for a second warpgroup; else one (64). The
+    forward and dq (not ``transposed``) take the same."""
     return 128 if block % 128 == 0 and (not transposed or D <= 64) else TC_TILE
 
 
 def device_work(luts: DeviceLuts, device, *, T: int, block: int, causal: bool,
                 transposed: bool, batch: int, D: int) -> DeviceWork:
-    """The work list of one backward kernel on ``luts``' card, built once per
-    (kernel, block, causal, batch, rows, SM count) and cached with the
-    LUTs."""
+    """The work list of the tensor-core kernels over layout rows (the
+    forward and dq) or columns (``transposed``: dk/dv) on ``luts``' card,
+    built once per (side, block, causal, batch, rows, SM count) and cached
+    with the LUTs."""
     rows = cta_rows(transposed, D, block)
     device = torch.device(device)
     n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
@@ -349,12 +350,13 @@ def _lib_tc():
     lib = _build.load("block_sparse_attention_tc")
     if lib.bs_dq_tc.argtypes is None:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # q k v do lse delta, lut width, items n_items ws ws_parts arrivals n_groups rows
-        head = [vp] * 6 + [vp, i32] + [vp, i32, vp, i32, vp, i32, i32]
+        # lut width, items n_items ws ws_parts arrivals n_groups rows
+        work = [vp, i32] + [vp, i32, vp, i32, vp, i32, i32]
         tail = [i32, i32, i32, i32, i32, f32, i32, i32, vp]  # B H T D block scale causal dtype stream
-        lib.bs_dq_tc.argtypes = head + [vp] + tail
-        lib.bs_dkv_tc.argtypes = head + [vp, vp] + tail
-        for fn in (lib.bs_dq_tc, lib.bs_dkv_tc):
+        lib.bs_fwd_tc.argtypes = [vp] * 3 + work + [vp, vp] + tail      # q k v; out lse
+        lib.bs_dq_tc.argtypes = [vp] * 6 + work + [vp] + tail           # q k v do lse delta; dq
+        lib.bs_dkv_tc.argtypes = [vp] * 6 + work + [vp, vp] + tail      # ...; dk dv
+        for fn in (lib.bs_fwd_tc, lib.bs_dq_tc, lib.bs_dkv_tc):
             fn.restype = ctypes.c_int
     return lib
 
@@ -404,43 +406,50 @@ def _tail(q, block, sm_scale, causal):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def block_sparse_fwd(q, k, v, luts: DeviceLuts, *, block, causal, sm_scale):
-    """Launch ``bs_fwd``: returns ``(out, lse)``, out in q's dtype and lse
-    float32 ``[B, H, T]`` (natural log; -inf on rows with no allowed key)."""
-    _check_launch(q, k, v, luts, block)
-    lib = _lib()
-    B, H, T, _ = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.bs_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         lse.data_ptr(), luts.counts.data_ptr(), luts.cols.data_ptr(),
-                         luts.cols.shape[1], *_tail(q, block, sm_scale, causal))
-    if err != 0:
-        raise RuntimeError(f"bs_fwd kernel launch failed: cudaError {err}")
-    block_sparse_fwd.launches += 1
-    return out, lse
+class TcPlan(NamedTuple):
+    """What a tensor-core entry's launch takes from the host: its work list,
+    the LUT it walks and the float32 workspace floats of one part of a split
+    line."""
+    work: DeviceWork
+    lut: torch.Tensor
+    part_floats: int
 
 
-def _launch_tc(name, q, k, v, do, lse, delta, luts, outs, *, block, causal, sm_scale):
-    """Launch ``bs_dq_tc`` or ``bs_dkv_tc`` (``name``) over its cached work
-    list: a float32 workspace for the split lines' parts and their zeroed
-    arrival counters come with the launch."""
+def tc_plan(name: str, luts: DeviceLuts, q, *, block: int, causal: bool) -> TcPlan:
+    """The plan of ``bs_fwd_tc``, ``bs_dq_tc`` or ``bs_dkv_tc`` (``name``) on
+    q's shape: the forward and dq walk the layout rows (``cols``) with one
+    cached work list; dk/dv the columns (``rows_t``). A part holds, over
+    the CTA's rows and the padded head dim DP: the forward's unnormalised
+    acc and each row's running max and sum, rows * (DP + 2); dq's sum, rows *
+    DP; dk/dv's two, 2 * rows * DP."""
     B, H, T, D = q.shape
     transposed = name == "bs_dkv_tc"
     work = device_work(luts, q.device, T=T, block=block, causal=causal, transposed=transposed,
                        batch=B, D=D)
-    lut = luts.rows_t if transposed else luts.cols
+    dp = 64 if D <= 64 else 128
+    part = {"bs_fwd_tc": dp + 2, "bs_dq_tc": dp, "bs_dkv_tc": 2 * dp}[name] * work.rows
+    return TcPlan(work, luts.rows_t if transposed else luts.cols, part)
+
+
+def _launch_tc(name, ins, luts, outs, *, block, causal, sm_scale):
+    """Launch ``bs_fwd_tc``, ``bs_dq_tc`` or ``bs_dkv_tc`` (``name``) on the
+    tensors ``ins`` (q, k, v, then for the backward do, lse, delta) over its
+    cached work list: a float32 workspace for the split lines' parts and
+    their zeroed arrival counters come with the launch."""
+    q = ins[0]
+    B, H, T, D = q.shape
+    plan = tc_plan(name, luts, q, block=block, causal=causal)
+    work = plan.work
     ws = arrivals = None
     if work.n_groups:
-        part = work.rows * (64 if D <= 64 else 128) * (2 if transposed else 1)
-        ws = torch.empty(B * work.ws_parts * part, dtype=torch.float32, device=q.device)
+        ws = torch.empty(B * work.ws_parts * plan.part_floats, dtype=torch.float32,
+                         device=q.device)
         arrivals = torch.zeros(B * work.n_groups, dtype=torch.int32, device=q.device)
     entry = getattr(_lib_tc(), name)
     with torch.cuda.device(q.device):
-        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), lut.data_ptr(), lut.shape[1], work.items.data_ptr(),
-                    work.items.shape[0], None if ws is None else ws.data_ptr(), work.ws_parts,
+        err = entry(*(t.data_ptr() for t in ins), plan.lut.data_ptr(), plan.lut.shape[1],
+                    work.items.data_ptr(), work.items.shape[0],
+                    None if ws is None else ws.data_ptr(), work.ws_parts,
                     None if arrivals is None else arrivals.data_ptr(), work.n_groups,
                     work.rows, *(o.data_ptr() for o in outs), B, H, T, D, int(block),
                     float(sm_scale), int(bool(causal)), _DTYPES[q.dtype],
@@ -455,6 +464,32 @@ def _aligned(*ts):
         if t.data_ptr() % 16:
             raise ValueError("q, k, v and do must start on a 16-byte boundary for the "
                              "tensor-core entries")
+
+
+def block_sparse_fwd(q, k, v, luts: DeviceLuts, *, block, causal, sm_scale):
+    """Launch ``bs_fwd_tc`` or ``bs_fwd`` by the shape rule
+    (``tensor_core_path``): returns ``(out, lse)``, out in q's dtype and lse
+    float32 ``[B, H, T]`` (natural log; -inf on rows with no allowed key)."""
+    _check_launch(q, k, v, luts, block)
+    B, H, T, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    tensor_cores = tensor_core_path(q.dtype, q.shape[3], block)
+    if tensor_cores:
+        _aligned(q, k, v)
+        _launch_tc("bs_fwd_tc", (q, k, v), luts, (out, lse), block=block, causal=causal,
+                   sm_scale=sm_scale)
+    else:
+        lib = _lib()
+        with torch.cuda.device(q.device):
+            err = lib.bs_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             lse.data_ptr(), luts.counts.data_ptr(), luts.cols.data_ptr(),
+                             luts.cols.shape[1], *_tail(q, block, sm_scale, causal))
+        if err != 0:
+            raise RuntimeError(f"bs_fwd kernel launch failed: cudaError {err}")
+    block_sparse_fwd.launches += 1
+    block_sparse_fwd.tensor_core_launches += tensor_cores
+    return out, lse
 
 
 def _aligned16(t):
@@ -473,7 +508,7 @@ def block_sparse_bwd_dq(q, k, v, do, lse, delta, luts: DeviceLuts, *, block, cau
     tensor_cores = tensor_core_path(q.dtype, q.shape[3], block)
     if tensor_cores:
         _aligned(q, k, v, do)
-        _launch_tc("bs_dq_tc", q, k, v, do, lse, delta, luts, (dq,), block=block,
+        _launch_tc("bs_dq_tc", (q, k, v, do, lse, delta), luts, (dq,), block=block,
                    causal=causal, sm_scale=sm_scale)
     else:
         lib = _lib()
@@ -498,7 +533,7 @@ def block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts: DeviceLuts, *, block, ca
     tensor_cores = tensor_core_path(q.dtype, q.shape[3], block)
     if tensor_cores:
         _aligned(q, k, v, do)
-        _launch_tc("bs_dkv_tc", q, k, v, do, lse, delta, luts, (dk, dv), block=block,
+        _launch_tc("bs_dkv_tc", (q, k, v, do, lse, delta), luts, (dk, dv), block=block,
                    causal=causal, sm_scale=sm_scale)
     else:
         lib = _lib()
@@ -514,7 +549,7 @@ def block_sparse_bwd_dkv(q, k, v, do, lse, delta, luts: DeviceLuts, *, block, ca
     return dk, dv
 
 
-block_sparse_fwd.launches = 0
+block_sparse_fwd.launches = block_sparse_fwd.tensor_core_launches = 0
 block_sparse_bwd_dq.launches = block_sparse_bwd_dq.tensor_core_launches = 0
 block_sparse_bwd_dkv.launches = block_sparse_bwd_dkv.tensor_core_launches = 0
 
@@ -549,8 +584,8 @@ def block_sparse_attention(q, k, v, layout, block: int, causal: bool = False,
     give 0. ``interpret`` and ``group`` are accepted for the JAX signature
     and have no effect: CPU tensors always take the plain version, and the
     CUDA kernels read the ungrouped LUT. CUDA tensors launch the kernels,
-    which take a block that is a multiple of 16 and D <= 256 (the backward
-    in the design ``tensor_core_path`` names)."""
+    which take a block that is a multiple of 16 and D <= 256 (in the design
+    ``tensor_core_path`` names)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, H, T, D] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

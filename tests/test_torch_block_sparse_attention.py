@@ -333,24 +333,23 @@ def test_long_path_global_column_is_split():
     assert wq.n_groups == 0 and int(wq.steps.max()) == 16
 
 
-def _emulate_tc(q, k, v, do, lse, delta, layout, block, causal, transposed, n_sm):
-    """The tensor-core kernels' walk in float64 numpy: per work item, the
-    producer's tile skip, each warpgroup's skip and diagonal test, and the
-    split lines' parts summed in part order. Returns dq or (dk, dv)."""
-    B, H, T, D = q.shape
-    nb = T // block
+def _tc_walk(layout, block, causal, transposed, B, D, n_sm):
+    """The tensor-core kernels' walk: per batch copy and work item of
+    ``build_work``, ``(b, h, own0, rows, group, part, parts, steps)``, steps
+    being the (other side's tile start o0, warpgroup wg, its first row w0)
+    that compute, in the order the producer stages them, after its causal
+    skip of tiles wholly masked for the CTA and each warpgroup's for its own
+    64 rows."""
+    nb = layout.shape[1]
     counts, cols, counts_t, rows_t = bsa.build_luts(layout)
     counts, lut = (counts_t, rows_t) if transposed else (counts, cols)
     rows = bsa.cta_rows(transposed, D, block)
     w = bsa.build_work(counts, lut, nb, block, causal, rows, transposed, B, n_sm)
-    scale = D ** -0.5
-    outs = [np.zeros_like(q) for _ in range(2 if transposed else 1)]
-    parts = {}
     for b in range(B):
         for line, tile, first, last, group, part, n_parts, _ in w.items.tolist():
             h, r = divmod(line, nb)
             own0 = r * block + tile * rows
-            acc = [np.zeros((rows, D)) for _ in outs]
+            steps = []
             for slot in range(first, last):
                 for j in range(block // 64):
                     o0 = int(lut[line, slot]) * block + 64 * j
@@ -360,29 +359,113 @@ def _emulate_tc(q, k, v, do, lse, delta, layout, block, causal, transposed, n_sm
                         w0 = own0 + 64 * wg
                         if causal and (o0 + 63 < w0 if transposed else o0 > w0 + 63):
                             continue    # the warpgroup's skip
-                        qs = slice(o0, o0 + 64) if transposed else slice(w0, w0 + 64)
-                        ks = slice(w0, w0 + 64) if transposed else slice(o0, o0 + 64)
-                        s = q[b, h, qs] @ k[b, h, ks].T
-                        lrow = lse[b, h, qs][:, None]
-                        p = np.where(np.isneginf(lrow), 0.0, np.exp(s * scale - lrow))
-                        if causal and o0 == w0:
-                            p = np.where(np.arange(64)[:, None] >= np.arange(64)[None, :], p, 0.0)
-                        ds = p * (do[b, h, qs] @ v[b, h, ks].T - delta[b, h, qs][:, None])
-                        mine = slice(64 * wg, 64 * wg + 64)
-                        if transposed:
-                            acc[0][mine] += ds.T @ q[b, h, qs]
-                            acc[1][mine] += p.T @ do[b, h, qs]
-                        else:
-                            acc[0][mine] += ds @ k[b, h, ks]
-            if group >= 0:
-                parts.setdefault((b, group), {})[part] = acc
-                if len(parts[(b, group)]) < n_parts:
-                    continue
-                got = parts[(b, group)]
-                acc = [sum(got[p_][i] for p_ in range(n_parts)) for i in range(len(outs))]
-            for out, a, f in zip(outs, acc, (scale, 1.0)):
-                out[b, h, own0:own0 + rows] = a * f
+                        steps.append((o0, wg, w0))
+            yield b, h, own0, rows, group, part, n_parts, steps
+
+
+def _emulate_tc(q, k, v, do, lse, delta, layout, block, causal, transposed, n_sm):
+    """The tensor-core backward kernels' walk in float64 numpy: per work
+    item, the producer's tile skip, each warpgroup's skip and diagonal test,
+    and the split lines' parts summed in part order. Returns dq or (dk,
+    dv)."""
+    B, H, T, D = q.shape
+    scale = D ** -0.5
+    outs = [np.zeros_like(q) for _ in range(2 if transposed else 1)]
+    parts = {}
+    for b, h, own0, rows, group, part, n_parts, steps in _tc_walk(
+            layout, block, causal, transposed, B, D, n_sm):
+        acc = [np.zeros((rows, D)) for _ in outs]
+        for o0, wg, w0 in steps:
+            qs = slice(o0, o0 + 64) if transposed else slice(w0, w0 + 64)
+            ks = slice(w0, w0 + 64) if transposed else slice(o0, o0 + 64)
+            s = q[b, h, qs] @ k[b, h, ks].T
+            lrow = lse[b, h, qs][:, None]
+            p = np.where(np.isneginf(lrow), 0.0, np.exp(s * scale - lrow))
+            if causal and o0 == w0:
+                p = np.where(np.arange(64)[:, None] >= np.arange(64)[None, :], p, 0.0)
+            ds = p * (do[b, h, qs] @ v[b, h, ks].T - delta[b, h, qs][:, None])
+            mine = slice(64 * wg, 64 * wg + 64)
+            if transposed:
+                acc[0][mine] += ds.T @ q[b, h, qs]
+                acc[1][mine] += p.T @ do[b, h, qs]
+            else:
+                acc[0][mine] += ds @ k[b, h, ks]
+        if group >= 0:
+            parts.setdefault((b, group), {})[part] = acc
+            if len(parts[(b, group)]) < n_parts:
+                continue
+            got = parts[(b, group)]
+            acc = [sum(got[p_][i] for p_ in range(n_parts)) for i in range(len(outs))]
+        for out, a, f in zip(outs, acc, (scale, 1.0)):
+            out[b, h, own0:own0 + rows] = a * f
     return outs
+
+
+def _emulate_tc_fwd(q, k, v, layout, block, causal, n_sm, dtype=torch.bfloat16):
+    """The tensor-core forward's walk in float64 numpy: per work item, each
+    warpgroup's online softmax over its 64-key tiles in the order the
+    producer stages them (only the diagonal tile tested element by element;
+    a row with no allowed key so far keeps m = -inf and p = 0), p rounded to
+    ``dtype`` before p.v, l unrounded; a split row's parts merged in part
+    order (M = max m_p, L = sum l_p e^(m_p - M), acc = sum acc_p e^(m_p - M),
+    a part at m_p = -inf adding 0). Returns (out rounded to ``dtype``,
+    lse)."""
+    B, H, T, D = q.shape
+    scale = D ** -0.5
+
+    def rnd(a):
+        return torch.from_numpy(a).to(dtype).double().numpy()
+
+    def shift(m):     # the max where a row has one, else 0: no -inf - -inf
+        return np.where(np.isfinite(m), m, 0.0)
+
+    out, lse = np.zeros_like(q), np.zeros(q.shape[:3])
+    parts = {}
+    for b, h, own0, rows, group, part, n_parts, steps in _tc_walk(
+            layout, block, causal, False, B, D, n_sm):
+        m, l, acc = np.full(rows, -np.inf), np.zeros(rows), np.zeros((rows, D))
+        for k0, wg, w0 in steps:
+            mine = slice(64 * wg, 64 * wg + 64)
+            s = q[b, h, w0:w0 + 64] @ k[b, h, k0:k0 + 64].T * scale
+            if causal and k0 == w0:
+                s = np.where(np.arange(64)[:, None] >= np.arange(64)[None, :], s, -np.inf)
+            m_new = np.maximum(m[mine], s.max(-1))
+            alive = np.isfinite(m_new)
+            alpha = np.where(alive, np.exp(m[mine] - shift(m_new)), 1.0)
+            p = np.where(alive[:, None], np.exp(s - shift(m_new)[:, None]), 0.0)
+            l[mine] = l[mine] * alpha + p.sum(-1)
+            acc[mine] = acc[mine] * alpha[:, None] + rnd(p) @ v[b, h, k0:k0 + 64]
+            m[mine] = m_new
+        if group >= 0:
+            parts.setdefault((b, group), {})[part] = (m, l, acc)
+            if len(parts[(b, group)]) < n_parts:
+                continue
+            got = [parts[(b, group)][p_] for p_ in range(n_parts)]
+            m = np.max([g_[0] for g_ in got], axis=0)
+            l, acc = np.zeros(rows), np.zeros((rows, D))
+            for mp, lp, ap in got:
+                f = np.where(np.isfinite(mp), np.exp(shift(mp) - shift(m)), 0.0)
+                l, acc = l + lp * f, acc + ap * f[:, None]
+        li = np.maximum(l, 1e-30)
+        out[b, h, own0:own0 + rows] = rnd(acc / li[:, None])
+        lse[b, h, own0:own0 + rows] = m + np.log(li)
+    return out, lse
+
+
+def _walk_layout(name, h, t, block):
+    if name == "variable":
+        return sa.VariableSparsityConfig(num_heads=h, block=block, local_window_blocks=[1],
+                                         global_block_indices=[0],
+                                         attention="unidirectional").make_layout(t)
+    if name == "bigbird-bidirectional":
+        return sa.BigBirdSparsityConfig(num_heads=h, block=block, num_random_blocks=1,
+                                        different_layout_per_head=True).make_layout(t)
+    if name == "longformer":
+        return sa.BSLongformerSparsityConfig(num_heads=h, block=block).make_layout(t)
+    layout = np.ones((h, t // block, t // block), np.int64)
+    layout[:, 3, :] = 0
+    layout[:, :, 5] = 0
+    return layout
 
 
 @pytest.mark.parametrize("case", [
@@ -395,19 +478,7 @@ def test_tensor_core_walk_matches_plain_version(case):
     SMs, so that heavy lines are split). The plain version computes in
     float32: tolerance 1e-5 on values of magnitude ~0.1-1."""
     name, h, t, block, causal, n_sm = case
-    if name == "variable":
-        layout = sa.VariableSparsityConfig(num_heads=h, block=block, local_window_blocks=[1],
-                                           global_block_indices=[0],
-                                           attention="unidirectional").make_layout(t)
-    elif name == "bigbird-bidirectional":
-        layout = sa.BigBirdSparsityConfig(num_heads=h, block=block, num_random_blocks=1,
-                                          different_layout_per_head=True).make_layout(t)
-    elif name == "longformer":
-        layout = sa.BSLongformerSparsityConfig(num_heads=h, block=block).make_layout(t)
-    else:
-        layout = np.ones((h, t // block, t // block), np.int64)
-        layout[:, 3, :] = 0
-        layout[:, :, 5] = 0
+    layout = _walk_layout(name, h, t, block)
     shape = (1, h, t, 64)
     q, k, v, do = (torch.from_numpy(a).double() for a in _inputs(shape, seed=7))
     qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
@@ -419,6 +490,80 @@ def test_tensor_core_walk_matches_plain_version(case):
         got = _emulate_tc(*args, layout, block, causal, transposed, n_sm)
         for a, b in zip(got, want):
             np.testing.assert_allclose(a, b.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def _jax_fwd(q, k, v, layout, block, causal, dtype):
+    """(out, lse) of the JAX package's Pallas forward in interpret mode, at
+    the row grouping its ``block_sparse_attention`` picks."""
+    import jax.numpy as jnp
+    from deepspeed_tpu.ops.pallas import block_sparse_attention as jbsa
+    group = jbsa._pick_group(layout.shape[1], block)
+    counts, cols, _, _ = jbsa._cached_luts(np.asarray(layout), group)
+    dt = getattr(jnp, dtype)
+    out, lse = jbsa._bs_fwd(*(jnp.asarray(a, dt) for a in (q, k, v)), jnp.asarray(counts),
+                            jnp.asarray(cols), group, q.shape[-1] ** -0.5, causal, block, True)
+    return np.asarray(jnp.asarray(out, jnp.float32)), np.asarray(lse)
+
+
+@pytest.mark.parametrize("case", [
+    ("variable", 2, 1024, 128, True, 132), ("bigbird-bidirectional", 2, 512, 64, True, 132),
+    ("longformer", 2, 1024, 128, False, 16), ("empty", 2, 512, 64, False, 132)],
+    ids=lambda c: f"{c[0]}-{c[2]}-{c[3]}-{'causal' if c[4] else 'full'}")
+def test_tensor_core_forward_walk_matches_plain_version_and_jax(case):
+    """The tensor-core forward's items, skips, diagonal test, online softmax
+    and part-order merge, emulated in float64 on bf16 inputs with p rounded
+    to bf16 before p.v, against the plain version and the JAX kernel (in
+    interpret mode) on the same bf16 inputs. The three round p (and out) to
+    bf16 at other shifts: out within 1e-2 absolute plus 1e-2 relative, as
+    the bf16 parity above (measured at most 0.26 of it); lse is never
+    rounded: 1e-5 on values of 0.07-7.7 (float32 sums on the other two
+    sides; measured at most 6e-7). At these sizes the balanced
+    share over the SMs is a few tiles, so rows split in every case (at 16
+    SMs, Longformer's global rows without the causal mask); a row with no
+    allowed key gives out 0 and lse -inf on all three."""
+    name, h, t, block, causal, n_sm = case
+    layout = _walk_layout(name, h, t, block)
+    q, k, v, _ = (torch.from_numpy(a).bfloat16() for a in _inputs((1, h, t, 64), seed=8))
+    counts, cols = bsa.build_luts(layout)[:2]
+    work = bsa.build_work(counts, cols, t // block, block, causal, bsa.cta_rows(False, 64, block),
+                          False, 1, n_sm)
+    assert work.n_groups > 0    # small problems: the balanced share is a few tiles
+    got = _emulate_tc_fwd(*(x.double().numpy() for x in (q, k, v)), layout, block, causal, n_sm)
+    plain = [x.float().numpy() for x in
+             bsa.block_sparse_attention_reference(q, k, v, layout, block, causal)]
+    jax_out = _jax_fwd(*(x.float().numpy() for x in (q, k, v)), layout, block, causal,
+                       "bfloat16")
+    empty = ~np.repeat(layout.any(-1), block, 1)[None]     # [1, H, T]: rows with no block
+    assert empty.any() == (name == "empty")
+    for want, side in ((plain, "plain"), (jax_out, "jax")):
+        np.testing.assert_allclose(got[0], want[0], atol=1e-2, rtol=1e-2, err_msg=f"out {side}")
+        # the JAX kernel's lse of a row with no allowed key is finite (its
+        # masked lanes score a finite value; ROADMAP section C): not compared
+        np.testing.assert_allclose(got[1][~empty], want[1][~empty], atol=1e-5, rtol=0,
+                                   err_msg=f"lse {side}")
+    assert not got[0][empty].any() and np.isneginf(got[1][empty]).all()
+    assert np.isneginf(plain[1][empty]).all()
+
+
+def test_forward_and_dq_share_one_work_list():
+    """The forward and dq walk the layout rows with one work list, built
+    once and cached with the LUTs; dk/dv walks the columns with its own. A
+    part of a split row holds rows * (DP + 2) floats in the forward (acc and
+    each row's m and l), rows * DP in dq, 2 * rows * DP in dk/dv."""
+    layout, block = _work_layouts()["longformer"]
+    host = tuple(np.ascontiguousarray(a, np.int32) for a in bsa.build_luts(layout))
+    luts = bsa.DeviceLuts(*(torch.from_numpy(a) for a in host), host, {})
+    q = torch.zeros((1, 2, 4096, 64), dtype=torch.bfloat16)
+    kw = dict(block=block, causal=False)
+    fwd = bsa.tc_plan("bs_fwd_tc", luts, q, **kw)
+    dq = bsa.tc_plan("bs_dq_tc", luts, q, **kw)
+    dkv = bsa.tc_plan("bs_dkv_tc", luts, q, **kw)
+    assert fwd.work is dq.work and fwd.lut is dq.lut is luts.cols and dkv.lut is luts.rows_t
+    assert len(luts.work) == 2 and bsa.tc_plan("bs_fwd_tc", luts, q, **kw).work is fwd.work
+    assert fwd.work.n_groups > 0 and fwd.work.rows == 128      # the global rows split
+    assert (fwd.part_floats, dq.part_floats, dkv.part_floats) == (128 * 66, 128 * 64, 128 * 128)
+    q80 = torch.zeros((1, 2, 4096, 80), dtype=torch.float16)
+    assert bsa.tc_plan("bs_fwd_tc", luts, q80, **kw).part_floats == 128 * 130
 
 
 # --------------------------------------------------------------------- card
@@ -433,7 +578,9 @@ CUDA_CASES = [
     (2, 2, 512, 64, torch.bfloat16, "empty", 64, False),
     (1, 4, 1024, 64, torch.bfloat16, "bigbird", 64, True),   # blocks above the diagonal
     (1, 2, 1024, 80, torch.float16, "variable", 128, True),  # D 80, padded to 128
-    (2, 4, 2048, 64, torch.bfloat16, "longformer", 128, False),  # global rows: dq splits
+    (2, 4, 2048, 64, torch.bfloat16, "longformer", 128, False),  # global rows: fwd, dq split
+    # two warpgroups a CTA, a row with no allowed key under the causal mask
+    (1, 2, 1024, 64, torch.bfloat16, "empty", 128, True),
 ]
 
 
@@ -479,17 +626,18 @@ def test_cuda_kernels_match_plain_version(case):
         (out.float() * g).sum().backward()
         return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
 
-    counters = (bsa.block_sparse_fwd.launches, bsa.block_sparse_bwd_dq.launches,
-                bsa.block_sparse_bwd_dkv.launches, bsa.block_sparse_bwd_dq.tensor_core_launches,
-                bsa.block_sparse_bwd_dkv.tensor_core_launches)
-    before = list(counters)
+    def counters():
+        return [bsa.block_sparse_fwd.launches, bsa.block_sparse_bwd_dq.launches,
+                bsa.block_sparse_bwd_dkv.launches, bsa.block_sparse_fwd.tensor_core_launches,
+                bsa.block_sparse_bwd_dq.tensor_core_launches,
+                bsa.block_sparse_bwd_dkv.tensor_core_launches]
+
+    before = counters()
     got, want = run(True), run(False)
     torch.cuda.synchronize()
     tc = int(bsa.tensor_core_path(dtype, Dc, block))
-    assert [bsa.block_sparse_fwd.launches, bsa.block_sparse_bwd_dq.launches,
-            bsa.block_sparse_bwd_dkv.launches, bsa.block_sparse_bwd_dq.tensor_core_launches,
-            bsa.block_sparse_bwd_dkv.tensor_core_launches] == [
-        before[0] + 2, before[1] + 1, before[2] + 1, before[3] + tc, before[4] + tc]
+    assert counters() == [before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 2 * tc,
+                          before[4] + tc, before[5] + tc]
     if name == "empty":     # the empty row gives 0 (lse -inf), the empty column 0
         rows, cols = slice(2 * block, 3 * block), slice(5 * block, 6 * block)
         assert not got[0][:, :, rows].any() and not got[2][:, :, rows].any()
@@ -534,9 +682,49 @@ def test_cuda_tensor_core_dkv_launches_are_bit_identical(name, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,causal", [("variable", True), ("longformer", False)])
+def test_cuda_tensor_core_forward_launches_are_bit_identical(name, causal):
+    """The forward's split rows merge their parts in part order, whichever
+    CTA arrives last: repeated launches agree bit for bit, and with the
+    CUDA-core forward on the same inputs within the bf16 tolerance (lse
+    -inf nowhere: every row has a key). At this size both layouts split
+    rows: the Variable layout's heaviest (the balanced share over the SMs is
+    9 tile steps), the unmasked Longformer layout's global rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    block = 256 if name == "variable" else 128
+    layout = _cuda_layout(name, 4, 2048, block)
+    luts = bsa.device_luts(layout, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 4, 2048, 64), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    kw = dict(block=block, causal=causal, sm_scale=0.125)
+    work = bsa.device_work(luts, "cuda", T=2048, block=block, causal=causal, transposed=False,
+                           batch=2, D=64)
+    assert work.n_groups > 0
+    before = bsa.block_sparse_fwd.tensor_core_launches
+    out, lse = bsa.block_sparse_fwd(q, k, v, luts, **kw)
+    for _ in range(3):
+        again = bsa.block_sparse_fwd(q, k, v, luts, **kw)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert bsa.block_sparse_fwd.tensor_core_launches == before + 4
+    fma_out, fma_lse = torch.empty_like(q), torch.empty_like(lse)
+    err = bsa._lib().bs_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), fma_out.data_ptr(),
+                            fma_lse.data_ptr(), luts.counts.data_ptr(), luts.cols.data_ptr(),
+                            luts.cols.shape[1], *bsa._tail(q, block, 0.125, causal))
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(lse).all()
+    for a, b in ((out, fma_out), (lse, fma_lse)):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_core_design_takes_operands_off_16_byte_boundaries():
     """Contiguous views that start 2 bytes into their storage: the wrapper
-    copies them to an aligned start for the tensor-core backward's TMA."""
+    copies them to an aligned start for the tensor-core kernels' TMA, the
+    forward's and the backward's; the launcher itself raises on them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     layout = _cuda_layout("bigbird", 2, 512, 64)
@@ -550,14 +738,21 @@ def test_cuda_tensor_core_design_takes_operands_off_16_byte_boundaries():
         view.copy_(t)
         assert view.data_ptr() % 16
         views.append(view.requires_grad_())
-    before = bsa.block_sparse_bwd_dkv.tensor_core_launches
+    before = (bsa.block_sparse_fwd.tensor_core_launches,
+              bsa.block_sparse_bwd_dkv.tensor_core_launches)
     out = bsa.block_sparse_attention(*views, layout, 64, causal=True)
     out.float().sum().backward()
     leaves = [t.clone().requires_grad_() for t in base]
     ref, _ = bsa.block_sparse_attention_reference(*leaves, layout, 64, True)
     ref.float().sum().backward()
     torch.cuda.synchronize()
-    assert bsa.block_sparse_bwd_dkv.tensor_core_launches == before + 1
+    assert (bsa.block_sparse_fwd.tensor_core_launches,
+            bsa.block_sparse_bwd_dkv.tensor_core_launches) == (before[0] + 1, before[1] + 1)
+    err = float((out.detach().float() - ref.detach().float()).abs().max())
+    assert err <= 2e-2 * float(ref.detach().float().abs().max()), err
+    with pytest.raises(ValueError, match="16-byte"):       # the launcher takes no such view
+        bsa.block_sparse_fwd(*(t.detach() for t in views), bsa.device_luts(layout, "cuda"),
+                             block=64, causal=True, sm_scale=0.125)
     for a, b in zip(views, leaves):
         err = float((a.grad.float() - b.grad.float()).abs().max())
         assert err <= 2e-2 * float(b.grad.float().abs().max()), err
