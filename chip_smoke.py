@@ -31,7 +31,8 @@ result line):
    the same kernel); then a short ``torch.profiler`` window for where the
    time goes;
 5. flash kernels — the forward, dq and dk/dv kernels against the plain
-   version (out, lse, dq, dk, dv) at the training shape and at edge cases
+   version (out, lse, dq, dk, dv) at the training shape, at the published
+   config's (batch 8) and at edge cases
    (ragged T, T = 9000, D = 32 and 128, float32, float16, key bias, dropout at
    rates 0.1 and 0.5, global offsets with and without the causal mask, bf16 at
    D = 256) and at the BERT path's shape (non-causal with a key bias); checks
@@ -46,6 +47,18 @@ result line):
    path (bf16 at full depth, float32 at 4 layers), that the losses are finite
    and fall, that each flash kernel ran once per layer per micro-step and on
    the tensor cores each time; then a profiler window of one step;
+   published config — GPT-2 1.5B at ``bench.py:391-420`` exactly (remat
+   "dots", batch 8 in one micro-step, flash attention, bf16, ZeRO-2 with
+   ``zero_allow_untested_optimizer`` and the external-master client pair of
+   ``bench.py:354-388``, here ``shard_optimizer``) through ``initialize``
+   for 12 steps on ``np.random.default_rng(0)`` tokens; checks 96 / 48 / 48
+   flash launches a step on the tensor cores (the recompute replays the
+   forward), the loss the same at every step, the client state moving, the
+   params unchanged, the loss and per-layer grad norms of batch 8 against
+   the plain attention path, and remat against no remat at batch 8 (loss
+   and 49 per-layer grad norms); at 4 layers, "dots+attn" launches the forward
+   once a layer and ``cpu_checkpointing`` gives the same grads at a lower
+   peak; a profiler window;
 7. block-sparse kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the long-sequence path's shape (the
    Variable layout at block 256, T = 8192, causal) and at layouts of blocks
@@ -63,15 +76,17 @@ result line):
    layout's global column; beside the plain version and SDPA with the layout
    as a boolean mask;
 8. long-sequence training — GPT-2 at n_embd 1024 (16 heads, 12 layers, vocab
-   50304, T = 8192, bf16, no remat) with block-sparse attention
+   50304, T = 8192, bf16, remat "dots") with block-sparse attention
    (``tests/perf/long_seq_model_perf.py``'s layout) through ``initialize`` at
    ZeRO-2 with Adam, 10 optimizer steps on one seeded batch; checks the loss
    and per-layer grad norms of the kernel path against the plain path at 2
    layers (bf16 at T = 8192, float32 at T = 2048), that the losses are finite
-   and fall, and that each block-sparse kernel ran once per layer per step,
-   on the tensor cores each time;
-   a profiler window of one step; then the same model with dense flash
-   attention for 6 steps, for the sparse/dense step ratio;
+   and fall, and that each block-sparse kernel ran once per layer per step
+   (the forward twice: the recompute's), on the tensor cores each time;
+   a profiler window of one step; then the same model without remat (the
+   kernel-vs-plain check at 2 layers, and 5 steps with the forward once a
+   layer) and with dense flash attention for 6 steps, for the sparse/dense
+   step ratio;
 9. fused-block kernels — the two entries of the fused transformer block in
    the design the shape rule names (tensor cores: LayerNorm + qkv, then
    attention + projection; CUDA cores: K/V pass, q pass) and the wrapper
@@ -137,7 +152,8 @@ F32_TOL = (1e-5, 1e-5)          # summation order only
 LOGITS_TOL = 0.15
 LOGITS_TOL_F32 = 1e-4
 
-# training: GPT-2 1.5B at bench.py:406-420's config (no remat, T = 1024)
+# training: GPT-2 1.5B at bench.py:406-420's widths (no remat, T = 1024,
+# micro-batch 4 x 2, AdamW): the AdamW path beside the published config
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 TRAIN_MODEL = dict(MODEL, use_flash_attention=True, remat=False, loss_chunk=128)
 TRAIN_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
@@ -150,6 +166,7 @@ TRAIN_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 4,
                 "gradient_clipping": 1.0, "steps_per_print": 1000}
 TRAIN_STEPS = 12
 FLASH_SHAPE = (4, 25, 1024, 64)  # B, H, T, D of the training path
+PUBLISHED_FLASH_SHAPE = (8, 25, 1024, 64)  # the published config's (batch 8)
 # kernels vs plain: max |err| / max |ref| per output. bf16/fp16: the kernel
 # rounds the scaled q and the probabilities to the operand type where the
 # plain version keeps float32, a few ulps of 2**-8; float32: summation order.
@@ -555,6 +572,7 @@ def phase_flash_kernels():
     from deepspeed_tpu_torch.ops import flash_attention as fa
     cases = [  # (B, H, T, D, dtype, causal, bias, rate[, (q_offset, k_offset)])
         (*FLASH_SHAPE, torch.bfloat16, True, False, 0.0),   # the main path
+        (*PUBLISHED_FLASH_SHAPE, torch.bfloat16, True, False, 0.0),  # published config
         (2, 4, 200, 64, torch.bfloat16, True, False, 0.0),  # ragged tail
         (1, 1, 9000, 64, torch.bfloat16, True, False, 0.0), # past the TPU's VMEM cap
         (2, 4, 512, 128, torch.bfloat16, True, False, 0.0), # D = 128
@@ -902,16 +920,217 @@ def profile_training(engine, tokens, labels):
             f"{e.key[:90]}")
 
 
+# --------------------------------------------- the main path's published config
+# bench.py:391-420 bench_1p5b_engine, nothing cut: remat "dots", batch 8 in one
+# micro-step, flash attention, loss_chunk 128, bf16, ZeRO-2 with the
+# external-master client pair of bench.py:354-388 at dp 32
+PUBLISHED_MODEL = dict(MODEL, remat=True, remat_policy="dots", use_flash_attention=True,
+                       loss_chunk=128)
+PUBLISHED_CONFIG = {"train_batch_size": 8, "steps_per_print": 1000, "bf16": {"enabled": True},
+                    "zero_optimization": {"stage": 2}, "zero_allow_untested_optimizer": True}
+PUBLISHED_STEPS = 12
+# remat against no remat on one micro-batch: the recompute runs the same
+# kernels on the same inputs, so only a reordered sum could differ
+REMAT_TOL = 1e-3
+REMAT_COMPARE_BATCH = 8         # the no-remat run at batch 8 fits the card
+
+
+def _published_batch(vocab):
+    """bench.py:423-425: tokens from np.random.default_rng(0), labels rolled."""
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, vocab, size=(PUBLISHED_CONFIG["train_batch_size"],
+                                          MODEL["n_positions"])).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    return torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
+
+
+def _loss_and_norms(model, tokens, labels):
+    """(loss, per-layer grad norms) of one forward + backward; grads cleared."""
+    loss = model(tokens, labels)
+    loss.backward()
+    norms = _layer_grad_norms(model)
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), norms
+
+
+def _flash_counts():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    return [f.launches for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                                 fa.flash_attention_bwd_dkv)]
+
+
+def _zero_flash_counts():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        f.launches = f.tensor_core_launches = 0
+
+
+def _cut_model(n_layer, **over):
+    """GPT-2 at the published widths and n_layer layers, bf16 parameters as
+    the engine holds them."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    model = GPT2Model(GPT2Config(**dict(PUBLISHED_MODEL, n_layer=n_layer, **over)))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model.to(torch.bfloat16)
+
+
+def remat_policy_checks(tokens, labels):
+    """At 4 layers: "dots+attn" keeps the flash op's (out, lse), so the
+    forward kernel runs once a layer; cpu_checkpointing moves the block
+    inputs to pinned host memory: the grads equal the device-resident full
+    remat's and the peak device memory is lower."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+    out = {}
+    for policy, fwd in (("dots", 8), ("dots+attn", 4)):
+        model = _cut_model(4, remat_policy=policy)
+        _zero_flash_counts()
+        _loss_and_norms(model, tokens, labels)
+        counts = _flash_counts()
+        out[policy] = counts
+        log(f"[train-published] 4 layers, remat {policy!r}: flash launches (fwd, dq, dk/dv) "
+            f"{counts}")
+        if counts != [fwd, 4, 4]:
+            raise AssertionError(f"remat {policy!r} at 4 layers: flash launches {counts} != "
+                                 f"[{fwd}, 4, 4]")
+        del model
+    model = _cut_model(4, remat_policy=None)
+    runs = {}
+    for offload in (False, True):
+        checkpointing.reset()
+        checkpointing.configure(checkpoint_in_cpu=offload)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, norms = _loss_and_norms(model, tokens, labels)
+        torch.cuda.synchronize()
+        runs[offload] = (loss.item(), norms, torch.cuda.max_memory_allocated() - base)
+    checkpointing.reset()
+    (l_dev, n_dev, peak_dev), (l_cpu, n_cpu, peak_cpu) = runs[False], runs[True]
+    rel = float(((n_cpu - n_dev).abs() / n_dev).max())
+    out["cpu_checkpointing"] = {"loss": [l_dev, l_cpu], "grad_norm_max_rel_diff": rel,
+                                "bit_identical": l_dev == l_cpu and bool(torch.equal(n_dev, n_cpu)),
+                                "peak_gb_device_resident": peak_dev / 1e9,
+                                "peak_gb_offloaded": peak_cpu / 1e9}
+    log(f"[train-published] 4 layers, cpu_checkpointing: {json.dumps(out['cpu_checkpointing'])}")
+    if l_cpu != l_dev or rel > REMAT_TOL:
+        raise AssertionError("cpu_checkpointing changed the loss or the grads")
+    if not peak_cpu < peak_dev:
+        raise AssertionError(f"cpu_checkpointing did not lower the peak device memory "
+                             f"({peak_cpu} vs {peak_dev} bytes)")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_published():
+    """GPT-2 1.5B at bench.py:391-420 through deepspeed_tpu_torch.initialize:
+    remat "dots", batch 8, the external-master client pair, 12 steps."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.runtime.client_optimizers import shard_optimizer
+
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    policy_checks = remat_policy_checks(tokens, labels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPT2Config(**PUBLISHED_MODEL)
+    model = GPT2Model(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.param_count()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, optimizer=shard_optimizer(32),
+                                                     config_params=PUBLISHED_CONFIG)
+    if engine._master is not None:
+        raise AssertionError("the external-master pair left a float32 master in the engine")
+    params0 = [p.detach().clone() for p in list(model.parameters())[:4]]
+    _zero_flash_counts()
+    losses, step_s, m1 = [], [], []
+    for _ in range(PUBLISHED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine(tokens, labels)
+        engine.backward(loss)
+        engine.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        m1.append(engine.opt_state["m1"].norm().item())
+    launches = _flash_counts()
+    tc = _tensor_core_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train-published] losses {losses}; |m1| {m1}")
+    if not all(np.isfinite(losses)) or len(set(losses)) != 1:
+        raise AssertionError(f"losses not finite and constant (the pair never changes the "
+                             f"params): {losses}")
+    if not all(m > 0 for m in m1) or len(set(m1)) != len(m1):
+        raise AssertionError(f"the client state's m1 is zero or did not change each step: {m1}")
+    if not all(torch.equal(a, b.detach()) for a, b in zip(params0, model.parameters())):
+        raise AssertionError("the params changed under an external-master pair")
+    want = [2 * cfg.n_layer * PUBLISHED_STEPS, cfg.n_layer * PUBLISHED_STEPS,
+            cfg.n_layer * PUBLISHED_STEPS]
+    if launches != want or tc != want:
+        raise AssertionError(f"flash launches {launches} (tensor cores {tc}) != {want}: "
+                             "remat 'dots' replays the forward once a layer")
+    step = statistics.median(step_s[2:])
+    tok_s = PUBLISHED_CONFIG["train_batch_size"] * cfg.n_positions / step
+    busy = profile_step("profile-published", engine, tokens, labels, top=20)
+
+    # the published path (remat "dots", batch 8) against the plain attention path
+    torch.cuda.empty_cache()
+    lk, lp, nrel = _kernel_vs_plain(model, tokens, labels)
+    log(f"[train-published] batch 8 under remat 'dots', kernel vs plain: loss {lk!r} vs "
+        f"{lp!r}, per-layer grad norms max rel diff {nrel!r} (tol {TRAIN_TOL_BF16})")
+    if abs(lk - lp) > TRAIN_TOL_BF16[0] or nrel > TRAIN_TOL_BF16[1]:
+        raise AssertionError("the published path disagrees with the plain path")
+
+    # remat against no remat on the same micro-batch and params
+    mb = REMAT_COMPARE_BATCH
+    torch.cuda.empty_cache()
+    loss_r, norms_r = _loss_and_norms(model, tokens[:mb], labels[:mb])
+    model.config = dataclasses.replace(cfg, remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    loss_n, norms_n = _loss_and_norms(model, tokens[:mb], labels[:mb])
+    peak_no_remat = torch.cuda.max_memory_allocated()
+    model.config = cfg
+    rel = float(((norms_r - norms_n).abs() / norms_n).max())
+    bitwise = bool(loss_r.item() == loss_n.item() and torch.equal(norms_r, norms_n))
+    log(f"[train-published] batch {mb}, remat 'dots' vs none: loss {loss_r.item()!r} vs "
+        f"{loss_n.item()!r}, 49 per-layer grad norms max rel diff {rel!r} (tol {REMAT_TOL}); "
+        f"bit-identical: {bitwise}")
+    if loss_r.item() != loss_n.item() or rel > REMAT_TOL:
+        raise AssertionError("remat changed the loss or the grads")
+    res = {"steps": PUBLISHED_STEPS, "loss": losses[0], "m1_norm": m1,
+           "step_ms_median": step * 1e3, "step_ms_all": [t * 1e3 for t in step_s],
+           "tokens_per_s": tok_s, "params": n_params, "mfu": tok_s * 6 * n_params / BF16_FLOPS,
+           "max_memory_allocated_gb": peak / 1e9,
+           "no_remat_batch8_peak_gb": peak_no_remat / 1e9, "device_busy_share": busy,
+           "kernel_vs_plain": {"loss": [lk, lp], "grad_norm_max_rel_diff": nrel,
+                               "tol": list(TRAIN_TOL_BF16)},
+           "flash_launches": launches, "tensor_core_launches": tc,
+           "remat_vs_none": {"batch": mb, "loss": [loss_r.item(), loss_n.item()],
+                             "grad_norm_max_rel_diff": rel, "bit_identical": bitwise},
+           "policies_4_layers": policy_checks}
+    log(f"[train-published] {json.dumps(res)}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------- long-sequence training
 # tests/perf/long_seq_model_perf.py:6-8,25,37-56: GPT-2 at n_embd 1024, 16
-# heads, 12 layers, T = 8192, batch 1, loss_chunk 512, bf16, ZeRO-2, Adam at
-# lr 1e-4; without its remat="dots" (refused by the port, ROADMAP item 19)
+# heads, 12 layers, T = 8192, batch 1, remat "dots", loss_chunk 512, bf16,
+# ZeRO-2, Adam at lr 1e-4. Under "dots" the backward replays each block's
+# attention forward: two forward launches a layer a step
 LONG_MODEL = dict(vocab_size=50304, n_positions=8192, n_embd=1024, n_layer=12, n_head=16,
-                  remat=False, loss_chunk=512)
+                  remat=True, remat_policy="dots", loss_chunk=512)
 LONG_CONFIG = {"train_batch_size": 1, "steps_per_print": 1000, "bf16": {"enabled": True},
                "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
                "zero_optimization": {"stage": 2}}
 LONG_STEPS, DENSE_STEPS = 10, 6
+NO_REMAT_STEPS = 5              # block-sparse without remat: the forward once a layer
 BS_SHAPE = (1, 16, 8192, 64)    # B, H, T, D of the long-sequence path
 
 
@@ -1307,21 +1526,24 @@ def phase_long_training():
 
     tokens, labels = _long_batch(LONG_MODEL["vocab_size"], LONG_MODEL["n_positions"])
     checks = {}
-    for dtype, T, tol in ((torch.float32, 2048, TRAIN_TOL_F32),
-                          (torch.bfloat16, 8192, TRAIN_TOL_BF16)):
-        m = _long_model(n_layer=2, compute_dtype=dtype)
+    for dtype, T, tol, remat in ((torch.float32, 2048, TRAIN_TOL_F32, True),
+                                 (torch.bfloat16, 8192, TRAIN_TOL_BF16, True),
+                                 (torch.bfloat16, 8192, TRAIN_TOL_BF16, False)):
+        m = _long_model(n_layer=2, compute_dtype=dtype, remat=remat)
         before = (bsa.block_sparse_fwd.launches, bsa.block_sparse_fwd.tensor_core_launches)
         lk, lp, nrel = _kernel_vs_plain(m, tokens[:, :T], labels[:, :T])
-        # bf16 through the tensor-core forward, float32 through the CUDA-core one
-        tc = 2 * (dtype == torch.bfloat16)
+        # bf16 through the tensor-core forward, float32 through the CUDA-core
+        # one; twice a layer under remat "dots", once without
+        fwd = 2 * (1 + remat)
+        tc = fwd * (dtype == torch.bfloat16)
         if (bsa.block_sparse_fwd.launches - before[0],
-                bsa.block_sparse_fwd.tensor_core_launches - before[1]) != (2, tc):
-            raise AssertionError("the kernel path did not launch the forward once per layer "
-                                 "in the design the shape rule names, or the plain path "
-                                 "launched it")
-        checks[str(dtype)] = [lk, lp, nrel]
-        log(f"[long] {dtype} 2 layers T {T}, kernel vs plain: loss {lk!r} vs {lp!r}, "
-            f"per-layer grad norms max rel diff {nrel!r} (tol {tol})")
+                bsa.block_sparse_fwd.tensor_core_launches - before[1]) != (fwd, tc):
+            raise AssertionError(f"the kernel path did not launch the forward {fwd // 2} "
+                                 "time(s) per layer in the design the shape rule names, or "
+                                 "the plain path launched it")
+        checks[f"{dtype}{'' if remat else ' no remat'}"] = [lk, lp, nrel]
+        log(f"[long] {dtype} 2 layers T {T}{'' if remat else ' no remat'}, kernel vs plain: "
+            f"loss {lk!r} vs {lp!r}, per-layer grad norms max rel diff {nrel!r} (tol {tol})")
         bad = ((abs(lk - lp) > tol * abs(lp) or nrel > tol) if dtype == torch.float32
                else (abs(lk - lp) > tol[0] or nrel > tol[1]))
         if bad:
@@ -1343,12 +1565,13 @@ def phase_long_training():
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"long-sequence losses not finite and decreasing: {losses}")
     n_layer = LONG_MODEL["n_layer"]
-    if launches != [n_layer * LONG_STEPS] * 3:
-        raise AssertionError(f"block-sparse launches {launches} != {n_layer} x "
-                             f"{LONG_STEPS} steps each")
-    if tc_launches != [n_layer * LONG_STEPS] * 3:
+    want = [2 * n_layer * LONG_STEPS, n_layer * LONG_STEPS, n_layer * LONG_STEPS]
+    if launches != want:
+        raise AssertionError(f"block-sparse launches {launches} != {want} (fwd twice a "
+                             f"layer under remat 'dots', dq and dk/dv once)")
+    if tc_launches != want:
         raise AssertionError(f"block-sparse launches on the tensor cores (fwd, dq, dk/dv) "
-                             f"{tc_launches}: not all of {n_layer * LONG_STEPS} each")
+                             f"{tc_launches}: not all of {want}")
     steady = step_s[2:]
     step = statistics.median(steady)
     tok_s = LONG_MODEL["n_positions"] / step
@@ -1367,6 +1590,30 @@ def phase_long_training():
     gc.collect()        # the engine and its optimizer refer to each other
     torch.cuda.empty_cache()
 
+    # the same model without remat: the forward once a layer a step
+    torch.cuda.reset_peak_memory_stats()
+    plain = _long_model(remat=False)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=plain, config_params=LONG_CONFIG)
+    before = [f.launches for f in launchers]
+    n_losses, n_step_s = _train_steps(engine, tokens, labels, steps=NO_REMAT_STEPS)
+    n_launches = [f.launches - b for f, b in zip(launchers, before)]
+    if n_launches != [n_layer * NO_REMAT_STEPS] * 3:
+        raise AssertionError(f"block-sparse launches without remat {n_launches} != "
+                             f"{n_layer} x {NO_REMAT_STEPS} each")
+    if not all(np.isfinite(n_losses)) or not n_losses[-1] < n_losses[0]:
+        raise AssertionError(f"no-remat long-sequence losses not finite and decreasing: "
+                             f"{n_losses}")
+    n_step = statistics.median(n_step_s[2:])
+    n_res = {"steps": NO_REMAT_STEPS, "losses": n_losses, "step_ms_median": n_step * 1e3,
+             "step_ms_all": [s * 1e3 for s in n_step_s],
+             "tokens_per_s": LONG_MODEL["n_positions"] / n_step,
+             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "block_sparse_launches": n_launches, "remat_over_no_remat_step": step / n_step}
+    log(f"[long-no-remat] {json.dumps(n_res)}")
+    del engine, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the same model with dense flash attention
     log(f"[long-dense] allocated before the dense model: "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
@@ -1375,8 +1622,9 @@ def phase_long_training():
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=dense, config_params=LONG_CONFIG)
     before = fa.flash_attention_fwd.launches
     d_losses, d_step_s = _train_steps(engine, tokens, labels, steps=DENSE_STEPS)
-    if fa.flash_attention_fwd.launches - before != n_layer * DENSE_STEPS:
-        raise AssertionError("the dense comparison did not run the flash kernels")
+    if fa.flash_attention_fwd.launches - before != 2 * n_layer * DENSE_STEPS:
+        raise AssertionError("the dense comparison did not run the flash forward twice "
+                             "a layer a step")
     if not all(np.isfinite(d_losses)):
         raise AssertionError(f"dense long-sequence losses not finite: {d_losses}")
     d_step = statistics.median(d_step_s[2:])
@@ -1410,6 +1658,7 @@ def profile_step(tag, engine, *batch, top=15):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[{tag}] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  "
             f"{e.key[:90]}")
+    return busy_us / wall_us
 
 
 # ------------------------------------------------------------ the fused block
@@ -1945,6 +2194,8 @@ def main():
     flash = phase_flash_kernels()
     for e, n in zip(flash, phase_training()):
         e["launches"] = n
+    for e, n in zip(flash, phase_train_published()):
+        e["launches_published"] = n
     sparse = phase_block_sparse_kernels()
     for e, n in zip(sparse, phase_long_training()):
         e["launches"] = n

@@ -12,12 +12,16 @@ layout (``ops.sparse_attention``), its kernels in CUDA
 (``csrc/block_sparse_attention.cu``); and the fused attention half of a
 GPT-2 block (``GPT2Config.fused_block``, ``csrc/fused_block_tc.cu`` on the
 tensor cores, ``csrc/fused_block.cu`` on the CUDA cores) with the
-BERT family (``models.bert`` over ``ops.transformer``).
+BERT family (``models.bert`` over ``ops.transformer``). Training takes
+activation checkpointing (``GPT2Config.remat`` / ``remat_policy``, the
+config's ``activation_checkpointing`` block; ``checkpointing``) and client
+``(init, apply)`` optimizers.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ROADMAP.md lists what later slices bring.
 """
 
 from .runtime.config import DeepSpeedConfig  # noqa: F401
+from .runtime.activation_checkpointing import checkpointing  # noqa: F401
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

@@ -21,10 +21,17 @@ over flash, as in the JAX model), the fused attention half of a block
 the serving programs ignore it, as the JAX ones do) and the chunked
 cross-entropy. Its layers
 take the JAX package's per-layer parameter dicts (``params_tree``) and round
-where the JAX model rounds. Dropout draws from an explicit
-``torch.Generator``; it cannot match ``jax.random`` bit for bit, except the
-flash kernels' attention dropout, which hashes coordinates. MoE and remat
-come with later slices and raise ``NotImplementedError`` when asked for.
+where the JAX model rounds. ``remat`` recomputes each block in the backward
+under ``remat_policy`` (``runtime/activation_checkpointing/checkpointing.py``;
+the serving programs ignore both, as the JAX serving path does); the
+attention tags its products and output for the policies where the JAX model
+does. Dropout draws from an explicit ``torch.Generator``: the block seeds
+are drawn before the blocks and each block draws from generators of its
+seeds, so a recompute draws the same masks (JAX splits a key per block
+outside the checkpoint in the same way). It cannot match ``jax.random`` bit
+for bit, except the flash kernels' attention dropout, which hashes
+coordinates. MoE comes with a later slice and raises
+``NotImplementedError`` when asked for.
 """
 
 import math
@@ -41,6 +48,7 @@ from ..device import resolve_device
 from ..ops.block_sparse_attention import block_sparse_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_block import fused_transformer_block
+from ..runtime.activation_checkpointing.checkpointing import checkpoint_name, checkpoint_wrapper
 
 
 @dataclass
@@ -74,12 +82,6 @@ class GPT2Config:
 # ROADMAP.md queue item that ports them
 _LATER = {
     "moe_experts": "queue A19 (MoE)",
-}
-# options only the training forward reads; the serving programs ignore them,
-# as the JAX serving path does
-_LATER_TRAINING = {
-    "remat": "queue A19 (activation checkpointing policies)",
-    "remat_policy": "queue A19 (activation checkpointing policies)",
 }
 
 
@@ -198,6 +200,10 @@ class GPT2Model(nn.Module):
     def _mlp(self, x, p):
         h = torch.matmul(x, p["c_fc_w"].to(x.dtype)) + p["c_fc_b"].to(x.dtype)
         h = F.gelu(h, approximate="tanh")
+        # announce the block's last product to the remat policies: only the
+        # residual sum leaving the block reads it, so none keeps it (JAX
+        # saves no such residual)
+        h = checkpoint_name(h, "ds_dot:mlp_proj")
         return torch.matmul(h, p["c_proj_w"].to(x.dtype)) + p["c_proj_b"].to(x.dtype)
 
     # ------------------------------------------------------------- training
@@ -225,36 +231,32 @@ class GPT2Model(nn.Module):
         from ..runtime.utils import param_count
         return param_count(params if params is not None else dict(self.named_parameters()))
 
-    def _check_training(self):
-        for field, where in _LATER_TRAINING.items():
-            if getattr(self.config, field):
-                raise NotImplementedError(
-                    f"GPT2Config.{field} is not in the PyTorch port's training "
-                    f"forward yet: ROADMAP.md {where}")
-
-    def _dropout(self, x, generator):
-        """Inverted dropout at ``config.dropout``, the mask drawn from
-        ``generator`` (on x's device)."""
+    def _dropout(self, x, rng):
+        """Inverted dropout at ``config.dropout``, the mask drawn from ``rng``:
+        a ``torch.Generator`` on x's device, or an int seed of a fresh one."""
+        if not isinstance(rng, torch.Generator):
+            rng = torch.Generator(device=x.device).manual_seed(rng)
         keep = 1.0 - self.config.dropout
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
         return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def _attention(self, x, p, generator=None):
+    def _attention(self, x, p, seed=None):
+        """``seed``: the attention dropout's (an int), None without dropout."""
         c = self.config
         B, T, E = x.shape
         nh, hd = c.n_head, c.head_dim
+        # announce the fused-qkv product to the remat policies (gpt2.py:320-326)
+        x = checkpoint_name(x, "ds_dot:qkv")
         qkv = torch.matmul(x, p["c_attn_w"].to(x.dtype)) + p["c_attn_b"].to(x.dtype)
         q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2) for t in qkv.split(E, dim=-1))
-        dropout = generator is not None and c.dropout > 0
         if c.sparse_attention is not None:
             y = block_sparse_attention(q, k, v, self.sparse_layout(T),
                                        c.sparse_attention.block, causal=True)
         elif c.use_flash_attention:
-            # one seed per call; the kernels hash (seed, b*H + h, q, k)
-            seed = (int(torch.randint(0, 2**31 - 1, (), generator=generator,
-                                      device=generator.device)) if dropout else None)
-            y = flash_attention(q, k, v, True, dropout_rate=c.dropout if dropout else 0.0,
+            # the kernels hash (seed, b*H + h, q, k); the flash op's own
+            # outputs are the policies' attn_out / attn_lse
+            y = flash_attention(q, k, v, True, dropout_rate=c.dropout if seed is not None else 0.0,
                                 dropout_seed=seed)
         else:
             # scores, mask and softmax in float32, probabilities rounded to the
@@ -263,10 +265,15 @@ class GPT2Model(nn.Module):
             mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
             s = torch.where(mask, s, torch.full((), -1e9, device=x.device))
             probs = torch.softmax(s, dim=-1).to(x.dtype)
-            if dropout:
-                probs = self._dropout(probs, generator)
+            if seed is not None:
+                probs = self._dropout(probs, seed)
             y = torch.matmul(probs.float(), v.float()).to(x.dtype)
+        if c.sparse_attention is not None or not c.use_flash_attention:
+            # the "attn" policies keep this output (gpt2.py:387-389)
+            y = checkpoint_name(y, "attn_out")
         y = y.transpose(1, 2).reshape(B, T, E)
+        # announce the square output projection (gpt2.py:390-392)
+        y = checkpoint_name(y, "ds_dot:proj")
         return torch.matmul(y, p["c_proj_w"].to(x.dtype)) + p["c_proj_b"].to(x.dtype)
 
     def sparse_layout(self, T):
@@ -291,12 +298,12 @@ class GPT2Model(nn.Module):
             x = self._dropout(x, generator)
         return x
 
-    def _block(self, x, bp, generator=None):
+    def _block(self, x, bp, seeds=None):
+        """One block; ``seeds``: the (attention, residual 1, residual 2)
+        dropout seeds, ints drawn before the block, None without dropout."""
         c = self.config
         eps = c.layer_norm_epsilon
-        if not (generator is not None and c.dropout > 0):
-            generator = None
-        if c.fused_block and generator is None:
+        if c.fused_block and seeds is None:
             # the whole attention half (LayerNorm + qkv + attention + proj +
             # residual) in the fused-block kernels
             ap = bp["attn"]
@@ -304,22 +311,32 @@ class GPT2Model(nn.Module):
                 x, bp["ln_1"]["scale"], bp["ln_1"]["bias"], ap["c_attn_w"], ap["c_attn_b"],
                 ap["c_proj_w"], ap["c_proj_b"], c.n_head, causal=True, eps=eps)
         else:
-            a = self._attention(self._layer_norm(x, bp["ln_1"], eps), bp["attn"], generator)
-            if generator is not None:
-                a = self._dropout(a, generator)
+            a = self._attention(self._layer_norm(x, bp["ln_1"], eps), bp["attn"],
+                                None if seeds is None else seeds[0])
+            if seeds is not None:
+                a = self._dropout(a, seeds[1])
             x = x + a
         m = self._mlp(self._layer_norm(x, bp["ln_2"], eps), bp["mlp"])
-        if generator is not None:
-            m = self._dropout(m, generator)
+        if seeds is not None:
+            m = self._dropout(m, seeds[2])
         return x + m
 
     def _backbone(self, p, tokens, generator=None):
-        """Embeddings -> blocks -> final LayerNorm: ``[B, T, E]`` hidden states."""
-        self._check_training()
-        x = self._embed(p, tokens, generator)
-        for bp in p["blocks"]:
-            x = self._block(x, bp, generator)
-        return self._layer_norm(x, p["ln_f"], self.config.layer_norm_epsilon)
+        """Embeddings -> blocks -> final LayerNorm: ``[B, T, E]`` hidden states.
+        With ``remat`` each block runs under ``checkpoint_wrapper`` with
+        ``remat_policy`` (gpt2.py:467-478)."""
+        c = self.config
+        dropout = generator is not None and c.dropout > 0
+        x = self._embed(p, tokens, generator if dropout else None)
+        seeds = [None] * len(p["blocks"])
+        if dropout:
+            # every block's three seeds in one draw (one wait for the card)
+            seeds = torch.randint(0, 2**31 - 1, (len(p["blocks"]), 3), generator=generator,
+                                  device=generator.device).tolist()
+        block = checkpoint_wrapper(self._block, policy=c.remat_policy) if c.remat else self._block
+        for bp, s in zip(p["blocks"], seeds):
+            x = block(x, bp, s)
+        return self._layer_norm(x, p["ln_f"], c.layer_norm_epsilon)
 
     @staticmethod
     def _head(x, wte):

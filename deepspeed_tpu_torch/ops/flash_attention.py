@@ -15,9 +15,11 @@ bfloat16/float16 with D <= 128 a multiple of 8 run the tensor-core kernels
 launch raises; nothing falls back.
 
 ``flash_attention`` and ``flash_attention_with_lse`` keep the JAX signatures.
-For CUDA tensors they run the kernels through ``_FlashAttention`` (a
-``torch.autograd.Function`` saving ``(q, k, v, out, lse)``; its backward
-forms ``delta = rowsum(dO * O) - g_lse`` with torch ops and launches the two
+For CUDA tensors they run the kernels through the custom op
+``deepspeed_tpu_torch::flash_fwd`` (``FLASH_FWD_OP``: the forward kernel,
+visible to the dispatcher, so that a selective-checkpoint policy can keep its
+``(out, lse)``; its autograd saves ``(q, k, v, out, lse)``, forms
+``delta = rowsum(dO * O) - g_lse`` with torch ops and launches the two
 backward kernels). For CPU tensors they run the plain version
 (``flash_attention_reference``: dense float32 softmax, autograd for the
 backward). There is no other fallback. Each launch function counts its
@@ -32,6 +34,7 @@ any T directly, so they are not carried over.
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -262,34 +265,49 @@ flash_attention_bwd_dq.launches = flash_attention_bwd_dq.tensor_core_launches = 
 flash_attention_bwd_dkv.launches = flash_attention_bwd_dkv.tensor_core_launches = 0
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Kernel forward; backward by the two backward kernels. Both outputs
-    are differentiable: an lse cotangent folds into delta."""
+@torch.library.custom_op("deepspeed_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor], causal: bool, sm_scale: float, rate: float,
+                  seed: int, q_off: int, k_off: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel as an op the dispatcher sees, so that a
+    selective-checkpoint policy can keep its (out, lse) instead of replaying
+    it (runtime/activation_checkpointing/checkpointing.py)."""
+    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale, bias=bias,
+                               dropout_rate=rate, dropout_seed=seed, q_offset=q_off,
+                               k_offset=k_off)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, causal, sm_scale, rate, seed, q_off, k_off):
-        kw = dict(causal=causal, sm_scale=sm_scale, bias=bias, dropout_rate=rate,
-                  dropout_seed=seed, q_offset=q_off, k_offset=k_off)
-        out, lse = flash_attention_fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out, lse, bias)
-        ctx.kw = kw
-        ctx.set_materialize_grads(False)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g_out, g_lse):
-        q, k, v, out, lse, bias = ctx.saved_tensors
-        kw = dict(ctx.kw, bias=bias)
-        do = torch.zeros_like(out) if g_out is None else g_out.contiguous()
-        # delta = rowsum(dO * O): the softmax-normalization term; an lse
-        # cotangent adds g_lse * p to dS, i.e. it subtracts from delta
-        delta = (do.float() * out.float()).sum(-1)
-        if g_lse is not None:
-            delta = delta - g_lse.float()
-        delta = delta.contiguous()
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None, None, None, None, None
+@_flash_fwd_op.register_fake
+def _(q, k, v, bias, causal, sm_scale, rate, seed, q_off, k_off):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, bias, causal, sm_scale, rate, seed, q_off, k_off = inputs
+    ctx.save_for_backward(q, k, v, *output, bias)
+    ctx.kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
+                  q_offset=q_off, k_offset=k_off)
+
+
+def _flash_backward(ctx, g_out, g_lse):
+    """The two backward kernels. Both outputs are differentiable: an lse
+    cotangent folds into delta."""
+    q, k, v, out, lse, bias = ctx.saved_tensors
+    kw = dict(ctx.kw, bias=bias)
+    do = torch.zeros_like(out) if g_out is None else g_out.contiguous()
+    # delta = rowsum(dO * O): the softmax-normalization term; an lse
+    # cotangent adds g_lse * p to dS, i.e. it subtracts from delta
+    delta = (do.float() * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
+    delta = delta.contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+FLASH_FWD_OP = torch.ops.deepspeed_tpu_torch.flash_fwd.default
 
 
 def _attend(q, k, v, causal, sm_scale, bias, rate, seed, q_off, k_off):
@@ -323,9 +341,9 @@ def _attend(q, k, v, causal, sm_scale, bias, rate, seed, q_off, k_off):
                                          q_off, k_off)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), bias,
-                                 bool(causal), float(sm_scale), rate,
-                                 int(seed) if rate > 0 else 0, int(q_off), int(k_off))
+    return _flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), bias, bool(causal),
+                         float(sm_scale), rate, int(seed) if rate > 0 else 0, int(q_off),
+                         int(k_off))
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=None, block_k=None,

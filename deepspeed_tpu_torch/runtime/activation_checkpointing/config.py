@@ -1,9 +1,9 @@
 """Activation checkpointing config.
 
-Mirrors ``deepspeed/runtime/activation_checkpointing/config.py`` (110 LoC). On TPU,
-``partition_activations`` shards remat saveables over the model axis, ``cpu_checkpointing``
-maps to host-offloaded residuals (jax.checkpoint offload policy), and contiguous-memory
-knobs are accepted for parity (XLA owns memory layout).
+Mirrors ``deepspeed/runtime/activation_checkpointing/config.py`` (110 LoC). In the
+port (``checkpointing.py``) ``cpu_checkpointing`` keeps a region's inputs in pinned
+host memory, ``partition_activations`` is a no-op while the model axis is 1, and
+the contiguous-memory knobs are accepted and stored.
 """
 
 from ..config_utils import get_scalar_param

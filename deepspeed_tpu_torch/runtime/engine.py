@@ -29,10 +29,18 @@ global-batch gradient when the ranks hold equal numbers of valid labels.
 With one rank every collective is skipped.
 
 The engine updates master, moments and accumulators in place (the JAX
-functions return new trees; the port keeps one copy of each). What the
-slice does not carry raises ``NotImplementedError`` naming its ROADMAP.md
-item. ``compilation_cache_dir`` names the JAX compile cache and has no
-counterpart in eager PyTorch; it is ignored.
+functions return new trees; the port keeps one copy of each). A client
+optimizer is the JAX package's ``(init, apply)`` pair on its trees
+(``_client_tree``): ``init(master) -> state``, ``apply(grads, state, master,
+step, hyper) -> (master, state)``, the returned master adopted and the
+compute params re-cast; an ``apply`` marked ``external_master`` owns the
+parameter state, so the engine holds no float32 master (``master_params`` is
+a float32 view of the compute params), hands it None and re-casts nothing.
+The ``activation_checkpointing`` block configures
+``activation_checkpointing/checkpointing.py``. What the slice does not carry
+raises ``NotImplementedError`` naming its ROADMAP.md item.
+``compilation_cache_dir`` names the JAX compile cache and has no counterpart
+in eager PyTorch; it is ignored.
 """
 
 import re
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils import _pytree as pytree
 
 from ..device import resolve_device
 from ..ops import adam as adam_opt
@@ -48,6 +57,7 @@ from ..ops import lamb as lamb_opt
 from ..ops import sgd as sgd_opt
 from ..utils import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer, device_sync
+from .activation_checkpointing import checkpointing as act_ckpt
 from .config import DeepSpeedConfig
 from .constants import (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, COMM_MODE_FLAT,
                         COMM_OVERLAP_BUCKETED, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
@@ -131,9 +141,13 @@ class DeepSpeedEngine:
         if not isinstance(model, nn.Module):
             raise TypeError("model must be a torch.nn.Module whose forward(*batch) "
                             "returns the loss")
-        if optimizer is not None and not isinstance(optimizer, str):
-            raise _later("a client optimizer ((init, apply) pairs, external_master, "
-                         "torch.optim optimizers)", "item 24")
+        self._client_optimizer = (optimizer if optimizer is not None
+                                  and not isinstance(optimizer, str) else None)
+        # an apply marked external_master owns the parameter state: no
+        # engine-held float32 master (deepspeed_tpu/runtime/engine.py:278-288)
+        client_apply = (optimizer[1] if isinstance(optimizer, tuple)
+                        and len(optimizer) == 2 else None)
+        self._external_master = bool(getattr(client_apply, "external_master", False))
         self.client_lr_scheduler = lr_scheduler
         self.training_data = training_data
         self.collate_fn = collate_fn
@@ -151,6 +165,10 @@ class DeepSpeedEngine:
         self.config = DeepSpeedConfig(config_params if config_params is not None
                                       else config_file, world_size=self.dp_size)
         self._refuse_unported()
+        if (client_apply is not None and self.config.zero_enabled and self.dp_size > 1):
+            raise _later("a client (init, apply) optimizer under ZeRO at dp > 1 (the JAX "
+                         "engine hands it global trees; the port holds per-rank slices)",
+                         "item 24")
 
         if self.fp16_enabled():
             self.compute_dtype = torch.float16
@@ -175,8 +193,9 @@ class DeepSpeedEngine:
         self._axes = [zero_spec(tuple(p.shape), self.dp_size) if stage >= 1 else None
                       for p in self._params]
         with torch.no_grad():
-            self._master = [shard(p.detach().float().clone(), a, self.dp_rank, self.dp_size)
-                            for p, a in zip(self._params, self._axes)]
+            self._master = (None if self._external_master else
+                            [shard(p.detach().float().clone(), a, self.dp_rank, self.dp_size)
+                             for p, a in zip(self._params, self._axes)])
             model.to(self.compute_dtype)
         # stage 2 keeps the accumulated grads reduce-scattered like the master
         self._grad_axes = self._axes if stage >= 2 else [None] * len(self._params)
@@ -225,6 +244,13 @@ class DeepSpeedEngine:
             batch_size=self.train_micro_batch_size_per_gpu() * self.dp_size,
             num_workers=1, steps_per_output=self.steps_per_print(),
             monitor_memory=False, sync_fn=sync)
+        # push the block into the process-global module only when this config
+        # carries it: a second engine without one must not clobber the first's
+        mesh = {"data": self.dp_size, "model": 1}
+        if self.config.activation_checkpointing_config.configured_in_json:
+            act_ckpt.configure(deepspeed_config=self.config, mesh=mesh)
+        else:
+            act_ckpt.set_default_mesh(mesh)
         if self.config.dump_state:
             self.config.print("DeepSpeedEngine configuration")
 
@@ -246,8 +272,6 @@ class DeepSpeedEngine:
             raise _later("sequence_parallel", "item 14")
         if c.fused_step:
             raise _later("fused_step", "item 25")
-        if c.activation_checkpointing_config.configured_in_json:
-            raise _later("the activation_checkpointing block", "item 19")
         for on, what, item in ((c.telemetry_enabled, "telemetry", "items 21-22"),
                                (c.numerics_enabled, "numerics", "item 22"),
                                (c.resilience_enabled, "resilience", "item 20"),
@@ -258,7 +282,11 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ state views
     @property
     def master_params(self):
-        """name -> this rank's float32 master (its ZeRO slice of the leaf)."""
+        """name -> this rank's float32 master (its ZeRO slice of the leaf); under
+        an external-master client optimizer a float32 view of the compute
+        params, made on access."""
+        if self._external_master:
+            return {n: p.detach().float() for n, p in zip(self._names, self._params)}
         return dict(zip(self._names, self._master))
 
     # ------------------------------------------------------------------ config accessors
@@ -329,6 +357,9 @@ class DeepSpeedEngine:
             hook = getattr(self.module, "param_group_patterns", None)
             specs = tuple(hook()) if callable(hook) else ()
         specs = tuple(specs or ())
+        if self._client_optimizer is not None:
+            self._configure_client_optimizer(specs)
+            return
         self._groups = self._group_ids(specs) if specs else None
         name = self.config.optimizer_name or ADAM_OPTIMIZER
         if name not in _OPTIMIZERS:
@@ -338,6 +369,88 @@ class DeepSpeedEngine:
                                          group_specs=specs)
         self.opt_state = self._opt_init(self._master)
         log_dist(f"Using DeepSpeed Optimizer param name {self.optimizer.name}", ranks=[0])
+
+    def _configure_client_optimizer(self, specs):
+        """A client ``(init, apply)`` pair, with the JAX engine's refusals
+        (deepspeed_tpu/runtime/engine.py:872-890)."""
+        opt = self._client_optimizer
+        if not (isinstance(opt, tuple) and len(opt) == 2):
+            raise TypeError("client optimizer must be an (init_fn, apply_fn) pair; "
+                            "torch optimizers are not supported")
+        # the JAX engine's asserts, raised so that python -O keeps them
+        if specs:
+            raise AssertionError("param_groups require a built-in optimizer; a client "
+                                 "(init, apply) pair has no groups kwarg contract")
+        if self.config.zero_enabled:
+            if not self.config.zero_allow_untested_optimizer:
+                raise AssertionError(
+                    'You are using an untested ZeRO Optimizer. Please add '
+                    '<"zero_allow_untested_optimizer": true> in the configuration '
+                    'file to use it.')
+            log_dist("**** You are using ZeRO with an untested optimizer, "
+                     "proceed with caution *****", ranks=[0])
+        self._groups = None
+        self._opt_init, self._opt_apply = opt
+        self.optimizer = OptimizerHandle("client", self.config.optimizer_params or {})
+        self._layout = self._client_layout()
+        with torch.no_grad():
+            # external master: init sees the params' float32 upcast, dropped after
+            master = (self._master if not self._external_master
+                      else [p.detach().float() for p in self._params])
+            self.opt_state = self._opt_init(self._client_tree(master))
+        log_dist(f"Using client optimizer (external_master={self._external_master})",
+                 ranks=[0])
+
+    def _client_layout(self):
+        """The tree a client pair sees, its leaves indices into the engine's
+        leaf list: the module's ``params_tree()`` layout where it has one (the
+        JAX package's nested dicts), else the name -> tensor dict. Dict keys
+        are sorted, so torch's pytree walks the leaves in ``jax.tree_util``'s
+        order (``bench.py``'s ``shard_of`` concatenates in that order)."""
+        index = {id(p): i for i, p in enumerate(self._params)}
+        hook = getattr(self.module, "params_tree", None)
+        tree = hook() if callable(hook) else dict(zip(self._names, self._params))
+
+        def build(node):
+            if isinstance(node, dict):
+                return {k: build(node[k]) for k in sorted(node)}
+            if isinstance(node, (list, tuple)):
+                return [build(n) for n in node]
+            return index[id(node)]
+
+        layout = build(tree)
+        if sorted(pytree.tree_leaves(layout)) != list(range(len(self._params))):
+            raise ValueError("params_tree() must hold every parameter once")
+        return layout
+
+    def _client_tree(self, values):
+        return pytree.tree_map(lambda i: values[i], self._layout)
+
+    def _client_leaves(self, tree):
+        """The engine-ordered leaf list of a tree in the client layout."""
+        out = [None] * len(self._params)
+        for i, leaf in zip(pytree.tree_leaves(self._layout), pytree.tree_leaves(tree)):
+            out[i] = leaf
+        return out
+
+    def _client_step(self, grads, step):
+        """``apply(grads, state, master, step, hyper)``: hyper the JAX
+        engine's dict of 0-d float32 scalars, step a 0-d int32."""
+        g = self.optimizer.param_groups[0]
+        hyper = {k: torch.tensor(v, dtype=torch.float32, device=self.device)
+                 for k, v in (("lr", g["lr"]), ("beta1", g["betas"][0]),
+                              ("beta2", g["betas"][1]), ("eps", g["eps"]),
+                              ("weight_decay", g["weight_decay"]))}
+        step = torch.tensor(step, dtype=torch.int32, device=self.device)
+        grads = self._client_tree(grads)
+        if self._external_master:
+            _, self.opt_state = self._opt_apply(grads, self.opt_state, None, step, hyper)
+            return
+        master, self.opt_state = self._opt_apply(grads, self.opt_state,
+                                                 self._client_tree(self._master), step, hyper)
+        for m, new in zip(self._master, self._client_leaves(master)):
+            if new is not m:
+                m.copy_(new)
 
     def _configure_lr_scheduler(self, client_lr_scheduler):
         if client_lr_scheduler is not None:
@@ -506,12 +619,16 @@ class DeepSpeedEngine:
                          else shard(g, self._axes[i], self.dp_rank, self.dp_size)
                          for i, g in enumerate(grads)]
             step = self.global_steps + 1 - self.skipped_steps
-            kw = {"sumsq": self._leaf_sumsq} if self._opt_apply is lamb_opt.apply else {}
-            self._opt_apply(opt_grads, self.opt_state, self._master, step,
-                            self.optimizer.current_hyper(), groups=self._groups, **kw)
+            if self._client_optimizer is not None:
+                self._client_step(opt_grads, step)
+            else:
+                kw = {"sumsq": self._leaf_sumsq} if self._opt_apply is lamb_opt.apply else {}
+                self._opt_apply(opt_grads, self.opt_state, self._master, step,
+                                self.optimizer.current_hyper(), groups=self._groups, **kw)
             del opt_grads
-            for p, m, a in zip(self._params, self._master, self._axes):
-                p.copy_(unshard(m.to(self.compute_dtype), a, self.dp_size))
+            if not self._external_master:
+                for p, m, a in zip(self._params, self._master, self._axes):
+                    p.copy_(unshard(m.to(self.compute_dtype), a, self.dp_size))
         self.scaler_state = ls.update(
             self.scaler_state, overflow, dynamic=self._dynamic_scale,
             scale_window=self.config.loss_scale_window,

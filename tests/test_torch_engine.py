@@ -218,7 +218,6 @@ def _refused():
         dict(base, numerics={"enabled": True}),
         dict(base, resilience={"enabled": True}),
         dict(base, tensorboard={"enabled": True}),
-        dict(base, activation_checkpointing={"partition_activations": True}),
     ]
 
 
@@ -236,9 +235,10 @@ def test_unported_arguments_and_methods_raise():
     with pytest.raises(NotImplementedError, match="item 15"):
         DeepSpeedEngine(model=_Quadratic(), config_params=cfg, device="cpu",
                         param_shardings={})
-    with pytest.raises(NotImplementedError, match="item 24"):
+    # a client optimizer must be an (init, apply) pair, as in the JAX engine
+    with pytest.raises(TypeError, match=r"\(init_fn, apply_fn\) pair"):
         DeepSpeedEngine(model=_Quadratic(), config_params=cfg, device="cpu",
-                        optimizer=(lambda p: p, lambda *a: a))
+                        optimizer=torch.optim.SGD(_Quadratic().parameters(), lr=0.1))
 
     class PipelineModule(torch.nn.Module):
         pass

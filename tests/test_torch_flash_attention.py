@@ -328,3 +328,36 @@ def test_cuda_kernels_match_plain_version(case):
         scale = float(b.abs().max()) + 1e-6
         err = float((a - b).abs().max()) / scale
         assert err <= tol, f"{name}: max abs err / max |ref| = {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,forwards", [("dots+attn", 1), ("dots", 2)])
+def test_cuda_selective_checkpoint_keeps_or_replays_the_forward(policy, forwards):
+    """Under a remat policy that keeps the attention outputs the forward
+    kernel runs once (the op's (out, lse) are kept for the backward); under
+    "dots" the backward replays it. The gradients equal the run without a
+    checkpoint bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((2, 128, 64), generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn((64, 192), generator=gen, device="cuda", dtype=torch.bfloat16) * 0.1
+
+    def block(x, w):
+        q, k, v = (t.reshape(2, 128, 2, 32).transpose(1, 2) for t in (x @ w).split(64, -1))
+        return fa.flash_attention(q, k, v, True).transpose(1, 2).reshape(2, 128, 64)
+
+    def grads(fn):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xs, ws).float().square().sum().backward()
+        return xs.grad, ws.grad
+
+    want = grads(block)
+    launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [f.launches for f in launchers]
+    got = grads(checkpointing.checkpoint_wrapper(block, policy=policy))
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(launchers, before)] == [forwards, 1, 1]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

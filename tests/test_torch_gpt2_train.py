@@ -107,13 +107,20 @@ def test_dropout_draws_from_the_generator():
 
 @pytest.mark.parametrize("field,value", [("remat", True), ("remat_policy", "dots")])
 def test_remat_refused_by_training_ignored_by_serving(field, value):
-    cfg = GPT2Config(**DIMS, compute_dtype=torch.float32, **{field: value})
+    """Training takes remat (once refused, now used: the same loss and grads
+    as without it); the serving programs never read it, as in the JAX
+    serving path."""
+    over = {field: value, "remat": True} if field == "remat_policy" else {field: value}
+    cfg = GPT2Config(**DIMS, compute_dtype=torch.float32, **over)
     tm = GPT2Model(cfg, device="cpu")
     tm.init(torch.Generator().manual_seed(0))
+    plain = GPT2Model(GPT2Config(**DIMS, compute_dtype=torch.float32), device="cpu")
+    plain.load_parameters(dict(tm.named_parameters()))
     tokens, labels = (torch.from_numpy(a) for a in _batch())
-    with pytest.raises(NotImplementedError, match=f"{field}.*A19"):
-        tm(tokens, labels)
-    # the serving programs never read it, as in the JAX serving path
+    for m in (tm, plain):
+        m(tokens, labels).backward()
+    for (name, p), q in zip(tm.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(p.grad, q.grad, rtol=0, atol=0, msg=name)
     from deepspeed_tpu_torch.serve.scheduler import Request
     eng = deepspeed_tpu_torch.init_inference(
         tm, config_params={"serving": {"max_seqs": 2, "block_size": 4, "num_blocks": 17,
