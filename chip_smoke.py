@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch port (``deepspeed_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --probe N    # one offload-capacity probe at N layers
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
 
 1. device — requires ``torch.cuda.is_available()``; prints the card's name
-   and power limit as ``nvidia-smi`` reports them;
+   and power limit as ``nvidia-smi`` reports them, and the host's CPU model,
+   cores and memory;
 2. build — compiles every CUDA kernel of the serving and training paths
    from ``csrc/`` (one ``nvcc`` per source, all at once); prints each
    file's registers and spills, and each paged-decode and tensor-core
@@ -59,6 +61,21 @@ result line):
    and 49 per-layer grad norms); at 4 layers, "dots+attn" launches the forward
    once a layer and ``cpu_checkpointing`` gives the same grads at a lower
    peak; a profiler window;
+   ZeRO-Offload — ``[train-offload]``: the same model (remat "dots", batch 8
+   in one micro-step) with TRAIN_CONFIG's AdamW, WarmupLR and clipping at
+   ZeRO-2 with ``cpu_offload``, 12 steps, against the device engine on the
+   same config (and that engine with its clip kept in float32, as the host
+   step folds it): the master after step 1, the losses, the peak device
+   memory (at least 17 GB lower), 96 / 48 / 48 flash launches a step on the
+   tensor cores, every host step on the native CPU Adam
+   (``csrc/cpu_adam.cpp``, built by g++), that kernel against its plain
+   version on one chunk of the run's own state and grads (and its time at
+   one thread), the pipeline's lanes, a profiler window; ``[offload-large]``:
+   1600-wide GPT-2 at LARGE_LAYERS (5.0 B params), which the device engine
+   could not hold (16 B a parameter), with full remat for 3 steps;
+   ``[offload-capacity]``: ``bench.py``'s ``max_params_offload``, the deepest
+   1600-wide GPT-2 whose bf16 params, grads and full-remat activations fit,
+   each depth probed in a fresh process (``chip_smoke.py --probe N``);
 7. block-sparse kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the long-sequence path's shape (the
    Variable layout at block 256, T = 8192, causal) and at layouts of blocks
@@ -124,6 +141,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -224,7 +242,7 @@ def graph_ms(fn, n, replays=20):
     return ms
 
 
-def phase_device():
+def phase_device(quiet=False):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -233,9 +251,10 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     card = smi.strip().splitlines()[0]
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"devices {torch.cuda.device_count()}")
+    if not quiet:
+        log(card)
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"devices {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -1117,6 +1136,376 @@ def phase_train_published():
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------- ZeRO-Offload
+# GPT-2 1.5B at bench.py:406-420's widths, nothing cut, under the published
+# config's remat "dots" and batch 8 in one micro-step, with TRAIN_CONFIG's
+# AdamW, WarmupLR and clipping: ZeRO-2 with cpu_offload (the float32 master
+# and the Adam moments in the host's memory, the host Adam of
+# csrc/cpu_adam.cpp), against the same config on the device engine
+OFFLOAD_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=8,
+                      gradient_accumulation_steps=1,
+                      zero_optimization={"stage": 2, "cpu_offload": True})
+OFFLOAD_STEPS = 12
+# each loss against the device engine's with the clip factor kept in float32,
+# as the host step folds it into its grad scale (the host and the card then
+# differ in the order of Adam's float32 operations only); against the device
+# engine itself, which rounds the clipped grads back to bf16 (as the JAX
+# device path does), this plus that engine's own gap to its float32-clip run
+OFFLOAD_LOSS_TOL = 2e-3
+OFFLOAD_MASTER_TOL = 1e-6        # x max |master|, after step 1
+OFFLOAD_PEAK_SAVING_GB = 17.0    # 12 B x 1.558 B params = 18.7 GB reckoned
+# a model the device engine cannot hold (16 B a parameter on the card): 1600
+# wide, full remat, 3 steps. The depth is fixed, never chosen at run time:
+# the host state is 12 B a parameter (PERF.md §4 says why this depth)
+LARGE_LAYERS = 160
+LARGE_STEPS = 3
+# bench.py:1240-1323's max_params_offload: the deepest 1600-wide GPT-2 whose
+# bf16 params and grads and full-remat activations at tokens (4, 1024) fit on
+# the card, probed in fresh processes (chip_smoke.py --probe N) at bench.py's
+# 8-layer granularity, seeded at the pair that bracketed it in the full search
+# (H100 80GB HBM3: 624 layers fit, 632 do not); the analytic ceiling is
+# (80 GB - activations) / (4 B x 30.7 M params a layer)
+CAPACITY_SEED = (624, 632)
+CAPACITY_FLOOR, CAPACITY_CEILING = 48, 640
+PROBE_TOKENS = (4, 1024)
+PROBE_TIMEOUT_S = 300
+
+
+def host_info():
+    """The host's CPU model, cores and memory, which the host step's time
+    depends on."""
+    cpu = ""
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                cpu = line.split(":", 1)[1].strip()
+                break
+    mem = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            mem[key] = int(val.split()[0]) * 1024
+    return {"cpu": cpu, "nproc": len(os.sched_getaffinity(0)),
+            "mem_total_gb": mem["MemTotal"] / 1e9,
+            "mem_available_gb": mem["MemAvailable"] / 1e9}
+
+
+def _offload_engine(n_layer, offload, **over):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT2Model(GPT2Config(**dict(PUBLISHED_MODEL, n_layer=n_layer, **over)))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    cfg = dict(OFFLOAD_CONFIG, zero_optimization={"stage": 2, "cpu_offload": offload})
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=cfg)
+    torch.cuda.synchronize()
+    return engine, model.param_count()
+
+
+def _offload_steps(engine, tokens, labels, steps):
+    """(losses, step seconds, master after step 1 on the host, lanes): each
+    step fenced by a synchronize."""
+    losses, step_s, lanes, master1 = [], [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine(tokens, labels)
+        engine.backward(loss)
+        engine.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        if i == 0:
+            master1 = [m.detach().to("cpu", copy=True) for m in engine._master]
+        if engine._offload is not None:
+            lanes.append(engine.offload_step_timing())
+    return losses, step_s, master1, lanes
+
+
+def _float32_clip(grads, max_norm, norm=None):
+    """The engine's clip with the clipped grads kept in float32, as the host
+    step folds the clip factor into its float32 grad scale
+    (deepspeed_tpu/runtime/engine.py:2113-2115), where the device engine
+    rounds them back to the grads' dtype."""
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for i, g in enumerate(grads):
+        grads[i] = g.float() * scale
+    return grads
+
+
+def _median_lanes(lanes):
+    keys = ("fetch_wait", "host_adam", "push", "total", "fetch_busy", "push_busy")
+    out = {k: statistics.median(t[k] for t in lanes) * 1e3 for k in keys}
+    out.update({k: lanes[-1][k] for k in ("pipeline_depth", "region_cap", "n_work_items")})
+    return out
+
+
+def host_kernel_check(engine, tokens, labels):
+    """The native host Adam against its plain version on the main path's
+    inputs: one chunk of the engine's own master and moments (copies) and
+    of a real bf16 grad, at the autotuned chunk size; its time at every
+    thread OpenMP gives it and at one thread."""
+    from deepspeed_tpu_torch.ops import cpu_adam as ca
+    off = engine._offload
+    model = engine.module
+    model(tokens, labels).backward()
+    grad = model.wte.grad.reshape(-1)
+    n = min(off.region_cap(), grad.numel())
+    g = grad[:n].cpu()
+    model.zero_grad(set_to_none=True)
+    h = engine.optimizer.current_hyper()[0]
+    kw = dict(step=engine.global_steps + 1, lr=h["lr"], beta1=h["beta1"], beta2=h["beta2"],
+              eps=h["eps"], weight_decay=h["weight_decay"], grad_scale=1.0, adamw=off.adamw)
+    state = [t[:n].clone() for t in (off.fp32, off.exp_avg, off.exp_avg_sq)]
+
+    def run(fn):
+        p, m, v = (t.clone() for t in state)
+        out = torch.empty(n, dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        fn(p, g, m, v, out, **kw)
+        return time.perf_counter() - t0, p, out
+
+    launches = ca.adam_step_native.launches
+    lib = ca.load_cpu_adam()
+    threads = lib.ds_adam_threads()
+    native = [run(ca.adam_step_native) for _ in range(3)]
+    lib.ds_adam_set_threads(1)
+    one = run(ca.adam_step_native)
+    lib.ds_adam_set_threads(threads)
+    plain = run(ca.cpu_adam_plain)
+    ca.adam_step_native.launches = launches   # the check's launches are not the path's
+    err = float((native[0][1] - plain[1]).abs().max())
+    out_err = float((native[0][2].float() - plain[2].float()).abs().max())
+    scale = float(plain[1].abs().max())
+    ms = statistics.median(r[0] for r in native) * 1e3
+    nbytes = n * (3 * 4 * 2 + 2 + 2)   # p, m, v read and written; the grad; the copy
+    res = {"elements": n, "threads": threads, "max_abs_err": err, "out_max_abs_err": out_err,
+           "max_abs_master": scale, "ms": ms, "ms_one_thread": one[0] * 1e3,
+           "plain_ms": plain[0] * 1e3, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6}
+    log(f"[train-offload] host kernel vs plain: {json.dumps(res)}")
+    if not err <= 1e-6 * scale or out_err > 2 ** -7 * scale:
+        raise AssertionError("the native host Adam disagrees with its plain version")
+    return res
+
+
+def phase_train_offload():
+    """GPT-2 1.5B with ZeRO-Offload through deepspeed_tpu_torch.initialize,
+    12 steps, against the device engine on the same config and batch, and
+    against that engine with its clip in float32."""
+    from deepspeed_tpu_torch.ops import cpu_adam as ca
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    n_layer = PUBLISHED_MODEL["n_layer"]
+
+    engine, n_params = _offload_engine(n_layer, offload=False)
+    torch.cuda.reset_peak_memory_stats()
+    dev_losses, dev_s, dev_master1, _ = _offload_steps(engine, tokens, labels, OFFLOAD_STEPS)
+    dev_peak = torch.cuda.max_memory_allocated()
+    del engine
+    log(f"[train-offload] device engine: losses {dev_losses}; peak {dev_peak / 1e9:.3f} GB")
+    rounding_clip = engine_mod.clip_grads_by_global_norm
+    engine_mod.clip_grads_by_global_norm = _float32_clip
+    try:
+        engine, _ = _offload_engine(n_layer, offload=False)
+        f32_losses = _offload_steps(engine, tokens, labels, OFFLOAD_STEPS)[0]
+    finally:
+        engine_mod.clip_grads_by_global_norm = rounding_clip
+    del engine
+    log(f"[train-offload] device engine, clip in float32: losses {f32_losses}")
+
+    engine, _ = _offload_engine(n_layer, offload=True)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    native0 = ca.adam_step_native.launches
+    losses, step_s, master1, lanes = _offload_steps(engine, tokens, labels, OFFLOAD_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    native = ca.adam_step_native.launches - native0
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    log(f"[train-offload] offload engine: losses {losses}; peak {peak / 1e9:.3f} GB")
+
+    scale = max(float(m.abs().max()) for m in dev_master1)
+    master_err = max(float((a - b).abs().max()) for a, b in zip(master1, dev_master1))
+    del dev_master1, master1
+    loss_err = max(abs(a - b) for a, b in zip(losses, dev_losses))
+    loss_err_f32 = max(abs(a - b) for a, b in zip(losses, f32_losses))
+    clip_rounding = max(abs(a - b) for a, b in zip(f32_losses, dev_losses))
+    want = [2 * n_layer * OFFLOAD_STEPS, n_layer * OFFLOAD_STEPS, n_layer * OFFLOAD_STEPS]
+    work_items = sum(t["n_work_items"] for t in lanes)
+    checks = {
+        "master_after_step_1": master_err <= OFFLOAD_MASTER_TOL * scale,
+        "losses_vs_float32_clip_device": loss_err_f32 <= OFFLOAD_LOSS_TOL,
+        "losses_vs_device": loss_err <= clip_rounding + OFFLOAD_LOSS_TOL,
+        "losses_fall": bool(all(np.isfinite(losses)) and losses[-1] < losses[0]),
+        "peak_saving": (dev_peak - peak) / 1e9 >= OFFLOAD_PEAK_SAVING_GB,
+        "flash_launches": launches == want and tc == want,
+        "native_host_step": native == work_items > 0,
+    }
+    kernel = host_kernel_check(engine, tokens, labels)
+    busy = profile_step("profile-offload", engine, tokens, labels, top=12)
+    stats = _step_stats(step_s, OFFLOAD_CONFIG["train_batch_size"] * MODEL["n_positions"],
+                        n_params)
+    dev_stats = _step_stats(dev_s, OFFLOAD_CONFIG["train_batch_size"] * MODEL["n_positions"],
+                            n_params)
+    stats["max_memory_allocated_gb"] = peak / 1e9
+    res = {"steps": OFFLOAD_STEPS, "params": n_params, **stats,
+           "device_engine": {"step_ms_median": dev_stats["step_ms_median"],
+                             "tokens_per_s": dev_stats["tokens_per_s"],
+                             "peak_gb": dev_peak / 1e9, "losses": dev_losses},
+           "losses": losses, "loss_max_abs_diff": loss_err,
+           "float32_clip_device_losses": f32_losses,
+           "loss_max_abs_diff_vs_float32_clip_device": loss_err_f32,
+           "device_engine_clip_rounding_gap": clip_rounding,
+           "master_step1_max_abs_diff": master_err, "master_max_abs": scale,
+           "peak_saving_gb": (dev_peak - peak) / 1e9,
+           "host_state_gb": 3 * engine._offload.numel * 4 / 1e9,
+           "lanes_ms_median_steps_3_12": _median_lanes(lanes[2:]),
+           "flash_launches": launches, "tensor_core_launches": tc,
+           "native_launches": native, "work_items": work_items,
+           "device_busy_share": busy, "host_kernel": kernel, "checks": checks}
+    log(f"[train-offload] {json.dumps(res)}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[train-offload] failed: {failed}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_offload_large():
+    """A model the device engine cannot hold: LARGE_LAYERS x 1600 with full
+    remat, ZeRO-Offload, batch 8 x 1024, LARGE_STEPS steps."""
+    host = host_info()
+    per_layer = 12 * MODEL["n_embd"] ** 2 + 13 * MODEL["n_embd"]
+    n_est = LARGE_LAYERS * per_layer + (MODEL["vocab_size"] + MODEL["n_positions"] + 2) \
+        * MODEL["n_embd"]
+    if 12 * n_est > host["mem_available_gb"] * 1e9:
+        raise AssertionError(f"[offload-large] the host state ({12 * n_est / 1e9:.1f} GB) "
+                             f"exceeds MemAvailable ({host['mem_available_gb']:.1f} GB)")
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, n_params = _offload_engine(LARGE_LAYERS, offload=True, remat_policy=None)
+    build_s = time.perf_counter() - t0
+    losses, step_s, _, lanes = _offload_steps(engine, tokens, labels, LARGE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    res = {"n_layer": LARGE_LAYERS, "params": n_params, "losses": losses,
+           "step_ms_all": [s * 1e3 for s in step_s], "engine_build_s": build_s,
+           "tokens_per_s": OFFLOAD_CONFIG["train_batch_size"] * MODEL["n_positions"]
+           / statistics.median(step_s[1:]),
+           "max_memory_allocated_gb": peak / 1e9, "device_total_gb": total / 1e9,
+           "host_state_gb": 3 * engine._offload.numel * 4 / 1e9,
+           "device_engine_reckoned_gb": 16 * n_params / 1e9,
+           "lanes_ms_last": _median_lanes(lanes[-1:]), "host": host}
+    log(f"[offload-large] {json.dumps(res)}")
+    if not (all(np.isfinite(losses)) and losses[1] != losses[0] and peak < total):
+        raise AssertionError("[offload-large] losses not finite, not moving, or the peak "
+                             "above the card's memory")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def probe_offload_footprint(n_layer):
+    """One probe (its own process): a 1600-wide GPT-2 at ``n_layer`` layers,
+    full remat, flash; bf16 params made on the card at 0.01 (the model built
+    on ``meta``, never through a float32 init); one forward and backward at
+    tokens PROBE_TOKENS keeping bf16 grads. Prints PROBE_OK or, when the card
+    runs out of memory, PROBE_OOM."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    cfg = GPT2Config(**dict(MODEL, n_layer=n_layer), remat=True, use_flash_attention=True)
+    model = GPT2Model(cfg, device="meta").to(torch.bfloat16)
+    n_params = model.param_count()
+    try:
+        model = model.to_empty(device="cuda")
+        with torch.no_grad():
+            for p in model.parameters():
+                p.fill_(0.01)
+        tokens = torch.zeros(PROBE_TOKENS, dtype=torch.long, device="cuda")
+        loss = model(tokens, tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError:
+        print(f"PROBE_OOM {n_layer} {n_params}", flush=True)
+        return
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"probe {n_layer}: loss {loss.item()}")
+    if any(p.grad is None or p.grad.dtype != torch.bfloat16 for p in model.parameters()):
+        raise AssertionError(f"probe {n_layer}: grads missing or not bf16")
+    print(f"PROBE_OK {n_layer} {n_params} {torch.cuda.max_memory_allocated()}", flush=True)
+
+
+def _probe(n_layer):
+    """(fits, params, peak bytes, seconds) of one probe in a fresh process."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--probe",
+                          str(n_layer)], capture_output=True, text=True,
+                         timeout=PROBE_TIMEOUT_S, cwd=str(Path(__file__).resolve().parent))
+    dt = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        word, *rest = line.split() or [""]
+        if word == "PROBE_OK" and res.returncode == 0:
+            return True, int(rest[1]), int(rest[2]), dt
+        if word == "PROBE_OOM" and res.returncode == 0:
+            return False, int(rest[1]), 0, dt
+    raise RuntimeError(f"probe {n_layer} failed (exit {res.returncode}):\n"
+                       f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+
+
+def phase_offload_capacity():
+    """bench.py's max_params_offload on the card: the deepest 1600-wide GPT-2
+    (8-layer steps) whose offload footprint fits, seeded at CAPACITY_SEED."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    probes = {}
+
+    def fits(n):
+        if n not in probes:
+            probes[n] = _probe(n)
+            ok, params, peak, dt = probes[n]
+            log(f"[offload-capacity] {n} layers ({params / 1e9:.3f} B params): "
+                f"{'fits' if ok else 'out of memory'}, peak {peak / 1e9:.2f} GB, {dt:.1f} s")
+        return probes[n][0]
+
+    lo, hi = None, None
+    for n in CAPACITY_SEED:
+        if fits(n):
+            lo = n
+        else:
+            hi = n
+            break
+    if lo is None:
+        lo = CAPACITY_FLOOR
+        if not fits(lo):
+            raise AssertionError(f"[offload-capacity] {lo} layers do not fit")
+    if hi is None:
+        hi = CAPACITY_CEILING
+        if fits(hi):
+            lo = hi
+    while hi - lo > 8:
+        mid = (lo + hi) // 2 // 8 * 8
+        if mid <= lo:
+            break
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid
+    total = torch.cuda.get_device_properties(0).total_memory
+    params = probes[lo][1]
+    res = {"deepest_layers": lo, "params": params, "first_out_of_memory": hi,
+           "probes": {str(k): v[0] for k, v in sorted(probes.items())},
+           "probe_peak_gb": probes[lo][2] / 1e9, "device_total_gb": total / 1e9,
+           "host_state_gb_at_12_B": 12 * params / 1e9,
+           "host_gb_at_16_B": 16 * params / 1e9,
+           "device_engine_reckoned_max_params": total / 16,
+           "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+           "seconds": sum(v[3] for v in probes.values())}
+    log(f"[offload-capacity] {json.dumps(res)}")
+    return res
 
 
 # ------------------------------------------------------- long-sequence training
@@ -2180,7 +2569,11 @@ def bert_layer_check():
 
 
 def main():
-    card = phase_device()
+    probe = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--probe" else None
+    if len(sys.argv) > 1 and probe is None:
+        print("usage: chip_smoke.py [--probe N_LAYER]", file=sys.stderr)
+        sys.exit(2)
+    card = phase_device(quiet=probe is not None)
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     try:
@@ -2188,6 +2581,11 @@ def main():
     except ImportError as err:     # the script alone, outside a checkout of the repo
         print(f"chip_smoke: run it from the root of the repository ({err})", file=sys.stderr)
         sys.exit(1)
+    if probe is not None:
+        probe_offload_footprint(int(probe))
+        return
+    host = host_info()
+    log(f"[host] {json.dumps(host)}")
     phase_build()
     entry = phase_kernels()
     entry["launches"] = phase_serving()
@@ -2196,6 +2594,10 @@ def main():
         e["launches"] = n
     for e, n in zip(flash, phase_train_published()):
         e["launches_published"] = n
+    for e, n in zip(flash, phase_train_offload()):
+        e["launches_offload"] = n
+    phase_offload_large()
+    phase_offload_capacity()
     sparse = phase_block_sparse_kernels()
     for e, n in zip(sparse, phase_long_training()):
         e["launches"] = n
@@ -2206,6 +2608,7 @@ def main():
     for e, n in zip(flash, phase_bert_training()):
         e["launches_bert"] = n
     log(card)
+    log(f"host: {host['cpu']}, nproc {host['nproc']}, MemTotal {host['mem_total_gb']:.1f} GB")
     log(json.dumps({"kernels": [entry, *flash, *sparse, *fused]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

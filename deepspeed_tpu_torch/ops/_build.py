@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's kernels at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface, so ``nvcc``
 builds it into a shared library in seconds (no PyTorch headers). The library
@@ -7,11 +7,19 @@ and of the shared headers (``csrc/*.cuh``) so that an edited source never loads
 a stale build. Building needs ``nvcc``
 (on ``PATH``, under ``$CUDA_HOME`` or ``/usr/local/cuda``); nothing here runs
 at import time.
+
+Host sources, ``csrc/<name>.cpp`` (the ZeRO-Offload CPU Adam), are built by
+``g++ -O3 -march=native -fopenmp -fno-math-errno`` into the same directory
+(``load_host``).
+Their key adds the CPU's architecture and feature flags to the source: a
+``-march=native`` library built on one host is never loaded on a host with
+other instructions. A failed build raises; there is no fallback.
 """
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -83,4 +91,57 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build(name)[name].path))
         _LIBS[name] = lib
+    return lib
+
+
+# -fno-math-errno: sqrtf's errno branch keeps gcc from vectorizing a loop that
+# calls it; without errno it emits the IEEE vector square root, the same bits
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-fno-math-errno", "-std=c++17",
+              "-shared", "-fPIC")
+
+
+def _cpu_flags() -> bytes:
+    """The host's architecture and the feature-flags line of /proc/cpuinfo."""
+    key = platform.machine().encode()
+    with open("/proc/cpuinfo", "rb") as f:
+        for line in f:
+            if line.startswith((b"flags", b"Features")):
+                return key + line
+    return key
+
+
+def host_target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes() + _cpu_flags()
+                            + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-host-{digest}.so"
+
+
+def build_host(name: str) -> Build:
+    """Compile ``csrc/<name>.cpp`` with g++ for this host unless a build for
+    the same source and CPU exists; raises on a failed build."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = host_target(name)
+    if so.exists():
+        return Build(name, so, 0.0, "")
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: csrc/{name}.cpp is built at first use")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([gxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {name}.cpp (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    return Build(name, so, time.perf_counter() - t0, proc.stdout + proc.stderr)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cpp``, built first if needed."""
+    key = f"host:{name}"
+    lib = _LIBS.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_host(name).path))
+        _LIBS[key] = lib
     return lib

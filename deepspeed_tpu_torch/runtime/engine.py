@@ -37,8 +37,24 @@ compute params re-cast; an ``apply`` marked ``external_master`` owns the
 parameter state, so the engine holds no float32 master (``master_params`` is
 a float32 view of the compute params), hands it None and re-casts nothing.
 The ``activation_checkpointing`` block configures
-``activation_checkpointing/checkpointing.py``. What the slice does not carry
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+``activation_checkpointing/checkpointing.py``.
+
+ZeRO-Offload (``zero_optimization.cpu_offload``, stage 2): the float32 master
+and the Adam moments live in the host's memory (``ops/cpu_adam.py``
+``DeepSpeedCPUAdam``, filled leaf by leaf from the module's parameters, so no
+float32 copy of the model stays on the card); grads stay in the compute
+dtype on the card (float32 accumulator across micro-batches). The step
+(``_offload_step``, the JAX engine's order): the grads' D2H fetch begins, one
+device pass gives the global norm and the fp16 overflow, one host sync reads
+them, unscale × predivide × clip fold into the kernel's ``grad_scale``, the
+host Adam runs over the pipelined chunks with the per-group hypers and pushes
+the compute-dtype params back, then the scaler update; an overflow skips the
+host step. Only Adam and AdamW are offloaded; another optimizer or a client
+pair raises ``AssertionError`` as in the JAX engine. At dp > 1 each rank
+steps its own slices and ``unshard`` rebuilds the compute params.
+
+What the slice does not carry raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 ``compilation_cache_dir`` names the JAX compile cache and has no counterpart
 in eager PyTorch; it is ignored.
 """
@@ -53,6 +69,7 @@ from torch.utils import _pytree as pytree
 
 from ..device import resolve_device
 from ..ops import adam as adam_opt
+from ..ops.cpu_adam import DeepSpeedCPUAdam
 from ..ops import lamb as lamb_opt
 from ..ops import sgd as sgd_opt
 from ..utils import log_dist, logger
@@ -165,6 +182,9 @@ class DeepSpeedEngine:
         self.config = DeepSpeedConfig(config_params if config_params is not None
                                       else config_file, world_size=self.dp_size)
         self._refuse_unported()
+        offload = bool(self.config.zero_enabled and self.config.zero_config.cpu_offload)
+        if offload:
+            self._refuse_offload_optimizer(optimizer)
         if (client_apply is not None and self.config.zero_enabled and self.dp_size > 1):
             raise _later("a client (init, apply) optimizer under ZeRO at dp > 1 (the JAX "
                          "engine hands it global trees; the port holds per-rank slices)",
@@ -192,10 +212,23 @@ class DeepSpeedEngine:
         stage = self.zero_optimization_stage()
         self._axes = [zero_spec(tuple(p.shape), self.dp_size) if stage >= 1 else None
                       for p in self._params]
+        self._offload = None
         with torch.no_grad():
-            self._master = (None if self._external_master else
-                            [shard(p.detach().float().clone(), a, self.dp_rank, self.dp_size)
-                             for p, a in zip(self._params, self._axes)])
+            if offload:
+                # host-tier master: each leaf's slice copied to the host on its own
+                zc = self.config.zero_config
+                self._offload = DeepSpeedCPUAdam(
+                    [shard(p.detach(), a, self.dp_rank, self.dp_size)
+                     for p, a in zip(self._params, self._axes)],
+                    adamw=(self.config.optimizer_name == ADAMW_OPTIMIZER),
+                    pipeline=zc.offload_pipeline, pipeline_depth=zc.offload_pipeline_depth,
+                    max_region_elements=zc.offload_max_region_elements)
+                self._master = self._offload.params_tree()   # views of the host buffer
+            else:
+                self._master = (None if self._external_master else
+                                [shard(p.detach().float().clone(), a, self.dp_rank,
+                                       self.dp_size)
+                                 for p, a in zip(self._params, self._axes)])
             model.to(self.compute_dtype)
         # stage 2 keeps the accumulated grads reduce-scattered like the master
         self._grad_axes = self._axes if stage >= 2 else [None] * len(self._params)
@@ -218,7 +251,8 @@ class DeepSpeedEngine:
         else:
             self.scaler_state = ls.init_state(1.0)  # scale fixed at 1
 
-        grad_dtype = self.compute_dtype if stage >= 2 else torch.float32
+        grad_dtype = (self.compute_dtype if stage >= 2 or self._offload is not None
+                      else torch.float32)
         if self.config.allreduce_always_fp32:
             grad_dtype = torch.float32
         if self.config.communication_data_type is not None:
@@ -257,9 +291,7 @@ class DeepSpeedEngine:
     def _refuse_unported(self):
         c = self.config
         if c.zero_enabled and c.zero_optimization_stage >= 3:
-            raise _later("ZeRO stage 3", "item 17")
-        if c.zero_enabled and c.zero_config.cpu_offload:
-            raise _later("ZeRO-Offload (zero_optimization.cpu_offload)", "item 17")
+            raise _later("ZeRO stage 3", "item 17b")
         if c.optimizer_name == ONEBIT_ADAM_OPTIMIZER:
             raise _later("1-bit Adam", "item 18")
         if c.sparse_gradients_enabled:
@@ -279,15 +311,30 @@ class DeepSpeedEngine:
             if on:
                 raise _later(what, item)
 
+    def _refuse_offload_optimizer(self, optimizer):
+        """The JAX engine's asserts (deepspeed_tpu/runtime/engine.py:861-865),
+        raised so that python -O keeps them."""
+        name = self.config.optimizer_name or ADAM_OPTIMIZER
+        if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
+            raise AssertionError(f"ZeRO-Offload supports Adam/AdamW (got {name!r})")
+        if optimizer is not None and not isinstance(optimizer, str):
+            raise AssertionError("ZeRO-Offload steps the host-side DeepSpeedCPUAdam; "
+                                 "client optimizers unsupported")
+
     # ------------------------------------------------------------------ state views
     @property
     def master_params(self):
         """name -> this rank's float32 master (its ZeRO slice of the leaf); under
-        an external-master client optimizer a float32 view of the compute
-        params, made on access."""
+        ZeRO-Offload views of the host buffer; under an external-master client
+        optimizer a float32 view of the compute params, made on access."""
         if self._external_master:
             return {n: p.detach().float() for n, p in zip(self._names, self._params)}
         return dict(zip(self._names, self._master))
+
+    def offload_step_timing(self):
+        """The last ZeRO-Offload step's lanes (``DeepSpeedCPUAdam.step_regions``),
+        or None before it or without offload."""
+        return self._offload.last_step_timing if self._offload is not None else None
 
     # ------------------------------------------------------------------ config accessors
     def train_batch_size(self):
@@ -364,9 +411,18 @@ class DeepSpeedEngine:
         name = self.config.optimizer_name or ADAM_OPTIMIZER
         if name not in _OPTIMIZERS:
             raise ValueError(f"Unrecognized optimizer {name!r}")
-        self._opt_init, self._opt_apply = _OPTIMIZERS[name]
         self.optimizer = OptimizerHandle(name, self.config.optimizer_params or {},
                                          group_specs=specs)
+        if self._offload is not None:
+            # the host tier steps DeepSpeedCPUAdam; the state views read its buffers
+            self._opt_init = self._opt_apply = None
+            self.opt_state = adam_opt.AdamState(
+                exp_avg=self._offload.exp_avg_tree(),
+                exp_avg_sq=self._offload.exp_avg_sq_tree())
+            log_dist(f"Using ZeRO-Offload: host-tier DeepSpeedCPUAdam ({name}, "
+                     f"{self._offload.numel} local master elements)", ranks=[0])
+            return
+        self._opt_init, self._opt_apply = _OPTIMIZERS[name]
         self.opt_state = self._opt_init(self._master)
         log_dist(f"Using DeepSpeed Optimizer param name {self.optimizer.name}", ranks=[0])
 
@@ -590,6 +646,9 @@ class DeepSpeedEngine:
     def _take_model_step(self):
         if self.wall_clock_breakdown():
             self.timers("step_microstep").start()
+        if self._offload is not None:
+            self._finish_step(self._offload_step())
+            return
         grads = self._grad_acc
         fp16 = self.fp16_enabled()
         overflow, _ = detect_overflow(grads, fp16)
@@ -635,6 +694,60 @@ class DeepSpeedEngine:
             min_scale=self.config.min_loss_scale, hysteresis=self.config.hysteresis)
         self._last_grad_norm = norm
         self._finish_step(overflow)
+
+    def _offload_step(self) -> bool:
+        """The host-tier step (deepspeed_tpu/runtime/engine.py:2079-2146):
+        the grads' fetch begins, one device pass gives the norm and the fp16
+        overflow, one host sync reads both, unscale x predivide x clip fold
+        into ``grad_scale``, then the pipelined host Adam (skipped on
+        overflow) pushes the compute params back, and the scaler updates.
+        Returns the overflow."""
+        grads = self._grad_acc
+        handles = self._offload.begin_grad_fetch(grads)
+        fp16 = self.fp16_enabled()
+        norm_dev = self._grad_norm(grads)
+        flag = torch.zeros((), dtype=torch.float32, device=self.device)
+        if fp16:
+            flag = detect_overflow(grads, True)[0].to(self.device, torch.float32)
+            if self.dp_size > 1:
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        norm_raw, flag = torch.stack([norm_dev, flag]).tolist()   # the one host sync
+        overflow = bool(flag)
+        scale = float(self.scaler_state.cur_scale)
+        factor = 1.0
+        if scale != 1.0 and scale > 0:
+            factor = 1.0 / scale
+        predivide = float(self.config.gradient_predivide_factor or 1.0)
+        if self.config.prescale_gradients and predivide != 1.0:
+            factor *= predivide
+        norm = norm_raw * factor
+        self._last_grad_norm = norm
+        clip = float(self.gradient_clipping() or 0.0)
+        if clip > 0 and norm > clip:
+            factor *= clip / (norm + 1e-6)
+        if not overflow:
+            hyper = self.optimizer.current_hyper()
+            leaf_hypers = (None if self._groups is None else
+                           [hyper[gi] for gi in self._groups])
+            g = hyper[0]
+            sharded = self.dp_size > 1
+            out = [torch.empty(m.shape, dtype=self.compute_dtype, device=self.device)
+                   if sharded and a is not None else p.data
+                   for p, m, a in zip(self._params, self._master, self._axes)]
+            self._offload.step_regions(
+                handles, self.global_steps + 1 - self.skipped_steps, lr=g["lr"],
+                beta1=g["beta1"], beta2=g["beta2"], eps=g["eps"],
+                weight_decay=g["weight_decay"], grad_scale=factor, leaf_hypers=leaf_hypers,
+                out=out)
+            if sharded:
+                for p, part, a in zip(self._params, out, self._axes):
+                    if a is not None:
+                        p.copy_(unshard(part, a, self.dp_size))
+        self.scaler_state = ls.update(
+            self.scaler_state, overflow, dynamic=self._dynamic_scale,
+            scale_window=self.config.loss_scale_window,
+            min_scale=self.config.min_loss_scale, hysteresis=self.config.hysteresis)
+        return overflow
 
     def _finish_step(self, overflowed: bool):
         self._grad_acc = None

@@ -104,8 +104,8 @@ class DeepSpeedZeroConfig:
         if self.offload_device not in VALID_OFFLOAD_OPTIMIZER_DEVICES:
             raise ValueError(
                 f"{ZERO_OPTIMIZATION_OFFLOAD_OPTIMIZER}.{OFFLOAD_OPTIMIZER_DEVICE} "
-                f"'{self.offload_device}' is not supported on the TPU-VM host tier "
-                f"(valid: {VALID_OFFLOAD_OPTIMIZER_DEVICES})")
+                f"'{self.offload_device}' is not supported: the offload tier is the "
+                f"host memory of the GPU machine (valid: {VALID_OFFLOAD_OPTIMIZER_DEVICES})")
         self.offload_pipeline = bool(get_scalar_param(off, OFFLOAD_OPTIMIZER_PIPELINE,
                                                       OFFLOAD_OPTIMIZER_PIPELINE_DEFAULT))
         depth = get_scalar_param(off, OFFLOAD_OPTIMIZER_PIPELINE_DEPTH,

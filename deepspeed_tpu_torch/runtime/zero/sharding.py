@@ -10,7 +10,8 @@ states the same per-leaf choice and moves the data itself:
 - ``shard`` cuts rank r's slice r of that axis; ``unshard`` all-gathers the
   slices back; ``reduce_scatter`` sums a full leaf over the ranks and keeps
   rank r's slice;
-- ``sharding_coverage`` says how many bytes the layout actually shards.
+- ``sharding_coverage`` says how many bytes the layout actually shards;
+- ``chunk_spans`` cuts a flat range into the offload pipeline's work spans.
 
 The axis is an int (or None for a replicated leaf) where the JAX package
 returns a ``PartitionSpec``.
@@ -72,3 +73,23 @@ def sharding_coverage(axes, tensors):
         if axis is not None:
             sharded += nbytes
     return sharded, total
+
+
+def chunk_spans(total: int, cap: Optional[int]):
+    """Partition the flat range [0, total) into pipeline work spans of at most ``cap``
+    elements: ``(lo, hi, win)`` triples where [lo, hi) is the span and ``win`` is the
+    start of the fixed-width fetch window that covers it.
+
+    Every window is exactly ``cap`` wide (the last one is right-aligned at
+    ``total - cap``, overlapping its predecessor) so a single compiled fixed-width
+    device slice serves every chunk of a region — the overlap re-fetches identical
+    elements, which the consumer simply doesn't write twice. With ``cap`` None/0 or
+    ``total <= cap`` the region stays whole: one span, window 0.
+    """
+    if not cap or cap <= 0 or total <= cap:
+        return [(0, total, 0)]
+    spans = []
+    for lo in range(0, total, cap):
+        hi = min(lo + cap, total)
+        spans.append((lo, hi, lo if hi - lo == cap else total - cap))
+    return spans

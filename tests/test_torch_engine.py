@@ -207,7 +207,6 @@ def _refused():
     base = {"train_batch_size": 1}
     return [
         dict(base, zero_optimization={"stage": 3}),
-        dict(base, zero_optimization={"stage": 2, "cpu_offload": True}),
         dict(base, optimizer={"type": "OneBitAdam", "params": {"lr": 1e-3}}),
         dict(base, sparse_gradients=True),
         dict(base, comm={"mode": "hierarchical"}),
