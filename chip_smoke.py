@@ -70,7 +70,23 @@ result line):
    tensor cores, every host step on the native CPU Adam
    (``csrc/cpu_adam.cpp``, built by g++), that kernel against its plain
    version on one chunk of the run's own state and grads (and its time at
-   one thread), the pipeline's lanes, a profiler window; ``[offload-large]``:
+   one thread, and its bound from the host's memory rate: the fastest of a
+   read, a copy and a triad over 2 GiB buffers at the kernel's thread count), the pipeline's lanes, a profiler
+   window; ``[checkpoint]``: in a ``tempfile.mkdtemp()`` directory (its free
+   bytes, the reckoned bytes of each round trip and the disk's write rate of
+   one fsynced 1 GiB file printed first; too little room raises), (1) the
+   slice-2 training config at 48 layers saved after 4 steps, a fresh engine
+   from another init loaded and trained 4 more: params, master and moments
+   after the load and the 4 losses bit for bit against the uninterrupted
+   run, the save timed by stage (snapshot, payload write, hash + manifest,
+   fsync + rename) and the load (verify, read, place), with their GB/s;
+   (2) the published config with the ``resilience`` block saving every 4
+   steps on the writer thread for 12 steps (the step times with a commit in
+   flight against those without, each save's stall, 3 commits verified),
+   then ``auto_resume`` in a fresh engine at step 12 bit for bit; (3) the
+   offload host tier at 12 layers round-tripped bit for bit, then loaded
+   into a device engine: its master bit for bit, its losses within
+   ``[train-offload]``'s bound; ``[offload-large]``:
    1600-wide GPT-2 at LARGE_LAYERS (5.0 B params), which the device engine
    could not hold (16 B a parameter), with full remat for 3 steps;
    ``[offload-capacity]``: ``bench.py``'s ``max_params_offload``, the deepest
@@ -143,9 +159,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1173,6 +1191,12 @@ PROBE_TOKENS = (4, 1024)
 PROBE_TIMEOUT_S = 300
 
 
+def _n_params(n_layer):
+    """GPT-2's parameter count at MODEL's widths and ``n_layer`` layers."""
+    e = MODEL["n_embd"]
+    return n_layer * (12 * e * e + 13 * e) + (MODEL["vocab_size"] + MODEL["n_positions"] + 2) * e
+
+
 def host_info():
     """The host's CPU model, cores and memory, which the host step's time
     depends on."""
@@ -1192,13 +1216,13 @@ def host_info():
             "mem_available_gb": mem["MemAvailable"] / 1e9}
 
 
-def _offload_engine(n_layer, offload, **over):
+def _offload_engine(n_layer, offload, seed=0, **over):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
     gc.collect()
     torch.cuda.empty_cache()
     model = GPT2Model(GPT2Config(**dict(PUBLISHED_MODEL, n_layer=n_layer, **over)))
-    model.init(torch.Generator(device="cuda").manual_seed(0))
+    model.init(torch.Generator(device="cuda").manual_seed(seed))
     cfg = dict(OFFLOAD_CONFIG, zero_optimization={"stage": 2, "cpu_offload": offload})
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=cfg)
     torch.cuda.synchronize()
@@ -1243,6 +1267,33 @@ def _median_lanes(lanes):
     return out
 
 
+def host_memory_rates(threads, gib=2, runs=4):
+    """The host's memory rates (GB/s) at ``threads`` threads over ``gib`` GiB
+    float32 buffers, each the median of the runs after the first: ``read`` (a
+    sum), ``copy`` (b into a) and ``triad`` (a = b + 0.5 c), their bytes
+    counted as STREAM counts them (each operand once, no write-allocate)."""
+    n = (gib << 30) // 4
+    b, c, a = torch.ones(n), torch.full((n,), 2.0), torch.zeros(n)
+    kernels = {"read": (lambda: c.sum(), 1), "copy": (lambda: a.copy_(c), 2),
+               "triad": (lambda: torch.add(b, c, alpha=0.5, out=a), 3)}
+    prev = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    rates = {}
+    try:
+        for name, (fn, operands) in kernels.items():
+            times = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            rates[name] = operands * n * 4 / statistics.median(times[1:]) / 1e9
+    finally:
+        torch.set_num_threads(prev)
+    if float(c.sum()) != 2.0 * n or not bool((a == 2.0).all()):
+        raise AssertionError("the host memory kernels computed a wrong value")
+    return rates
+
+
 def host_kernel_check(engine, tokens, labels):
     """The native host Adam against its plain version on the main path's
     inputs: one chunk of the engine's own master and moments (copies) and
@@ -1282,9 +1333,12 @@ def host_kernel_check(engine, tokens, labels):
     scale = float(plain[1].abs().max())
     ms = statistics.median(r[0] for r in native) * 1e3
     nbytes = n * (3 * 4 * 2 + 2 + 2)   # p, m, v read and written; the grad; the copy
+    rates = host_memory_rates(threads)
     res = {"elements": n, "threads": threads, "max_abs_err": err, "out_max_abs_err": out_err,
            "max_abs_master": scale, "ms": ms, "ms_one_thread": one[0] * 1e3,
-           "plain_ms": plain[0] * 1e3, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6}
+           "plain_ms": plain[0] * 1e3, "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+           "host_memory_gb_per_s": rates,
+           "bound_ms": nbytes / max(rates.values()) / 1e6, "bound_by": "bytes"}
     log(f"[train-offload] host kernel vs plain: {json.dumps(res)}")
     if not err <= 1e-6 * scale or out_err > 2 ** -7 * scale:
         raise AssertionError("the native host Adam disagrees with its plain version")
@@ -1372,16 +1426,402 @@ def phase_train_offload():
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, clip_rounding
+
+
+# ---------------------------------------------------------------- checkpointing
+# save -> continue against fresh engine -> load -> continue, at GPT-2 1.5B's
+# full width in bf16: (1) the slice-2 config (TRAIN_MODEL, TRAIN_CONFIG) at 48
+# layers, its whole state; (2) the published config (bench.py:391-420) at 48
+# layers with the engine's resilience block saving every CKPT_INTERVAL steps
+# on the writer thread, then auto_resume; (3) ZeRO-Offload's host tier at
+# CKPT_OFFLOAD_LAYERS (the code path is the same at any depth), then its
+# checkpoint into a device engine
+CKPT_STEPS = 4                  # steps before the save, and after it
+CKPT_ASYNC_STEPS = 12
+CKPT_INTERVAL = 4
+CKPT_BASELINE_STEPS = 3         # after the last commit: steps with none in flight
+CKPT_OFFLOAD_LAYERS = 12
+CKPT_FREE_FACTOR = 1.2          # free bytes needed over the largest round trip
+CKPT_PROBE_BYTES = 1 << 30      # the disk's write rate: one file, written and fsynced
+
+
+def _ckpt_batches(n, rows):
+    """``n`` seeded batches of ``rows`` x 1024 tokens on the card."""
+    rng = np.random.default_rng(1)
+    out = []
+    for _ in range(n):
+        tokens = rng.integers(0, MODEL["vocab_size"], size=(rows, MODEL["n_positions"]))
+        labels = np.roll(tokens, -1, axis=1)
+        out.append((torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()))
+    return out
+
+
+def _ckpt_train(engine, batches):
+    """Step losses (the mean over the window's micro-batches) and step seconds."""
+    gas = engine.gradient_accumulation_steps()
+    losses, step_s = [], []
+    for tokens, labels in batches:
+        mb = tokens.shape[0] // gas
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        window = []
+        for m in range(gas):
+            loss = engine(tokens[m * mb:(m + 1) * mb], labels[m * mb:(m + 1) * mb])
+            engine.backward(loss)
+            engine.step()
+            window.append(loss.detach())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(torch.stack(window).float().mean()))
+    return losses, step_s
+
+
+def disk_write_rate(path):
+    """GB/s of one CKPT_PROBE_BYTES file written and fsynced in ``path``."""
+    block = np.frombuffer(os.urandom(64 << 20), np.uint8)
+    probe = os.path.join(path, "write_probe.bin")
+    t0 = time.perf_counter()
+    with open(probe, "wb") as f:
+        for _ in range(CKPT_PROBE_BYTES // block.size):
+            f.write(block)
+        f.flush()
+        os.fsync(f.fileno())
+    dt = time.perf_counter() - t0
+    os.remove(probe)
+    return CKPT_PROBE_BYTES / dt / 1e9
+
+
+def _gbps(nbytes, s):
+    return nbytes / s / 1e9 if s > 0 else None
+
+
+def _snapshot_bytes(snapshot):
+    """Bytes of the snapshot's arrays by class: params, master, optimizer
+    state (device layout or offload regions), the rest."""
+    out = {"params": 0, "master": 0, "optimizer": 0, "other": 0}
+    for name, (kind, payload) in snapshot["files"].items():
+        if kind != "npz":
+            continue
+        for key, arr in payload.items():
+            if name.startswith("mp_rank"):
+                cls = "params"
+            elif key.startswith("master/"):
+                cls = "master"
+            elif key.startswith(("opt/", "exp_avg")):
+                cls = "optimizer"
+            else:
+                cls = "other"
+            out[cls] += arr.nbytes
+    return out
+
+
+def _timed_save(engine, save_dir):
+    """save_checkpoint in its two phases, timed: (snapshot, record)."""
+    from deepspeed_tpu_torch.checkpoint import checkpointing as ckpt
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snapshot = ckpt.snapshot_checkpoint(engine)
+    snap_s = time.perf_counter() - t0
+    ckpt.write_snapshot(snapshot, save_dir)
+    wall = time.perf_counter() - t0
+    classes = _snapshot_bytes(snapshot)
+    host = sum(classes.values())
+    tag_dir = os.path.join(save_dir, snapshot["tag"])
+    files = {n: os.path.getsize(os.path.join(tag_dir, n)) for n in sorted(os.listdir(tag_dir))}
+    disk = sum(files.values())
+    sec = snapshot["seconds"]
+    rec = {"wall_s": wall, "bytes_by_class": classes, "file_bytes": files,
+           "snapshot_s": snap_s, "snapshot_gb_per_s": _gbps(host, snap_s),
+           "write_s": sec["write"], "write_gb_per_s": _gbps(disk, sec["write"]),
+           "hash_manifest_s": sec["hash_manifest"],
+           "hash_gb_per_s": _gbps(disk, sec["hash_manifest"]),
+           "fsync_rename_s": sec["fsync_rename"]}
+    return snapshot, rec
+
+
+def _timed_load(engine, save_dir):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path, _ = engine.load_checkpoint(save_dir)
+    wall = time.perf_counter() - t0
+    if path is None:
+        raise AssertionError(f"[checkpoint] nothing loaded from {save_dir}")
+    disk = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+    sec = engine.last_checkpoint_load
+    return {"wall_s": wall, "verify_s": sec["verify"], "verify_gb_per_s": _gbps(disk, sec["verify"]),
+            "read_s": sec["read"], "read_gb_per_s": _gbps(disk, sec["read"]),
+            "place_s": sec["place"]}
+
+
+def npz_read_rates(path, turns=2):
+    """GB/s of reading every member of the npz archive ``path`` through
+    ``np.load`` and through the checkpoint loader's ``NpzFile``, in turns
+    (np.load, NpzFile, NpzFile, np.load), and whether they read the same."""
+    from deepspeed_tpu_torch.checkpoint.checkpointing import NpzFile
+    nbytes = os.path.getsize(path)
+    times = {"np_load": [], "NpzFile": []}
+    same = True
+    for order in [("np_load", "NpzFile"), ("NpzFile", "np_load")] * (turns // 2):
+        for name in order:
+            t0 = time.perf_counter()
+            with (np.load(path) if name == "np_load" else NpzFile(path)) as data:
+                arrays = {k: data[k] for k in data.files}
+            times[name].append(time.perf_counter() - t0)
+            if name == "NpzFile":
+                with np.load(path) as want:
+                    same &= all(np.array_equal(arrays[k], want[k]) for k in want.files)
+            del arrays
+    return {name: nbytes / min(t) / 1e9 for name, t in times.items()}, same
+
+
+def _device_state_equal(engine, snapshot):
+    """Whether the engine's params, master and optimizer state equal the
+    snapshot's arrays bit for bit, leaf by leaf on the card."""
+    from deepspeed_tpu_torch.checkpoint import checkpointing as ckpt
+    params = snapshot["files"][ckpt.model_states_name() + ".npz"][1]
+    optim = snapshot["files"][ckpt.optim_states_name(0) + ".npz"][1]
+    same = {"params": True, "master": True, "optimizer": True}
+    for key, i in engine._ckpt_keys():
+        p = engine._params[i].detach()
+        same["params"] &= torch.equal(p.float(), torch.from_numpy(params[key]).cuda().view(p.shape))
+        m = engine._master[i]
+        same["master"] &= torch.equal(m.reshape(-1), torch.from_numpy(optim[f"master/{key}"]).cuda())
+        for field in engine.opt_state._fields:
+            t = getattr(engine.opt_state, field)[i]
+            same["optimizer"] &= torch.equal(
+                t.reshape(-1), torch.from_numpy(optim[f"opt/{field}/{key}"]).cuda())
+    return same
+
+
+def _ckpt_full_state(root, n_layer):
+    """Part 1: the slice-2 config's whole state, saved, reloaded into a fresh
+    engine (another init) and continued against the uninterrupted run."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    def build(seed):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = GPT2Model(GPT2Config(**dict(TRAIN_MODEL, n_layer=n_layer)))
+        model.init(torch.Generator(device="cuda").manual_seed(seed))
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=TRAIN_CONFIG)
+        return engine
+
+    save_dir = os.path.join(root, "full")
+    batches = _ckpt_batches(2 * CKPT_STEPS, TRAIN_CONFIG["train_batch_size"])
+    engine = build(0)
+    before, _ = _ckpt_train(engine, batches[:CKPT_STEPS])
+    snapshot, save = _timed_save(engine, save_dir)
+    uninterrupted, _ = _ckpt_train(engine, batches[CKPT_STEPS:])
+    del engine
+    engine = build(1)
+    load = _timed_load(engine, save_dir)
+    same = _device_state_equal(engine, snapshot)
+    del snapshot
+    gc.collect()
+    _zero_flash_counts()
+    resumed, step_s = _ckpt_train(engine, batches[CKPT_STEPS:])
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    want = [n_layer * engine.gradient_accumulation_steps() * CKPT_STEPS] * 3
+    del engine
+    res = {"n_layer": n_layer, "losses_before_save": before, "uninterrupted": uninterrupted,
+           "resumed": resumed, "resumed_step_ms": [s * 1e3 for s in step_s],
+           "state_bit_equal_after_load": same, "save": save, "load": load,
+           "flash_launches_resumed": launches, "tensor_core_launches_resumed": tc}
+    log(f"[checkpoint] full state: {json.dumps(res)}")
+    checks = {"state_bit_equal": all(same.values()),
+              "losses_bit_equal": resumed == uninterrupted,
+              "flash_launches": launches == want and tc == want}
+    return res, checks
+
+
+def _ckpt_published(root):
+    """Part 2: the published config with the resilience block (async saves
+    every CKPT_INTERVAL steps), then auto_resume in a fresh engine."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.checkpoint import checkpointing as ckpt
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.runtime.client_optimizers import shard_optimizer
+
+    save_dir = os.path.join(root, "published")
+    block = {"enabled": True, "save_dir": save_dir, "save_interval": CKPT_INTERVAL,
+             "async_save": True}
+
+    def build(seed, resilience):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = GPT2Model(GPT2Config(**PUBLISHED_MODEL))
+        model.init(torch.Generator(device="cuda").manual_seed(seed))
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, optimizer=shard_optimizer(32),
+            config_params=dict(PUBLISHED_CONFIG, resilience=resilience))
+        return engine
+
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    engine = build(0, block)
+    writer = engine._resilience
+    steps, stalls = [], []
+    for i in range(CKPT_ASYNC_STEPS + CKPT_BASELINE_STEPS):
+        if i == CKPT_ASYNC_STEPS:
+            t = time.perf_counter()
+            writer.wait()
+            last_commit_wait_s = time.perf_counter() - t
+        busy = writer.in_flight
+        started = writer.saves_started
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine(tokens, labels)
+        engine.backward(loss)
+        engine.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        saved = writer.saves_started > started
+        if saved:
+            stalls.append(writer.last_stall_ms)
+        steps.append({"step": i + 1, "ms": dt * 1e3, "commit_in_flight": busy or writer.in_flight,
+                      "saved": saved})
+    committed = writer.saves_committed
+    del engine, writer
+    tags = sorted(n for n in os.listdir(save_dir) if n.startswith("global_step"))
+    verified = {t: ckpt.verify_checkpoint(os.path.join(save_dir, t)) for t in tags}
+    # steps 1-2 warm up; a save step carries its own snapshot stall
+    in_flight = [s["ms"] for s in steps[2:] if s["commit_in_flight"] and not s["saved"]]
+    none = [s["ms"] for s in steps[2:] if not s["commit_in_flight"] and not s["saved"]]
+
+    engine = build(1, dict(block, save_interval=0, auto_resume=True))
+    tag_dir = os.path.join(save_dir, f"global_step{CKPT_ASYNC_STEPS}")
+    with np.load(os.path.join(tag_dir, ckpt.model_states_name() + ".npz")) as data:
+        params_equal = all(torch.equal(engine._params[i].detach().float(),
+                                       torch.from_numpy(data[key]).cuda())
+                           for key, i in engine._ckpt_keys())
+    with np.load(os.path.join(tag_dir, ckpt.optim_states_name(0) + ".npz")) as data:
+        opt_equal = all(torch.equal(engine.opt_state[k], torch.from_numpy(data[f"opt/{k}"]).cuda())
+                        for k in ("shard", "m1", "m2"))
+    resumed_at = engine.global_steps
+    load = dict(engine.last_checkpoint_load)
+    del engine
+    readers, readers_same = npz_read_rates(os.path.join(tag_dir, ckpt.optim_states_name(0)
+                                                        + ".npz"))
+    res = {"steps": steps, "stall_ms": stalls, "saves_committed": committed,
+           "last_commit_wait_s": last_commit_wait_s,
+           "step_ms_median_commit_in_flight": statistics.median(in_flight) if in_flight else None,
+           "step_ms_median_no_commit": statistics.median(none) if none else None,
+           "tags": tags, "verified": {t: list(v) for t, v in verified.items()},
+           "save_bytes": {t: sum(os.path.getsize(os.path.join(save_dir, t, n))
+                                 for n in os.listdir(os.path.join(save_dir, t))) for t in tags},
+           "auto_resume_global_steps": resumed_at, "auto_resume_load": load,
+           "auto_resume_params_bit_equal": params_equal,
+           "auto_resume_client_state_bit_equal": opt_equal,
+           "optim_file_read_gb_per_s": readers}
+    log(f"[checkpoint] published, async: {json.dumps(res)}")
+    checks = {"three_async_commits": committed == 3 and len(tags) == 3,
+              "tags_verified": all(v == (True, "ok") for v in verified.values()),
+              "auto_resume_step": resumed_at == CKPT_ASYNC_STEPS,
+              "auto_resume_state": params_equal and opt_equal,
+              "npz_readers_agree": readers_same,
+              "step_ms_both_kinds": bool(in_flight and none)}
+    return res, checks
+
+
+def _ckpt_offload(root, clip_rounding):
+    """Part 3: the host tier at CKPT_OFFLOAD_LAYERS, saved, reloaded into a
+    fresh offload engine and continued bit for bit, then into a device
+    engine (the other layout)."""
+    from deepspeed_tpu_torch.checkpoint import checkpointing as ckpt
+    save_dir = os.path.join(root, "offload")
+    n_layer = CKPT_OFFLOAD_LAYERS
+    batches = _ckpt_batches(2 * CKPT_STEPS, OFFLOAD_CONFIG["train_batch_size"])
+    engine, _ = _offload_engine(n_layer, offload=True)
+    _ckpt_train(engine, batches[:CKPT_STEPS])
+    snapshot, save = _timed_save(engine, save_dir)
+    uninterrupted, _ = _ckpt_train(engine, batches[CKPT_STEPS:])
+    del engine
+    regions = snapshot["files"][ckpt.offload_states_name(0) + ".npz"][1]
+
+    def host_equal(engine):
+        off = engine._offload
+        bufs = {"master": off.fp32, "exp_avg": off.exp_avg, "exp_avg_sq": off.exp_avg_sq}
+        for li, (key, i) in enumerate(engine._ckpt_keys()):
+            r = off._regions[i]
+            for prefix, buf in bufs.items():
+                if not torch.equal(buf[r.offset:r.offset + r.size],
+                                   torch.from_numpy(regions[f"{prefix}/r{li}_{r.offset}"])):
+                    return False
+        return True
+
+    engine, _ = _offload_engine(n_layer, offload=True, seed=1)
+    load = _timed_load(engine, save_dir)
+    same = host_equal(engine)
+    resumed, _ = _ckpt_train(engine, batches[CKPT_STEPS:])
+    del engine
+
+    engine, _ = _offload_engine(n_layer, offload=False, seed=1)
+    dev_load = _timed_load(engine, save_dir)
+    manifest = snapshot["files"]["offload_manifest_0.json"][1]
+    tags = {r["leaf"]: r["tag"] for r in manifest["regions"]}
+    master_equal = all(
+        torch.equal(engine._master[i].reshape(-1),
+                    torch.from_numpy(regions[f"master/{tags[li]}"]).cuda())
+        for li, (key, i) in enumerate(engine._ckpt_keys()))
+    device, _ = _ckpt_train(engine, batches[CKPT_STEPS:])
+    del engine, snapshot, regions
+    gap = max(abs(a - b) for a, b in zip(device, uninterrupted))
+    res = {"n_layer": n_layer, "save": save, "load": load, "host_state_bit_equal": same,
+           "uninterrupted": uninterrupted, "resumed": resumed,
+           "device_engine_load": dev_load, "device_master_bit_equal": master_equal,
+           "device_engine_losses": device, "device_vs_offload_max_abs": gap,
+           "tolerance": OFFLOAD_LOSS_TOL + clip_rounding}
+    log(f"[checkpoint] offload: {json.dumps(res)}")
+    checks = {"offload_state_bit_equal": same, "offload_losses_bit_equal": resumed == uninterrupted,
+              "device_master_bit_equal": master_equal,
+              "device_losses": gap <= OFFLOAD_LOSS_TOL + clip_rounding}
+    return res, checks
+
+
+def phase_checkpoint(clip_rounding):
+    """Checkpointing at GPT-2 1.5B's width: the full state round trip, async
+    saves of the published config with auto_resume, the offload host tier.
+    ``clip_rounding`` is [train-offload]'s device-engine clip-rounding gap."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        n_full, n_off = _n_params(MODEL["n_layer"]), _n_params(CKPT_OFFLOAD_LAYERS)
+        reckoned = {"full_state": 16 * n_full,   # params widened, master, two moments
+                    "published_3_saves": 3 * (4 * n_full + 3 * 4 * (n_full // 32)),
+                    "offload": 16 * n_off}
+        free = shutil.disk_usage(root).free
+        rate = disk_write_rate(root)
+        log(f"[checkpoint] dir {root}; free {free} B; reckoned bytes {json.dumps(reckoned)}; "
+            f"disk write rate {rate:.3f} GB/s ({CKPT_PROBE_BYTES} B written and fsynced)")
+        need = CKPT_FREE_FACTOR * max(reckoned.values())
+        if free < need:
+            raise AssertionError(f"[checkpoint] {free} B free in {root}, {need:.0f} B needed "
+                                 f"({CKPT_FREE_FACTOR} x the largest round trip)")
+        checks = {}
+        full, c = _ckpt_full_state(root, MODEL["n_layer"])
+        checks.update(c)
+        shutil.rmtree(os.path.join(root, "full"))
+        published, c = _ckpt_published(root)
+        checks.update(c)
+        shutil.rmtree(os.path.join(root, "published"))
+        offload, c = _ckpt_offload(root, clip_rounding)
+        checks.update(c)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[checkpoint] checks {json.dumps(checks)}; host "
+            f"{json.dumps(host_info())}; disk write rate {rate!r} GB/s")
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"[checkpoint] failed: {failed}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_offload_large():
     """A model the device engine cannot hold: LARGE_LAYERS x 1600 with full
     remat, ZeRO-Offload, batch 8 x 1024, LARGE_STEPS steps."""
     host = host_info()
-    per_layer = 12 * MODEL["n_embd"] ** 2 + 13 * MODEL["n_embd"]
-    n_est = LARGE_LAYERS * per_layer + (MODEL["vocab_size"] + MODEL["n_positions"] + 2) \
-        * MODEL["n_embd"]
+    n_est = _n_params(LARGE_LAYERS)
     if 12 * n_est > host["mem_available_gb"] * 1e9:
         raise AssertionError(f"[offload-large] the host state ({12 * n_est / 1e9:.1f} GB) "
                              f"exceeds MemAvailable ({host['mem_available_gb']:.1f} GB)")
@@ -2594,8 +3034,10 @@ def main():
         e["launches"] = n
     for e, n in zip(flash, phase_train_published()):
         e["launches_published"] = n
-    for e, n in zip(flash, phase_train_offload()):
+    offload_launches, clip_rounding = phase_train_offload()
+    for e, n in zip(flash, offload_launches):
         e["launches_offload"] = n
+    phase_checkpoint(clip_rounding)
     phase_offload_large()
     phase_offload_capacity()
     sparse = phase_block_sparse_kernels()

@@ -14,8 +14,9 @@ GPT-2 block (``GPT2Config.fused_block``, ``csrc/fused_block_tc.cu`` on the
 tensor cores, ``csrc/fused_block.cu`` on the CUDA cores) with the
 BERT family (``models.bert`` over ``ops.transformer``). Training takes
 activation checkpointing (``GPT2Config.remat`` / ``remat_policy``, the
-config's ``activation_checkpointing`` block; ``checkpointing``) and client
-``(init, apply)`` optimizers.
+config's ``activation_checkpointing`` block; ``checkpointing``), client
+``(init, apply)`` optimizers, ZeRO-Offload, and checkpoints in the JAX
+package's format (``checkpoint``) with the ``resilience`` block.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ROADMAP.md lists what later slices bring.
 """

@@ -216,12 +216,14 @@ class PipelinedTransferExecutor:
 
 class _Region:
     """One leaf (this rank's slice of one parameter): a segment of the flat
-    host buffers."""
+    host buffers, and the slice's ``starts`` / ``stops`` per axis within the
+    full parameter (the offload checkpoint's region manifest)."""
 
-    __slots__ = ("leaf", "shape", "size", "offset")
+    __slots__ = ("leaf", "shape", "size", "offset", "starts", "stops")
 
-    def __init__(self, leaf, shape, size, offset):
+    def __init__(self, leaf, shape, size, offset, starts, stops):
         self.leaf, self.shape, self.size, self.offset = leaf, shape, size, offset
+        self.starts, self.stops = list(starts), list(stops)
 
 
 class WorkItem(NamedTuple):
@@ -250,17 +252,22 @@ class DeepSpeedCPUAdam:
     ``zero_optimization.offload_optimizer``): ``pipeline`` (threaded lanes, or
     the serial walk), ``pipeline_depth`` K (chunks in flight, the rings' slots)
     and ``max_region_elements`` (the chunk cap; "auto" autotunes it). Tests may
-    inject an executor as ``transfer_executor``.
+    inject an executor as ``transfer_executor``. ``leaf_slices``: per leaf the
+    (starts, stops) of the slice it holds within its full parameter (the
+    engine's ZeRO slices; default each leaf whole).
     """
 
     def __init__(self, params_tree, adamw: bool = True, bias_correction: bool = True,
                  pipeline: bool = True, pipeline_depth: int = 2,
-                 max_region_elements="auto"):
+                 max_region_elements="auto", leaf_slices=None):
         leaves, self._treedef = pytree.tree_flatten(params_tree)
+        if leaf_slices is None:
+            leaf_slices = [([0] * leaf.dim(), list(leaf.shape)) for leaf in leaves]
         self._regions = []
         offset = 0
-        for li, leaf in enumerate(leaves):
-            self._regions.append(_Region(li, tuple(leaf.shape), leaf.numel(), offset))
+        for li, (leaf, (starts, stops)) in enumerate(zip(leaves, leaf_slices)):
+            self._regions.append(_Region(li, tuple(leaf.shape), leaf.numel(), offset,
+                                         starts, stops))
             offset += leaf.numel()
         self.numel = offset
         self.fp32 = torch.empty(self.numel, dtype=torch.float32)

@@ -1,0 +1,16 @@
+"""Resilience layer (PyTorch port of ``deepspeed_tpu/resilience``): async
+checkpointing and auto-resume.
+
+- ``async_ckpt``:  two-phase save — device→host snapshot on the step thread,
+  commit-protocol file writes on a background writer thread.
+- ``auto_resume``: pick the newest committed checkpoint *before* the flight
+  recorder's first bad step; restore the journaled loss scale.
+
+The JAX package's ``elastic`` (the 1-bit error-feedback buffers), ``crash_sim``
+and ``serve_restart`` are ROADMAP.md items 18, 20 and 10.4.
+"""
+
+from .async_ckpt import AsyncCheckpointer
+from .auto_resume import auto_resume, find_resume_point
+
+__all__ = ["AsyncCheckpointer", "auto_resume", "find_resume_point"]

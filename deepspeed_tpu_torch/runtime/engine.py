@@ -53,6 +53,15 @@ host step. Only Adam and AdamW are offloaded; another optimizer or a client
 pair raises ``AssertionError`` as in the JAX engine. At dp > 1 each rank
 steps its own slices and ``unshard`` rebuilds the compute params.
 
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
+``checkpoint/checkpointing.py``) are the JAX engine's files, key for key:
+``_ckpt_keys`` gives each leaf's on-disk key, ``_ckpt_export`` /
+``_ckpt_import`` move the state between this rank's slices and the full
+host arrays (the JAX engine's identity layout). The ``resilience`` block
+saves every ``save_interval`` steps from ``_finish_step`` through
+``resilience/async_ckpt.py`` and, with ``auto_resume``, restores the newest
+committed tag at construction.
+
 What the slice does not carry raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 ``compilation_cache_dir`` names the JAX compile cache and has no counterpart
@@ -67,11 +76,14 @@ import torch.distributed as dist
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from ..checkpoint import checkpointing as ckpt
 from ..device import resolve_device
 from ..ops import adam as adam_opt
 from ..ops.cpu_adam import DeepSpeedCPUAdam
 from ..ops import lamb as lamb_opt
 from ..ops import sgd as sgd_opt
+from ..resilience.async_ckpt import AsyncCheckpointer
+from ..resilience.auto_resume import auto_resume
 from ..utils import log_dist, logger
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer, device_sync
 from .activation_checkpointing import checkpointing as act_ckpt
@@ -83,7 +95,8 @@ from .dataloader import DeepSpeedDataLoader
 from .fp16 import loss_scaler as ls
 from .lr_schedules import get_scheduler
 from .utils import clip_grads_by_global_norm, detect_overflow
-from .zero.sharding import reduce_scatter, shard, sharding_coverage, unshard, zero_spec
+from .zero.sharding import (reduce_scatter, shard, sharding_coverage, slice_bounds, unshard,
+                            zero_spec)
 
 
 def _later(what, item):
@@ -222,7 +235,9 @@ class DeepSpeedEngine:
                      for p, a in zip(self._params, self._axes)],
                     adamw=(self.config.optimizer_name == ADAMW_OPTIMIZER),
                     pipeline=zc.offload_pipeline, pipeline_depth=zc.offload_pipeline_depth,
-                    max_region_elements=zc.offload_max_region_elements)
+                    max_region_elements=zc.offload_max_region_elements,
+                    leaf_slices=[slice_bounds(tuple(p.shape), a, self.dp_rank, self.dp_size)
+                                 for p, a in zip(self._params, self._axes)])
                 self._master = self._offload.params_tree()   # views of the host buffer
             else:
                 self._master = (None if self._external_master else
@@ -288,6 +303,18 @@ class DeepSpeedEngine:
         if self.config.dump_state:
             self.config.print("DeepSpeedEngine configuration")
 
+        self._ckpt_key_list = None          # _ckpt_keys, built at first use
+        self.last_checkpoint_load = None    # load_checkpoint's seconds by stage
+        # ---- resilience: periodic async checkpointing and auto-resume
+        # (deepspeed_tpu/runtime/engine.py:676-700). All host-side: the save
+        # hook in _finish_step snapshots the committed step state and commits
+        # on a writer thread
+        self._resilience = None
+        if self.config.resilience_enabled and self.config.resilience_save_dir:
+            self._resilience = AsyncCheckpointer(self, self.config.resilience_save_dir)
+            if self.config.resilience_auto_resume:
+                auto_resume(self, self.config.resilience_save_dir)
+
     def _refuse_unported(self):
         c = self.config
         if c.zero_enabled and c.zero_optimization_stage >= 3:
@@ -306,7 +333,6 @@ class DeepSpeedEngine:
             raise _later("fused_step", "item 25")
         for on, what, item in ((c.telemetry_enabled, "telemetry", "items 21-22"),
                                (c.numerics_enabled, "numerics", "item 22"),
-                               (c.resilience_enabled, "resilience", "item 20"),
                                (c.tensorboard_enabled, "the tensorboard monitor", "item 21")):
             if on:
                 raise _later(what, item)
@@ -761,19 +787,118 @@ class DeepSpeedEngine:
                      f"lr={self.get_lr()}, mom={self.get_mom()}", ranks=[0])
         self.global_steps += 1
         self._window_losses = []
+        interval = self.config.resilience_save_interval
+        if (self._resilience is not None and interval > 0
+                and self.global_steps % interval == 0):
+            # snapshot on this thread (device->host of committed step state),
+            # commit in the background — the next step never fences on the
+            # filesystem. async_save=False degrades to the synchronous path.
+            self._resilience.save(tag=f"global_step{self.global_steps}")
+            if not self.config.resilience_async_save:
+                self._resilience.wait()
         if self.wall_clock_breakdown():
             self.timers("step_microstep").stop()
             self.timers.log(["forward_microstep", "backward_microstep", "step_microstep"],
                             memory_breakdown=self.config.memory_breakdown)
 
-    # ------------------------------------------------------------------ not ported
+    # ------------------------------------------------------------------ checkpointing
+    def _ckpt_keys(self):
+        """(on-disk key, engine leaf index) of every parameter in the JAX
+        package's leaf order: its ``_path_key`` over the module's
+        ``params_tree()`` (``_client_layout``: dict keys sorted as
+        ``jax.tree_util`` sorts them), else the parameter names with "." ->
+        "/"."""
+        if self._ckpt_key_list is None:
+            if callable(getattr(self.module, "params_tree", None)):
+                self._ckpt_key_list = [
+                    (ckpt._path_key(path), i)
+                    for path, i in pytree.tree_flatten_with_path(self._client_layout())[0]]
+            else:
+                self._ckpt_key_list = [(n.replace(".", "/"), i)
+                                       for i, n in enumerate(self._names)]
+        return self._ckpt_key_list
+
+    def _ckpt_export(self, kind, materialize=True):
+        """The state ``kind`` ("params", "master" or "opt") as {on-disk key:
+        full host array}, in the JAX engine's (identity) layout: each ZeRO
+        slice all-gathered leaf by leaf, which every rank joins, and copied to
+        the host only where ``materialize``. The built-in optimizers' state
+        keys by field (``exp_avg/<key>``), a client pair's by its own tree."""
+        out = {}
+
+        def put(key, t, axis):
+            full = unshard(t, axis, self.dp_size)
+            if materialize:
+                out[key] = ckpt.to_host(full)
+
+        keys = self._ckpt_keys()
+        if kind == "params":
+            for key, i in keys:
+                put(key, self._params[i], None)
+        elif kind == "master":
+            for key, i in keys:
+                put(key, self._master[i], self._axes[i])
+        elif self._client_optimizer is not None:
+            for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
+                put(ckpt._path_key(path), leaf, None)
+        else:
+            for field, leaves in zip(self.opt_state._fields, self.opt_state):
+                for key, i in keys:
+                    put(f"{field}/{key}", leaves[i], self._axes[i])
+        return out
+
+    @torch.no_grad()
+    def _ckpt_import(self, kind, flat):
+        """Inverse of ``_ckpt_export``: the full arrays of ``flat`` (key ->
+        host array, read on access) copied into this rank's state in place,
+        each ZeRO leaf's slice cut on the host, cast to the state's dtype."""
+        def get(key, shape):
+            if key not in flat:
+                raise KeyError(f"checkpoint missing array {key!r}")
+            return torch.from_numpy(np.asarray(flat[key])).reshape(shape)
+
+        keys = self._ckpt_keys()
+        if kind == "params":
+            for key, i in keys:
+                self._params[i].copy_(get(key, self._params[i].shape))
+        elif kind == "master":
+            for key, i in keys:
+                self._place_master(i, get(key, self._params[i].shape))
+        elif self._client_optimizer is not None:
+            for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
+                leaf.copy_(get(ckpt._path_key(path), leaf.shape))
+        else:
+            for field, leaves in zip(self.opt_state._fields, self.opt_state):
+                for key, i in keys:
+                    leaves[i].copy_(shard(get(f"{field}/{key}", self._params[i].shape),
+                                          self._axes[i], self.dp_rank, self.dp_size))
+
+    @torch.no_grad()
+    def _place_master(self, i, full):
+        """Put leaf ``i``'s restored full master where this engine keeps it:
+        this rank's slice, in place. Under an external-master optimizer there
+        is no master storage (the view re-derives from the params)."""
+        if not self._external_master:
+            self._master[i].copy_(shard(full, self._axes[i], self.dp_rank, self.dp_size))
+
+    def _master_from_params(self):
+        """The master re-derived as the float32 upcast of the compute params:
+        a checkpoint that holds none (external master), or a load without
+        the optimizer states (fp16-derived restore, stage2.py:1781-1836)."""
+        for i, p in enumerate(self._params):
+            self._place_master(i, p.detach().float())
+
     def save_checkpoint(self, save_dir, tag=None, client_state={}, save_latest=True):
-        raise _later("save_checkpoint", "item 6")
+        return ckpt.save_checkpoint(self, save_dir, tag=tag, client_state=client_state,
+                                    save_latest=save_latest)
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True, load_lr_scheduler_states=True):
-        raise _later("load_checkpoint", "item 6")
+        return ckpt.load_checkpoint(self, load_dir, tag=tag,
+                                    load_optimizer_states=load_optimizer_states,
+                                    load_lr_scheduler_states=load_lr_scheduler_states)
 
+    # ------------------------------------------------------------------ not ported
     def flops_profile(self, *inputs, peak_tflops=None):
         raise _later("flops_profile", "item 22")
 

@@ -10,8 +10,12 @@ states the same per-leaf choice and moves the data itself:
 - ``shard`` cuts rank r's slice r of that axis; ``unshard`` all-gathers the
   slices back; ``reduce_scatter`` sums a full leaf over the ranks and keeps
   rank r's slice;
+- ``slice_bounds`` gives the starts and stops of rank r's slice within the
+  full leaf (the offload checkpoint's region manifest);
 - ``sharding_coverage`` says how many bytes the layout actually shards;
-- ``chunk_spans`` cuts a flat range into the offload pipeline's work spans.
+- ``chunk_spans`` cuts a flat range into the offload pipeline's work spans;
+- ``elastic_split`` cuts a host array into the flat dp parts of the elastic
+  checkpoint layout.
 
 The axis is an int (or None for a replicated leaf) where the JAX package
 returns a ``PartitionSpec``.
@@ -19,6 +23,7 @@ returns a ``PartitionSpec``.
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -44,6 +49,16 @@ def shard(t: torch.Tensor, axis: Optional[int], rank: int, dp_size: int) -> torc
         return t
     n = t.shape[axis] // dp_size
     return t.narrow(axis, rank * n, n).contiguous()
+
+
+def slice_bounds(shape, axis: Optional[int], rank: int, dp_size: int):
+    """(starts, stops) per axis of the slice ``shard`` cuts for ``rank`` from a
+    leaf of ``shape``: the whole leaf when ``axis`` is None."""
+    starts, stops = [0] * len(shape), [int(d) for d in shape]
+    if axis is not None:
+        n = stops[axis] // dp_size
+        starts[axis], stops[axis] = rank * n, (rank + 1) * n
+    return starts, stops
 
 
 def unshard(part: torch.Tensor, axis: Optional[int], dp_size: int, group=None) -> torch.Tensor:
@@ -93,3 +108,12 @@ def chunk_spans(total: int, cap: Optional[int]):
         hi = min(lo + cap, total)
         spans.append((lo, hi, lo if hi - lo == cap else total - cap))
     return spans
+
+
+def elastic_split(arr, dp: int):
+    """Split a host array into the ``dp`` flat checkpoint shards of the elastic
+    optimizer-state layout (checkpoint/checkpointing.py). np.array_split
+    semantics — first ``size % dp`` shards get one extra element — which is
+    exactly what ``_MergedElastic`` concatenates back, so save@dp_a →
+    restore@dp_b round-trips bit-exactly for any (dp_a, dp_b)."""
+    return np.array_split(np.asarray(arr).reshape(-1), dp)

@@ -264,9 +264,10 @@ def test_offload_refuses_what_jax_refuses(kind):
                                        config_params=cfg, device="cpu")
 
 
-def test_offload_knobs_timing_and_refusals():
+def test_offload_knobs_timing_and_refusals(tmp_path):
     """The offload_optimizer block acts; offload_step_timing reports the
-    last step's lanes; checkpoints stay refused (item 6)."""
+    last step's lanes; a checkpoint saved under the knobs loads back into
+    the serial engine (tests/test_torch_checkpointing.py covers the rest)."""
     cfg = _offload_config("AdamW", offload_optimizer={
         "pipeline": True, "pipeline_depth": 3, "max_region_elements": 256})
     eng = _port_engine(cfg)
@@ -288,10 +289,11 @@ def test_offload_knobs_timing_and_refusals():
     assert serial.offload_step_timing()["n_work_items"] == len(serial.master_params)
     for p, q in zip(eng.module.parameters(), serial.module.parameters()):
         assert torch.equal(p, q)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.save_checkpoint("x")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.load_checkpoint("x")
+    eng.save_checkpoint(str(tmp_path))
+    path, _ = serial.load_checkpoint(str(tmp_path))
+    assert path is not None and serial.global_steps == 1
+    for name in ("fp32", "exp_avg", "exp_avg_sq"):
+        assert torch.equal(getattr(serial._offload, name), getattr(eng._offload, name))
 
 
 def test_offload_failed_native_build_raises(tmp_path, monkeypatch):
