@@ -60,7 +60,22 @@ result line):
    the plain attention path, and remat against no remat at batch 8 (loss
    and 49 per-layer grad norms); at 4 layers, "dots+attn" launches the forward
    once a layer and ``cpu_checkpointing`` gives the same grads at a lower
-   peak; a profiler window;
+   peak; a profiler window; the pair at gas 1 takes the fused step (the
+   update at ``forward()``), and a second ``forward()`` before ``step()``
+   raises ("rotation") while ``zero_grad()`` drops the pending window;
+   then a fused engine and one held to the two-step path, side by side
+   for 3 steps: the client state (shard, m1, m2) and the losses bit for
+   bit after each step;
+   fused step — ``[train-fused]``: the same model and batch with AdamW, no
+   clipping, WarmupLR, ZeRO-2: ``fused_step`` against the two-step path for
+   12 steps each: the losses and the master bit for bit, the peak device
+   memory of both and the call that holds each peak, the median step ms
+   and its spread, the busy share of a profiler window, 96 / 48 / 48 flash
+   launches a step on the tensor cores; then at 12 layers in fp16 (dynamic
+   scale from 2^24,
+   hysteresis 1, SGD with momentum, clipping 1.0), fused and two-step
+   engines side by side for 10 steps: each step's skip, scale and master
+   bit for bit, a skip leaving the master as it was;
    ZeRO-Offload — ``[train-offload]``: the same model (remat "dots", batch 8
    in one micro-step) with TRAIN_CONFIG's AdamW, WarmupLR and clipping at
    ZeRO-2 with ``cpu_offload``, 12 steps, against the device engine on the
@@ -149,7 +164,21 @@ result line):
    BERT-large layer
    forward + backward at two shapes with the mask and train-mode dropout
    against the dense attention path under the same seeds, and its time;
-12. result — one ``{"kernels": [...]}`` line, then the last line
+12. single-card paths — the ported code that fits one card and had run
+   only on the CPU: the sparse ``MatMul`` (sdd, dsd, dds) and ``Softmax`` at
+   the Variable layout (T = 8192, 16 heads, block 256) against float32 dense
+   masked products; ``SparseSelfAttention``'s masked path (a key-padding
+   and a causal attention mask) against its kernel path (the block-sparse
+   kernels, forward and backward); ``BertModel`` and
+   ``BertForQuestionAnswering`` at BERT-large, seq 512, micro-batch 16
+   through ``initialize`` (the QA engine with ``fused_step`` and LAMB):
+   kernel against plain and 3 steps; one BERT-large layer post-LN
+   with dropout, flash against dense, and the flash forward's dropout keep
+   mask against ``dropout_keep_reference`` bit for bit; the memory knobs
+   against the layer without them, with both peaks; remat "attn", "flash"
+   and "dots+attn-lean" at 4 layers of the 1.5B (the forward once a layer,
+   grads against no remat);
+13. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -1081,6 +1110,8 @@ def phase_train_published():
                                                      config_params=PUBLISHED_CONFIG)
     if engine._master is not None:
         raise AssertionError("the external-master pair left a float32 master in the engine")
+    if not engine._fused:
+        raise AssertionError("the external-master pair at gas 1 did not take the fused step")
     params0 = [p.detach().clone() for p in list(model.parameters())[:4]]
     _zero_flash_counts()
     losses, step_s, m1 = [], [], []
@@ -1097,7 +1128,7 @@ def phase_train_published():
     launches = _flash_counts()
     tc = _tensor_core_launches()
     peak = torch.cuda.max_memory_allocated()
-    log(f"[train-published] losses {losses}; |m1| {m1}")
+    log(f"[train-published] losses {losses} (fused step); |m1| {m1}")
     if not all(np.isfinite(losses)) or len(set(losses)) != 1:
         raise AssertionError(f"losses not finite and constant (the pair never changes the "
                              f"params): {losses}")
@@ -1113,6 +1144,7 @@ def phase_train_published():
     step = statistics.median(step_s[2:])
     tok_s = PUBLISHED_CONFIG["train_batch_size"] * cfg.n_positions / step
     busy = profile_step("profile-published", engine, tokens, labels, top=20)
+    published_rotation_check(engine, tokens, labels)
 
     # the published path (remat "dots", batch 8) against the plain attention path
     torch.cuda.empty_cache()
@@ -1153,7 +1185,260 @@ def phase_train_published():
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
+    published_fused_vs_two_step(tokens, labels)
     return launches
+
+
+def published_fused_vs_two_step(tokens, labels):
+    """The published pair at gas 1 through the fused step and through the
+    two-step body (the same update on an engine held unfused), side by side
+    on the same params and batch: the client state and the losses bit for
+    bit after each step. The pair never changes the params, so the loss
+    alone cannot tell one update from two or from wrong hyper-parameters;
+    the state can."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.runtime.client_optimizers import shard_optimizer
+    engines = []
+    for fused in (True, False):
+        model = GPT2Model(GPT2Config(**PUBLISHED_MODEL))
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                      optimizer=shard_optimizer(32),
+                                                      config_params=PUBLISHED_CONFIG)
+        eng._fused = fused       # the external-master pair at gas 1 is always fused
+        engines.append(eng)
+    rows = []
+    for step in range(PUBLISHED_COMPARE_STEPS):
+        losses, graphs = [], []
+        for eng in engines:
+            loss = eng(tokens, labels)
+            graphs.append(loss.requires_grad)
+            eng.backward(loss)
+            eng.step()
+            losses.append(loss.item())
+        state_fused, state_two = (e.opt_state for e in engines)
+        rows.append({"step": step + 1, "losses": losses,
+                     "two_step_took_a_graph": graphs == [False, True],
+                     "state_bit_for_bit": {k: bool(torch.equal(state_fused[k], state_two[k]))
+                                           for k in sorted(state_two)},
+                     "m1_norm": state_fused["m1"].norm().item()})
+        log(f"[train-published] fused vs two-step body: {json.dumps(rows[-1])}")
+    ok = all(r["two_step_took_a_graph"] and r["losses"][0] == r["losses"][1]
+             and all(r["state_bit_for_bit"].values()) for r in rows)
+    steps = [e.global_steps for e in engines]
+    if not ok or steps != [PUBLISHED_COMPARE_STEPS] * 2:
+        raise AssertionError(f"the published pair's fused step differs from its two-step "
+                             f"body: {rows}, global_steps {steps}")
+    del engines, eng, model, state_fused, state_two
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ the fused step
+# GPT-2 1.5B at bench.py:406-409, all 48 layers, under the published config's
+# remat "dots" and batch 8 in one micro-step, bf16, ZeRO-2, AdamW with no
+# clipping and WarmupLR: fused_step (the update inside forward()) against the
+# two-step path on the same seed
+FUSED_STEP_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 8,
+                     "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+                     "optimizer": {"type": "AdamW",
+                                   "params": {"lr": 1e-4, "betas": [0.9, 0.95],
+                                              "weight_decay": 0.1}},
+                     "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 4}},
+                     "gradient_clipping": 0.0, "steps_per_print": 1000}
+FUSED_STEP_STEPS = 12
+# fp16 with a dynamic scale high enough that the first steps overflow, hysteresis 1, SGD with momentum (0.9, the beta1 slot) and
+# clipping 1.0, at the 1.5B's width; the depth cut to 12 layers (the path is
+# the same at any depth)
+FP16_LAYERS, FP16_STEPS = 12, 10
+FP16_CONFIG = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 8,
+               "bf16": {"enabled": False},
+               "fp16": {"enabled": True, "loss_scale": 0, "initial_scale_power": 24,
+                        "hysteresis": 1},
+               "zero_optimization": {"stage": 2},
+               "optimizer": {"type": "SGD", "params": {"lr": 1e-3}},
+               "gradient_clipping": 1.0, "steps_per_print": 1000}
+# steps of the published pair, fused against its two-step body
+PUBLISHED_COMPARE_STEPS = 3
+
+
+def _fused_step_run(fused, tokens, labels):
+    """One engine on the 1.5B at FUSED_STEP_CONFIG, ``fused_step`` on or
+    off: 12 timed steps, then one step with the peak and the allocation read
+    around each call, then a profiler window. Returns (results, master after
+    the 12 steps, on the host, so that it weighs on no peak)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    cfg = GPT2Config(**PUBLISHED_MODEL)
+    model = GPT2Model(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.param_count()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=dict(FUSED_STEP_CONFIG, fused_step=fused))
+    if engine._fused != fused:
+        raise AssertionError(f"fused_step={fused}: the engine took fused={engine._fused}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    losses, step_s = _train_steps(engine, tokens, labels, steps=FUSED_STEP_STEPS)
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    peak = torch.cuda.max_memory_allocated()
+    master = [m.detach().cpu() for m in engine._master]
+    # one more step, the peak read around each call: where the peak lies;
+    # the allocation after each: the two-step path holds the grad tree
+    # between backward() and step(), the fused one frees it in forward()
+    peaks, after = {}, {}
+    loss = None
+    for name, call in (("forward", lambda: engine(tokens, labels)),
+                       ("backward", lambda: engine.backward(loss)),
+                       ("step", engine.step)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        after[name] = torch.cuda.memory_allocated() / 1e9
+        if name == "forward":
+            loss = out
+    busy = profile_step(f"profile-fused-step-{'on' if fused else 'off'}", engine, tokens,
+                        labels, top=12)
+    tag = "fused" if fused else "two-step"
+    res = {"path": tag, "losses": losses, **_step_stats(step_s, 8 * cfg.n_positions, n_params),
+           "max_memory_allocated_gb": peak / 1e9, "resident_after_build_gb": resident / 1e9,
+           "peak_by_call_gb": peaks, "peak_in": max(peaks, key=peaks.get),
+           "allocated_after_call_gb": after,
+           "device_busy_share": busy, "flash_launches": launches,
+           "tensor_core_launches": tc}
+    log(f"[train-fused] {tag}: {json.dumps(res)}")
+    want = [2 * cfg.n_layer * FUSED_STEP_STEPS, cfg.n_layer * FUSED_STEP_STEPS,
+            cfg.n_layer * FUSED_STEP_STEPS]
+    if launches != want or tc != want:
+        raise AssertionError(f"{tag}: flash launches {launches} (tensor cores {tc}) != {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: losses not finite and falling: {losses}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, master
+
+
+def fp16_check():
+    """fp16 with an overflowing initial scale, SGD, clipping 1.0 at 12
+    layers: a fused and a two-step engine side by side on the same batch,
+    each step's skip, scale and master compared."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    engines = []
+    for fused in (False, True):
+        model = GPT2Model(GPT2Config(**dict(PUBLISHED_MODEL, n_layer=FP16_LAYERS,
+                                            compute_dtype=torch.float16)))
+        model.init(torch.Generator(device="cuda").manual_seed(0))
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, config_params=dict(FP16_CONFIG, fused_step=fused))
+        if eng._fused != fused:
+            raise AssertionError(f"fp16: fused_step={fused} took fused={eng._fused}")
+        engines.append(eng)
+    two, fused = engines
+    rows = []
+    for step in range(FP16_STEPS):
+        before = [m.clone() for m in fused._master]
+        losses = []
+        for eng in engines:
+            loss = eng(tokens, labels)
+            eng.backward(loss)
+            eng.step()
+            losses.append(loss.item())
+        skipped = fused.skipped_steps > (rows[-1]["skipped"] if rows else 0)
+        rows.append({"step": step + 1, "losses": losses, "skipped": fused.skipped_steps,
+                     "skipped_two_step": two.skipped_steps, "scale": fused.loss_scale(),
+                     "scale_two_step": two.loss_scale(),
+                     "master_bit_for_bit": all(torch.equal(a, b) for a, b in
+                                               zip(fused._master, two._master)),
+                     "master_unchanged": all(torch.equal(a, b) for a, b in
+                                             zip(fused._master, before))})
+        log(f"[train-fused] fp16: {json.dumps(rows[-1])}")
+        if skipped != rows[-1]["master_unchanged"]:
+            raise AssertionError("a skipped step changed the master, or a clean one did not")
+        del before
+    bad = [r for r in rows if r["skipped"] != r["skipped_two_step"]
+           or r["scale"] != r["scale_two_step"] or not r["master_bit_for_bit"]
+           or r["losses"][0] != r["losses"][1]]
+    n_skip = rows[-1]["skipped"]
+    log(f"[train-fused] fp16: {n_skip} of {FP16_STEPS} steps skipped, scales "
+        f"{[r['scale'] for r in rows]}; fused = two-step bit for bit: {not bad}")
+    if bad or not 0 < n_skip < FP16_STEPS:
+        raise AssertionError(f"fp16 fused against two-step: {bad or rows}")
+    del engines, two, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"skipped": n_skip, "scales": [r["scale"] for r in rows],
+            "losses": [r["losses"][1] for r in rows]}
+
+
+def phase_train_fused():
+    """The fused step on the 1.5B against the two-step path (losses,
+    master, peaks, step ms, busy share, flash launches), then in fp16 with
+    SGD at 12 layers. Returns the fused run's flash launches."""
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    two, master_two = _fused_step_run(False, tokens, labels)
+    fused, master_fused = _fused_step_run(True, tokens, labels)
+    diff = max(float((a - b).abs().max()) for a, b in zip(master_fused, master_two))
+    scale = max(float(b.abs().max()) for b in master_two)
+    del master_two, master_fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = [abs(a - b) for a, b in zip(fused["losses"], two["losses"])]
+    res = {"losses_bit_for_bit": fused["losses"] == two["losses"],
+           "loss_max_gap": max(gaps), "master_max_abs_diff_over_max": diff / scale,
+           "peak_gb": {"two_step": two["max_memory_allocated_gb"],
+                       "fused": fused["max_memory_allocated_gb"]},
+           "peak_saving_gb": two["max_memory_allocated_gb"] - fused["max_memory_allocated_gb"],
+           "peak_in": {"two_step": two["peak_in"], "fused": fused["peak_in"]},
+           "held_after_backward_gb": {
+               "two_step": two["allocated_after_call_gb"]["backward"],
+               "fused": fused["allocated_after_call_gb"]["backward"]},
+           "step_ms_median": {"two_step": two["step_ms_median"],
+                              "fused": fused["step_ms_median"]},
+           "step_ms_spread": {"two_step": [two["step_ms_min"], two["step_ms_max"]],
+                              "fused": [fused["step_ms_min"], fused["step_ms_max"]]},
+           "device_busy_share": {"two_step": two["device_busy_share"],
+                                 "fused": fused["device_busy_share"]}}
+    log(f"[train-fused] fused against two-step: {json.dumps(res)}")
+    # one update body on the same grads
+    if not res["losses_bit_for_bit"] or diff != 0.0:
+        raise AssertionError("the fused step differs from the two-step path")
+    res["fp16"] = fp16_check()
+    return fused["flash_launches"]
+
+
+def published_rotation_check(engine, tokens, labels):
+    """On the published config's engine (fused, no key): a second forward()
+    before step() raises; zero_grad() drops the pending window, so the
+    next backward() and step() commit nothing."""
+    steps = engine.global_steps
+    loss = engine(tokens, labels)
+    try:
+        engine(tokens, labels)
+    except RuntimeError as err:
+        if "rotation" not in str(err):
+            raise
+        msg = str(err)
+    else:
+        raise AssertionError("a second forward() before step() did not raise")
+    engine.zero_grad()
+    pending = engine._fused_pending
+    engine.backward(loss)
+    engine.step()
+    log(f"[train-fused] rotation on the published engine: RuntimeError {msg!r}; after "
+        f"zero_grad() pending {pending}, global_steps {engine.global_steps} (was {steps})")
+    if pending is not None or engine.global_steps != steps:
+        raise AssertionError("zero_grad() did not drop the pending fused window")
 
 
 # ---------------------------------------------------------------- ZeRO-Offload
@@ -3008,6 +3293,319 @@ def bert_layer_check():
         torch.cuda.empty_cache()
 
 
+# -------------------------------------------------- single-card paths, first runs
+# tests/perf/long_seq_model_perf.py's Variable layout at T = 8192, 16 heads,
+# block 256 (long_sparsity), D 64, bf16 operands; the masked path's padding:
+# keys from SINGLE_VALID on are masked by an additive key-padding mask
+SINGLE_VALID = 6144
+BERT_HEAD_STEPS = 3
+
+
+def _bs_counts():
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+    return [f.launches for f in (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq,
+                                 bsa.block_sparse_bwd_dkv)]
+
+
+def sparse_matmul_softmax_checks():
+    """MatMul in modes sdd, dsd and dds and Softmax at the Variable layout
+    on card tensors, against float32 dense masked products of the same
+    operands."""
+    from deepspeed_tpu_torch.ops.sparse_attention import MatMul, Softmax
+    from deepspeed_tpu_torch.ops.sparse_attention.matmul import dense_to_sparse, sparse_to_dense
+    B, H, T, D = BS_SHAPE
+    blk = 256
+    layout = long_sparsity().make_layout(T)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(B, H, T, D, generator=g, device="cuda").bfloat16()
+               for _ in range(3))
+    tol = FLASH_TOL[torch.bfloat16]
+    errs = {}
+    scores = MatMul(layout, blk, "sdd", trans_b=True)(q, k)
+    want = dense_to_sparse(q.float() @ k.float().transpose(-1, -2), layout, blk)
+    errs["sdd"] = _scaled_err(scores.float(), want)
+    scale = 1.0 / math.sqrt(D)
+    probs = Softmax(layout, blk)(scores, scale=scale)
+    dense = sparse_to_dense(scores.float(), layout, blk, fill=-math.inf) * scale
+    errs["softmax"] = _scaled_err(probs.float(),
+                                  dense_to_sparse(torch.softmax(dense, -1), layout, blk))
+    del dense, want
+    dense_p = sparse_to_dense(probs.float(), layout, blk)
+    out = MatMul(layout, blk, "dsd")(probs, v)
+    errs["dsd"] = _scaled_err(out.float(), dense_p @ v.float())
+    vt = v.transpose(-1, -2).contiguous()
+    out = MatMul(layout, blk, "dds")(vt, probs)
+    errs["dds"] = _scaled_err(out.float(), vt.float() @ dense_p)
+    log(f"[single-card] sparse MatMul / Softmax at {BS_SHAPE}, Variable layout, block {blk}, "
+        f"bf16, {int(layout.sum())} blocks, against float32 dense masked products: "
+        f"{json.dumps(errs)} (scaled by max |ref|, tol {tol})")
+    if not all(e <= tol for e in errs.values()):
+        raise AssertionError(f"sparse MatMul / Softmax disagree: {errs}")
+    del q, k, v, scores, probs, dense_p, out, vt
+    torch.cuda.empty_cache()
+    return errs
+
+
+def sparse_masked_path_check():
+    """SparseSelfAttention with a key-padding mask ("add") and a causal
+    attention mask ("mul"): the dense masked path against the kernel path.
+    The padded keys lie beyond SINGLE_VALID and the layout is causal, so
+    rows before it see none of them; the output's gradient is zero on the
+    other rows, so out, dq, dk and dv of the two paths are the same
+    function there and everywhere."""
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseSelfAttention
+    B, H, T, D = BS_SHAPE
+    attn = SparseSelfAttention(long_sparsity(), key_padding_mask_mode="add",
+                               attn_mask_mode="mul", max_seq_length=T)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    base = [torch.randn(B, H, T, D, generator=g, device="cuda").bfloat16() for _ in range(3)]
+    dout = torch.randn(B, H, T, D, generator=g, device="cuda").bfloat16()
+    dout[:, :, SINGLE_VALID:] = 0
+    kpm = torch.zeros(B, T, device="cuda")
+    kpm[:, SINGLE_VALID:] = -10000.0
+    causal = torch.tril(torch.ones(T, T, device="cuda"))
+
+    def run(masked):
+        q, k, v = (t.clone().requires_grad_() for t in base)
+        out = (attn(q, k, v, key_padding_mask=kpm, attn_mask=causal) if masked
+               else attn(q, k, v))
+        out.backward(dout)
+        return [out.detach()[:, :, :SINGLE_VALID].float(), q.grad.float(), k.grad.float(),
+                v.grad.float()]
+
+    before = _bs_counts()
+    kernel = run(False)
+    launches = [a - b for a, b in zip(_bs_counts(), before)]
+    masked = run(True)
+    if _bs_counts() != [a + b for a, b in zip(before, launches)] or launches != [1, 1, 1]:
+        raise AssertionError(f"the kernel path launched {launches}, or the masked path "
+                             "launched a kernel")
+    errs = {n: _scaled_err(a, b) for n, a, b in zip(("out", "dq", "dk", "dv"), masked, kernel)}
+    tol = FLASH_TOL[torch.bfloat16]
+    log(f"[single-card] SparseSelfAttention masked path (key padding from {SINGLE_VALID}, "
+        f"causal attn_mask) against the kernel path on rows 0..{SINGLE_VALID - 1}: "
+        f"{json.dumps(errs)} (tol {tol}); kernel launches {launches}")
+    if not all(torch.isfinite(t).all() for t in masked) or max(errs.values()) > tol:
+        raise AssertionError(f"the masked sparse path disagrees: {errs}")
+    del kernel, masked, base
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _bert_head_model(kind):
+    """BertModel (its hidden states' mean square as the loss) or
+    BertForQuestionAnswering at BERT-large, seeded."""
+    from deepspeed_tpu_torch.models.bert import BertConfig, BertForQuestionAnswering, BertModel
+
+    class BertHiddenLoss(BertModel):
+        def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+            return super().forward(input_ids, token_type_ids,
+                                   attention_mask).float().square().mean()
+
+    cls = BertForQuestionAnswering if kind == "qa" else BertHiddenLoss
+    model = cls(BertConfig(**BERT_MODEL))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def bert_heads_check():
+    """BertModel and BertForQuestionAnswering through initialize at
+    BERT-large, seq 512, micro-batch 16, BERT_CONFIG (the QA engine with
+    fused_step and LAMB): the first micro-batch's loss and per-layer
+    grad norms against the dense attention path, then 3 engine steps."""
+    import deepspeed_tpu_torch
+    ids, _, _, mask = _bert_batch()
+    rng = np.random.RandomState(2)
+    kept = mask.sum(1).long().cpu().numpy()
+    start = torch.from_numpy(rng.randint(0, kept)).cuda()
+    end = torch.from_numpy(np.minimum(start.cpu().numpy() + rng.randint(0, 30, len(kept)),
+                                      kept - 1)).cuda()
+    out = {}
+    n_layer = BERT_MODEL["num_hidden_layers"]
+    for kind, batch, fused in (("bert", (ids, None, mask), False),
+                               ("qa", (ids, start, end, None, mask), True)):
+        model = _bert_head_model(kind)
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, config_params=dict(BERT_CONFIG, fused_step=fused))
+        if engine._fused != fused:
+            raise AssertionError(f"{kind}: fused_step={fused} took fused={engine._fused}")
+        lk, lp, nrel = _bert_kernel_vs_plain(engine.module, batch)
+        counts0, tc0 = _flash_counts(), _tensor_core_launches()
+        losses, step_s = _train_steps(engine, *batch, steps=BERT_HEAD_STEPS)
+        launches = [a - b for a, b in zip(_flash_counts(), counts0)]
+        tc = [a - b for a, b in zip(_tensor_core_launches(), tc0)]
+        out[kind] = {"loss_kernel": lk, "loss_plain": lp, "grad_norm_max_rel_diff": nrel,
+                     "losses": losses, "step_ms": [s * 1e3 for s in step_s],
+                     "fused_step": fused, "flash_launches": launches}
+        log(f"[single-card] {type(model).__mro__[1 if kind == 'bert' else 0].__name__} "
+            f"BERT-large seq {BERT_SEQ} batch {BERT_BATCH}: {json.dumps(out[kind])} "
+            f"(tol {TRAIN_TOL_BF16})")
+        if abs(lk - lp) > TRAIN_TOL_BF16[0] or nrel > TRAIN_TOL_BF16[1]:
+            raise AssertionError(f"{kind}: the flash path disagrees with the dense path")
+        want = [n_layer * BERT_HEAD_STEPS] * 3
+        if not all(np.isfinite(losses)) or launches != want or tc != want:
+            raise AssertionError(f"{kind}: losses {losses}, flash launches {launches} "
+                                 f"(tensor cores {tc}) != {want}")
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def transformer_layer_checks():
+    """One BERT-large layer, seq 512, batch 16, bf16, with the padding mask,
+    forward and backward of a fixed cotangent: post-LN with attention and
+    hidden dropout 0.1, flash against dense under one generator; the flash forward's dropout keep mask against
+    ``dropout_keep_reference`` bit for bit; the memory knobs against the
+    same layer without them, with both peaks."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
+                                                     DeepSpeedTransformerLayer)
+    seq, batch, H = BERT_SEQ, BERT_BATCH, BERT_MODEL["hidden_size"]
+    heads = BERT_MODEL["num_attention_heads"]
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(batch, seq, H).astype(np.float32)).cuda().bfloat16()
+    keep = torch.from_numpy(_padding_mask(batch, seq, rng)).cuda()
+    mask = ((1.0 - keep) * -1e9)[:, None, None, :]
+    # a fixed cotangent: sum(out ** 2) of a post-LN layer is nearly constant
+    # (unit LayerNorm), so its gradient would be rounding noise
+    dy = torch.from_numpy(rng.randn(batch, seq, H).astype(np.float32)).cuda()
+    out = {}
+
+    def layer_of(pre_ln):
+        cfg = DeepSpeedTransformerConfig(
+            batch_size=batch, max_seq_length=seq, hidden_size=H,
+            intermediate_size=BERT_MODEL["intermediate_size"], heads=heads,
+            attn_dropout_ratio=0.1, hidden_dropout_ratio=0.1,
+            num_hidden_layers=BERT_MODEL["num_hidden_layers"], fp16=False,
+            pre_layer_norm=pre_ln)
+        layer = DeepSpeedTransformerLayer(cfg)
+        layer.init(torch.Generator(device="cuda").manual_seed(0))
+        return layer
+
+    def fwd_bwd(layer, seed=1):
+        xs = x.clone().requires_grad_()
+        y = layer(xs, mask, generator=torch.Generator(device="cuda").manual_seed(seed),
+                  deterministic=False)
+        y.float().backward(dy)
+        grads = [xs.grad] + [p.grad for p in layer.parameters()]
+        layer.zero_grad(set_to_none=True)
+        return [y.detach().float()] + [g_.float() for g_ in grads]
+
+    # post-LN with dropout: flash against dense
+    layer = layer_of(False)
+    got = fwd_bwd(layer)
+    other = fwd_bwd(layer, seed=2)[0]
+    layer.config.use_flash_attention = False
+    want = fwd_bwd(layer)
+    layer.config.use_flash_attention = True
+    names = ["out", "dx"] + list(layer.NAMES)
+    errs = {n: _scaled_err(a, b) for n, a, b in zip(names, got, want)}
+    worst = max(errs, key=errs.get)
+    tol = FLASH_TOL[torch.bfloat16]
+    out["post_ln_dropout"] = {"out": errs["out"], "dx": errs["dx"], "worst": worst,
+                              "worst_err": errs[worst], "tol": tol}
+    log(f"[single-card] layer post-LN, dropout 0.1: {json.dumps(out['post_ln_dropout'])}")
+    if torch.equal(got[0], other) or errs[worst] > tol:
+        raise AssertionError(f"post-LN layer flash vs dense: {errs}")
+    del got, want, other, layer
+
+    # the kernel's dropout hash: uniform probabilities (q = k = 0) and v an
+    # identity on one 64-key chunk read that chunk's keep mask from the output
+    rate, D = 0.1, H // heads
+    zeros = torch.zeros(batch, heads, seq, D, device="cuda", dtype=torch.bfloat16)
+    seed = 12345
+    got = torch.empty(batch, heads, seq, seq, dtype=torch.bool, device="cuda")
+    for c in range(seq // D):
+        v = torch.zeros_like(zeros)
+        v[:, :, c * D:(c + 1) * D] = torch.eye(D, device="cuda", dtype=torch.bfloat16)
+        y = fa.flash_attention(zeros, zeros, v, False, dropout_rate=rate, dropout_seed=seed)
+        got[..., c * D:(c + 1) * D] = y > 0
+    ref = fa.dropout_keep_reference(seed, batch, heads, seq, seq, rate, device="cuda") > 0
+    same = bool(torch.equal(got, ref))
+    out["dropout_hash"] = {"bit_for_bit": same, "keep_share": float(got.float().mean()),
+                           "elements": got.numel()}
+    log(f"[single-card] flash forward dropout keep mask against dropout_keep_reference, "
+        f"[{batch}, {heads}, {seq}, {seq}] at rate {rate}: {json.dumps(out['dropout_hash'])}")
+    if not same:
+        raise AssertionError("the kernel's dropout hash differs from dropout_keep_reference")
+    del got, ref, zeros, v, y
+
+    # the memory knobs against the same layer without them
+    layer = layer_of(True)
+    runs = {}
+    knobs = ("normalize_invertible", "gelu_checkpoint", "attn_dropout_checkpoint")
+    for on in (False, True):
+        for kn in knobs:
+            setattr(layer.config, kn, on)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        runs[on] = fwd_bwd(layer)
+        torch.cuda.synchronize()
+        runs[on].append((torch.cuda.max_memory_allocated() - base) / 1e9)
+    for kn in knobs:
+        setattr(layer.config, kn, False)
+    errs = {n: _scaled_err(a, b) for n, a, b in zip(names, runs[True][:-1], runs[False][:-1])}
+    worst = max(errs, key=errs.get)
+    out["memory_knobs"] = {"worst": worst, "worst_err": errs[worst], "tol": REMAT_TOL,
+                           "peak_gb_without": runs[False][-1], "peak_gb_with": runs[True][-1]}
+    log(f"[single-card] memory knobs {knobs}: {json.dumps(out['memory_knobs'])}")
+    if errs[worst] > REMAT_TOL:
+        raise AssertionError(f"the memory knobs changed the layer: {errs}")
+    del runs, layer, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_more_policies(tokens, labels):
+    """At 4 layers of the 1.5B: "attn", "flash" and "dots+attn-lean" keep the
+    flash op's (out, lse), so the forward kernel runs once a layer; loss and
+    grads against the same model without remat."""
+    out = {}
+    for policy in ("attn", "flash", "dots+attn-lean"):
+        model = _cut_model(4, remat_policy=policy)
+        counts0 = _flash_counts()
+        loss_r, norms_r = _loss_and_norms(model, tokens, labels)
+        counts = [a - b for a, b in zip(_flash_counts(), counts0)]
+        model.config = dataclasses.replace(model.config, remat=False)
+        loss_n, norms_n = _loss_and_norms(model, tokens, labels)
+        rel = float(((norms_r - norms_n).abs() / norms_n).max())
+        out[policy] = {"flash_launches": counts, "loss": [loss_r.item(), loss_n.item()],
+                       "grad_norm_max_rel_diff": rel}
+        log(f"[single-card] 4 layers, remat {policy!r}: {json.dumps(out[policy])} "
+            f"(tol {REMAT_TOL})")
+        if counts != [4, 4, 4]:
+            raise AssertionError(f"remat {policy!r}: flash launches {counts} != [4, 4, 4]")
+        if abs(loss_r.item() - loss_n.item()) > REMAT_TOL or rel > REMAT_TOL:
+            raise AssertionError(f"remat {policy!r} changed the loss or the grads")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_single_card():
+    """The ported paths that fit one card and had run only on the CPU: the
+    sparse MatMul / Softmax, the masked sparse path, the BERT classes beside
+    the MLM one, post-LN with dropout and the dropout hash, the memory
+    knobs, three remat policies. (fp16 loss scaling and SGD run in
+    [train-fused].) Returns the flash and block-sparse launches of the
+    phase."""
+    _zero_flash_counts()
+    bs0 = _bs_counts()
+    res = {"sparse_matmul_softmax": sparse_matmul_softmax_checks(),
+           "sparse_masked_path": sparse_masked_path_check(),
+           "bert_heads": bert_heads_check(),
+           "transformer_layer": transformer_layer_checks()}
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    res["remat_policies"] = remat_more_policies(tokens, labels)
+    flash = _flash_counts()
+    sparse = [a - b for a, b in zip(_bs_counts(), bs0)]
+    log(f"[single-card] every check held; flash launches {flash}, block-sparse {sparse}")
+    return flash, sparse
+
+
 def main():
     probe = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--probe" else None
     if len(sys.argv) > 1 and probe is None:
@@ -3034,6 +3632,8 @@ def main():
         e["launches"] = n
     for e, n in zip(flash, phase_train_published()):
         e["launches_published"] = n
+    for e, n in zip(flash, phase_train_fused()):
+        e["launches_fused"] = n
     offload_launches, clip_rounding = phase_train_offload()
     for e, n in zip(flash, offload_launches):
         e["launches_offload"] = n
@@ -3049,6 +3649,11 @@ def main():
     # the flash kernels' non-causal path with a key bias, inside BERT
     for e, n in zip(flash, phase_bert_training()):
         e["launches_bert"] = n
+    single_flash, single_sparse = phase_single_card()
+    for e, n in zip(flash, single_flash):
+        e["launches_single_card"] = n
+    for e, n in zip(sparse, single_sparse):
+        e["launches_single_card"] = n
     log(card)
     log(f"host: {host['cpu']}, nproc {host['nproc']}, MemTotal {host['mem_total_gb']:.1f} GB")
     log(json.dumps({"kernels": [entry, *flash, *sparse, *fused]}))

@@ -18,11 +18,36 @@ config's ``activation_checkpointing`` block; ``checkpointing``), client
 ``(init, apply)`` optimizers, ZeRO-Offload, and checkpoints in the JAX
 package's format (``checkpoint``) with the ``resilience`` block.
 Entry points run on the card unless the caller passes ``device="cpu"``.
-ROADMAP.md lists what later slices bring.
+``__version__``, ``__git_hash__``, ``__git_branch__`` and ``installed_ops``
+are read lazily (``git_version_info``); ``deepspeed_tpu_torch.pt`` is the
+reference's legacy module alias. ROADMAP.md lists what later slices bring.
 """
 
+import sys as _sys
+import types as _types
+
+from . import git_version_info as _gvi
+from .runtime import config as _rt_config, utils as _rt_utils
 from .runtime.config import DeepSpeedConfig  # noqa: F401
 from .runtime.activation_checkpointing import checkpointing  # noqa: F401
+
+
+def __getattr__(name):
+    # lazy provenance (PEP 562): no git subprocess at import time
+    _map = {"__version__": "version", "__git_hash__": "git_hash",
+            "__git_branch__": "git_branch", "installed_ops": "installed_ops"}
+    if name in _map:
+        return getattr(_gvi, _map[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# the legacy ``deepspeed.pt`` module structure (deepspeed_tpu/__init__.py:134-145)
+pt = _types.ModuleType("pt", "legacy pt module alias for backwards compatibility")
+pt.deepspeed_utils = _rt_utils
+pt.deepspeed_config = _rt_config
+_sys.modules[__name__ + ".pt"] = pt
+_sys.modules[__name__ + ".pt.deepspeed_utils"] = _rt_utils
+_sys.modules[__name__ + ".pt.deepspeed_config"] = _rt_config
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

@@ -62,6 +62,19 @@ saves every ``save_interval`` steps from ``_finish_step`` through
 ``resilience/async_ckpt.py`` and, with ``auto_resume``, restores the newest
 committed tag at construction.
 
+The fused step (deepspeed_tpu/runtime/engine.py:1473-1583, 1939-2048): with
+``fused_step`` (a built-in or client optimizer), and always for an
+external-master client pair, at ``gradient_accumulation_steps`` 1 without
+ZeRO-Offload or cpu activation checkpointing (else a warning and the
+two-step path), the update runs inside ``forward()`` and its state is
+adopted there; ``backward()`` marks the window, ``step()`` commits the
+bookkeeping, ``zero_grad()`` drops it, and a second ``forward()`` before
+``step()`` raises ``RuntimeError`` (strict rotation). The backward runs to
+its end inside ``forward()``, then the update body that the two-step path
+runs too (``_prep_grads`` / ``_update``): the JAX semantics, with no
+memory saving (the JAX step frees each grad leaf as the optimizer consumes
+it; here the whole grad tree exists at the update, as in the two-step path).
+
 What the slice does not carry raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 ``compilation_cache_dir`` names the JAX compile cache and has no counterpart
@@ -101,6 +114,14 @@ from .zero.sharding import (reduce_scatter, shard, sharding_coverage, slice_boun
 
 def _later(what, item):
     return NotImplementedError(f"{what} is not in the PyTorch port yet: ROADMAP.md {item}")
+
+
+# backward() of a fused step: the grads were consumed inside forward()
+_FUSED = object()
+
+_ROTATION = ("fused step: the previous forward()'s update was never committed — call "
+             "backward() and step() before the next forward() (strict "
+             "forward/backward/step rotation)")
 
 
 class OptimizerHandle:
@@ -281,6 +302,7 @@ class DeepSpeedEngine:
                            else grad_dtype)
         self._grad_acc = None
         self._pending_loss = None
+        self._pending_is_fused = False      # the pending loss is a fused step's
         self._window_losses = []
         self._last_grad_norm = None
 
@@ -315,6 +337,11 @@ class DeepSpeedEngine:
             if self.config.resilience_auto_resume:
                 auto_resume(self, self.config.resilience_save_dir)
 
+        # ---- the fused step (deepspeed_tpu/runtime/engine.py:1183-1205, 1473-1527)
+        self._fused = self._fused_eligible()
+        self._fused_pending = None          # (overflow, norm) of the uncommitted update
+        self._warned_fused_cpu_ckpt = False
+
     def _refuse_unported(self):
         c = self.config
         if c.zero_enabled and c.zero_optimization_stage >= 3:
@@ -329,8 +356,6 @@ class DeepSpeedEngine:
             raise _later("comm.overlap.mode='bucketed'", "item 18")
         if c.sequence_parallel_enabled:
             raise _later("sequence_parallel", "item 14")
-        if c.fused_step:
-            raise _later("fused_step", "item 25")
         for on, what, item in ((c.telemetry_enabled, "telemetry", "items 21-22"),
                                (c.numerics_enabled, "numerics", "item 22"),
                                (c.tensorboard_enabled, "the tensorboard monitor", "item 21")):
@@ -573,40 +598,71 @@ class DeepSpeedEngine:
         return self.forward(*inputs, **kwargs)
 
     def forward(self, *inputs):
-        """The loss of this micro-batch; in training mode autograd records
-        it for ``backward``, in eval mode it runs under ``torch.no_grad``."""
+        """The loss of this micro-batch. In training mode autograd records it
+        for ``backward``; under the fused step the update runs here and the
+        detached loss is returned. In eval mode it runs under
+        ``torch.no_grad``."""
         if self.wall_clock_breakdown():
             self.timers("forward_microstep").start()
         batch = tuple(self._to_device(x) for x in inputs)
-        if self._in_training:
-            loss = self.module(*batch)
+        if self._in_training and self._use_fused():
+            loss = self._fused_forward(batch)
+        elif self._in_training:
+            loss = self._loss(batch)
             self._pending_loss = loss
         else:
             with torch.no_grad():
-                loss = self.module(*batch)
-        if isinstance(loss, (tuple, list)):
-            loss = loss[0]
-            if self._in_training:
-                self._pending_loss = loss
+                loss = self._loss(batch)
         if self.wall_clock_breakdown():
             self.timers("forward_microstep").stop()
         return loss
 
+    def _loss(self, batch):
+        loss = self.module(*batch)
+        return loss[0] if isinstance(loss, (tuple, list)) else loss
+
     def backward(self, loss, allreduce_gradients=True, release_loss=False):
         """Differentiate ``loss * scale / gradient_accumulation_steps`` and move
         this micro-batch's grads (reduced over the ranks) into the
-        accumulator. ``allreduce_gradients`` and ``release_loss`` are accepted
-        for the reference's signature; the grads are always reduced."""
+        accumulator; under the fused step only mark the window, whose grads
+        ``forward()`` consumed. ``allreduce_gradients`` and ``release_loss``
+        are accepted for the reference's signature; the grads are always
+        reduced."""
         if not self._in_training or self._pending_loss is None:
             raise RuntimeError("backward() called without a preceding forward() in "
                                "training mode")
         if self.wall_clock_breakdown():
             self.timers("backward_microstep").start()
+        if self._pending_is_fused:
+            # deepspeed_tpu/runtime/engine.py:1982-1990 (a zero_grad() since the
+            # forward dropped the window's bookkeeping)
+            self._pending_is_fused = False
+            self._grad_acc = _FUSED if self._fused_pending is not None else None
+        else:
+            grads = self._micro_grads(self._pending_loss)
+            if self._grad_acc is None:
+                self._grad_acc = [g.to(self._acc_dtype) for g in grads]
+            else:
+                for a, g in zip(self._grad_acc, grads):
+                    a.add_(g)   # in the accumulator's dtype: a + g.astype(acc_dtype)
+        self._window_losses.append(self._pending_loss.detach())
+        self._pending_loss = None
+        self.micro_steps += 1
+        if self.wall_clock_breakdown():
+            self.timers("backward_microstep").stop()
+        return loss
+
+    def _scaled(self, loss):
         factor = np.float32(self.scaler_state.cur_scale) / np.float32(
             self.gradient_accumulation_steps())
         if self.config.prescale_gradients:
             factor = factor / np.float32(self.config.gradient_predivide_factor or 1.0)
-        (loss * float(factor)).backward()
+        return loss * float(factor)
+
+    def _micro_grads(self, loss):
+        """This micro-batch's grads, every leaf in ``grad_dtype`` (zeros for
+        a leaf the loss does not reach) and reduced over the ranks."""
+        self._scaled(loss).backward()
         grads = []
         for p in self._params:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -614,17 +670,7 @@ class DeepSpeedEngine:
             grads.append(g.to(self._grad_dtype))
         if self.dp_size > 1:
             grads = [self._reduce(g, a) for g, a in zip(grads, self._grad_axes)]
-        if self._grad_acc is None:
-            self._grad_acc = [g.to(self._acc_dtype) for g in grads]
-        else:
-            for a, g in zip(self._grad_acc, grads):
-                a.add_(g)   # in the accumulator's dtype: a + g.astype(acc_dtype)
-        self._window_losses.append(self._pending_loss.detach())
-        self._pending_loss = None
-        self.micro_steps += 1
-        if self.wall_clock_breakdown():
-            self.timers("backward_microstep").stop()
-        return loss
+        return grads
 
     def _reduce(self, g, axis):
         """The mean over the ranks: reduce-scattered to this rank's slice for
@@ -635,14 +681,70 @@ class DeepSpeedEngine:
             dist.all_reduce(g, op=dist.ReduceOp.SUM)
         return g.div_(self.dp_size)
 
+    # ------------------------------------------------------------------ fused step
+    def _cpu_checkpointing_active(self) -> bool:
+        """deepspeed_tpu/runtime/engine.py:1850-1860: an engine with an
+        ``activation_checkpointing`` block decides from its own config, one
+        without from the process-global module."""
+        ac = self.config.activation_checkpointing_config
+        if ac.configured_in_json:
+            return bool(ac.cpu_checkpointing)
+        return act_ckpt.cpu_checkpointing_enabled()
+
+    def _fused_eligible(self) -> bool:
+        """The JAX engine's rule: ``fused_step`` needs gas 1, no ZeRO-Offload
+        and no cpu activation checkpointing (else it warns and takes the
+        two-step path); an external-master pair at gas 1 is always fused."""
+        gas1 = self.gradient_accumulation_steps() == 1
+        if self.config.fused_step and not (gas1 and self._offload is None
+                                           and not self._cpu_checkpointing_active()):
+            logger.warning(
+                "[deepspeed_tpu_torch] fused_step requested but ineligible (it needs "
+                "gradient_accumulation_steps == 1, no ZeRO-Offload and no cpu "
+                "activation checkpointing); using the two-step path")
+            return False
+        if self._external_master:
+            return gas1
+        return bool(self.config.fused_step)
+
+    def _use_fused(self) -> bool:
+        """The fused step, unless cpu activation checkpointing was switched on
+        after construction (deepspeed_tpu/runtime/engine.py:1927-1938): then
+        a warning, once, and the two-step path."""
+        fused = self._fused
+        if fused and self._cpu_checkpointing_active():
+            if not self._warned_fused_cpu_ckpt:
+                self._warned_fused_cpu_ckpt = True
+                logger.warning("[deepspeed_tpu_torch] fused_step disabled: cpu activation "
+                               "checkpointing was enabled after engine construction; "
+                               "using the two-step path")
+            fused = False
+        return fused
+
+    def _fused_forward(self, batch):
+        """deepspeed_tpu/runtime/engine.py:1939-1951: the whole step at
+        ``forward()``, with ``current_hyper()`` of this moment and step
+        number ``global_steps + 1 - skipped_steps``."""
+        if self._fused_pending is not None:
+            raise RuntimeError(_ROTATION)
+        loss = self._loss(batch)
+        self._fused_pending = self._update(self._micro_grads(loss))
+        loss = loss.detach()
+        self._pending_loss, self._pending_is_fused = loss, True
+        return loss
+
     def is_gradient_accumulation_boundary(self):
         return self.micro_steps % self.gradient_accumulation_steps() == 0
 
     def zero_grad(self):
+        """Drop the accumulated grads. Mid-window of a fused step the update
+        has been applied already; only its bookkeeping is dropped."""
         self._grad_acc = None
+        self._fused_pending = None
 
     def step(self):
-        """Apply the optimizer at the gradient-accumulation boundary."""
+        """Apply the optimizer at the gradient-accumulation boundary; under the
+        fused step commit the bookkeeping of the update ``forward()`` ran."""
         if self.is_gradient_accumulation_boundary() and self._grad_acc is not None:
             self._take_model_step()
 
@@ -668,14 +770,10 @@ class DeepSpeedEngine:
             dist.all_reduce(s, op=dist.ReduceOp.SUM)
         return s
 
-    @torch.no_grad()
-    def _take_model_step(self):
-        if self.wall_clock_breakdown():
-            self.timers("step_microstep").start()
-        if self._offload is not None:
-            self._finish_step(self._offload_step())
-            return
-        grads = self._grad_acc
+    def _prep_grads(self, grads):
+        """deepspeed_tpu/runtime/engine.py:1328-1369 ``prep_grads``: the fp16
+        overflow check and unscale, the predivide, the global norm, the clip.
+        Returns (grads, overflow, norm)."""
         fp16 = self.fp16_enabled()
         overflow, _ = detect_overflow(grads, fp16)
         if fp16:
@@ -698,6 +796,15 @@ class DeepSpeedEngine:
         clip = float(self.gradient_clipping() or 0.0)
         if clip > 0:
             clip_grads_by_global_norm(grads, clip, norm=norm)
+        return grads, overflow, norm
+
+    @torch.no_grad()
+    def _update(self, grads):
+        """deepspeed_tpu/runtime/engine.py:1371-1400 ``apply_update``, the one
+        body of the two-step path and the fused step: prep, the optimizer on
+        this rank's slices and the master -> compute re-cast (skipped on
+        overflow), the scaler update. Returns (overflow, norm)."""
+        grads, overflow, norm = self._prep_grads(grads)
         if not overflow:
             # stage 1 holds whole grads and sliced master: take this rank's slice
             opt_grads = [g if self._grad_axes[i] is not None
@@ -714,12 +821,30 @@ class DeepSpeedEngine:
             if not self._external_master:
                 for p, m, a in zip(self._params, self._master, self._axes):
                     p.copy_(unshard(m.to(self.compute_dtype), a, self.dp_size))
+        self._update_scaler(overflow)
+        return overflow, norm
+
+    def _update_scaler(self, overflow):
         self.scaler_state = ls.update(
             self.scaler_state, overflow, dynamic=self._dynamic_scale,
             scale_window=self.config.loss_scale_window,
             min_scale=self.config.min_loss_scale, hysteresis=self.config.hysteresis)
-        self._last_grad_norm = norm
-        self._finish_step(overflow)
+
+    @torch.no_grad()
+    def _take_model_step(self):
+        if self.wall_clock_breakdown():
+            self.timers("step_microstep").start()
+        if self._grad_acc is _FUSED:
+            # deepspeed_tpu/runtime/engine.py:2042-2048: the state was adopted
+            # at forward(); commit the bookkeeping
+            overflow, self._last_grad_norm = self._fused_pending
+            self._fused_pending = None
+            self._finish_step(self.fp16_enabled() and overflow)
+        elif self._offload is not None:
+            self._finish_step(self._offload_step())
+        else:
+            overflow, self._last_grad_norm = self._update(self._grad_acc)
+            self._finish_step(overflow)
 
     def _offload_step(self) -> bool:
         """The host-tier step (deepspeed_tpu/runtime/engine.py:2079-2146):
@@ -769,10 +894,7 @@ class DeepSpeedEngine:
                 for p, part, a in zip(self._params, out, self._axes):
                     if a is not None:
                         p.copy_(unshard(part, a, self.dp_size))
-        self.scaler_state = ls.update(
-            self.scaler_state, overflow, dynamic=self._dynamic_scale,
-            scale_window=self.config.loss_scale_window,
-            min_scale=self.config.min_loss_scale, hysteresis=self.config.hysteresis)
+        self._update_scaler(overflow)
         return overflow
 
     def _finish_step(self, overflowed: bool):

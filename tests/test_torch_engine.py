@@ -212,7 +212,6 @@ def _refused():
         dict(base, comm={"mode": "hierarchical"}),
         dict(base, comm={"overlap": {"mode": "bucketed"}}),
         dict(base, sequence_parallel={"enabled": True}),
-        dict(base, fused_step=True),
         dict(base, telemetry={"enabled": True}),
         dict(base, numerics={"enabled": True}),
         dict(base, tensorboard={"enabled": True}),
