@@ -26,12 +26,23 @@ result line):
    enqueue cost bounds;
 4. serving — GPT-2 1.5B (48 x 1600, 25 heads, vocab 50304, bf16, random
    weights from seed 0) through ``init_inference`` with the paged-decode
-   kernel on, over a seeded trace of 10 requests; checks that every request
-   finishes, that the kernel ran once per layer per decode step, each time
-   in the cluster design, and that the first decode step's logits agree
-   with the gather path on the same pools (bf16, and float32 pools through
-   the same kernel); then a short ``torch.profiler`` window for where the
-   time goes;
+   kernel on, its ``decode_step`` and ``prefill_chunk`` CUDA graphs captured
+   once each when the engine is built, over a seeded trace of 10 requests;
+   checks that every request finishes, that the kernel ran once per layer
+   per decode step (counted through the replays), each time in the cluster
+   design, one replay a decode step and a prefill chunk, that the first
+   decode step's replay equals the eager program on the same pools bit for
+   bit, and that its logits agree with the gather path on the same pools
+   (bf16, and float32 pools through the same kernel); the graph pool's
+   bytes; then a short ``torch.profiler`` window for where the time goes
+   and the busy share, whose trace must hold as many cluster-design kernels
+   as the launch counter moved (48 x the window's decode replays);
+   ``[serving-graphs]`` — the same trace on a second engine driven by the
+   eager programs: tokens and schedule logs identical, its decode step,
+   TTFT, tok/s and busy share beside the graphed engine's;
+   ``[serving-memory]`` — the device memory free before and after these two
+   phases, and after the cuBLAS workspaces the engines' capture stream kept
+   are cleared;
 5. flash kernels — the forward, dq and dk/dv kernels against the plain
    version (out, lse, dq, dk, dv) at the training shape, at the published
    config's (batch 8) and at edge cases
@@ -178,11 +189,30 @@ result line):
    against the layer without them, with both peaks; remat "attn", "flash"
    and "dots+attn-lean" at 4 layers of the 1.5B (the forward once a layer,
    grads against no remat);
-13. result — one ``{"kernels": [...]}`` line, then the last line
+13. the rest of serving, last (the offload-capacity probes measure the
+   headroom this process leaves them): ``[serving-spec]`` —
+   speculation with K = 4: in float32 with a self-draft (tokens equal to the plain float32 engine's, fewer target
+   steps, acceptance at least 0.9, the verify and the draft's two programs
+   captured once each) and with a rejecting draft (GPT-2 124M's shape, seed
+   1: tokens equal, rollbacks, the allocator's free pages back), then in
+   bf16 (tok/s, decode-domain ms and token agreement against plain bf16,
+   the first divergence and the plain row's top-2 gap there);
+   ``[serving-mirror]`` — bf16 on the gather path with ``mirror=True``: the
+   graphed programs bitwise equal to the eager dense oracle at every
+   prefill chunk and decode step; ``[serving-restart]`` — the trace with
+   the prefix cache and ``request_trace`` on against it off (identical
+   logs, the ledger, the Perfetto export, TTFT / TPOT percentiles), stopped
+   at the first iteration with 6 running groups, saved with ``save_server``
+   in a ``tempfile.mkdtemp()`` directory and restored into a fresh engine
+   (tokens identical, fewer prefill chunks than a cold restart, the graphs
+   captured anew; the snapshot's bytes and the walls by stage), and float32
+   ``generate`` / ``beam_search`` against the float32 engine's tokens;
+14. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -479,7 +509,45 @@ def _trace(vocab):
     return reqs
 
 
+def _timed(eng, name):
+    """Wrap the engine's attribute ``name`` (a program or a method) so each
+    call is fenced by ``torch.cuda.synchronize()`` and timed; returns the
+    record {"calls", "seconds"}."""
+    fn = getattr(eng, name)
+    rec = {"calls": 0, "seconds": 0.0}
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        rec["seconds"] += time.perf_counter() - t
+        rec["calls"] += 1
+        return out
+
+    setattr(eng, name, timed)
+    return rec
+
+
+def _ms(rec):
+    return rec["seconds"] / max(rec["calls"], 1) * 1e3
+
+
+def _check_graphs(eng, names, tag):
+    graphs = eng.graphs()
+    if set(graphs) != set(names) or any(g.captures != 1 for g in graphs.values()):
+        raise AssertionError(f"[{tag}] expected one capture of each of {sorted(names)}, got "
+                             f"{ {k: g.captures for k, g in graphs.items()} }")
+    return graphs
+
+
+def _graph_bytes(eng):
+    return sum(g.pool_bytes for g in eng.graphs().values())
+
+
 def phase_serving():
+    """The main serving path through the CUDA-graphed programs; returns the
+    run's record for the later serving phases (the model, outputs, logs)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
     from deepspeed_tpu_torch.ops.paged_attention import paged_decode_attention
@@ -492,21 +560,31 @@ def phase_serving():
     model.init(torch.Generator(device="cuda").manual_seed(0))
     eng = deepspeed_tpu_torch.init_inference(model, config_params={"serving": SERVING})
     torch.cuda.synchronize()
-    log(f"[serving] model + engine built in {time.perf_counter() - t0:.2f} s")
+    graphs = _check_graphs(eng, ("decode_step", "prefill_chunk"), "serving")
+    pool_bytes = _graph_bytes(eng)
+    log(f"[serving] model + engine built (both programs captured) in "
+        f"{time.perf_counter() - t0:.2f} s; graph pool {pool_bytes} bytes "
+        f"(memory_reserved over the captures), "
+        f"{ {k: g.pool_bytes for k, g in graphs.items()} }")
     gather = build_paged_programs(model, num_slots=eng.num_slots, block_size=eng.block_size,
                                   max_blocks=eng.max_blocks, prefill_chunk=eng.prefill_chunk,
                                   use_pallas=False)["decode_step"]
-    kernel_decode = eng._decode
+    graphed_decode = eng._decode
+    eager_decode = eng._raw["decode_step"]
     params32 = serving_params(model, torch.float32)
 
-    def first_step_check(p, toks, pos, tables, active, k_pool, v_pool, out):
-        """The first decode step against the gather path on copies of the same
-        pools: in bf16 (the served logits), and once more in float32 on the
+    def first_step_check(p, host_inputs, k_pool, v_pool, out):
+        """The first decode step (the graph's replay) against the eager
+        program on copies of the same pools, bit for bit; against the gather
+        path in bf16 (the served logits), and once more in float32 on the
         same pool contents, where only summation order differs."""
+        toks, pos, tables, active = (torch.as_tensor(a, device="cuda") for a in host_inputs)
+        e = eager_decode(p, toks, pos, tables, active, k_pool.clone(), v_pool.clone())
+        st["graph_vs_eager_bitwise"] = bool(torch.equal(out, e))
         b = gather(p, toks, pos, tables, active, k_pool.clone(), v_pool.clone())
         a = out
         k32, v32 = k_pool.float(), v_pool.float()
-        a32 = kernel_decode(params32, toks, pos, tables, active, k32.clone(), v32.clone())
+        a32 = eager_decode(params32, toks, pos, tables, active, k32.clone(), v32.clone())
         b32 = gather(params32, toks, pos, tables, active, k32, v32)
         a, b, a32, b32 = (t[active] for t in (a, b, a32, b32))
         if not all(torch.isfinite(t).all() for t in (a, b, a32, b32)):
@@ -514,6 +592,9 @@ def phase_serving():
         err, err32 = float((a - b).abs().max()), float((a32 - b32).abs().max())
         st.update(first_err=err, first_err_f32=err32, logit_std=float(b.std()),
                   first_argmax_agree=float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+        if not st["graph_vs_eager_bitwise"]:
+            raise AssertionError("first decode step: the graph's logits differ from the "
+                                 "eager program's on the same pools")
         if not (err <= LOGITS_TOL and err32 <= LOGITS_TOL_F32):
             raise AssertionError(
                 f"first decode step, kernel vs gather: logits differ by {err} in bf16 "
@@ -526,13 +607,13 @@ def phase_serving():
         pre = (k_pool.clone(), v_pool.clone()) if st["steps"] == 0 else None
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = kernel_decode(p, toks, pos, tables, active, k_pool, v_pool)
+        out = graphed_decode(p, toks, pos, tables, active, k_pool, v_pool)
         torch.cuda.synchronize()
         st["seconds"] += time.perf_counter() - t
         if pre is not None:
             launched = (paged_decode_attention.launches,
                         paged_decode_attention.cluster_launches)
-            first_step_check(p, toks, pos, tables, active, *pre, out)
+            first_step_check(p, (toks, pos, tables, active), *pre, out)
             # checks are not the main path
             paged_decode_attention.launches, paged_decode_attention.cluster_launches = launched
         st["steps"] += 1
@@ -560,34 +641,55 @@ def phase_serving():
     if cluster_launches != launches:
         raise AssertionError(f"only {cluster_launches} of {launches} paged_decode launches "
                              "ran the cluster design")
+    chunks = sum(1 for g in logs if g["prefill"] is not None)
+    replays = {k: g.replays for k, g in graphs.items()}
+    if replays != {"decode_step": st["steps"], "prefill_chunk": chunks}:
+        raise AssertionError(f"graph replays {replays} != {st['steps']} decode steps, "
+                             f"{chunks} prefill chunks")
     n_tok = sum(len(o.tokens) for o in outs)
     ttft = [o.ttft_ms for o in outs]
     res = {"requests": len(outs), "iterations": len(logs), "decode_steps": st["steps"],
-           "prefill_chunks": eng.target_steps - st["steps"],
+           "prefill_chunks": chunks,
            "preemptions": sum(o.preemptions for o in outs),
            "output_tokens": n_tok, "wall_s": wall, "tok_s": n_tok / wall,
            "decode_step_ms": st["seconds"] / st["steps"] * 1e3,
            "ttft_ms_median": statistics.median(ttft), "ttft_ms_max": max(ttft),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "graph_pool_bytes": pool_bytes,
+           "captures": {k: g.captures for k, g in graphs.items()}, "replays": replays,
            "paged_decode_launches": launches, "cluster_launches": cluster_launches,
+           "first_step_graph_vs_eager_bitwise": st["graph_vs_eager_bitwise"],
            "first_step_logits_max_abs_diff": st["first_err"],
            "first_step_logits_max_abs_diff_f32": st["first_err_f32"],
            "first_step_logit_std": st["logit_std"],
            "first_step_argmax_agreement": st["first_argmax_agree"],
            "logits_tol": [LOGITS_TOL, LOGITS_TOL_F32]}
+    eng._decode = graphed_decode
+    res["busy_share"] = profile(eng, cfg)
     log(f"[serving] {json.dumps(res)}")
-    eng._decode = kernel_decode
-    profile(eng, cfg)
-    return launches
+    del eng, params32, gather
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "captures": graphs["decode_step"].captures,
+            "replays": replays["decode_step"], "model": model, "outs": outs,
+            "logs": logs, "stats": res}
 
 
 def profile(eng, cfg):
     """Where the time goes: a short window of 8 requests (64-token prompts,
-    8 new tokens) under torch.profiler; device-busy share and top kernels."""
+    8 new tokens) under torch.profiler; device-busy share and top kernels.
+    The paged-decode kernels the trace saw are held to the launch counter's
+    move over the window, and on a graphed engine to n_layer x the decode
+    graph's replays: the counter is proven against kernel executions.
+    Returns the busy share."""
     from torch.profiler import ProfilerActivity
+    from deepspeed_tpu_torch.ops.paged_attention import paged_decode_attention
     from deepspeed_tpu_torch.serve.scheduler import Request
     rng = np.random.RandomState(1)
     reqs = [Request(f"p{i}", rng.randint(0, 50257, size=64).tolist(), 8) for i in range(8)]
+    graph = eng.graphs().get("decode_step")
+    replays0 = graph.replays if graph is not None else 0
+    launches0 = paged_decode_attention.cluster_launches
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -600,6 +702,312 @@ def profile(eng, cfg):
         f"({busy_us / wall_us:.3f} of the window)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x  {e.key[:90]}")
+    traced = sum(e.count for e in events if "paged_decode_cluster" in e.key)
+    counted = paged_decode_attention.cluster_launches - launches0
+    want = counted if graph is None else cfg.n_layer * (graph.replays - replays0)
+    log(f"[profile] paged_decode_cluster kernels in the trace {traced}, counter {counted}"
+        + ("" if graph is None else f", {cfg.n_layer} x {graph.replays - replays0} replays"))
+    if not traced == counted == want or traced == 0:
+        raise AssertionError(f"[profile] paged_decode_cluster: {traced} kernels traced, "
+                             f"counter moved {counted}, expected {want}")
+    return busy_us / wall_us
+
+
+def phase_serving_graphs(srv):
+    """The same trace through the eager programs (``_raw``) of a second
+    engine on the same model: tokens and schedule logs identical to the
+    graphed run of ``[serving]`` (whose first step was bit for bit the
+    eager program's on the same pools); the eager engine's decode step,
+    TTFT, tok/s and busy share beside the graphed one's."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.serve.paged import EagerProgram
+    model = srv["model"]
+    eng = deepspeed_tpu_torch.init_inference(model, config_params={"serving": SERVING})
+    for attr, name in (("_decode", "decode_step"), ("_prefill", "prefill_chunk")):
+        setattr(eng, attr, EagerProgram(eng._raw[name], name, eng._raw["inputs"][name],
+                                        eng.params, eng.k_pool, eng.v_pool))
+    rec = _timed(eng, "_decode")
+    t0 = time.perf_counter()
+    outs, logs = eng.run(_trace(model.config.vocab_size))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if [o.tokens for o in outs] != [o.tokens for o in srv["outs"]]:
+        bad = [o.req_id for o, g in zip(outs, srv["outs"]) if o.tokens != g.tokens]
+        raise AssertionError(f"[serving-graphs] eager and graphed tokens differ: {bad}")
+    if json.dumps(logs) != json.dumps(srv["logs"]):
+        raise AssertionError("[serving-graphs] eager and graphed schedule logs differ")
+    n_tok = sum(len(o.tokens) for o in outs)
+    g = srv["stats"]
+    res = {"tokens_identical": True, "logs_identical": True, "first_step_bitwise": True,
+           "eager": {"decode_step_ms": _ms(rec), "tok_s": n_tok / wall, "wall_s": wall,
+                     "ttft_ms_median": statistics.median(o.ttft_ms for o in outs),
+                     "ttft_ms_max": max(o.ttft_ms for o in outs)},
+           "graphed": {k: g[k] for k in ("decode_step_ms", "tok_s", "wall_s", "ttft_ms_median",
+                                         "ttft_ms_max", "busy_share")}}
+    res["eager"]["busy_share"] = profile(eng, model.config)
+    log(f"[serving-graphs] {json.dumps(res)}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+SPEC_K = 4
+DRAFT_MODEL = dict(vocab_size=50304, n_positions=1024, n_embd=768, n_layer=12, n_head=12)
+
+
+def _spec_config(**over):
+    return {"serving": dict(SERVING, speculation={"enabled": True, "max_draft_tokens": SPEC_K},
+                            **over)}
+
+
+def _seeded_model(dims, dtype, seed):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    model = GPT2Model(GPT2Config(**dims, compute_dtype=dtype))
+    model.init(torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def _serve(eng, reqs):
+    """Run ``reqs``; the outputs, logs, wall, and the decode domain's time
+    (``_decode_all`` or ``_speculate_all`` + a plain ``_decode_all``)."""
+    dom = [_timed(eng, "_decode_all")]
+    if eng._spec is not None:
+        dom.append(_timed(eng, "_speculate_all"))
+    t0 = time.perf_counter()
+    outs, logs = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if [o.status for o in outs] != ["finished"] * len(reqs):
+        raise AssertionError(f"unfinished requests: {[(o.req_id, o.status) for o in outs]}")
+    iters = sum(1 for g in logs if g["decode"] or g.get("spec"))
+    dom_s = sum(r["seconds"] for r in dom)
+    n_tok = sum(len(o.tokens) for o in outs)
+    return outs, logs, {"wall_s": wall, "tok_s": n_tok / wall, "output_tokens": n_tok,
+                        "decode_iterations": iters,
+                        "decode_domain_ms_per_iteration": dom_s / max(iters, 1) * 1e3,
+                        "target_steps": eng.target_steps}
+
+
+def phase_serving_spec():
+    """Speculative decoding at GPT-2 1.5B with K = 4: float32 with a
+    self-draft and with a rejecting draft (GPT-2 124M's shape, seed 1),
+    token for token against the plain float32 engine; then bf16, reported
+    against plain bf16. Returns the float32 model and plain outputs."""
+    import deepspeed_tpu_torch
+    init = deepspeed_tpu_torch.init_inference
+    reqs = functools.partial(_trace, MODEL["vocab_size"])
+    model32 = _seeded_model(MODEL, torch.float32, 0)
+    plain = init(model32, config_params={"serving": SERVING})
+    p_outs, _, p_stats = _serve(plain, reqs())
+    plain_steps = plain.target_steps
+    del plain
+    res = {"plain_f32": p_stats}
+
+    spec = init(model32, config_params=_spec_config(), draft_model=model32)
+    graphs = _check_graphs(spec, ("decode_step", "prefill_chunk", "spec_verify",
+                                  "spec_draft_decode", "spec_draft_prefill"), "serving-spec")
+    s_outs, s_logs, s_stats = _serve(spec, reqs())
+    summary = spec.spec_summary()
+    bad = [o.req_id for o, p in zip(s_outs, p_outs) if o.tokens != p.tokens]
+    if bad:
+        raise AssertionError(f"[serving-spec] float32 self-draft tokens differ from plain: {bad}")
+    if not spec.target_steps < plain_steps:
+        raise AssertionError(f"[serving-spec] target steps {spec.target_steps} not below "
+                             f"plain's {plain_steps}")
+    if summary["spec_acceptance_rate"] < 0.9:
+        raise AssertionError(f"[serving-spec] self-draft acceptance "
+                             f"{summary['spec_acceptance_rate']} < 0.9")
+    res["self_f32"] = dict(s_stats, spec_summary=summary, plain_target_steps=plain_steps,
+                           replays={k: g.replays for k, g in graphs.items()},
+                           graph_pool_bytes=_graph_bytes(spec))
+    del spec, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    draft = _seeded_model(DRAFT_MODEL, torch.float32, 1)
+    rej = init(model32, config_params=_spec_config(), draft_model=draft)
+    free0 = rej.scheduler.allocator.num_free
+    r_outs, r_logs, r_stats = _serve(rej, reqs())
+    bad = [o.req_id for o, p in zip(r_outs, p_outs) if o.tokens != p.tokens]
+    if bad:
+        raise AssertionError(f"[serving-spec] float32 rejecting-draft tokens differ: {bad}")
+    rollbacks = sum(1 for g in r_logs for _, m, a, _ in g.get("spec", []) if a < m)
+    if rollbacks == 0:
+        raise AssertionError("[serving-spec] the rejecting draft never rolled back")
+    if rej.scheduler.allocator.num_free != free0:
+        raise AssertionError(f"[serving-spec] allocator free {rej.scheduler.allocator.num_free}"
+                             f" != {free0} after the trace drained")
+    res["rejecting_f32"] = dict(r_stats, spec_summary=rej.spec_summary(), rollbacks=rollbacks,
+                                num_free_restored=True)
+    del rej, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model16 = _seeded_model(MODEL, torch.bfloat16, 0)
+    plain16 = init(model16, config_params={"serving": SERVING})
+    gaps = {}
+    sample = plain16._sample_token
+
+    def recording(g, row, position):
+        top2 = np.partition(row, -2)[-2:]
+        gaps[(g.req.req_id, position)] = float(top2[1] - top2[0])
+        return sample(g, row, position)
+
+    plain16._sample_token = recording
+    q_outs, _, q_stats = _serve(plain16, reqs())
+    del plain16
+    spec16 = init(model16, config_params=_spec_config(), draft_model=model16)
+    b_outs, _, b_stats = _serve(spec16, reqs())
+    agree = total = 0
+    first = None
+    for o, q in zip(b_outs, q_outs):
+        for i, (a, b) in enumerate(zip(o.tokens, q.tokens)):
+            total += 1
+            agree += a == b
+            if a != b and first is None:
+                first = {"req": o.req_id, "position": i, "plain_top2_gap": gaps.get((o.req_id, i))}
+    res["bf16"] = {"plain": q_stats, "spec": dict(b_stats, spec_summary=spec16.spec_summary()),
+                   "token_agreement": agree / total, "first_divergence": first}
+    log(f"[serving-spec] {json.dumps(res)}")
+    del spec16, model16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model32, p_outs
+
+
+def phase_serving_mirror():
+    """The dense mirror at GPT-2 1.5B in bf16 on the gather path, graphed
+    programs against the eager dense oracle, bitwise every prefill chunk and
+    decode step of the 10-request trace."""
+    import deepspeed_tpu_torch
+    model = _seeded_model(MODEL, torch.bfloat16, 0)
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config_params={"serving": dict(SERVING, use_pallas_decode=False)}, mirror=True)
+    _check_graphs(eng, ("decode_step", "prefill_chunk"), "serving-mirror")
+    outs, logs, stats = _serve(eng, _trace(MODEL["vocab_size"]))
+    chunks = sum(1 for g in logs if g["prefill"] is not None)
+    steps = sum(1 for g in logs if g["decode"])
+    if eng.mirror_checks != chunks + steps:
+        raise AssertionError(f"[serving-mirror] {eng.mirror_checks} checks != {chunks} chunks "
+                             f"+ {steps} decode steps")
+    log(f"[serving-mirror] {json.dumps(dict(stats, mirror_checks=eng.mirror_checks, prefill_chunks=chunks, decode_steps=steps, bitwise=True))}")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+RESTART_SERVING = dict(SERVING, prefix_cache={"enabled": True})
+RESTART_TRACE = {"enabled": True, "capacity": 64}
+RESTART_KILL_RUNNING = 6
+
+
+def phase_serving_restart(model32, outs32):
+    """The request tracer, warm restart and GPT-2's decoders: (1) the trace
+    with ``request_trace`` on against it off (the prefix cache on in both,
+    as a warm restart needs); (2) the traced run stopped at the first
+    iteration with 6 running groups, saved, restored into a fresh engine and
+    finished, against a cold restart of the pending requests; (3) float32
+    ``generate`` and ``beam_search`` against the float32 engine's tokens."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.resilience.serve_restart import restore_server, save_server
+    from deepspeed_tpu_torch.serve.request_trace import serialize_trace, to_serve_trace_events
+    init = deepspeed_tpu_torch.init_inference
+    reqs = functools.partial(_trace, MODEL["vocab_size"])
+    model = _seeded_model(MODEL, torch.bfloat16, 0)
+    traced_cfg = {"serving": dict(RESTART_SERVING, request_trace=RESTART_TRACE)}
+
+    eng = init(model, config_params={"serving": RESTART_SERVING})
+    rec = _timed(eng, "_decode")
+    ref_outs, ref_logs, _ = _serve(eng, reqs())
+    off_ms = _ms(rec)
+    del eng
+    eng = init(model, config_params=traced_cfg)
+    rec = _timed(eng, "_decode")
+    t_outs, t_logs, _ = _serve(eng, reqs())
+    on_ms = _ms(rec)
+    tr = eng.tracer
+    if json.dumps(t_logs) != json.dumps(ref_logs):
+        raise AssertionError("[serving-restart] traced schedule logs differ from untraced")
+    if tr.finished != 10 or len(tr.requests) != 10:
+        raise AssertionError(f"[serving-restart] ledger holds {len(tr.requests)} requests")
+    events = json.loads(serialize_trace(to_serve_trace_events(tr.bundle())))["traceEvents"]
+    res = {"tracer": {"latency": tr.percentiles(), "decode_step_ms_traced": on_ms,
+                      "decode_step_ms_untraced": off_ms, "perfetto_events": len(events),
+                      "waste": tr.waste_summary()}}
+    del eng
+
+    root = tempfile.mkdtemp(prefix="serve_restart_")
+    try:
+        victim = init(model, config_params=traced_cfg)
+        for r in reqs():
+            victim.submit(r)
+        while len(victim.scheduler.running) < RESTART_KILL_RUNNING:
+            victim.step()
+            if victim.scheduler.idle:
+                raise AssertionError("[serving-restart] the trace drained before the kill")
+        kill_it = victim._it
+        finished = set(victim.outputs)
+        snap = save_server(victim, root)
+        save = victim.last_serve_save
+        del victim
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        warm = init(model, config_params=traced_cfg)
+        build_s = time.perf_counter() - t0
+        if not restore_server(warm, snap):
+            raise AssertionError("[serving-restart] the snapshot was refused")
+        load = warm.last_serve_load
+        warm_logs = []
+        while not warm.scheduler.idle:
+            warm_logs.append(warm.step())
+        got = [warm.outputs[r.req_id].tokens for r in ref_outs]
+        if got != [o.tokens for o in ref_outs]:
+            raise AssertionError("[serving-restart] warm restart tokens differ")
+        graphs = _check_graphs(warm, ("decode_step", "prefill_chunk"), "serving-restart")
+        if graphs["decode_step"].replays == 0:
+            raise AssertionError("[serving-restart] the restored engine replayed no graph")
+        warm_chunks = sum(1 for g in warm_logs if g["prefill"] is not None)
+        del warm
+        cold = init(model, config_params=traced_cfg)
+        c_outs, c_logs, _ = _serve(cold, [r for r in reqs() if r.req_id not in finished])
+        cold_chunks = sum(1 for g in c_logs if g["prefill"] is not None)
+        if not warm_chunks < cold_chunks:
+            raise AssertionError(f"[serving-restart] warm {warm_chunks} prefill chunks, not "
+                                 f"below cold {cold_chunks}")
+        del cold
+        res["restart"] = {"kill_iteration": kill_it, "finished_before_kill": len(finished),
+                          "tokens_identical": True, "warm_prefill_chunks": warm_chunks,
+                          "cold_prefill_chunks": cold_chunks,
+                          "restored_captures": {k: g.captures for k, g in graphs.items()},
+                          "restored_replays": {k: g.replays for k, g in graphs.items()},
+                          "engine_build_s": build_s, "save_s": save, "load_s": load}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 generate / beam_search against the float32 engine (phase_serving_spec)
+    trace = _trace(MODEL["vocab_size"])
+    by_id = {o.req_id: o for o in outs32}
+    for r in trace[:3]:
+        out = model32.generate(torch.tensor([r.prompt], device=model32.device), 32)
+        if out[0, len(r.prompt):].tolist() != by_id[r.req_id].tokens[:32]:
+            raise AssertionError(f"[serving-restart] generate differs from the engine: {r.req_id}")
+    beam = next(r for r in trace if r.num_beams > 1)
+    seq, score = model32.beam_search(torch.tensor([beam.prompt], device=model32.device),
+                                     beam.max_new_tokens, num_beams=beam.num_beams,
+                                     eos_token_id=beam.eos_token_id)
+    want = by_id[beam.req_id]
+    gap = abs(float(score[0]) - want.score)
+    if seq[0, len(beam.prompt):].tolist() != want.tokens or gap > 1e-4:
+        raise AssertionError(f"[serving-restart] beam_search differs from the engine "
+                             f"(score gap {gap})")
+    res["decoders_f32"] = {"generate_requests": 3, "generate_tokens": 32,
+                           "beam_score": float(score[0]), "engine_beam_score": want.score,
+                           "beam_score_gap": gap}
+    log(f"[serving-restart] {json.dumps(res)}")
 
 
 # --------------------------------------------------------------------- training
@@ -1467,10 +1875,13 @@ LARGE_STEPS = 3
 # bench.py:1240-1323's max_params_offload: the deepest 1600-wide GPT-2 whose
 # bf16 params and grads and full-remat activations at tokens (4, 1024) fit on
 # the card, probed in fresh processes (chip_smoke.py --probe N) at bench.py's
-# 8-layer granularity, seeded at the pair that bracketed it in the full search
-# (H100 80GB HBM3: 624 layers fit, 632 do not); the analytic ceiling is
+# 8-layer granularity, seeded at (616, 624): with the device memory this
+# process holds by then, the limit has been found at 616 and at 624 layers
+# (H100 80GB HBM3; a fresh parent leaves room for 632), and this pair finds
+# either in two to four probes. A seed that misses starts the search from the
+# floor: 7 more probes, about 200 s. The analytic ceiling is
 # (80 GB - activations) / (4 B x 30.7 M params a layer)
-CAPACITY_SEED = (624, 632)
+CAPACITY_SEED = (616, 624)
 CAPACITY_FLOOR, CAPACITY_CEILING = 48, 640
 PROBE_TOKENS = (4, 1024)
 PROBE_TIMEOUT_S = 300
@@ -2186,6 +2597,14 @@ def phase_offload_capacity():
     (8-layer steps) whose offload footprint fits, seeded at CAPACITY_SEED."""
     gc.collect()
     torch.cuda.empty_cache()
+    # the probes run in other processes and get what this one leaves: free
+    # the cuBLAS workspaces the earlier phases made (32 MiB for each stream
+    # and handle that ran a product; no CUDA graph is alive here), so that
+    # the capacity does not depend on how many of those the phases used
+    reserved_held = torch.cuda.memory_reserved()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
     probes = {}
 
     def fits(n):
@@ -2227,7 +2646,9 @@ def phase_offload_capacity():
            "host_state_gb_at_12_B": 12 * params / 1e9,
            "host_gb_at_16_B": 16 * params / 1e9,
            "device_engine_reckoned_max_params": total / 16,
+           "parent_reserved_gb_before_clearing": reserved_held / 1e9,
            "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9,
+           "device_free_gb_before_probes": free_before / 1e9,
            "seconds": sum(v[3] for v in probes.values())}
     log(f"[offload-capacity] {json.dumps(res)}")
     return res
@@ -3606,6 +4027,23 @@ def phase_single_card():
     return flash, sparse
 
 
+T0 = time.perf_counter()
+
+
+def _device_memory():
+    """The device memory the driver reports free, and this process's caching
+    allocator's reserve, in bytes."""
+    return {"free": torch.cuda.mem_get_info()[0], "reserved": torch.cuda.memory_reserved()}
+
+
+def _timed_phase(fn, *args):
+    """``fn(*args)``, its wall time logged as ``[time] <name> <s> s``."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {fn.__name__} {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main():
     probe = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--probe" else None
     if len(sys.argv) > 1 and probe is None:
@@ -3624,36 +4062,56 @@ def main():
         return
     host = host_info()
     log(f"[host] {json.dumps(host)}")
-    phase_build()
-    entry = phase_kernels()
-    entry["launches"] = phase_serving()
-    flash = phase_flash_kernels()
-    for e, n in zip(flash, phase_training()):
+    _timed_phase(phase_build)
+    entry = _timed_phase(phase_kernels)
+    memory = {"before": _device_memory()}
+    srv = _timed_phase(phase_serving)
+    entry.update(launches=srv["launches"], captures=srv["captures"], replays=srv["replays"])
+    _timed_phase(phase_serving_graphs, srv)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory["after"] = _device_memory()
+    # what the serving phases leave once every engine is gone: the cuBLAS
+    # workspaces (their capture stream's among them), cleared here to show it
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    memory["after_clearing_cublas_workspaces"] = _device_memory()
+    log(f"[serving-memory] {json.dumps(memory)}")
+    flash = _timed_phase(phase_flash_kernels)
+    for e, n in zip(flash, _timed_phase(phase_training)):
         e["launches"] = n
-    for e, n in zip(flash, phase_train_published()):
+    for e, n in zip(flash, _timed_phase(phase_train_published)):
         e["launches_published"] = n
-    for e, n in zip(flash, phase_train_fused()):
+    for e, n in zip(flash, _timed_phase(phase_train_fused)):
         e["launches_fused"] = n
-    offload_launches, clip_rounding = phase_train_offload()
+    offload_launches, clip_rounding = _timed_phase(phase_train_offload)
     for e, n in zip(flash, offload_launches):
         e["launches_offload"] = n
-    phase_checkpoint(clip_rounding)
-    phase_offload_large()
-    phase_offload_capacity()
-    sparse = phase_block_sparse_kernels()
-    for e, n in zip(sparse, phase_long_training()):
+    _timed_phase(phase_checkpoint, clip_rounding)
+    _timed_phase(phase_offload_large)
+    _timed_phase(phase_offload_capacity)
+    sparse = _timed_phase(phase_block_sparse_kernels)
+    for e, n in zip(sparse, _timed_phase(phase_long_training)):
         e["launches"] = n
-    fused = phase_fused_block_kernels()
-    for e, n in zip(fused, phase_fused_training()):
+    fused = _timed_phase(phase_fused_block_kernels)
+    for e, n in zip(fused, _timed_phase(phase_fused_training)):
         e["launches"] = n
     # the flash kernels' non-causal path with a key bias, inside BERT
-    for e, n in zip(flash, phase_bert_training()):
+    for e, n in zip(flash, _timed_phase(phase_bert_training)):
         e["launches_bert"] = n
-    single_flash, single_sparse = phase_single_card()
+    single_flash, single_sparse = _timed_phase(phase_single_card)
     for e, n in zip(flash, single_flash):
         e["launches_single_card"] = n
     for e, n in zip(sparse, single_sparse):
         e["launches_single_card"] = n
+    # the rest of serving runs last, so that the offload-capacity probes
+    # above see this process as the training phases leave it
+    model32, outs32 = _timed_phase(phase_serving_spec)
+    _timed_phase(phase_serving_mirror)
+    _timed_phase(phase_serving_restart, model32, outs32)
+    del model32, outs32
+    log(f"[time] chip_smoke.py phases {time.perf_counter() - T0:.1f} s")
     log(card)
     log(f"host: {host['cpu']}, nproc {host['nproc']}, MemTotal {host['mem_total_gb']:.1f} GB")
     log(json.dumps({"kernels": [entry, *flash, *sparse, *fused]}))

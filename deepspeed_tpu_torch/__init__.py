@@ -12,8 +12,11 @@ layout (``ops.sparse_attention``), its kernels in CUDA
 (``csrc/block_sparse_attention.cu``); and the fused attention half of a
 GPT-2 block (``GPT2Config.fused_block``, ``csrc/fused_block_tc.cu`` on the
 tensor cores, ``csrc/fused_block.cu`` on the CUDA cores) with the
-BERT family (``models.bert`` over ``ops.transformer``). Training takes
-activation checkpointing (``GPT2Config.remat`` / ``remat_policy``, the
+BERT family (``models.bert`` over ``ops.transformer``). Serving runs its
+programs as CUDA graphs on the card and takes speculative decoding, the
+dense mirror, the request tracer and warm restart
+(``resilience.serve_restart``); GPT-2 has ``generate`` and ``beam_search``.
+Training takes activation checkpointing (``GPT2Config.remat`` / ``remat_policy``, the
 config's ``activation_checkpointing`` block; ``checkpointing``), client
 ``(init, apply)`` optimizers, ZeRO-Offload, and checkpoints in the JAX
 package's format (``checkpoint``) with the ``resilience`` block.
@@ -87,16 +90,23 @@ def add_config_arguments(parser):
 
 
 def init_inference(model, model_parameters=None, config_params=None,
-                   device=None):
+                   device=None, telemetry=None, mirror=False, draft_model=None,
+                   draft_parameters=None):
     """Build the serving engine (``deepspeed.init_inference``-shaped).
 
     ``model`` is a ``models.gpt2.GPT2Model``; it is moved to ``device`` (the
     card unless ``"cpu"``; no card and no ``"cpu"`` raises). ``model_parameters``
     is an optional name -> tensor dict loaded into it (``params_from_jax``
     gives one). ``config_params`` is a DeepSpeed config dict or path whose
-    ``"serving"`` block sizes the paged KV pool and the scheduler. Returns a
-    ``serve.InferenceEngine``: ``submit()`` requests, drive ``step()`` (or
-    ``run()``) to completion."""
+    ``"serving"`` block sizes the paged KV pool and the scheduler, and turns
+    on the request tracer and speculation. Returns a ``serve.InferenceEngine``:
+    ``submit()`` requests, drive ``step()`` (or ``run()``) to completion.
+    ``mirror=True`` runs the dense-cache oracle in bitwise lockstep (it
+    doubles the work). ``serving.speculation.enabled`` needs the live draft
+    here: ``draft_model`` (a ``GPT2Model``, moved to ``device``; the target
+    itself for a self-draft) and optionally ``draft_parameters`` to load into
+    it (the config's ``draft_model`` string is a report label). ``telemetry``
+    is not ported yet and raises."""
     from .device import resolve_device
     from .serve.engine import InferenceEngine
 
@@ -110,6 +120,8 @@ def init_inference(model, model_parameters=None, config_params=None,
             config_params["train_batch_size"] = 1
     ds_config = DeepSpeedConfig(config_params, world_size=1)
     model.to(dev)
+    if draft_model is not None:
+        draft_model.to(dev)
     return InferenceEngine(
         model, model_parameters,
         num_slots=ds_config.serving_max_seqs,
@@ -118,7 +130,24 @@ def init_inference(model, model_parameters=None, config_params=None,
         max_model_len=ds_config.serving_max_model_len,
         prefill_chunk=ds_config.serving_prefill_chunk,
         use_pallas=ds_config.serving_use_pallas_decode,
+        telemetry=telemetry, mirror=mirror,
         prefix_cache=ds_config.serving_prefix_cache_enabled,
         sharding={"model": ds_config.serving_sharding_model},
-        request_trace={"enabled": ds_config.serving_request_trace_enabled},
-        speculation={"enabled": ds_config.serving_speculation_enabled})
+        request_trace={
+            "enabled": ds_config.serving_request_trace_enabled,
+            "capacity": ds_config.serving_request_trace_capacity,
+            "iteration_capacity":
+                ds_config.serving_request_trace_iteration_capacity,
+            "dump_dir": ds_config.serving_request_trace_dump_dir,
+            "slo": {"ttft_ms": ds_config.serving_slo_ttft_ms,
+                    "tpot_ms": ds_config.serving_slo_tpot_ms},
+        },
+        speculation={
+            "enabled": True,
+            "draft_model": draft_model,
+            "draft_params": draft_parameters,
+            "max_draft_tokens":
+                ds_config.serving_speculation_max_draft_tokens,
+            "draft_pool_blocks":
+                ds_config.serving_speculation_draft_pool_blocks,
+        } if ds_config.serving_speculation_enabled else None)

@@ -19,7 +19,8 @@ attention (ops/flash_attention.py), block-sparse attention over a
 over flash, as in the JAX model), the fused attention half of a block
 (``fused_block``, ops/fused_block.py; it takes precedence over flash, and
 the serving programs ignore it, as the JAX ones do) and the chunked
-cross-entropy. Its layers
+cross-entropy; ``generate`` and ``beam_search`` decode over per-layer KV
+caches as the JAX model's do. Its layers
 take the JAX package's per-layer parameter dicts (``params_tree``) and round
 where the JAX model rounds. ``remat`` recomputes each block in the backward
 under ``remat_policy`` (``runtime/activation_checkpointing/checkpointing.py``;
@@ -387,6 +388,228 @@ class GPT2Model(nn.Module):
             return self.logits(p, tokens, generator)
         ce, aux = self.apply_parts(p, tokens, labels, generator)
         return ce + aux
+
+    # ------------------------------------------------------------- decoding
+    def _cached_forward(self, p, toks, pos, kcs, vcs):
+        """Incremental forward over per-layer KV caches, shared by
+        ``generate`` and ``beam_search``: ``toks [B, Tn]`` at positions
+        ``pos ..`` (``pos`` counts the tokens already cached) against caches
+        ``[n_layer, B, n_head, max_len, head_dim]`` in the compute dtype,
+        written in place; returns the last position's float32 logits
+        ``[B, vocab]``. The JAX package's ``_build_cached_forward``: dense
+        causal attention (a sparse model decodes densely, as there) through
+        ``DecodeMath``, the serving programs' math."""
+        m = DecodeMath(self)
+        cd = self.config.compute_dtype
+        Tn = toks.shape[1]
+        dev = toks.device
+        tp = pos + torch.arange(Tn, device=dev)
+        x = p["wte"][toks.long()].to(cd) + p["wpe"][tp].to(cd)
+        allowed = torch.arange(kcs.shape[3], device=dev)[None, :] <= tp[:, None]
+
+        def attn(h, ap, li):
+            q, k, v = m.qkv(h, ap)
+            kcs[li, :, :, pos:pos + Tn] = k.to(kcs.dtype)
+            vcs[li, :, :, pos:pos + Tn] = v.to(vcs.dtype)
+            return m.proj(m.attend(q, kcs[li], vcs[li], allowed, h.dtype), ap, h.dtype)
+
+        x = m.blocks_forward(p, x, attn)
+        return self._head(x[:, -1], p["wte"])
+
+    def _decode_caches(self, B, max_len, dev):
+        c = self.config
+        shape = (c.n_layer, B, c.n_head, max_len, c.head_dim)
+        return (torch.zeros(shape, dtype=c.compute_dtype, device=dev),
+                torch.zeros(shape, dtype=c.compute_dtype, device=dev))
+
+    def _decode_checks(self, T0, max_new_tokens):
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1 (got {max_new_tokens})")
+        if T0 + max_new_tokens > self.config.n_positions:
+            raise ValueError(f"prompt {T0} + {max_new_tokens} new tokens exceeds "
+                             f"n_positions {self.config.n_positions}")
+
+    @torch.no_grad()
+    def generate(self, tokens, max_new_tokens: int, temperature: float = 0.0,
+                 generator=None, *, top_k: int = 0, top_p: float = 1.0):
+        """Autoregressive decode with per-layer KV caches: one forward over the
+        prompt, then single-token steps that append to static-length caches.
+        ``temperature == 0`` is greedy (the first maximum); otherwise
+        categorical sampling drawn from ``generator`` (a ``torch.Generator``
+        on the module's device, required), optionally truncated to the
+        ``top_k`` highest-probability tokens and/or the nucleus of
+        smallest-count tokens whose cumulative probability reaches ``top_p``
+        (both filters compose; at least the argmax token always survives).
+        Returns ``[B, T0 + max_new_tokens]`` int64. The JAX package's
+        ``generate`` over the module's own parameters; raises ValueError
+        where it asserts. A sampled run cannot match ``jax.random`` bit for
+        bit."""
+        c = self.config
+        B, T0 = tokens.shape
+        self._decode_checks(T0, max_new_tokens)
+        if temperature > 0 and generator is None:
+            raise ValueError("temperature > 0 requires a torch.Generator")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0 (got {top_k})")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1] (got {top_p})")
+
+        def sample(logits):
+            if temperature == 0:
+                return torch.argmax(logits, dim=-1)
+            logits = logits / temperature
+            if 0 < top_k < c.vocab_size:
+                kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+                logits = torch.where(logits < kth, torch.full((), -math.inf,
+                                                              device=logits.device), logits)
+            if top_p < 1.0:
+                sorted_logits, order = torch.sort(logits, dim=-1, descending=True,
+                                                  stable=True)
+                probs = torch.softmax(sorted_logits, dim=-1)
+                # exclusive mass BEFORE each token: a token stays while the
+                # mass ahead of it is under top_p (the argmax always stays);
+                # the keep mask goes back by sort position, so ties at the
+                # cutoff do not widen the nucleus
+                kept_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
+                kept = torch.zeros_like(kept_sorted).scatter(-1, order, kept_sorted)
+                logits = torch.where(kept, logits, torch.full((), -math.inf,
+                                                              device=logits.device))
+            return torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                     generator=generator)[:, 0]
+
+        p = self.params_tree()
+        kcs, vcs = self._decode_caches(B, T0 + max_new_tokens, tokens.device)
+        logits = self._cached_forward(p, tokens, 0, kcs, vcs)
+        out = [tokens.long()]
+        tok = sample(logits)
+        for i in range(1, max_new_tokens):
+            out.append(tok[:, None])
+            tok = sample(self._cached_forward(p, tok[:, None], T0 + i - 1, kcs, vcs))
+        out.append(tok[:, None])
+        return torch.cat(out, dim=1)
+
+    @torch.no_grad()
+    def beam_search(self, tokens, max_new_tokens: int, num_beams: int = 4, *,
+                    eos_token_id=None, length_penalty: float = 1.0):
+        """KV-cached beam search: prefill once, expand to ``num_beams`` beams
+        per batch row, then single-token steps that keep the K
+        highest-scoring hypotheses (summed token log-probs; ties go to the
+        lower index, as ``jax.lax.top_k``). With ``eos_token_id`` a finished
+        beam is frozen (only the EOS continuation at zero cost survives) and
+        padded with EOS; scores are length-normalized by
+        ``len**length_penalty`` (GNMT convention) for the final ranking.
+        Returns ``(sequences [B, T0 + max_new_tokens], scores [B])`` — the
+        best beam per row. The JAX package's ``beam_search``; raises
+        ValueError where it asserts."""
+        c = self.config
+        B, T0 = tokens.shape
+        K, L, V = int(num_beams), int(max_new_tokens), c.vocab_size
+        self._decode_checks(T0, L)
+        if not 1 <= K <= V:
+            raise ValueError(f"num_beams {K} must be in [1, vocab_size {V}]")
+        if eos_token_id is not None and not 0 <= eos_token_id < V:
+            raise ValueError(f"eos_token_id {eos_token_id} outside vocab [0, {V})")
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        dev = tokens.device
+
+        def top_k(x):
+            vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+            return vals[..., :K], idx[..., :K]
+
+        p = self.params_tree()
+        kcs, vcs = self._decode_caches(B, T0 + L, dev)
+        first = self._cached_forward(p, tokens, 0, kcs, vcs)
+        kcs, vcs = kcs.repeat_interleave(K, dim=1), vcs.repeat_interleave(K, dim=1)
+        scores, tok0 = top_k(torch.log_softmax(first, dim=-1))          # [B, K]
+        live = tok0 != eos if eos >= 0 else torch.ones_like(tok0, dtype=torch.bool)
+        seqs = torch.full((B, K, L), eos if eos >= 0 else 0, dtype=torch.long, device=dev)
+        seqs[:, :, 0] = tok0
+        for t in range(L - 1):
+            logits = self._cached_forward(p, seqs[:, :, t].reshape(B * K, 1), T0 + t,
+                                          kcs, vcs)
+            cand = scores[:, :, None] + torch.log_softmax(logits.reshape(B, K, V), dim=-1)
+            if eos >= 0:
+                # a finished beam admits only the EOS continuation, at no cost
+                frozen = torch.full((B, K, V), -1e9, device=dev)
+                frozen[:, :, eos] = scores
+                cand = torch.where(live[:, :, None], cand, frozen)
+            scores, idx = top_k(cand.reshape(B, K * V))
+            parent, tok = idx // V, idx % V
+            seqs = torch.gather(seqs, 1, parent[:, :, None].expand(B, K, L)).clone()
+            seqs[:, :, t + 1] = tok
+            flatp = (torch.arange(B, device=dev)[:, None] * K + parent).reshape(-1)
+            kcs, vcs = kcs[:, flatp], vcs[:, flatp]
+            live = torch.gather(live, 1, parent)
+            if eos >= 0:
+                live = live & (tok != eos)
+        # GNMT length normalization: finished beams count tokens up to and
+        # including EOS; an unfinished beam counts exactly L
+        if eos >= 0:
+            lengths = torch.clamp(torch.cumprod((seqs != eos).float(), dim=2).sum(2) + 1.0,
+                                  max=float(L))
+        else:
+            lengths = torch.full((B, K), float(L), device=dev)
+        final = scores / lengths ** float(length_penalty)
+        best = torch.argmax(final, dim=1)
+        rows = torch.arange(B, device=dev)
+        return torch.cat([tokens.long(), seqs[rows, best]], dim=1), final[rows, best]
+
+
+class DecodeMath:
+    """The per-layer math of decoding over a KV cache, in one place for
+    ``GPT2Model.generate`` / ``beam_search``, the paged serving programs
+    (serve/paged.py) and the dense oracle (serve/oracle.py): qkv, attention
+    with scores and softmax in float32 and the probabilities rounded to the
+    compute dtype before the value product (the JAX package's
+    ``attn_cached``), the projection, and the LayerNorm / MLP block loop.
+    ``attend`` takes the history as ``[B, heads, T, hd]`` views; the paged
+    gather and the oracle give it views of a token-major ``[B, T, heads,
+    hd]`` tensor, so that both issue the same ops on operands of the same
+    layout."""
+
+    def __init__(self, model):
+        c = model.config
+        self.model = model
+        self.nh, self.hd = c.n_head, c.head_dim
+        self.eps = c.layer_norm_epsilon
+
+    def qkv(self, x, bp):
+        B_, Tn, _ = x.shape
+        nh, hd = self.nh, self.hd
+        qkv = torch.matmul(x, bp["c_attn_w"].to(x.dtype)) + bp["c_attn_b"].to(x.dtype)
+        q, k, v = qkv.split(nh * hd, dim=-1)
+        q = q.reshape(B_, Tn, nh, hd).transpose(1, 2)
+        k = k.reshape(B_, Tn, nh, hd).transpose(1, 2)
+        v = v.reshape(B_, Tn, nh, hd).transpose(1, 2)
+        return q, k, v
+
+    @staticmethod
+    def proj(y, bp, x_dtype):
+        return (torch.matmul(y, bp["c_proj_w"].to(x_dtype))
+                + bp["c_proj_b"].to(x_dtype))
+
+    def attend(self, q, kg, vg, mask, x_dtype):
+        s = torch.matmul(q.float(), kg.float().transpose(-1, -2)) / math.sqrt(self.hd)
+        s = torch.where(mask, s, torch.full((), -1e9, device=s.device))
+        p = torch.softmax(s, dim=-1).to(x_dtype)
+        y = torch.matmul(p, vg)
+        B_, heads, Tn, _ = y.shape
+        return y.transpose(1, 2).reshape(B_, Tn, heads * self.hd)
+
+    def blocks_forward(self, p, x, attn_fn):
+        m = self.model
+        for li, bp in enumerate(p["blocks"]):
+            a = attn_fn(m._layer_norm(x, bp["ln_1"], self.eps), bp["attn"], li)
+            x = x + a
+            h = m._layer_norm(x, bp["ln_2"], self.eps)
+            x = x + m._mlp(h, bp["mlp"])
+        return m._layer_norm(x, p["ln_f"], self.eps)
+
+    @staticmethod
+    def logits(row, p):
+        # row [B_, H] against serving_params' lm_head (the compute-dtype wte
+        # widened to float32), accumulated in float32
+        return torch.matmul(row.float(), p["lm_head"].t())
 
 
 @torch.no_grad()

@@ -1,10 +1,13 @@
 """Paged KV-cache programs over models/gpt2.py (PyTorch port).
 
-Counterpart of ``deepspeed_tpu/serve/paged.py`` for one device and no
-speculative verify: ``decode_step``, ``prefill_chunk``, ``copy_blocks`` and
-the ``beam_init(K, eos)`` / ``beam_select(K, eos)`` heads. Shapes are fixed
-at build time (slot count, chunk length, table width, pool geometry), and
-what changes per iteration rides in as tensor values, as in the JAX package.
+Counterpart of ``deepspeed_tpu/serve/paged.py`` for one device:
+``decode_step``, ``prefill_chunk``, ``spec_verify`` (with ``verify_width``),
+``copy_blocks`` and the ``beam_init(K, eos)`` / ``beam_select(K, eos)``
+heads. Shapes are fixed at build time (slot count, chunk length, verify
+width, table width, pool geometry), and what changes per iteration rides in
+as tensor values, as in the JAX package: ``prefill_chunk``'s ``pos`` and
+``n_valid`` are int32 tensors (JAX's traced ``jnp.int32``), and the last
+valid row is picked on the device, so no program reads a value back.
 
 The pool is ``[n_layer, num_blocks, block_size, n_head, head_dim]`` per k/v in
 the compute dtype; block 0 is the reserved null page (block_allocator). The
@@ -12,6 +15,7 @@ gather path rebuilds each slot's pages into the dense
 ``[slots, n_head, max_blocks * block_size, head_dim]`` view and runs the
 JAX package's score / mask / softmax / value math; with ``use_pallas`` the
 decode step calls the paged-decode kernel instead (ops/paged_attention.py).
+``spec_verify`` always takes the gather path, as in the JAX package.
 
 Two differences from the JAX programs, both deliberate:
 
@@ -24,6 +28,11 @@ Two differences from the JAX programs, both deliberate:
   clamp (``wpe_cap``, ``tp // BS`` against ``MB - 1``, the last valid row of
   a chunk) is clamped here too.
 
+On the card the engine runs ``decode_step``, ``prefill_chunk`` and
+``spec_verify`` as CUDA graphs (``GraphedProgram``), the port's counterpart of
+the JAX package's ``jax.jit``: each is captured once, at fixed addresses, and
+replayed every iteration.
+
 The parameters arrive in the layout ``serving_params`` builds: the JAX
 package's tree with the weights and biases already in the compute dtype
 (JAX casts the same values at every use, so the numbers are the same),
@@ -31,10 +40,10 @@ LayerNorm in float32, and ``lm_head``, the compute-dtype ``wte`` widened to
 float32 for the float32 logits.
 """
 
-import math
-
+import numpy as np
 import torch
 
+from ..models.gpt2 import DecodeMath
 from .block_allocator import NULL_BLOCK
 
 
@@ -67,63 +76,48 @@ def serving_params(model, dtype=None):
     }
 
 
+def _host(a, dtype):
+    return torch.from_numpy(np.array(a, dtype=dtype))
+
+
+def stage(a, dtype, device):
+    """A host array as a tensor on ``device``: on the card through pinned
+    memory (torch's caching host allocator keeps a block until its copy has
+    run) and a copy that does not wait; on the CPU the array itself."""
+    t = _host(a, dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def build_paged_programs(model, *, num_slots, block_size, max_blocks,
-                         prefill_chunk, use_pallas=False):
+                         prefill_chunk, use_pallas=False, verify_width=0):
     """Program dict for one engine: ``decode_step``, ``prefill_chunk``,
     ``copy_blocks``, the ``beam_init(K, eos)`` / ``beam_select(K, eos)``
-    factories and ``copy_width``."""
+    factories, ``copy_width``, ``inputs`` (each graphable program's per-step
+    input shapes and numpy dtypes) and, with ``verify_width`` D > 0,
+    ``spec_verify``."""
     c = model.config
     nh, hd = c.n_head, c.head_dim
     S, BS, MB, C = int(num_slots), int(block_size), int(max_blocks), int(prefill_chunk)
+    D = int(verify_width)
     ML = MB * BS                      # the dense view length the gather rebuilds
     P = S                             # CoW copies per batched copy_blocks call
-    eps = c.layer_norm_epsilon
     V = c.vocab_size
+    m = DecodeMath(model)
 
     if use_pallas:
         from ..ops.paged_attention import paged_decode_attention
     else:
         paged_decode_attention = None
 
-    def _qkv(x, bp):
-        B_, Tn, _ = x.shape
-        qkv = torch.matmul(x, bp["c_attn_w"].to(x.dtype)) + bp["c_attn_b"].to(x.dtype)
-        q, k, v = qkv.split(nh * hd, dim=-1)
-        q = q.reshape(B_, Tn, nh, hd).transpose(1, 2)
-        k = k.reshape(B_, Tn, nh, hd).transpose(1, 2)
-        v = v.reshape(B_, Tn, nh, hd).transpose(1, 2)
-        return q, k, v
-
-    def _proj(y, bp, x_dtype):
-        return (torch.matmul(y, bp["c_proj_w"].to(x_dtype))
-                + bp["c_proj_b"].to(x_dtype))
-
     def _gather(pool, li, tables):
         """[S_, heads, ML, hd] dense view of one layer's pages by table."""
         g = pool[li][tables]                       # [S_, MB, BS, heads, hd]
         return g.reshape(tables.shape[0], ML, nh, hd).transpose(1, 2)
 
-    def _attend(q, kg, vg, mask, x_dtype):
-        # scores and softmax in float32, p rounded to the compute dtype before
-        # the value product (the JAX package's attn_cached path)
-        s = torch.matmul(q.float(), kg.float().transpose(-1, -2)) / math.sqrt(hd)
-        s = torch.where(mask, s, torch.full((), -1e9, device=s.device))
-        p = torch.softmax(s, dim=-1).to(x_dtype)
-        y = torch.matmul(p, vg)
-        B_, heads, Tn, _ = y.shape
-        return y.transpose(1, 2).reshape(B_, Tn, heads * hd)
-
-    def _blocks_forward(p, x, attn_fn):
-        for li, bp in enumerate(p["blocks"]):
-            a = attn_fn(model._layer_norm(x, bp["ln_1"], eps), bp["attn"], li)
-            x = x + a
-            h = model._layer_norm(x, bp["ln_2"], eps)
-            x = x + model._mlp(h, bp["mlp"])
-        return model._layer_norm(x, p["ln_f"], eps)
-
-    def _logits(row, p):
-        # row [B_, H] against the compute-dtype wte, accumulated in float32
-        return torch.matmul(row.float(), p["lm_head"].t())
+    def _null(dev):
+        return torch.full((), NULL_BLOCK, device=dev, dtype=torch.long)
 
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
@@ -137,65 +131,110 @@ def build_paged_programs(model, *, num_slots, block_size, max_blocks,
         rows = torch.arange(S, device=dev)
         x = p["wte"][toks[:, None].long()] + p["wpe"][pos[:, None].long()]  # [S, 1, H]
         tables_l = tables.long()
-        wblk = torch.where(active, tables_l[rows, (pos // BS).long()],
-                           torch.full((), NULL_BLOCK, device=dev, dtype=torch.long))
+        wblk = torch.where(active, tables_l[rows, (pos // BS).long()], _null(dev))
         off = (pos % BS).long()
         lengths = pos + 1
 
         def attn(xin, bp, li):
-            q, k, v = _qkv(xin, bp)
+            q, k, v = m.qkv(xin, bp)
             k_pool[li, wblk, off] = k[:, :, 0, :].to(k_pool.dtype)
             v_pool[li, wblk, off] = v[:, :, 0, :].to(v_pool.dtype)
             if paged_decode_attention is not None:
                 y = paged_decode_attention(q.contiguous(), k_pool, v_pool, li,
                                            tables, lengths, block_size=BS)
-                return _proj(y.transpose(1, 2).reshape(S, 1, nh * hd),
-                             bp, xin.dtype)
+                return m.proj(y.transpose(1, 2).reshape(S, 1, nh * hd),
+                              bp, xin.dtype)
             kg = _gather(k_pool, li, tables_l)
             vg = _gather(v_pool, li, tables_l)
             mask = (torch.arange(ML, device=dev)[None, :]
                     <= pos[:, None])[:, None, None, :]
-            return _proj(_attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
+            return m.proj(m.attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
 
-        x = _blocks_forward(p, x, attn)
-        return _logits(x[:, -1], p)
+        x = m.blocks_forward(p, x, attn)
+        return m.logits(x[:, -1], p)
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill_chunk_fn(p, toks, pos, n_valid, table, k_pool, v_pool):
         """One chunk of ONE sequence's prompt: toks [1, C] padded past
-        ``n_valid`` (ints ``pos`` and ``n_valid``, table [MB] int32). Writes
-        positions [pos, pos + n_valid) through ``table`` into the pools in
-        place (pads go to the null page; their duplicate writes there are
-        harmless for the same reason as in decode_step) and returns the
-        logits [1, V] of the last valid row — only meaningful on the chunk
-        that completes the prompt."""
+        ``n_valid`` (``pos`` and ``n_valid`` int32 scalars, tensors or
+        ints; table [MB] int32). Writes positions [pos, pos + n_valid)
+        through ``table`` into the pools in place (pads go to the null page;
+        their duplicate writes there are harmless for the same reason as in
+        decode_step) and returns the logits [1, V] of the last valid row —
+        only meaningful on the chunk that completes the prompt. The row is
+        picked on the device, its index clamped into the chunk as JAX's
+        ``dynamic_slice`` clamps it."""
         dev = k_pool.device
-        pos, n_valid = int(pos), int(n_valid)
+        pos = torch.as_tensor(pos, device=dev).long()
+        n_valid = torch.as_tensor(n_valid, device=dev).long()
         wpe_cap = p["wpe"].shape[0] - 1
-        tp = pos + torch.arange(C, device=dev)                # [C] positions
+        ar = torch.arange(C, device=dev)
+        tp = pos + ar                                         # [C] positions
         positions = tp.clamp(max=wpe_cap)  # pads only; valid rows untouched
         x = p["wte"][toks.long()] + p["wpe"][positions][None]  # [1, C, H]
-        valid = torch.arange(C, device=dev) < n_valid
+        valid = ar < n_valid
         table_l = table.long()
-        wblk = torch.where(valid, table_l[(tp // BS).clamp(max=MB - 1)],
-                           torch.full((), NULL_BLOCK, device=dev, dtype=torch.long))
+        wblk = torch.where(valid, table_l[(tp // BS).clamp(max=MB - 1)], _null(dev))
         off = tp % BS
         tbl1 = table_l[None]                                  # [1, MB]
 
         def attn(xin, bp, li):
-            q, k, v = _qkv(xin, bp)                           # [1, nh, C, hd]
+            q, k, v = m.qkv(xin, bp)                          # [1, nh, C, hd]
             k_pool[li, wblk, off] = k[0].transpose(0, 1).to(k_pool.dtype)
             v_pool[li, wblk, off] = v[0].transpose(0, 1).to(v_pool.dtype)
             kg = _gather(k_pool, li, tbl1)
             vg = _gather(v_pool, li, tbl1)
             # the same [C, ML] causal frontier the cached forward masks with
             mask = torch.arange(ML, device=dev)[None, :] <= tp[:, None]
-            return _proj(_attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
+            return m.proj(m.attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
 
-        x = _blocks_forward(p, x, attn)
-        last = min(max(n_valid - 1, 0), C - 1)
-        return _logits(x[:, last], p)
+        x = m.blocks_forward(p, x, attn)
+        last = (n_valid - 1).clamp(0, C - 1).reshape(1)
+        return m.logits(x.index_select(1, last)[:, 0], p)
+
+    # ---------------------------------------------------- speculative verify
+    @torch.no_grad()
+    def spec_verify(p, toks, pos0, n_valid, tables, active, k_pool, v_pool):
+        """Score a drafted continuation for every slot in one step: ``toks``
+        is [S, D] int32 — row 0 each slot's last committed token, rows 1..
+        the draft's proposals — at positions ``pos0 + [0, D)``; pos0 and
+        n_valid [S] int32, tables [S, MB] int32, active [S] bool. Rows past
+        ``n_valid[s]`` (and all rows of inactive slots) write to the null
+        page and produce garbage logits the host ignores. Returns logits
+        [S, D, V] float32: row i is the target's next-token distribution
+        AFTER consuming toks[:, :i+1], what ``decode_step`` would give i
+        steps later, so greedy acceptance against these rows is
+        token-identical to plain decode. Rejected rows leave garbage KV past
+        the accepted frontier; the causal mask (keys <= query position)
+        never attends it, and the next round's writes cover the same
+        extent — rollback is a host-side table truncation."""
+        dev = k_pool.device
+        wpe_cap = p["wpe"].shape[0] - 1
+        ar = torch.arange(D, device=dev)
+        tp = pos0.long()[:, None] + ar[None, :]               # [S, D] positions
+        positions = tp.clamp(max=wpe_cap)  # pads only; valid rows untouched
+        x = p["wte"][toks.long()] + p["wpe"][positions]        # [S, D, H]
+        valid = (ar[None, :] < n_valid[:, None]) & active[:, None]
+        tables_l = tables.long()
+        wblk = torch.where(valid, tables_l.gather(1, (tp // BS).clamp(max=MB - 1)),
+                           _null(dev))
+        off = tp % BS
+
+        def attn(xin, bp, li):
+            q, k, v = m.qkv(xin, bp)                          # [S, nh, D, hd]
+            k_pool[li, wblk, off] = k.transpose(1, 2).to(k_pool.dtype)
+            v_pool[li, wblk, off] = v.transpose(1, 2).to(v_pool.dtype)
+            kg = _gather(k_pool, li, tables_l)
+            vg = _gather(v_pool, li, tables_l)
+            # per-row causal frontier: row i attends keys <= pos0 + i — the
+            # same mask decode_step applies one position at a time
+            mask = (torch.arange(ML, device=dev)[None, None, :]
+                    <= tp[:, :, None])[:, None, :, :]
+            return m.proj(m.attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
+
+        x = m.blocks_forward(p, x, attn)
+        return m.logits(x.reshape(S * D, -1), p).reshape(S, D, V)
 
     # ------------------------------------------------------------ block copy
     @torch.no_grad()
@@ -250,11 +289,138 @@ def build_paged_programs(model, *, num_slots, block_size, max_blocks,
                     new_live[0])
         return f
 
-    return {
+    i32, b = np.int32, np.bool_
+    out = {
         "decode_step": decode_step,
         "prefill_chunk": prefill_chunk_fn,
         "copy_blocks": copy_blocks,
         "beam_init": beam_init,
         "beam_select": beam_select,
         "copy_width": P,
+        "inputs": {
+            "decode_step": [((S,), i32), ((S,), i32), ((S, MB), i32), ((S,), b)],
+            "prefill_chunk": [((1, C), i32), ((), i32), ((), i32), ((MB,), i32)],
+            "spec_verify": [((S, D), i32), ((S,), i32), ((S,), i32), ((S, MB), i32),
+                            ((S,), b)],
+        },
     }
+    if D > 0:
+        out["spec_verify"] = spec_verify
+    return out
+
+
+_STREAMS = {}       # device index -> the one stream every program warms up and is captured on
+
+
+def _capture_stream(dev):
+    """One side stream a device for every warm-up and capture: cuBLAS keeps a
+    workspace for each stream it has run on until the process ends, so a
+    stream per program would hold one more workspace each."""
+    if dev.index not in _STREAMS:
+        _STREAMS[dev.index] = torch.cuda.Stream(dev)
+    return _STREAMS[dev.index]
+
+
+def _kernel_counters():
+    """The launch counters of the kernels a serving program may run."""
+    from ..ops.paged_attention import paged_decode_attention
+    return [(paged_decode_attention, ("launches", "cluster_launches"))]
+
+
+class EagerProgram:
+    """A serving program run op by op, with ``GraphedProgram``'s signature:
+    ``prog(params, *inputs, k_pool, v_pool)`` with the per-step inputs as
+    host arrays, staged to the pools' device (``stage``). What the engine
+    runs on the CPU, and the eager side of a comparison on the card."""
+
+    def __init__(self, fn, name, inputs, params, k_pool, v_pool):
+        self.fn, self.name = fn, name
+        self._dtypes = [dtype for _, dtype in inputs]
+        self._device = k_pool.device
+
+    def __call__(self, params, *args):
+        *inputs, k_pool, v_pool = args
+        return self.fn(params, *(stage(a, dt, self._device)
+                                 for a, dt in zip(inputs, self._dtypes)),
+                       k_pool, v_pool)
+
+
+class GraphedProgram:
+    """One serving program (``decode_step``, ``prefill_chunk`` or
+    ``spec_verify``) captured once as a CUDA graph and replayed: the port's
+    counterpart of the JAX package's ``jax.jit``, which compiles each
+    program once at its fixed shapes.
+
+    ``GraphedProgram(fn, name, inputs, params, k_pool, v_pool, pool)``
+    captures at construction. The per-step inputs (``inputs``: their shapes
+    and numpy dtypes) become static buffers, zero at capture: all lanes
+    inactive (or ``n_valid`` 0), so the warm-up and the capture write the
+    null page only and may run on a live pool. The program is first run
+    twice on the device's one capture stream (cuBLAS's workspace for it, the
+    paged-decode kernel's one-time shared-memory attribute, the pools' TMA
+    maps), then captured on it into ``pool``, the engine's one graph memory
+    pool. A failed capture raises; nothing falls back to eager.
+
+    ``prog(params, *inputs, k_pool, v_pool)`` takes the inputs as host
+    arrays, as ``EagerProgram`` does. ``params`` and the pools must be the
+    captured ones (a graph replays the addresses it captured; load a
+    snapshot with ``copy_`` into the live pools); each input is copied from
+    pinned host memory straight into its static buffer, the graph is
+    replayed, and the static output is returned. **That output is
+    overwritten by the next replay of any program sharing the pool**:
+    consume it first. The kernels' launch counters moved at capture, when no
+    kernel ran; they are restored then, and each replay adds the launches
+    the capture recorded, so they keep counting kernel executions.
+    ``captures`` and ``replays`` count this program's; ``pool_bytes`` is
+    what its capture added to the graph pool (``memory_reserved``)."""
+
+    def __init__(self, fn, name, inputs, params, k_pool, v_pool, pool):
+        self.name = name
+        self._fixed = (params, k_pool, v_pool)
+        dev = k_pool.device
+        self._dtypes = [dtype for _, dtype in inputs]
+        self._static = [_host(np.zeros(shape), dtype).to(dev) for shape, dtype in inputs]
+        self.captures = self.replays = 0
+        counters = _kernel_counters()
+        before = [[getattr(obj, a) for a in attrs] for obj, attrs in counters]
+        args = (params, *self._static, k_pool, v_pool)
+        side = _capture_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm = [[getattr(obj, a) for a in attrs] for obj, attrs in counters]
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=side):
+            self._out = fn(*args)
+        self.captures += 1
+        # what the capture added to the shared graph pool (reserved segments)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self._delta = []
+        for (obj, attrs), b, w in zip(counters, before, warm):
+            for a, b_a, w_a in zip(attrs, b, w):
+                self._delta.append((obj, a, getattr(obj, a) - w_a))
+                setattr(obj, a, b_a)
+
+    def __call__(self, params, *args):
+        *inputs, k_pool, v_pool = args
+        p0, k0, v0 = self._fixed
+        if params is not p0 or k_pool.data_ptr() != k0.data_ptr() \
+                or v_pool.data_ptr() != v0.data_ptr():
+            raise ValueError(f"{self.name}: the CUDA graph was captured on other "
+                             "parameters or pools (copy a snapshot into the live "
+                             "pools instead)")
+        if len(inputs) != len(self._static):
+            raise ValueError(f"{self.name}: {len(inputs)} inputs, captured "
+                             f"{len(self._static)}")
+        for s, a, dt in zip(self._static, inputs, self._dtypes):
+            s.copy_(_host(a, dt).pin_memory(), non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        for obj, a, d in self._delta:
+            setattr(obj, a, getattr(obj, a) + d)
+        return self._out

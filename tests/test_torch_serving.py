@@ -14,26 +14,47 @@ is initialized by the JAX package and carried into the port with
   within 1e-3;
 - the whole slice: ``init_inference`` in both packages on one seeded trace
   gives the same tokens, statuses and schedule logs (``json.dumps``).
+
+The ``cuda``-marked tests (skipped without a card) hold the CUDA graphs the
+engine runs on the card: each replay bit for bit against the eager program
+on the same pools, one capture a program, the launch counters moving per
+replay, the graphed engine's outputs against the eager-driven one's, and a
+warm restart keeping the graphs' pools.
 """
 
+import importlib
 import json
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import deepspeed_tpu
 import deepspeed_tpu_torch
-from deepspeed_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
-from deepspeed_tpu.models.gpt2 import GPT2Model as JaxGPT2Model
-from deepspeed_tpu.serve.paged import build_paged_programs as jax_build
-from deepspeed_tpu.serve.scheduler import Request as JaxRequest
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, params_from_jax
 from deepspeed_tpu_torch.ops.paged_attention import paged_decode_attention
 from deepspeed_tpu_torch.serve.paged import build_paged_programs, serving_params
 from deepspeed_tpu_torch.serve.scheduler import Request
+
+
+class _Lazy:
+    """A module imported at its first attribute read: JAX and the JAX package
+    load only in the tests that use them, so that on a machine with a card
+    and no JAX ``python -m pytest -m cuda --noconftest
+    tests/test_torch_serving.py`` runs the CUDA-graph tests."""
+
+    def __init__(self, name):
+        self._name = name
+
+    def __getattr__(self, attr):
+        return getattr(importlib.import_module(self._name), attr)
+
+
+jax = _Lazy("jax")
+jnp = _Lazy("jax.numpy")
+deepspeed_tpu = _Lazy("deepspeed_tpu")
+_jax_gpt2 = _Lazy("deepspeed_tpu.models.gpt2")
+_jax_paged = _Lazy("deepspeed_tpu.serve.paged")
+_jax_scheduler = _Lazy("deepspeed_tpu.serve.scheduler")
 
 S, BS, MB, C = 4, 4, 8, 8          # slots, block size, table width, chunk
 ML = MB * BS                       # 32
@@ -43,7 +64,7 @@ DIMS = dict(vocab_size=64, n_positions=ML, n_embd=16, n_layer=2, n_head=2)
 
 @pytest.fixture(scope="module")
 def models():
-    jm = JaxGPT2Model(JaxGPT2Config(**DIMS, compute_dtype=jnp.float32, loss_chunk=0))
+    jm = _jax_gpt2.GPT2Model(_jax_gpt2.GPT2Config(**DIMS, compute_dtype=jnp.float32, loss_chunk=0))
     jp = jm.init(jax.random.PRNGKey(0))
     tm = GPT2Model(GPT2Config(**DIMS, compute_dtype=torch.float32), device="cpu")
     tm.load_parameters(params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
@@ -60,7 +81,7 @@ def _pools(seed=0):
 def _both(models, use_pallas=False):
     jm, jp, tm = models
     geo = dict(num_slots=S, block_size=BS, max_blocks=MB, prefill_chunk=C)
-    return (jax_build(jm, **geo), jp,
+    return (_jax_paged.build_paged_programs(jm, **geo), jp,
             build_paged_programs(tm, use_pallas=use_pallas, **geo), serving_params(tm))
 
 
@@ -125,7 +146,7 @@ def test_decode_step_matches_jax_gather_path(models, use_pallas, dtype, atol):
     kp, vp = _pools(2)
     if dtype == "float16":
         jm, jp, tm = models
-        jprog = jax_build(JaxGPT2Model(JaxGPT2Config(**DIMS, compute_dtype=jnp.float16,
+        jprog = _jax_paged.build_paged_programs(_jax_gpt2.GPT2Model(_jax_gpt2.GPT2Config(**DIMS, compute_dtype=jnp.float16,
                                                      loss_chunk=0)),
                           num_slots=S, block_size=BS, max_blocks=MB, prefill_chunk=C)
         tp = serving_params(tm, torch.float16)
@@ -194,7 +215,7 @@ def test_init_inference_matches_jax_engine(models, num_blocks, prefix_cache):
     trace = _trace()
     jeng = deepspeed_tpu.init_inference(jm, jp, config_params=cfg)
     teng = deepspeed_tpu_torch.init_inference(tm, config_params=cfg, device="cpu")
-    jouts, jlogs = jeng.run([JaxRequest(r, p, n, **kw) for r, p, n, kw in trace])
+    jouts, jlogs = jeng.run([_jax_scheduler.Request(r, p, n, **kw) for r, p, n, kw in trace])
     touts, tlogs = teng.run([Request(r, p, n, **kw) for r, p, n, kw in trace])
     assert [o.status for o in touts] == ["finished"] * len(trace)
     assert [o.status for o in touts] == [o.status for o in jouts]
@@ -223,33 +244,45 @@ def test_entry_points_refuse_to_fall_back_to_cpu(models):
         GPT2Model(GPT2Config(**DIMS))
 
 
-@pytest.mark.parametrize("serving,match", [
-    ({"speculation": {"enabled": True}}, "speculation"),
-    ({"sharding": {"model": 2}}, "sharding"),
-    ({"request_trace": {"enabled": True}}, "request_trace"),
+@pytest.mark.parametrize("serving,error,match", [
+    pytest.param({"speculation": {"enabled": True}}, ValueError,
+                 "speculation.enabled needs a live draft model", id="serving0-speculation"),
+    pytest.param({"sharding": {"model": 2}}, NotImplementedError,
+                 r"sharding.model = 2 is not in the PyTorch port yet: ROADMAP.md queue A10\.6",
+                 id="serving1-sharding"),
+    pytest.param({"request_trace": {"enabled": True, "capacity": 0}}, ValueError,
+                 "request_trace.capacity must be", id="serving2-request_trace"),
 ])
-def test_engine_refuses_later_slices(models, serving, match):
+def test_engine_refuses_later_slices(models, serving, error, match):
+    """Head-sharded serving is a later slice (NotImplementedError naming its
+    ROADMAP item); speculation without a live draft model and a request trace
+    of capacity 0 are refused as the JAX package refuses them (ValueError)."""
     _, _, tm = models
     cfg = {"serving": dict({"block_size": BS, "num_blocks": NB, "max_seqs": S,
                             "max_model_len": ML, "prefill_chunk": C}, **serving)}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match) as info:
         deepspeed_tpu_torch.init_inference(tm, config_params=cfg, device="cpu")
+    assert type(info.value) is error
 
 
 def test_engine_refuses_mirror_telemetry_and_warm_restart(models):
+    """The mirror with the prefix cache and a snapshot of another geometry are
+    refused with the JAX package's words; telemetry and the lint and memory
+    manifests are later slices."""
     from deepspeed_tpu_torch.serve.engine import InferenceEngine
     _, _, tm = models
     geo = dict(num_slots=S, block_size=BS, num_blocks=NB, max_model_len=ML,
                prefill_chunk=C)
-    with pytest.raises(NotImplementedError, match="mirror"):
-        InferenceEngine(tm, mirror=True, **geo)
+    with pytest.raises(ValueError, match="mirror cannot run with prefix_cache"):
+        InferenceEngine(tm, mirror=True, prefix_cache=True, **geo)
     with pytest.raises(NotImplementedError, match="telemetry"):
         InferenceEngine(tm, telemetry=object(), **geo)
     eng = InferenceEngine(tm, **geo)
-    for call in (eng.state_dict, eng.lint_programs, eng.memory_manifest,
-                 lambda: eng.load_state_dict({})):
+    for call in (eng.lint_programs, eng.memory_manifest):
         with pytest.raises(NotImplementedError):
             call()
+    with pytest.raises(ValueError, match="geometry does not match"):
+        eng.load_state_dict({"geometry": dict(eng.geometry(), num_blocks=NB + 1)})
 
 
 @pytest.mark.parametrize("field", ["fused_block", "moe_experts", "sparse_attention"])
@@ -280,3 +313,107 @@ def test_model_refuses_later_slices(field):
         num_heads=DIMS["n_head"], block=BS)), device="cpu")
     with pytest.raises(ValueError, match="dense attention only"):
         deepspeed_tpu_torch.init_inference(model, config_params=cfg, device="cpu")
+
+
+# ------------------------------------------------------------ CUDA graphs
+def _cuda_engine(**kw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deepspeed_tpu_torch.serve.engine import InferenceEngine
+    model = GPT2Model(GPT2Config(**DIMS, compute_dtype=torch.float32), device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return InferenceEngine(model, use_pallas=True, num_slots=S, block_size=BS,
+                           num_blocks=NB, max_model_len=ML, prefill_chunk=C, **kw)
+
+
+def _step_inputs(seed):
+    """A decode step's host inputs: toks, pos, tables, active."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 64, size=S).astype(np.int32),
+            np.array([3, 9, 0, ML - 1], np.int32),
+            rng.permutation(np.arange(1, NB))[:S * MB].reshape(S, MB).astype(np.int32),
+            np.array([True, True, False, True]))
+
+
+def _on_card(*arrays):
+    return [torch.as_tensor(a, device="cuda") for a in arrays]
+
+
+def _run_eagerly(eng):
+    """Swap the engine's captured programs for the same programs run op by op."""
+    from deepspeed_tpu_torch.serve.paged import EagerProgram
+    for attr, name in (("_decode", "decode_step"), ("_prefill", "prefill_chunk")):
+        setattr(eng, attr, EagerProgram(eng._raw[name], name, eng._raw["inputs"][name],
+                                        eng.params, eng.k_pool, eng.v_pool))
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_replay_the_eager_programs_bit_for_bit():
+    """Each program is captured once when the engine is built; a replay
+    gives the eager program's logits and pool rows bit for bit on the same
+    pools, and moves the paged-decode counters by one launch a layer."""
+    eng = _cuda_engine()
+    graphs = eng.graphs()
+    assert set(graphs) == {"decode_step", "prefill_chunk"}
+    assert [(g.captures, g.replays) for g in graphs.values()] == [(1, 0), (1, 0)]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    eng.k_pool.normal_(generator=gen)
+    eng.v_pool.normal_(generator=gen)
+    for seed in range(3):
+        args = _step_inputs(seed)
+        k0, v0 = eng.k_pool.clone(), eng.v_pool.clone()
+        want = eng._raw["decode_step"](eng.params, *_on_card(*args), k0, v0)
+        paged_decode_attention.launches = paged_decode_attention.cluster_launches = 0
+        got = eng._decode(eng.params, *args, eng.k_pool, eng.v_pool).clone()
+        torch.cuda.synchronize()
+        assert paged_decode_attention.launches == DIMS["n_layer"]
+        assert paged_decode_attention.cluster_launches == DIMS["n_layer"]
+        assert torch.equal(got, want)
+        assert torch.equal(eng.k_pool[:, 1:], k0[:, 1:])     # block 0: the pads'
+        assert torch.equal(eng.v_pool[:, 1:], v0[:, 1:])
+        pargs = (np.array([list(range(seed, seed + C))], np.int32),
+                 np.int32(8 * seed), np.int32(C - seed), args[2][1])
+        k0, v0 = eng.k_pool.clone(), eng.v_pool.clone()
+        want = eng._raw["prefill_chunk"](eng.params, *_on_card(*pargs), k0, v0)
+        got = eng._prefill(eng.params, *pargs, eng.k_pool, eng.v_pool).clone()
+        assert torch.equal(got, want)
+        assert torch.equal(eng.k_pool[:, 1:], k0[:, 1:])
+    assert [(g.captures, g.replays) for g in graphs.values()] == [(1, 3), (1, 3)]
+    with pytest.raises(ValueError, match="captured on other"):
+        eng._decode(eng.params, *args, eng.k_pool.clone(), eng.v_pool)
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_engine_serves_like_the_eager_one():
+    """The whole trace through the graphs against the same engine driven by
+    the eager programs: tokens and schedule logs identical, one replay a
+    program execution; a speculative engine's three extra programs are
+    captured once each and its tokens are the plain engine's; a warm
+    restart copies into the live pools, so the graphs keep theirs."""
+    graphed, eager = _cuda_engine(), _cuda_engine()
+    _run_eagerly(eager)
+    outs, logs = graphed.run([Request(r, p, n, **kw) for r, p, n, kw in _trace()])
+    e_outs, e_logs = eager.run([Request(r, p, n, **kw) for r, p, n, kw in _trace()])
+    assert [o.tokens for o in outs] == [o.tokens for o in e_outs]
+    assert json.dumps(logs) == json.dumps(e_logs)
+    g = graphed.graphs()
+    assert g["decode_step"].replays == sum(1 for log in logs if log["decode"])
+    assert g["prefill_chunk"].replays == sum(1 for log in logs if log["prefill"])
+
+    spec = _cuda_engine(speculation={"enabled": True, "max_draft_tokens": 3,
+                                     "draft_model": graphed.model})
+    greedy = [(r, p, n, kw) for r, p, n, kw in _trace() if "temperature" not in kw]
+    s_outs, _ = spec.run([Request(r, p, n, **kw) for r, p, n, kw in greedy])
+    want = {o.req_id: o.tokens for o in outs}
+    assert all(o.tokens == want[o.req_id] for o in s_outs)
+    sg = spec.graphs()
+    assert set(sg) == {"decode_step", "prefill_chunk", "spec_verify",
+                       "spec_draft_decode", "spec_draft_prefill"}
+    assert all(p.captures == 1 for p in sg.values())
+    assert sg["spec_verify"].replays == spec.spec_summary()["spec_rounds"] > 0
+
+    ptrs = (graphed.k_pool.data_ptr(), graphed.v_pool.data_ptr())
+    state = eager.state_dict()
+    graphed.load_state_dict(state)
+    assert (graphed.k_pool.data_ptr(), graphed.v_pool.data_ptr()) == ptrs
+    assert torch.equal(graphed.k_pool.cpu(), state["k_pool"])
