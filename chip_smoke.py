@@ -76,7 +76,19 @@ result line):
    raises ("rotation") while ``zero_grad()`` drops the pending window;
    then a fused engine and one held to the two-step path, side by side
    for 3 steps: the client state (shard, m1, m2) and the losses bit for
-   bit after each step;
+   bit after each step; each step's synchronizing calls are counted
+   (``torch.cuda.set_sync_debug_mode("warn")``);
+   telemetry — ``[train-telemetry]``: the published config again with the
+   ``telemetry`` block on (a 2-step ``torch.profiler`` window, the metric
+   catalog, the default alert rules, the goodput ledger, the cluster
+   monitor at world 1 with a hang deadline) and the tensorboard monitor's
+   JSONL, for 8 steps: the losses bit for bit ``[train-published]``'s, no
+   more synchronizing calls a step than without telemetry, the exported
+   trace holding as many ``flash_fwd_tc`` kernels as the launch counter
+   moved in its window (96 a step), the fused step recorded once by the
+   compile watchdog, no alert fired, the ``Train/*`` scalars the JAX engine
+   emits; the step ms beside ``[train-published]``'s, the session's MFU
+   beside 6N x tokens/s, the goodput classes;
    fused step — ``[train-fused]``: the same model and batch with AdamW, no
    clipping, WarmupLR, ZeRO-2: ``fused_step`` against the two-step path for
    12 steps each: the losses and the master bit for bit, the peak device
@@ -101,8 +113,9 @@ result line):
    window; ``[checkpoint]``: in a ``tempfile.mkdtemp()`` directory (its free
    bytes, the reckoned bytes of each round trip and the disk's write rate of
    one fsynced 1 GiB file printed first; too little room raises), (1) the
-   slice-2 training config at 48 layers saved after 4 steps, a fresh engine
-   from another init loaded and trained 4 more: params, master and moments
+   slice-2 training config at 12 layers (cut from 48) saved after 4 steps,
+   a fresh engine from another init loaded and trained 4 more: params,
+   master and moments
    after the load and the 4 losses bit for bit against the uninterrupted
    run, the save timed by stage (snapshot, payload write, hash + manifest,
    fsync + rename) and the load (verify, read, place), with their GB/s;
@@ -207,6 +220,17 @@ result line):
    (tokens identical, fewer prefill chunks than a cold restart, the graphs
    captured anew; the snapshot's bytes and the walls by stage), and float32
    ``generate`` / ``beam_search`` against the float32 engine's tokens;
+   ``[serving-fleet]`` — ``serve/sim.py``'s fleet path in this process: two
+   1.5B replicas in bf16 sharing one parameter set (8 slots and 129 pages
+   of 16 each), the paged-decode kernel on, the prefix cache and affinity
+   routing over a seeded trace of 24 requests sharing a 64-token system
+   prompt, replica 1 killed at iteration 12 with a warm failover, then the
+   same trace with a cold one: every request finished, each replica's
+   ``decode_step`` and ``prefill_chunk`` captured once, the kernel 48 times
+   a decode replay in the cluster design, the merged fleet percentiles equal
+   to the single stream's, warm and cold failover token-identical with
+   fewer prefill chunks warm; fleet tok/s, TTFT and TPOT p50/p99, the
+   failover's save and load walls;
 14. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -1010,6 +1034,116 @@ def phase_serving_restart(model32, outs32):
     log(f"[serving-restart] {json.dumps(res)}")
 
 
+# ------------------------------------------------------------ serving fleet
+# the fleet of serve/sim.py --fleet at GPT-2 1.5B: two replicas sharing one
+# parameter set, each with its own pool of 8 slots and 129 pages of 16 (a
+# pool pair is 634 MB; the cut from 513 pages keeps the warm restart short)
+FLEET_ARGS = ["--fleet", "2", "--requests", "24", "--shared-prefix", "64",
+              "--kill", "12:1", "--compare-cold-failover", "--no-mirror", "--pallas",
+              "--slots", "8", "--block-size", "16", "--num-blocks", "129",
+              "--max-model-len", "256", "--prefill-chunk", "32",
+              "--vocab-size", str(MODEL["vocab_size"]), "--n-embd", str(MODEL["n_embd"]),
+              "--n-layer", str(MODEL["n_layer"]), "--n-head", str(MODEL["n_head"])]
+
+
+def phase_serving_fleet():
+    """``serve-sim``'s fleet path in this process: a seeded trace of 24
+    requests sharing a 64-token system prompt routed by prefix affinity over
+    two 1.5B replicas, slot 1 killed at iteration 12 and failed over warm,
+    then the same trace with a cold failover. Returns the paged-decode
+    launches of the run."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.ops.paged_attention import paged_decode_attention as pda
+    from deepspeed_tpu_torch.serve import sim
+    from deepspeed_tpu_torch.serve.router import FleetRouter
+    from deepspeed_tpu_torch.utils.telemetry import TelemetrySession
+
+    model = GPT2Model(GPT2Config(**MODEL, compute_dtype=torch.bfloat16))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    args = sim.parse_args(FLEET_ARGS + ["--output", os.path.join(root, "telemetry"),
+                                        "--snapshot-dir", os.path.join(root, "snap")])
+    built, walls, spent = [], [], {"kill": 0.0, "end_step": 0.0}
+    build, run, kill, end_step = sim._build, FleetRouter.run, FleetRouter._kill, \
+        TelemetrySession.end_step
+
+    def build_recorded(*a, **k):          # every replica of both passes, victims too
+        built.append(build(*a, **k))
+        return built[-1]
+
+    def run_timed(self, requests):        # the routing loop, failover included
+        t = time.perf_counter()
+        out = run(self, requests)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return out
+
+    def timed(key, fn):                   # host seconds inside fn, summed
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return wrapper
+
+    pda.launches = pda.cluster_launches = 0
+    sim._build, FleetRouter.run = build_recorded, run_timed
+    FleetRouter._kill = timed("kill", kill)
+    TelemetrySession.end_step = timed("end_step", end_step)
+    try:
+        rc, info = sim.fleet_run(args, model_params=(model, None))
+    finally:
+        sim._build, FleetRouter.run, FleetRouter._kill = build, run, kill
+        TelemetrySession.end_step = end_step
+    launches, cluster = pda.launches, pda.cluster_launches
+    shutil.rmtree(root, ignore_errors=True)
+    if rc != 0:
+        raise AssertionError(f"[serving-fleet] serve-sim invariants failed: {info['failures']}")
+    warm, cold = info["router"], info["router_cold"]
+    outs = info["outputs"]
+    if sorted(o.status for o in outs) != ["finished"] * len(outs):
+        raise AssertionError(f"[serving-fleet] statuses {[o.status for o in outs]}")
+    captures = [{k: g.captures for k, g in e.graphs().items()} for e in built]
+    if any(c != {"decode_step": 1, "prefill_chunk": 1} for c in captures):
+        raise AssertionError(f"[serving-fleet] captures per replica {captures}")
+    rec = info["session"].watchdog
+    if rec.recompiles() or not {"serve:decode_step", "serve:prefill_chunk"} <= set(rec.records):
+        raise AssertionError(f"[serving-fleet] watchdog {sorted(rec.records)}, "
+                             f"{rec.recompiles()} recompiles")
+    replays = sum(e.graphs()["decode_step"].replays for e in built)
+    if launches != MODEL["n_layer"] * replays or cluster != launches:
+        raise AssertionError(f"[serving-fleet] paged-decode launches {launches} (cluster "
+                             f"{cluster}) != 48 x {replays} decode replays")
+    if info["fleet_latency"] != info["single_stream_latency"]:
+        raise AssertionError("[serving-fleet] merged fleet percentiles differ from the "
+                             "single stream's")
+    chunks = info["failover_compare"]["prefill_chunks"]
+    # built: the pass's two replicas, then the warm replacement; then the cold pass's
+    victim, successor = built[1], built[2]
+    lat = info["fleet_latency"]
+    tokens = sum(len(o.tokens) for o in outs)
+    res = {"replicas": 2, "requests": len(outs), "kills": warm.kills_applied,
+           "routed_tokens": tokens, "wall_s": {"warm": walls[0], "cold": walls[1]},
+           "fleet_tok_s": {"warm": tokens / walls[0], "cold": tokens / walls[1]},
+           "host_s_in": spent,
+           "ttft_ms": [lat["ttft_ms_p50"], lat["ttft_ms_p99"]],
+           "tpot_ms": [lat["tpot_ms_p50"], lat["tpot_ms_p99"]],
+           "failover_save_s": victim.last_serve_save,
+           "failover_load_s": successor.last_serve_load,
+           "prefill_chunks": {"warm": list(warm.prefill_chunks),
+                              "cold": list(cold.prefill_chunks), "totals": chunks},
+           "decode_replays": replays, "paged_decode_launches": launches,
+           "captures": captures, "capture_seconds": rec.compile_seconds(),
+           "graph_pool_bytes": rec.peak_temp_bytes(),
+           "goodput_fleet_fraction": info["goodput_fleet"]["goodput_fraction"]}
+    log(f"[serving-fleet] {json.dumps(res)}")
+    del info, warm, cold, built, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --------------------------------------------------------------------- training
 def _flash_case(B, H, T, D, dtype, causal=True, bias=False, rate=0.0, offsets=(0, 0),
                 seed=0):
@@ -1522,17 +1656,17 @@ def phase_train_published():
         raise AssertionError("the external-master pair at gas 1 did not take the fused step")
     params0 = [p.detach().clone() for p in list(model.parameters())[:4]]
     _zero_flash_counts()
-    losses, step_s, m1 = [], [], []
+    losses, step_s, m1, syncs = [], [], [], []
     for _ in range(PUBLISHED_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        loss = engine(tokens, labels)
-        engine.backward(loss)
-        engine.step()
+        loss, n = _count_syncs(lambda: _engine_step(engine, tokens, labels))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
-        losses.append(loss.item())
+        losses.append(loss)
+        syncs.append(n)
         m1.append(engine.opt_state["m1"].norm().item())
+    PUBLISHED.update(losses=losses, step_s=step_s, syncs=syncs)
     launches = _flash_counts()
     tc = _tensor_core_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1596,6 +1730,142 @@ def phase_train_published():
     published_fused_vs_two_step(tokens, labels)
     return launches
 
+
+# --------------------------------------------------------- training telemetry
+TELEMETRY_STEPS = 8
+TELEMETRY_TRACE = (3, 5)        # the profiler window: steps 3 and 4
+# the Train/* scalars the JAX engine emits for the published config (bf16:
+# no loss_scale)
+TELEMETRY_TRAIN_SCALARS = {"Train/Samples/train_loss", "Train/Samples/lr",
+                           "Train/Samples/grad_norm"}
+PUBLISHED = {}                  # [train-published]'s losses, step times, syncs
+
+
+def _count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its result,
+    the synchronizing calls it made)."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def _engine_step(engine, tokens, labels):
+    """One step and its loss on the host: the engine's own fetch with
+    telemetry on, ``.item()`` without."""
+    loss = engine(tokens, labels)
+    engine.backward(loss)
+    engine.step()
+    if engine.telemetry is not None:
+        return engine.telemetry.last_losses[-1]
+    return loss.item()
+
+
+def _trace_kernels(path, name):
+    """Kernel events of a Chrome trace whose name holds ``name``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def phase_train_telemetry():
+    """The published config with every observatory of the telemetry block
+    on: a 2-step profiler window, the metric catalog, the default alert
+    rules, the goodput ledger, the cluster monitor at world 1 with a hang
+    deadline, and the tensorboard monitor's JSONL, for 8 steps. Returns the
+    flash launches of the run."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.runtime.client_optimizers import shard_optimizer
+
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    cfg = GPT2Config(**PUBLISHED_MODEL)
+    model = GPT2Model(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.param_count()
+    config = dict(PUBLISHED_CONFIG,
+                  tensorboard={"enabled": True, "output_path": root, "job_name": "tb"},
+                  telemetry={"enabled": True, "peak_tflops": BF16_FLOPS / 1e12,
+                             "trace_dir": os.path.join(root, "trace"),
+                             "trace_steps": list(TELEMETRY_TRACE),
+                             "metrics": {"enabled": True}, "alerts": {"enabled": True},
+                             "goodput": {"enabled": True, "ledger_dir": root},
+                             "cluster": {"enabled": True, "hang_deadline_s": 300.0,
+                                         "dump_dir": root}})
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, optimizer=shard_optimizer(32),
+                                                     config_params=config)
+    tel = engine.telemetry
+    _zero_flash_counts()
+    losses, step_s, syncs, window = [], [], [], 0
+    for step in range(TELEMETRY_STEPS):
+        if step in TELEMETRY_TRACE:
+            window = _flash_counts()[0] - window
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, n = _count_syncs(lambda: _engine_step(engine, tokens, labels))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+        syncs.append(n)
+    launches = _flash_counts()
+    want = PUBLISHED["losses"][:TELEMETRY_STEPS]
+    log(f"[train-telemetry] losses {losses}; synchronizing calls a step {syncs} "
+        f"(telemetry off: {PUBLISHED['syncs'][:TELEMETRY_STEPS]})")
+    if losses != want:
+        raise AssertionError(f"telemetry changed the losses: {losses} != {want}")
+    if any(a > b for a, b in zip(syncs, PUBLISHED["syncs"])):
+        raise AssertionError("telemetry added synchronizing calls to a step")
+    in_trace = _trace_kernels(tel.trace_path, "flash_fwd_tc_kernel")
+    steps_traced = TELEMETRY_TRACE[1] - TELEMETRY_TRACE[0]
+    if in_trace != window or window != 2 * cfg.n_layer * steps_traced:
+        raise AssertionError(f"the trace holds {in_trace} flash_fwd_tc kernels, the counter "
+                             f"moved {window} in the window (want {2 * cfg.n_layer} a step)")
+    records = {k: sorted(r.count for r in v.values()) for k, v in tel.watchdog.records.items()}
+    if records != {"fused_step": [1]} or tel.watchdog.recompiles():
+        raise AssertionError(f"watchdog records {records}")
+    fired = tel.alert_engine.fired
+    if fired:
+        raise AssertionError(f"alerts fired on a healthy run: {fired}")
+    with open(os.path.join(root, "tb", "scalars.jsonl")) as f:
+        tags = {json.loads(line)["tag"] for line in f}
+    train = {t for t in tags if t.startswith("Train/")}
+    if train != TELEMETRY_TRAIN_SCALARS:
+        raise AssertionError(f"Train/* scalars {sorted(train)}")
+    step = statistics.median(step_s[2:])
+    untraced = [t for i, t in enumerate(step_s[2:], 2) if not
+                TELEMETRY_TRACE[0] <= i < TELEMETRY_TRACE[1]]
+    tok_s = PUBLISHED_CONFIG["train_batch_size"] * cfg.n_positions / step
+    gp = engine._goodput.summary()
+    first = tel.watchdog.records["fused_step"]
+    res = {"steps": TELEMETRY_STEPS, "step_ms_median": step * 1e3,
+           "step_ms_median_untraced": statistics.median(untraced) * 1e3,
+           "published_step_ms_median": statistics.median(PUBLISHED["step_s"][2:]) * 1e3,
+           "step_ms_all": [t * 1e3 for t in step_s],
+           "session_mfu": tel.last_mfu, "mfu_6n": tok_s * 6 * n_params / BF16_FLOPS,
+           "session_flops_per_step": next(iter(first.values())).flops,
+           "flops_6n_per_step": 6 * n_params * PUBLISHED_CONFIG["train_batch_size"]
+           * cfg.n_positions,
+           "first_call_s": tel.watchdog.compile_seconds(),
+           "goodput": {"fraction": gp["goodput_fraction"],
+                       "class_seconds": gp["class_seconds"]},
+           "syncs_per_step": syncs, "flash_launches": launches,
+           "trace_flash_fwd_kernels": in_trace, "scalars": len(tags),
+           "summary": tel.summary()}
+    log(f"[train-telemetry] {json.dumps(res)}")
+    engine._cluster.stop()
+    tel.close()
+    shutil.rmtree(root, ignore_errors=True)
+    del engine, model, tel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 def published_fused_vs_two_step(tokens, labels):
     """The published pair at gas 1 through the fused step and through the
@@ -2127,8 +2397,8 @@ def phase_train_offload():
 
 # ---------------------------------------------------------------- checkpointing
 # save -> continue against fresh engine -> load -> continue, at GPT-2 1.5B's
-# full width in bf16: (1) the slice-2 config (TRAIN_MODEL, TRAIN_CONFIG) at 48
-# layers, its whole state; (2) the published config (bench.py:391-420) at 48
+# full width in bf16: (1) the slice-2 config (TRAIN_MODEL, TRAIN_CONFIG) at
+# CKPT_FULL_LAYERS layers, its whole state; (2) the published config (bench.py:391-420) at 48
 # layers with the engine's resilience block saving every CKPT_INTERVAL steps
 # on the writer thread, then auto_resume; (3) ZeRO-Offload's host tier at
 # CKPT_OFFLOAD_LAYERS (the code path is the same at any depth), then its
@@ -2138,6 +2408,10 @@ CKPT_ASYNC_STEPS = 12
 CKPT_INTERVAL = 4
 CKPT_BASELINE_STEPS = 3         # after the last commit: steps with none in flight
 CKPT_OFFLOAD_LAYERS = 12
+# the full-state round trip at 12 of the 48 layers (cut from 48, which took
+# 115 s of save and load, to keep the whole script inside its time limit;
+# the path is the same at any depth)
+CKPT_FULL_LAYERS = 12
 CKPT_FREE_FACTOR = 1.2          # free bytes needed over the largest round trip
 CKPT_PROBE_BYTES = 1 << 30      # the disk's write rate: one file, written and fsynced
 
@@ -2482,7 +2756,8 @@ def phase_checkpoint(clip_rounding):
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         n_full, n_off = _n_params(MODEL["n_layer"]), _n_params(CKPT_OFFLOAD_LAYERS)
-        reckoned = {"full_state": 16 * n_full,   # params widened, master, two moments
+        reckoned = {"full_state": 16 * _n_params(CKPT_FULL_LAYERS),  # params widened,
+                    # master, two moments
                     "published_3_saves": 3 * (4 * n_full + 3 * 4 * (n_full // 32)),
                     "offload": 16 * n_off}
         free = shutil.disk_usage(root).free
@@ -2494,7 +2769,7 @@ def phase_checkpoint(clip_rounding):
             raise AssertionError(f"[checkpoint] {free} B free in {root}, {need:.0f} B needed "
                                  f"({CKPT_FREE_FACTOR} x the largest round trip)")
         checks = {}
-        full, c = _ckpt_full_state(root, MODEL["n_layer"])
+        full, c = _ckpt_full_state(root, CKPT_FULL_LAYERS)
         checks.update(c)
         shutil.rmtree(os.path.join(root, "full"))
         published, c = _ckpt_published(root)
@@ -4083,6 +4358,8 @@ def main():
         e["launches"] = n
     for e, n in zip(flash, _timed_phase(phase_train_published)):
         e["launches_published"] = n
+    for e, n in zip(flash, _timed_phase(phase_train_telemetry)):
+        e["launches_telemetry"] = n
     for e, n in zip(flash, _timed_phase(phase_train_fused)):
         e["launches_fused"] = n
     offload_launches, clip_rounding = _timed_phase(phase_train_offload)
@@ -4111,6 +4388,9 @@ def main():
     _timed_phase(phase_serving_mirror)
     _timed_phase(phase_serving_restart, model32, outs32)
     del model32, outs32
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry["launches_fleet"] = _timed_phase(phase_serving_fleet)
     log(f"[time] chip_smoke.py phases {time.perf_counter() - T0:.1f} s")
     log(card)
     log(f"host: {host['cpu']}, nproc {host['nproc']}, MemTotal {host['mem_total_gb']:.1f} GB")

@@ -106,7 +106,9 @@ def init_inference(model, model_parameters=None, config_params=None,
     here: ``draft_model`` (a ``GPT2Model``, moved to ``device``; the target
     itself for a self-draft) and optionally ``draft_parameters`` to load into
     it (the config's ``draft_model`` string is a report label). ``telemetry``
-    is not ported yet and raises."""
+    is a ``utils.telemetry.TelemetrySession``: the engine's captures (or, on
+    the CPU, first calls) reach its compile watchdog and every iteration
+    emits ``Serving/*`` scalars through its monitor."""
     from .device import resolve_device
     from .serve.engine import InferenceEngine
 

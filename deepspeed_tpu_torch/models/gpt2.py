@@ -120,6 +120,19 @@ class _Block(nn.Module):
         self.mlp = _MLP(e, device)
 
 
+def nucleus_keep(logits, top_p):
+    """The top-p keep mask of ``generate``'s sampler, the JAX model's rule
+    (deepspeed_tpu/models/gpt2.py:804-815): tokens ordered by a stable
+    ascending argsort, reversed, so of tied logits the higher index comes
+    first; a token stays while the probability mass ahead of it is under
+    ``top_p`` (the first always stays), and the mask goes back by sort
+    position, so ties at the cutoff do not widen the nucleus."""
+    order = torch.flip(torch.argsort(logits, dim=-1, stable=True), dims=(-1,))
+    probs = torch.softmax(torch.gather(logits, -1, order), dim=-1)
+    kept_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
+    return torch.zeros_like(kept_sorted).scatter(-1, order, kept_sorted)
+
+
 class GPT2Model(nn.Module):
     """GPT-2 with float32 parameters on ``device`` (the card unless the caller
     asks for ``"cpu"``). ``init(generator)`` fills them with the JAX package's
@@ -457,23 +470,15 @@ class GPT2Model(nn.Module):
         def sample(logits):
             if temperature == 0:
                 return torch.argmax(logits, dim=-1)
-            logits = logits / temperature
+            # float32, as JAX's logits / jnp.float32(temperature) promotes
+            logits = logits.float() / temperature
             if 0 < top_k < c.vocab_size:
                 kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
                 logits = torch.where(logits < kth, torch.full((), -math.inf,
                                                               device=logits.device), logits)
             if top_p < 1.0:
-                sorted_logits, order = torch.sort(logits, dim=-1, descending=True,
-                                                  stable=True)
-                probs = torch.softmax(sorted_logits, dim=-1)
-                # exclusive mass BEFORE each token: a token stays while the
-                # mass ahead of it is under top_p (the argmax always stays);
-                # the keep mask goes back by sort position, so ties at the
-                # cutoff do not widen the nucleus
-                kept_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
-                kept = torch.zeros_like(kept_sorted).scatter(-1, order, kept_sorted)
-                logits = torch.where(kept, logits, torch.full((), -math.inf,
-                                                              device=logits.device))
+                logits = torch.where(nucleus_keep(logits, top_p), logits,
+                                     torch.full((), -math.inf, device=logits.device))
             return torch.multinomial(torch.softmax(logits, dim=-1), 1,
                                      generator=generator)[:, 0]
 

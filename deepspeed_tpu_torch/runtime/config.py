@@ -462,11 +462,13 @@ class DeepSpeedConfig:
                     "DeepSpeedConfig: telemetry.alerts.rules must be a list "
                     f"of rule dicts (or null for the default ruleset), got "
                     f"{rules!r}")
-            raise NotImplementedError(
-                "DeepSpeedConfig: telemetry.alerts.rules needs the alert rules "
-                "and the metric catalog (utils/alerts.py, utils/metrics.py), "
-                "which the PyTorch port has not ported yet: ROADMAP.md queue "
-                "A21 (observatories)")
+            from ..utils.alerts import validate_rules
+            from ..utils.metrics import default_catalog
+            try:
+                rules = validate_rules(list(rules), default_catalog())
+            except ValueError as e:
+                raise ValueError(
+                    f"DeepSpeedConfig: telemetry.alerts.rules: {e}")
         self.telemetry_alerts_rules = rules
 
         num_dict = param_dict.get(NUMERICS, {})

@@ -75,6 +75,19 @@ runs too (``_prep_grads`` / ``_update``): the JAX semantics, with no
 memory saving (the JAX step frees each grad leaf as the optimizer consumes
 it; here the whole grad tree exists at the update, as in the two-step path).
 
+Telemetry (deepspeed_tpu/runtime/engine.py:469-661, 1912-1920, 2036-2039,
+2160-2314): the tensorboard ``SummaryMonitor``, the ``TelemetrySession``
+(``utils/telemetry.py``: watched programs, trace window, step scalars), the
+metric catalog and alert plane, the cluster monitor (heartbeats and the hang
+watchdog, ``utils/cluster.py``) and the run goodput ledger
+(``utils/goodput.py``), wired where the JAX engine wires them. The watched
+programs are ``forward`` and ``backward`` (the two-step path's halves of
+JAX's ``loss_and_grad``), ``apply_update``, ``fused_step``, ``offload_step``
+and ``eval_loss``; ``ds_fwd_bwd`` and ``ds_apply_update`` name their regions
+(``named_scope``). The step fetches its window losses (and the grad norm)
+once, in ``TelemetrySession.fetch_window``, for the ``Train/Samples/*``
+scalars and the session both.
+
 What the slice does not carry raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 ``compilation_cache_dir`` names the JAX compile cache and has no counterpart
@@ -98,6 +111,7 @@ from ..ops import sgd as sgd_opt
 from ..resilience.async_ckpt import AsyncCheckpointer
 from ..resilience.auto_resume import auto_resume
 from ..utils import log_dist, logger
+from ..utils.cluster import named_scope as ds_named_scope
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer, device_sync
 from .activation_checkpointing import checkpointing as act_ckpt
 from .config import DeepSpeedConfig
@@ -206,6 +220,11 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.skipped_steps = 0
         self._in_training = True
+        self.telemetry = None
+        self.monitor = None
+        self._cluster = None
+        self._goodput = None
+        self._programs = {}
 
         self.dp_size = dist.get_world_size() if dist.is_initialized() else 1
         self.dp_rank = dist.get_rank() if dist.is_initialized() else 0
@@ -324,6 +343,7 @@ class DeepSpeedEngine:
             act_ckpt.set_default_mesh(mesh)
         if self.config.dump_state:
             self.config.print("DeepSpeedEngine configuration")
+        self._configure_observatories()
 
         self._ckpt_key_list = None          # _ckpt_keys, built at first use
         self.last_checkpoint_load = None    # load_checkpoint's seconds by stage
@@ -356,11 +376,95 @@ class DeepSpeedEngine:
             raise _later("comm.overlap.mode='bucketed'", "item 18")
         if c.sequence_parallel_enabled:
             raise _later("sequence_parallel", "item 14")
-        for on, what, item in ((c.telemetry_enabled, "telemetry", "items 21-22"),
-                               (c.numerics_enabled, "numerics", "item 22"),
-                               (c.tensorboard_enabled, "the tensorboard monitor", "item 21")):
+        for on, what in ((c.numerics_enabled, "numerics (the in-graph sentinel, "
+                          "loss-scale journal and flight recorder)"),
+                         (c.telemetry_enabled and c.telemetry_anatomy_enabled,
+                          "telemetry.anatomy (the step-anatomy roofline)"),
+                         (c.telemetry_enabled and c.telemetry_profile_enabled,
+                          "telemetry.profile (the measured-profile ingest)"),
+                         (c.telemetry_enabled and c.telemetry_hbm_enabled,
+                          "telemetry.hbm (the memory manifest)")):
             if on:
-                raise _later(what, item)
+                raise _later(what, "item 22b")
+
+    def _configure_observatories(self):
+        """The monitor, the telemetry session with its metrics and alerts, the
+        cluster monitor and the goodput ledger, in the JAX engine's order
+        (deepspeed_tpu/runtime/engine.py:469-661)."""
+        c = self.config
+        if c.tensorboard_enabled:
+            from ..utils.monitor import SummaryMonitor
+            self.monitor = SummaryMonitor(c.tensorboard_output_path or None,
+                                          c.tensorboard_job_name)
+        if not c.telemetry_enabled:
+            return
+        from ..utils.telemetry import TelemetrySession
+        self.telemetry = TelemetrySession(
+            monitor=self.monitor, peak_tflops=c.telemetry_peak_tflops or None,
+            trace_dir=c.telemetry_trace_dir or None,
+            trace_steps=c.telemetry_trace_steps, mfu_window=c.telemetry_mfu_window,
+            recompile_warn=c.telemetry_recompile_warn,
+            output_path=c.telemetry_output_path or None,
+            job_name=c.telemetry_job_name, device=self.device)
+        if c.telemetry_metrics_enabled or c.telemetry_alerts_enabled:
+            self.telemetry.configure_metrics(
+                ring_len=c.telemetry_metrics_ring_len,
+                strict=c.telemetry_metrics_strict_catalog,
+                export_path=c.telemetry_metrics_export_path or None)
+        if c.telemetry_alerts_enabled:
+            self.telemetry.configure_alerts(rules=c.telemetry_alerts_rules)
+        if c.telemetry_cluster_enabled:
+            # no numerics recorder to ride (item 22b): the watchdog gets its own
+            from ..utils.cluster import ClusterMonitor
+            from ..utils.numerics import FlightRecorder
+            cluster_dump_dir = c.telemetry_cluster_dump_dir or "cluster_dumps"
+            recorder = FlightRecorder(capacity=64, dump_dir=cluster_dump_dir,
+                                      telemetry=self.telemetry, host_id=self.dp_rank)
+            self._cluster = ClusterMonitor(
+                telemetry=self.telemetry, recorder=recorder,
+                heartbeat_interval=c.telemetry_cluster_heartbeat_interval,
+                hang_deadline_s=c.telemetry_cluster_hang_deadline_s,
+                straggler_threshold=c.telemetry_cluster_straggler_threshold,
+                signal_peers=c.telemetry_cluster_signal_peers,
+                warmup_steps=c.telemetry_cluster_warmup_steps,
+                dump_dir=cluster_dump_dir)
+            recorder.cluster = self._cluster
+            if self.telemetry.alert_engine is not None \
+                    and self.telemetry.alert_engine.recorder is None:
+                # page alerts dump through the cluster watchdog's recorder
+                self.telemetry.alert_engine.recorder = recorder
+        if c.telemetry_goodput_enabled:
+            from ..utils.goodput import RunLedger
+            gp_recorder = self._cluster.recorder if self._cluster is not None else None
+            ledger_dir = (c.telemetry_goodput_ledger_dir
+                          or (gp_recorder.dump_dir if gp_recorder is not None else None)
+                          or "goodput_ledgers")
+            if gp_recorder is not None:
+                run_id = gp_recorder.run_id
+            else:
+                from ..utils.numerics import default_run_id
+                run_id = default_run_id()
+            self._goodput = RunLedger(run_id=run_id, host=self.dp_rank,
+                                      ledger_dir=ledger_dir,
+                                      eval_tag=c.telemetry_goodput_eval_tag)
+            # carve-out baselines: compile seconds, watchdog fires and
+            # checkpoint saves are cumulative; the ledger bills per-step deltas
+            self._goodput_compile_base = 0.0
+            self._goodput_hang_base = 0
+            self._goodput_saves_base = 0
+            self._goodput_init_open = True
+            if self._cluster is not None:
+                self._cluster.goodput = self._goodput
+
+    def _program(self, name, fn):
+        """``fn`` through the telemetry compile watchdog (itself when
+        telemetry is off)."""
+        if self.telemetry is None:
+            return fn
+        prog = self._programs.get(name)
+        if prog is None:
+            prog = self._programs[name] = self.telemetry.watch(name, fn)
+        return prog
 
     def _refuse_offload_optimizer(self, optimizer):
         """The JAX engine's asserts (deepspeed_tpu/runtime/engine.py:861-865),
@@ -419,6 +523,15 @@ class DeepSpeedEngine:
         return self.config.allreduce_always_fp32
 
     def wall_clock_breakdown(self):
+        # with telemetry on, the barrier-per-section timers would perturb the
+        # run being measured: only behind telemetry.perturbing_breakdown
+        if self.telemetry is not None:
+            if self.config.telemetry_perturbing_breakdown:
+                self.telemetry.warn_perturbing_once()
+                return True
+            if self.config.wall_clock_breakdown:
+                self.telemetry.note_breakdown_suppressed_once()
+            return False
         return self.config.wall_clock_breakdown
 
     def dynamic_loss_scale(self):
@@ -602,17 +715,26 @@ class DeepSpeedEngine:
         for ``backward``; under the fused step the update runs here and the
         detached loss is returned. In eval mode it runs under
         ``torch.no_grad``."""
+        if (self.telemetry is not None and self._in_training
+                and self.micro_steps % self.gradient_accumulation_steps() == 0):
+            # first micro-step of an optimizer-step window
+            self.telemetry.on_step_begin(self.global_steps)
+            if self._cluster is not None:
+                self._cluster.on_step_begin(self.global_steps)
+            self._goodput_close_init()
         if self.wall_clock_breakdown():
             self.timers("forward_microstep").start()
         batch = tuple(self._to_device(x) for x in inputs)
         if self._in_training and self._use_fused():
-            loss = self._fused_forward(batch)
+            loss = self._program("fused_step", self._fused_forward)(*batch)
         elif self._in_training:
-            loss = self._loss(batch)
+            loss = self._program("forward", self._fwd)(*batch)
             self._pending_loss = loss
         else:
+            self._goodput_begin_eval()
             with torch.no_grad():
-                loss = self._loss(batch)
+                loss = self._program("eval_loss", self._fwd)(*batch)
+            self._goodput_end_eval()
         if self.wall_clock_breakdown():
             self.timers("forward_microstep").stop()
         return loss
@@ -620,6 +742,10 @@ class DeepSpeedEngine:
     def _loss(self, batch):
         loss = self.module(*batch)
         return loss[0] if isinstance(loss, (tuple, list)) else loss
+
+    def _fwd(self, *batch):
+        with ds_named_scope("ds_fwd_bwd"):
+            return self._loss(batch)
 
     def backward(self, loss, allreduce_gradients=True, release_loss=False):
         """Differentiate ``loss * scale / gradient_accumulation_steps`` and move
@@ -639,7 +765,7 @@ class DeepSpeedEngine:
             self._pending_is_fused = False
             self._grad_acc = _FUSED if self._fused_pending is not None else None
         else:
-            grads = self._micro_grads(self._pending_loss)
+            grads = self._program("backward", self._micro_grads)(self._pending_loss)
             if self._grad_acc is None:
                 self._grad_acc = [g.to(self._acc_dtype) for g in grads]
             else:
@@ -662,7 +788,8 @@ class DeepSpeedEngine:
     def _micro_grads(self, loss):
         """This micro-batch's grads, every leaf in ``grad_dtype`` (zeros for
         a leaf the loss does not reach) and reduced over the ranks."""
-        self._scaled(loss).backward()
+        with ds_named_scope("ds_fwd_bwd"):
+            self._scaled(loss).backward()
         grads = []
         for p in self._params:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -721,13 +848,13 @@ class DeepSpeedEngine:
             fused = False
         return fused
 
-    def _fused_forward(self, batch):
+    def _fused_forward(self, *batch):
         """deepspeed_tpu/runtime/engine.py:1939-1951: the whole step at
         ``forward()``, with ``current_hyper()`` of this moment and step
         number ``global_steps + 1 - skipped_steps``."""
         if self._fused_pending is not None:
             raise RuntimeError(_ROTATION)
-        loss = self._loss(batch)
+        loss = self._fwd(*batch)
         self._fused_pending = self._update(self._micro_grads(loss))
         loss = loss.detach()
         self._pending_loss, self._pending_is_fused = loss, True
@@ -804,6 +931,10 @@ class DeepSpeedEngine:
         body of the two-step path and the fused step: prep, the optimizer on
         this rank's slices and the master -> compute re-cast (skipped on
         overflow), the scaler update. Returns (overflow, norm)."""
+        with ds_named_scope("ds_apply_update"):
+            return self._apply_update(grads)
+
+    def _apply_update(self, grads):
         grads, overflow, norm = self._prep_grads(grads)
         if not overflow:
             # stage 1 holds whole grads and sliced master: take this rank's slice
@@ -832,6 +963,10 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _take_model_step(self):
+        if self.telemetry is not None:
+            # host-local dispatch boundary: every host-side phase of the step
+            # is behind us (deepspeed_tpu/runtime/engine.py:2029-2039)
+            self.telemetry.mark_step_dispatched()
         if self.wall_clock_breakdown():
             self.timers("step_microstep").start()
         if self._grad_acc is _FUSED:
@@ -841,9 +976,10 @@ class DeepSpeedEngine:
             self._fused_pending = None
             self._finish_step(self.fp16_enabled() and overflow)
         elif self._offload is not None:
-            self._finish_step(self._offload_step())
+            self._finish_step(self._program("offload_step", self._offload_step)())
         else:
-            overflow, self._last_grad_norm = self._update(self._grad_acc)
+            overflow, self._last_grad_norm = self._program(
+                "apply_update", self._update)(self._grad_acc)
             self._finish_step(overflow)
 
     def _offload_step(self) -> bool:
@@ -908,6 +1044,7 @@ class DeepSpeedEngine:
             log_dist(f"step={self.global_steps + 1}, skipped={self.skipped_steps}, "
                      f"lr={self.get_lr()}, mom={self.get_mom()}", ranks=[0])
         self.global_steps += 1
+        self._observe_step()
         self._window_losses = []
         interval = self.config.resilience_save_interval
         if (self._resilience is not None and interval > 0
@@ -918,10 +1055,111 @@ class DeepSpeedEngine:
             self._resilience.save(tag=f"global_step{self.global_steps}")
             if not self.config.resilience_async_save:
                 self._resilience.wait()
+        # goodput: close this step's interval AFTER the save hook, so its
+        # snapshot fence is carved out of this step, not the next
+        self._goodput_close_train_step()
         if self.wall_clock_breakdown():
             self.timers("step_microstep").stop()
             self.timers.log(["forward_microstep", "backward_microstep", "step_microstep"],
                             memory_breakdown=self.config.memory_breakdown)
+
+    def _observe_step(self):
+        """The monitor's ``Train/Samples/*`` scalars, the session's
+        ``end_step`` and the cluster heartbeat
+        (deepspeed_tpu/runtime/engine.py:2160-2194). The window losses and the
+        grad norm come to the host in one fetch, shared by both."""
+        if self.monitor is None and self.telemetry is None:
+            return
+        norm = self._last_grad_norm
+        extra = [norm] if isinstance(norm, torch.Tensor) else []
+        if self.telemetry is not None:
+            window, fetched = self.telemetry.fetch_window(self._window_losses, extra)
+        elif self._window_losses:
+            vals = torch.stack([t.detach().float().reshape(())
+                                for t in self._window_losses + extra]).cpu()
+            host = [float(v) for v in vals.tolist()]
+            window, fetched = host[:len(self._window_losses)], host[len(self._window_losses):]
+        else:
+            window, fetched = [], []
+        if self.monitor is not None:
+            # reference scalars: Train/Samples/train_loss + lr + loss_scale
+            samples = self.global_steps * self.train_batch_size()
+            if window:
+                self.monitor.add_scalar("Train/Samples/train_loss",
+                                        sum(window) / len(window), samples)
+            lr = self.get_lr()
+            if lr:
+                self.monitor.add_scalar("Train/Samples/lr", lr[0], samples)
+            if self.fp16_enabled():
+                self.monitor.add_scalar("Train/Samples/loss_scale", self.loss_scale(),
+                                        samples)
+            if norm is not None:
+                self.monitor.add_scalar("Train/Samples/grad_norm",
+                                        fetched[0] if extra else float(norm), samples)
+            self.monitor.flush()
+        if self.telemetry is not None:
+            self.telemetry.end_step(self.global_steps, self.train_batch_size(),
+                                    pending=self._window_losses,
+                                    run_goodput=self._goodput_scalars())
+        if self._cluster is not None:
+            self._cluster.on_step_end(self.global_steps)
+
+    # ------------------------------------------------------------------ goodput
+    # Run-lifecycle ledger hooks (deepspeed_tpu/runtime/engine.py:2232-2314):
+    # host arithmetic over counters the other observatories keep.
+    def _goodput_scalars(self):
+        if self._goodput is None or not self.config.telemetry_goodput_emit_scalars:
+            return None
+        return dict(self._goodput.scalar_items())
+
+    def _goodput_compile_delta(self):
+        comp = self.telemetry.watchdog.compile_seconds()
+        delta = comp - self._goodput_compile_base
+        self._goodput_compile_base = comp
+        return max(delta, 0.0)
+
+    def _goodput_close_init(self):
+        if self._goodput is None or not self._goodput_init_open:
+            return
+        self._goodput_init_open = False
+        self._goodput.close("init", {"compile": self._goodput_compile_delta()})
+
+    def _goodput_begin_eval(self):
+        if self._goodput is None:
+            return
+        self._goodput_close_init()
+        self._goodput.close("host_gap")
+
+    def _goodput_end_eval(self):
+        if self._goodput is None:
+            return
+        self._goodput.close("eval", {"compile": self._goodput_compile_delta()})
+
+    def _goodput_close_train_step(self):
+        """Close one train step's interval: carve compile, the checkpoint
+        snapshot fence (``AsyncCheckpointer.last_stall_ms`` when a save ran
+        this step) and this host's dispatch skew above the fleet median; a
+        step during which the hang watchdog fired bills to hang."""
+        if self._goodput is None:
+            return
+        self._goodput_close_init()
+        carve = {"compile": self._goodput_compile_delta()}
+        if self._resilience is not None:
+            started = self._resilience.saves_started
+            if started != self._goodput_saves_base:
+                self._goodput_saves_base = started
+                carve["checkpoint_stall"] = self._resilience.last_stall_ms / 1000.0
+        hang = False
+        if self._cluster is not None:
+            skew = self._cluster.last_local_skew_s
+            if skew > 0.0:
+                carve["straggler_skew"] = skew
+                self._cluster.last_local_skew_s = 0.0
+            if self._cluster.watchdog is not None:
+                fired = len(self._cluster.watchdog.fired)
+                hang = fired != self._goodput_hang_base
+                self._goodput_hang_base = fired
+        self._goodput.close_step(self.global_steps, carve, hang=hang)
 
     # ------------------------------------------------------------------ checkpointing
     def _ckpt_keys(self):
@@ -1022,10 +1260,10 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ not ported
     def flops_profile(self, *inputs, peak_tflops=None):
-        raise _later("flops_profile", "item 22")
+        raise _later("flops_profile", "item 22b")
 
     def lint_programs(self, sample_batch):
         raise _later("lint_programs", "item 23")
 
     def memory_manifest(self):
-        raise _later("memory_manifest", "item 22")
+        raise _later("memory_manifest", "item 22b")

@@ -82,11 +82,11 @@ def has_inf_or_nan_tree(tree) -> torch.Tensor:
 def detect_overflow(tree, fp16_active: bool, index=None):
     """``(overflow, None)``: the global inf/nan flag when fp16 is active, a
     constant False otherwise. The per-subtree ``index`` of the numerics
-    observatory is not ported (ROADMAP.md item 22)."""
+    observatory is not ported (ROADMAP.md item 22b)."""
     if index is not None:
         raise NotImplementedError(
-            "detect_overflow(index=...): the numerics sentinel is not in the PyTorch "
-            "port yet: ROADMAP.md item 22")
+            "detect_overflow(index=...): the numerics sentinel (per-subtree "
+            "overflow attribution) is not in the PyTorch port yet: ROADMAP.md item 22b")
     if fp16_active:
         return has_inf_or_nan_tree(tree), None
     return torch.zeros((), dtype=torch.bool), None

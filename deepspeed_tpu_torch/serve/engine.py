@@ -34,9 +34,17 @@ token-identical to plain greedy decode. ``request_trace`` keeps the request
 ledger (serve/request_trace.py). ``state_dict`` / ``load_state_dict`` are the
 warm restart (resilience/serve_restart.py).
 
+``telemetry`` (a ``utils/telemetry.py`` ``TelemetrySession``; JAX
+``deepspeed_tpu/serve/engine.py:106,217-231,283-312``): each program's
+watchdog record is its CUDA-graph capture on the card (wall time, the graph
+pool's bytes as temp bytes) and its first call on the CPU, under the JAX
+names (``serve:decode_step``, ``serve:prefill_chunk``, ``serve:spec_verify``,
+``serve:copy_blocks``, ``serve:beam_<kind>_k<K>_e<eos>``, the draft's
+``serve:spec_draft_*``); every iteration emits the ``Serving/*`` scalars and,
+with the request tracer, closes the session's step with its latency summary.
+
 Not in this slice of the port (each raises, naming the ROADMAP.md item that
-brings it): head-sharded serving, telemetry, and the lint and memory
-manifests.
+brings it): head-sharded serving, and the lint and memory manifests.
 """
 
 import time
@@ -80,9 +88,7 @@ class InferenceEngine:
                 "target OR speculate, not both)")
         if tp > 1:
             raise _later(f"serving.sharding.model = {tp}",
-                         "ROADMAP.md queue A10.6 (head-sharded serving)")
-        if telemetry is not None:
-            raise _later("telemetry", "ROADMAP.md queue A21-A22 (observatories)")
+                         "ROADMAP.md item 10.6 (head-sharded serving)")
         if max_model_len % block_size != 0:
             raise ValueError(f"max_model_len {max_model_len} not a multiple "
                              f"of block_size {block_size}")
@@ -107,6 +113,7 @@ class InferenceEngine:
         if params is not None:
             model.load_parameters(params)
         self.tp = tp
+        self.telemetry = telemetry
         self.model = model
         self.device = model.device
         self.params = serving_params(model)
@@ -188,7 +195,7 @@ class InferenceEngine:
             self._verify = self._program("spec_verify", self._raw["spec_verify"],
                                          ins["spec_verify"], self.params,
                                          self.k_pool, self.v_pool)
-        self._copy = self._raw["copy_blocks"]
+        self._copy = self._watch("serve:copy_blocks", self._raw["copy_blocks"])
         self._beam_heads = {}
         self.copy_width = self._raw["copy_width"]
 
@@ -228,12 +235,28 @@ class InferenceEngine:
     # ------------------------------------------------------------- plumbing
     def _program(self, name, fn, inputs, params, k_pool, v_pool):
         """A serving program as the engine runs it, taking its per-step
-        inputs as host arrays: a CUDA graph on the card (captured here), op
-        by op on the CPU."""
+        inputs as host arrays: a CUDA graph on the card (captured here, the
+        capture recorded by the compile watchdog), op by op on the CPU (its
+        first call recorded)."""
         if self._graph_pool is None:
-            return EagerProgram(fn, name, inputs, params, k_pool, v_pool)
-        return GraphedProgram(fn, name, inputs, params, k_pool, v_pool,
+            return self._watch(f"serve:{name}",
+                               EagerProgram(fn, name, inputs, params, k_pool, v_pool))
+        t0 = time.perf_counter()
+        prog = GraphedProgram(fn, name, inputs, params, k_pool, v_pool,
                               self._graph_pool)
+        if self.telemetry is not None:
+            sig = tuple((tuple(shape), np.dtype(dtype), str(self.device))
+                        for shape, dtype in inputs)
+            self.telemetry.record_capture(f"serve:{name}", sig,
+                                          time.perf_counter() - t0, prog.pool_bytes)
+        return prog
+
+    def _watch(self, name, fn):
+        return self.telemetry.watch(name, fn) if self.telemetry is not None else fn
+
+    def _scalar(self, name, value):
+        if self.telemetry is not None:
+            self.telemetry.monitor.add_scalar(f"Serving/{name}", float(value), self._it)
 
     def graphs(self):
         """name -> GraphedProgram of this engine (empty on the CPU)."""
@@ -250,7 +273,9 @@ class InferenceEngine:
     def _beam_head(self, kind, g):
         key = (kind, g.lanes, g.req.eos_token_id)
         if key not in self._beam_heads:
-            self._beam_heads[key] = self._raw[f"beam_{kind}"](key[1], key[2])
+            self._beam_heads[key] = self._watch(
+                f"serve:beam_{kind}_k{key[1]}_e{key[2]}",
+                self._raw[f"beam_{kind}"](key[1], key[2]))
         return self._beam_heads[key]
 
     # ----------------------------------------------------------- submission
@@ -301,9 +326,35 @@ class InferenceEngine:
             if self._spec is not None:
                 log["spec"] = []
             log["decode"], log["finished"] = self._decode_all(it)
+
+        self._scalar("occupancy", sched.occupancy())
+        self._scalar("waiting", len(sched.waiting))
+        self._scalar("free_blocks", sched.allocator.num_free)
+        if self.prefix_cache is not None and self.telemetry is not None:
+            pc = self.prefix_cache.stats()
+            self._scalar("PrefixCache/hit_rate", pc["hit_rate"])
+            self._scalar("PrefixCache/hit_tokens", pc["hit_tokens"])
+            self._scalar("PrefixCache/parked_blocks", pc["parked_blocks"])
+            self._scalar("PrefixCache/evictions", pc["evictions"])
+        if self._spec is not None and self.telemetry is not None:
+            s = self.spec_summary()
+            self._scalar("Spec/acceptance_rate", s["spec_acceptance_rate"])
+            self._scalar("Spec/drafted_tokens", s["drafted_tokens"])
+            self._scalar("Spec/accepted_tokens", s["accepted_tokens"])
+            self._scalar("Spec/wasted_draft_tokens", s["wasted_draft_tokens"])
+            self._scalar("Spec/target_steps_per_token", s["target_steps_per_token"])
+        elapsed = max(time.perf_counter() - self._start_wall, 1e-9)
+        self._scalar("tok_s", self._tokens_sampled / elapsed)
+        self._scalar("goodput_tok_s", self._tokens_finished / elapsed)
         if tr is not None:
-            tr.end_iteration(len(sched.waiting), len(sched.running),
-                             sched.pool_stats())
+            itrec = tr.end_iteration(len(sched.waiting), len(sched.running),
+                                     sched.pool_stats())
+            if self.telemetry is not None:
+                ws = tr.waste_summary()
+                self._scalar("Waste/replayed_tokens", ws["replayed_tokens"])
+                self._scalar("Waste/fraction", ws["waste_fraction"])
+                self._scalar("Pool/fragmentation", itrec["pool"]["frag"])
+                self.telemetry.end_step(it, 1, serving=tr.latency_summary())
         self._it += 1
         return log
 
@@ -384,11 +435,14 @@ class InferenceEngine:
             # AND the RequestOutput fields (they read the same numbers, so
             # they cannot drift)
             self.tracer.on_fork(g, it)
-            ttft_ms, _ = self.tracer.on_first_token(g, it)
+            ttft_ms, ttft_iters = self.tracer.on_first_token(g, it)
         else:
             ttft_ms = (time.perf_counter()
                        - self._submit_ms[g.req.req_id]) * 1000.0
+            ttft_iters = it - g.req.arrival
         g.first_token_ms = ttft_ms
+        self._scalar("ttft_ms", ttft_ms)
+        self._scalar("ttft_iters", ttft_iters)
 
     # -------------------------------------------------------- speculation
     def _extend_target_table(self, g, m, copies):
@@ -876,8 +930,8 @@ class InferenceEngine:
 
     # ---------------------------------------------------- later slices
     def lint_programs(self, sample_batch=None):
-        raise _later("InferenceEngine.lint_programs", "ROADMAP.md queue A23 (lint)")
+        raise _later("InferenceEngine.lint_programs", "ROADMAP.md item 23 (lint)")
 
     def memory_manifest(self):
         raise _later("InferenceEngine.memory_manifest",
-                     "ROADMAP.md queue A22 (device observatories: utils/hbm.py)")
+                     "ROADMAP.md item 22b (device observatories: utils/hbm.py)")

@@ -86,9 +86,12 @@ def test_world_size_without_a_process_group_is_one():
 
 
 def test_alert_rules_wait_for_the_observatories_slice():
-    with pytest.raises(NotImplementedError, match="observatories"):
-        TorchConfig({"train_batch_size": 1,
-                     "telemetry": {"enabled": True, "alerts": {"rules": []}}})
+    """The observatories slice landed: ``telemetry.alerts.rules`` resolves
+    through the port's copy of the alert rules as in the JAX package."""
+    d = {"train_batch_size": 1,
+         "telemetry": {"enabled": True, "alerts": {"enabled": True, "rules": []}}}
+    assert (TorchConfig(d, world_size=1).telemetry_alerts_rules
+            == JaxConfig(d, world_size=1).telemetry_alerts_rules == [])
 
 
 # ------------------------------------------------- the key corpus of both classes
@@ -106,11 +109,13 @@ def _sweep():
 
 # the probes the port refuses (NotImplementedError naming its ROADMAP item)
 # where the JAX package resolves them or rejects them with its own rule
-# checks: telemetry.alerts.rules, the alert rules of the observatories
-# (items 21-22), by (key, probe index) -> what the probe sets
-REFUSED = {("telemetry", 53): "alerts.rules: one threshold rule",
-           ("telemetry", 57): "alerts.rules: a rule of an unknown kind",
-           ("telemetry", 58): "alerts.rules: a rule on an undeclared metric"}
+# checks, by (key, probe index) -> what the probe sets. None is left: the
+# alert rules (telemetry.alerts.rules) came with the observatories (item 21)
+REFUSED = {}
+# the probes the port refused before the observatories landed
+ALERT_RULE_PROBES = {("telemetry", 53): "alerts.rules: one threshold rule",
+                     ("telemetry", 57): "alerts.rules: a rule of an unknown kind",
+                     ("telemetry", 58): "alerts.rules: a rule on an undeclared metric"}
 
 
 def _resolve(cls, logger, d):
@@ -160,11 +165,17 @@ def test_every_key_resolves_the_same(key):
 
 
 def test_the_refusals_are_what_the_port_refuses():
+    """The config refuses nothing the JAX package resolves: the alert-rule
+    probes it once refused resolve (or fail) as the JAX class's do."""
+    from deepspeed_tpu.utils import logger as jax_logger
+    from deepspeed_tpu_torch.utils import logger as port_logger
+    assert REFUSED == {}
     sweep = _sweep()
-    for key, n in REFUSED:
+    for key, n in ALERT_RULE_PROBES:
         value = sweep[key][n][0]
-        with pytest.raises(NotImplementedError, match="observatories"):
-            TorchConfig({"train_batch_size": 8, key: value}, world_size=1)
+        assert "rules" in value["alerts"], ALERT_RULE_PROBES[key, n]
+        d = {"train_batch_size": 8, key: value}
+        assert _resolve(TorchConfig, port_logger, d) == _resolve(JaxConfig, jax_logger, d)
 
 
 # ------------------------------------------------- provenance and the pt alias

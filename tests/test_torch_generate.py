@@ -64,19 +64,77 @@ def test_beam_search_matches_jax(models, eos, penalty):
     np.testing.assert_allclose(scores.numpy(), np.asarray(wscores), atol=1e-5, rtol=0)
 
 
+def _jax_nucleus(logits, top_p):
+    """The JAX sampler's top-p keep mask (deepspeed_tpu/models/gpt2.py:804-815,
+    line for line): a stable ascending argsort reversed, the exclusive mass
+    before each token under ``top_p``, scattered back by sort position."""
+    logits = jnp.asarray(logits)
+    order = jnp.argsort(logits, axis=-1)[..., ::-1]
+    sorted_logits = jnp.take_along_axis(logits, order, axis=-1)
+    probs = jax.nn.softmax(sorted_logits, axis=-1)
+    kept_sorted = (jnp.cumsum(probs, axis=-1) - probs) < top_p
+    inv = jnp.argsort(order, axis=-1)
+    return np.asarray(jnp.take_along_axis(kept_sorted, inv, axis=-1))
+
+
 def _kept(logits, temperature, top_k, top_p):
-    """The boolean set a sampled token must lie in."""
+    """The boolean set a sampled token must lie in: the top-k set, then the
+    JAX sampler's nucleus of what it leaves."""
     x = logits / temperature
     keep = torch.ones_like(x, dtype=torch.bool)
     if top_k:
         keep &= x >= torch.topk(x, top_k, dim=-1).values[..., -1:]
     if top_p < 1.0:
-        sx, order = torch.sort(torch.where(keep, x, torch.full((), -np.inf)), dim=-1,
-                               descending=True, stable=True)
-        probs = torch.softmax(sx, dim=-1)
-        ks = (torch.cumsum(probs, -1) - probs) < top_p
-        keep &= torch.zeros_like(ks).scatter(-1, order, ks)
+        masked = torch.where(keep, x, torch.full((), -np.inf)).detach()
+        keep &= torch.from_numpy(_jax_nucleus(masked.numpy(), top_p))
     return keep
+
+
+# rows with ties at the nucleus cutoff: of two equal logits JAX keeps the
+# higher index first ([1, 1, 0] at top_p 0.3 keeps token 1 only)
+_TIED_ROWS = [([1.0, 1.0, 0.0, -1.0], 0.3), ([0.5, 2.0, 2.0, 2.0], 0.2),
+              ([0.5, 2.0, 2.0, 2.0], 0.5), ([3.0, 0.0, 3.0, 1.0], 0.45),
+              ([0.0, 0.0, 0.0, 0.0], 0.6), ([-1.0, 2.0, -1.0, 2.0], 0.55)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nucleus_keep_matches_jax_sampler_on_ties(dtype):
+    from deepspeed_tpu_torch.models.gpt2 import nucleus_keep
+    rng = np.random.RandomState(3)
+    rows = [(np.asarray(r, np.float32), p) for r, p in _TIED_ROWS]
+    # integer logits over a few values: ties everywhere, cutoffs among them
+    rows += [(rng.randint(-2, 3, size=16).astype(np.float32), p)
+             for p in (0.1, 0.25, 0.4, 0.7, 0.9) for _ in range(4)]
+    for row, top_p in rows:
+        # the samplers' input: logits of the model's dtype over a float32
+        # temperature (JAX's division promotes to float32; the port's casts)
+        t = torch.from_numpy(row).to(getattr(torch, dtype)).float() / 1.0
+        got = nucleus_keep(t[None], top_p)[0].numpy()
+        x = jnp.asarray(row, dtype=getattr(jnp, dtype)) / jnp.float32(1.0)
+        assert x.dtype == jnp.float32
+        want = _jax_nucleus(x[None], top_p)[0]
+        np.testing.assert_array_equal(got, want, err_msg=f"{row} top_p={top_p}")
+    assert nucleus_keep(torch.tensor([[1.0, 1.0, 0.0]]), 0.3).tolist() == [[False, True, False]]
+
+
+def test_generate_nucleus_keeps_the_jax_token_of_a_tie(models):
+    """Every logit exactly 0 (zero token embeddings, which the LM head
+    shares): the nucleus at a top_p under 1/vocab keeps one token, the JAX
+    sampler's, so both packages' sampled ``generate`` give the same tokens
+    whatever their generators."""
+    jm, jp, tm = models
+    jp = jax.tree_util.tree_map(lambda a: a, jp)
+    jp["wte"] = jnp.zeros_like(jp["wte"])
+    tied = GPT2Model(GPT2Config(**DIMS, compute_dtype=torch.float32), device="cpu")
+    tied.load_parameters(params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                         device="cpu"))
+    prompts = _prompts(4, 2, 5)
+    want = np.asarray(jm.generate(jp, jnp.asarray(prompts), 6, temperature=1.0,
+                                  rng=jax.random.PRNGKey(1), top_p=0.01))
+    got = tied.generate(torch.from_numpy(prompts), 6, temperature=1.0,
+                        generator=torch.Generator().manual_seed(1), top_p=0.01)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[:, 5:] == DIMS["vocab_size"] - 1).all()
 
 
 @pytest.mark.parametrize("top_k,top_p", [(5, 1.0), (0, 0.8), (8, 0.7)])

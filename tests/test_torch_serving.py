@@ -248,7 +248,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(models):
     pytest.param({"speculation": {"enabled": True}}, ValueError,
                  "speculation.enabled needs a live draft model", id="serving0-speculation"),
     pytest.param({"sharding": {"model": 2}}, NotImplementedError,
-                 r"sharding.model = 2 is not in the PyTorch port yet: ROADMAP.md queue A10\.6",
+                 r"sharding.model = 2 is not in the PyTorch port yet: ROADMAP.md item 10\.6",
                  id="serving1-sharding"),
     pytest.param({"request_trace": {"enabled": True, "capacity": 0}}, ValueError,
                  "request_trace.capacity must be", id="serving2-request_trace"),
@@ -267,19 +267,23 @@ def test_engine_refuses_later_slices(models, serving, error, match):
 
 def test_engine_refuses_mirror_telemetry_and_warm_restart(models):
     """The mirror with the prefix cache and a snapshot of another geometry are
-    refused with the JAX package's words; telemetry and the lint and memory
-    manifests are later slices."""
+    refused with the JAX package's words; telemetry is accepted (the
+    observatories slice); the lint and memory manifests are later slices
+    (items 23 and 22b)."""
     from deepspeed_tpu_torch.serve.engine import InferenceEngine
     _, _, tm = models
     geo = dict(num_slots=S, block_size=BS, num_blocks=NB, max_model_len=ML,
                prefill_chunk=C)
     with pytest.raises(ValueError, match="mirror cannot run with prefix_cache"):
         InferenceEngine(tm, mirror=True, prefix_cache=True, **geo)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        InferenceEngine(tm, telemetry=object(), **geo)
+    from deepspeed_tpu_torch.utils.telemetry import TelemetrySession
+    import tempfile
+    session = TelemetrySession(output_path=tempfile.mkdtemp(), job_name="t")
+    assert InferenceEngine(tm, telemetry=session, **geo).telemetry is session
+    session.close()
     eng = InferenceEngine(tm, **geo)
-    for call in (eng.lint_programs, eng.memory_manifest):
-        with pytest.raises(NotImplementedError):
+    for call, item in ((eng.lint_programs, "item 23"), (eng.memory_manifest, "item 22b")):
+        with pytest.raises(NotImplementedError, match=item):
             call()
     with pytest.raises(ValueError, match="geometry does not match"):
         eng.load_state_dict({"geometry": dict(eng.geometry(), num_blocks=NB + 1)})
