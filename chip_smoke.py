@@ -34,7 +34,8 @@ result line):
    decode step's replay equals the eager program on the same pools bit for
    bit, and that its logits agree with the gather path on the same pools
    (bf16, and float32 pools through the same kernel); the graph pool's
-   bytes; then a short ``torch.profiler`` window for where the time goes
+   bytes; the engine's ``memory_manifest()`` against its live tensors, the
+   pool model and the allocator; then a short ``torch.profiler`` window for where the time goes
    and the busy share, whose trace must hold as many cluster-design kernels
    as the launch counter moved (48 x the window's decode replays);
    ``[serving-graphs]`` — the same trace on a second engine driven by the
@@ -89,6 +90,30 @@ result line):
    compile watchdog, no alert fired, the ``Train/*`` scalars the JAX engine
    emits; the step ms beside ``[train-published]``'s, the session's MFU
    beside 6N x tokens/s, the goodput classes;
+   observatories — ``[train-observatories]``: the published config again
+   with the numerics sentinel (depth 1, a desync audit every 4 steps, the
+   dump directory a ``tempfile.mkdtemp()``) and ``telemetry.anatomy``
+   (the H100's data-sheet roofline), ``telemetry.profile`` (a 2-step
+   window) and ``telemetry.hbm`` on, for 8 steps: the losses bit for bit
+   and the synchronizing calls a step equal to ``[train-published]``'s;
+   the sentinel's per-subtree sums of squares against
+   ``[train-published]``'s norm (1e-5), no nonfinite count, two audits at
+   world 1 in agreement, a manual trigger's bundle read back with its
+   allocator summary; the memory manifest equal to the engine's tensors,
+   reconciled with the ZeRO model and under ``memory_allocated``; the
+   trace's flash kernels equal to the counters' move in the window and
+   the profile reconciled; the anatomy's floor under every measured step;
+   the counted flops a step equal to ``gpt2_train_flops`` (the flash
+   backward's five products included), stated in the code before the run;
+   ``flops_profile`` of the step;
+   fp16 loop — ``[fp16-optimizer]``: ``FP16_Optimizer("adamw")`` in a
+   custom loop (no ``initialize``) on GPT-2 at the 1.5B widths in fp16, no
+   remat, micro-batch 2 x 1024, clip 1.0, from a scale of 2^24 with
+   hysteresis 2, 16 steps: a skipped step leaves the master bit for bit,
+   the scale follows the scaler's rule, the clean losses are finite and
+   falling, 48 / 48 / 48 flash launches a step on the tensor cores; the
+   losses within 2e-3 of ``initialize``'s fp16 engine with the same steps
+   skipped; step ms, the peak, the journal's events;
    fused step — ``[train-fused]``: the same model and batch with AdamW, no
    clipping, WarmupLR, ZeRO-2: ``fused_step`` against the two-step path for
    12 steps each: the losses and the master bit for bit, the peak device
@@ -119,8 +144,9 @@ result line):
    after the load and the 4 losses bit for bit against the uninterrupted
    run, the save timed by stage (snapshot, payload write, hash + manifest,
    fsync + rename) and the load (verify, read, place), with their GB/s;
-   (2) the published config with the ``resilience`` block saving every 4
-   steps on the writer thread for 12 steps (the step times with a commit in
+   (2) the published config at 12 layers (cut from 48) with the
+   ``resilience`` block saving every 4 steps on the writer thread for 12
+   steps (the step times with a commit in
    flight against those without, each save's stall, 3 commits verified),
    then ``auto_resume`` in a fresh engine at step 12 bit for bit; (3) the
    offload host tier at 12 layers round-tripped bit for bit, then loaded
@@ -690,6 +716,7 @@ def phase_serving():
            "logits_tol": [LOGITS_TOL, LOGITS_TOL_F32]}
     eng._decode = graphed_decode
     res["busy_share"] = profile(eng, cfg)
+    res["memory_manifest"] = serving_manifest_check(eng)
     log(f"[serving] {json.dumps(res)}")
     del eng, params32, gather
     gc.collect()
@@ -697,6 +724,23 @@ def phase_serving():
     return {"launches": launches, "captures": graphs["decode_step"].captures,
             "replays": replays["decode_step"], "model": model, "outs": outs,
             "logs": logs, "stats": res}
+
+
+def serving_manifest_check(eng):
+    """The serving engine's ``memory_manifest()`` on the card: each class's
+    bytes equal to its live tensors' (one storage once), reconciled with
+    the pool model, within what the allocator holds."""
+    from deepspeed_tpu_torch.utils import hbm
+    manifest = eng.memory_manifest()
+    _, class_bytes = hbm.manifest_signatures(manifest)
+    live = hbm.measure_classes(manifest)
+    classes, ok = hbm.reconcile(live, hbm.modeled_classes(manifest["geometry"]),
+                                class_bytes)
+    allocated = torch.cuda.memory_allocated()
+    if live != class_bytes or not ok or sum(class_bytes.values()) > allocated:
+        raise AssertionError(f"[serving] memory manifest {class_bytes}, live {live}, "
+                             f"reconcile {classes}, allocated {allocated}")
+    return {"classes": class_bytes, "allocated": allocated}
 
 
 def profile(eng, cfg):
@@ -1656,7 +1700,7 @@ def phase_train_published():
         raise AssertionError("the external-master pair at gas 1 did not take the fused step")
     params0 = [p.detach().clone() for p in list(model.parameters())[:4]]
     _zero_flash_counts()
-    losses, step_s, m1, syncs = [], [], [], []
+    losses, step_s, m1, syncs, norms = [], [], [], [], []
     for _ in range(PUBLISHED_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1666,7 +1710,8 @@ def phase_train_published():
         losses.append(loss)
         syncs.append(n)
         m1.append(engine.opt_state["m1"].norm().item())
-    PUBLISHED.update(losses=losses, step_s=step_s, syncs=syncs)
+        norms.append(float(engine._last_grad_norm))
+    PUBLISHED.update(losses=losses, step_s=step_s, syncs=syncs, norms=norms)
     launches = _flash_counts()
     tc = _tensor_core_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1866,6 +1911,288 @@ def phase_train_telemetry():
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+# --------------------------------------------------- device-facing observatories
+OBS_STEPS = 8
+OBS_TRACE = (3, 5)              # the profiler window: steps 3 and 4
+OBS_AUDIT_INTERVAL = 4
+OBS_NORM_TOL = 1e-5             # sentinel sum of squares vs the engine's norm^2
+FLASH_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+
+
+def phase_train_observatories():
+    """The published config with the numerics sentinel (depth 1, a desync
+    audit every 4 steps) and the device-facing telemetry blocks (the
+    anatomy at the H100's data-sheet roofline, the profile ingest of a
+    2-step trace window, the memory manifest) on, for 8 steps: the losses
+    bit for bit ``[train-published]``'s and as many synchronizing calls a
+    step; the sentinel's sums of squares against ``[train-published]``'s
+    norm, its nonfinite counts 0, the audit at world 1, a manual trigger's
+    bundle read back; the manifest against the engine's tensors, the model
+    and the allocator; the trace's flash kernels against the launch
+    counters; the anatomy's floor under the measured step; the counted
+    flops a step against the formula, flash backward included. Returns the
+    flash launches of the run."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.runtime.client_optimizers import shard_optimizer
+    from deepspeed_tpu_torch.utils import hbm
+    from deepspeed_tpu_torch.utils.flops_profiler import format_report, gpt2_train_flops
+    from deepspeed_tpu_torch.utils.numerics import scan_dump_dir
+    from deepspeed_tpu_torch.utils.profile_ingest import (catalog_from_watchdog, kernel_counts,
+                                                          reconcile_profile)
+
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_observatories_")
+    dump_dir = tempfile.mkdtemp(prefix="chip_smoke_numerics_")
+    cfg = GPT2Config(**PUBLISHED_MODEL)
+    model = GPT2Model(cfg)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = model.param_count()
+    batch = PUBLISHED_CONFIG["train_batch_size"]
+    # stated before the run: the formula at the published shapes, the
+    # flash backward's five products included (PERF.md, PR 17)
+    want_flops = gpt2_train_flops(cfg.n_embd, cfg.n_layer, cfg.n_head, cfg.vocab_size,
+                                  cfg.n_positions, batch, remat="dots", flash=True)
+    want_bwd = 10 * batch * cfg.n_head * cfg.n_positions ** 2 * cfg.head_dim * cfg.n_layer
+    config = dict(PUBLISHED_CONFIG,
+                  numerics={"enabled": True, "subtree_depth": 1,
+                            "audit_interval": OBS_AUDIT_INTERVAL, "dump_dir": dump_dir},
+                  telemetry={"enabled": True, "output_path": root, "job_name": "tel",
+                             "trace_dir": os.path.join(root, "trace"),
+                             "trace_steps": list(OBS_TRACE),
+                             "anatomy": {"enabled": True, "chip": "h100-sxm"},
+                             "profile": {"enabled": True}, "hbm": {"enabled": True}})
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, optimizer=shard_optimizer(32),
+                                                     config_params=config)
+    tel, num = engine.telemetry, engine._numerics
+    _zero_flash_counts()
+    losses, step_s, syncs, records, anatomy, window = [], [], [], [], [], None
+    for step in range(OBS_STEPS):
+        if step == OBS_TRACE[0]:
+            window = _flash_counts()
+        if step == OBS_TRACE[1]:
+            window = [a - b for a, b in zip(_flash_counts(), window)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, n = _count_syncs(lambda: _engine_step(engine, tokens, labels))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(loss)
+        syncs.append(n)
+        records.append(num.last_record)
+        anatomy.append(tel.last_anatomy)
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    log(f"[train-observatories] losses {losses}; synchronizing calls a step {syncs} "
+        f"(numerics and telemetry off: {PUBLISHED['syncs'][:OBS_STEPS]})")
+    if losses != PUBLISHED["losses"][:OBS_STEPS]:
+        raise AssertionError("the observatories changed the losses")
+    if syncs != PUBLISHED["syncs"][:OBS_STEPS]:
+        raise AssertionError("the observatories changed the synchronizing calls a step")
+    want = [2 * cfg.n_layer * OBS_STEPS, cfg.n_layer * OBS_STEPS, cfg.n_layer * OBS_STEPS]
+    if launches != want or tc != want:
+        raise AssertionError(f"flash launches {launches} (tensor cores {tc}) != {want}")
+
+    # the sentinel
+    rel = [abs(sum(g * g for g in r["grad_norm_per_subtree"]) - n_ref ** 2) / n_ref ** 2
+           for r, n_ref in zip(records, PUBLISHED["norms"])]
+    audit = num.summary()
+    log(f"[train-observatories] sentinel: subtrees {records[-1]['subtrees']}, grad norms "
+        f"{records[-1]['grad_norm_per_subtree']}; sum of squares vs [train-published]'s "
+        f"norm^2, max rel diff {max(rel)!r} (tol {OBS_NORM_TOL}); nonfinite "
+        f"{[r['nonfinite_total'] for r in records]}; {json.dumps(audit)}")
+    if max(rel) > OBS_NORM_TOL or any(r["nonfinite_total"] for r in records):
+        raise AssertionError("the sentinel disagrees with the norm, or counted nonfinite")
+    if audit["audit_runs"] != OBS_STEPS // OBS_AUDIT_INTERVAL or audit["desync"]:
+        raise AssertionError(f"the desync audit: {audit}")
+    path = num.recorder.trigger("manual", {"phase": "train-observatories"})
+    bundle = scan_dump_dir(dump_dir)
+    if path is None or bundle is None or bundle["reason"] != "manual" \
+            or len(bundle["steps"]) != OBS_STEPS or "allocator" not in bundle.get("hbm", {}):
+        raise AssertionError(f"the manual dump {path} did not read back whole")
+    log(f"[train-observatories] manual dump {os.path.basename(path)}: {len(bundle['steps'])} "
+        f"steps, hbm {json.dumps(bundle['hbm'])}")
+
+    # the memory manifest
+    manifest = engine.memory_manifest()
+    _, class_bytes = hbm.manifest_signatures(manifest)
+    live = hbm.measure_classes(manifest)
+    report = hbm.engine_report(engine)
+    allocated = torch.cuda.memory_allocated()
+    log(f"[train-observatories] memory manifest {json.dumps(class_bytes)}; live "
+        f"{json.dumps(live)}; reconcile {json.dumps(report['classes'])}; "
+        f"memory_allocated {allocated}")
+    if live != class_bytes or not report["reconciled"] or sum(class_bytes.values()) > allocated:
+        raise AssertionError("the memory manifest disagrees with the tensors, the model or "
+                             "the allocator")
+
+    # the profile ingest
+    prof = tel.last_profile
+    traced = kernel_counts(prof["slice_names"], FLASH_TC_KERNELS)
+    classes = prof["reconcile"]["classes"]
+    rec = reconcile_profile(prof, catalog_from_watchdog(tel.watchdog), {
+        "flops_per_step": classes["compute"]["derived_flops_per_step"],
+        "wire_ici_per_step": 0, "wire_dcn_per_step": 0,
+        "step_wall_ms": classes["step_wall"].get("derived_step_wall_ms")},
+        kernels=dict(zip(FLASH_TC_KERNELS, window)))
+    log(f"[train-observatories] trace: flash kernels {traced}, counters {window}; "
+        f"reconcile {json.dumps(classes)}, kernels "
+        f"{json.dumps(rec['classes']['kernels'])}; summary {json.dumps(tel.summary())}")
+    if list(traced.values()) != window or not rec["ok"]:
+        raise AssertionError("the trace's kernels or the profile's classes disagree")
+
+    # the anatomy and the flop count
+    first = next(iter(tel.watchdog.records["fused_step"].values()))
+    bwd = sum(v for k, v in first.flops_by_op.items() if "flash_bwd" in k)
+    floors = [(a["predicted_floor_s"], a["measured_s"]) for a in anatomy if a is not None]
+    step = statistics.median(step_s[2:])
+    tok_s = batch * cfg.n_positions / step
+    log(f"[train-observatories] flops a step {first.flops:.0f} (stated {want_flops}; flash "
+        f"backward {bwd:.0f}, stated {want_bwd}); session MFU {tel.last_mfu!r} against 6N's "
+        f"{tok_s * 6 * n_params / BF16_FLOPS!r}; anatomy floor vs measured s {floors}")
+    if first.flops != want_flops or bwd != want_bwd:
+        raise AssertionError("the counted flops a step differ from the formula")
+    if not floors or any(f > m for f, m in floors):
+        raise AssertionError("the anatomy's floor lies above the measured step")
+    if any(a["exposed_s"]["ici"] for a in prof.get("anatomy", [])):
+        raise AssertionError("exposed collective time at world 1")
+    profile = engine.flops_profile(tokens, labels, peak_tflops=BF16_FLOPS / 1e12)
+    log("[train-observatories] flops_profile of the step:\n" + format_report(profile))
+    res = {"steps": OBS_STEPS, "step_ms_median": step * 1e3,
+           "published_step_ms_median": statistics.median(PUBLISHED["step_s"][2:]) * 1e3,
+           "step_ms_all": [t * 1e3 for t in step_s], "syncs_per_step": syncs,
+           "flops_per_step": first.flops, "flops_stated": want_flops,
+           "flash_bwd_flops": bwd, "hbm_bytes_per_step": first.hbm_bytes,
+           "session_mfu": tel.last_mfu, "mfu_6n": tok_s * 6 * n_params / BF16_FLOPS,
+           "anatomy": tel.summary()["anatomy"], "profile": tel.summary()["profile"],
+           "memory": class_bytes, "audit": audit, "flash_launches": launches,
+           "trace_flash_kernels": traced,
+           "flops_profile": {k: profile[k] for k in ("flops", "bytes_accessed",
+                                                      "temp_bytes", "optimal_seconds")}}
+    log(f"[train-observatories] {json.dumps(res)}")
+    tel.close()
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    del engine, model, tel, num
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------- FP16_Optimizer loop
+FP16_OPT_MODEL = dict(MODEL, use_flash_attention=True, remat=False, loss_chunk=128,
+                      compute_dtype=torch.float16)
+FP16_OPT_BATCH = 2
+FP16_OPT_STEPS = 16
+FP16_OPT_SCALE_POWER = 24
+FP16_OPT = dict(lr=1e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1, clip_grad=1.0,
+                initial_scale_power=FP16_OPT_SCALE_POWER, hysteresis=2)
+FP16_OPT_TOL = 2e-3             # loss, custom loop vs initialize's engine
+
+
+def _fp16_opt_model():
+    """GPT-2 1.5B widths in fp16, seed 0, its weights rounded to fp16 (the
+    float32 master both sides start from)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    model = GPT2Model(GPT2Config(**FP16_OPT_MODEL))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model.to(torch.float16)
+
+
+def phase_fp16_optimizer():
+    """``FP16_Optimizer("adamw")`` in a custom loop (no ``initialize``) on
+    GPT-2 at the 1.5B widths in fp16, micro-batch 2 x 1024, clip 1.0, from a
+    loss scale of 2^24, for 16 steps: each skipped step leaves the master
+    bit for bit, the scale falls by the hysteresis rule, the clean steps'
+    losses are finite and falling, the flash kernels run once a layer a
+    step on the tensor cores; the losses within 2e-3 of ``initialize``'s
+    fp16 engine (ZeRO 0, the same AdamW, scaler and clip) with the same
+    steps skipped. Returns the flash launches of the loop."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.fp16 import FP16_Optimizer
+    from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as ls
+
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    tokens, labels = tokens[:FP16_OPT_BATCH], labels[:FP16_OPT_BATCH]
+    model = _fp16_opt_model()
+    torch.cuda.reset_peak_memory_stats()
+    opt = FP16_Optimizer(model.parameters(), optimizer="adamw", **FP16_OPT)
+    _zero_flash_counts()
+    rows, step_s = [], []
+    shadow = ls.init_state(0, FP16_OPT_SCALE_POWER, FP16_OPT["hysteresis"])
+    for step in range(FP16_OPT_STEPS):
+        before = [m.clone() for m in opt.master]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = opt.backward(model(tokens, labels))
+        overflow = opt.step()
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        shadow = ls.update(shadow, overflow, dynamic=True, hysteresis=FP16_OPT["hysteresis"])
+        unchanged = all(torch.equal(a, b) for a, b in zip(before, opt.master))
+        del before
+        rows.append({"step": step + 1, "loss": loss.item(), "overflow": overflow,
+                     "scale": opt.cur_scale, "master_unchanged": unchanged})
+        if unchanged != overflow or opt.cur_scale != shadow.cur_scale:
+            raise AssertionError(f"fp16-optimizer step {step + 1}: {rows[-1]}, the scaler "
+                                 f"rule says {shadow.cur_scale}")
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    peak = torch.cuda.max_memory_allocated()
+    clean = [r["loss"] for r in rows if not r["overflow"]]
+    journal = list(opt.journal.events)
+    log(f"[fp16-optimizer] {json.dumps(rows)}")
+    log(f"[fp16-optimizer] journal: {json.dumps(journal)}")
+    want = [MODEL["n_layer"] * FP16_OPT_STEPS] * 3
+    if launches != want or tc != want:
+        raise AssertionError(f"flash launches {launches} (tensor cores {tc}) != {want}")
+    if not rows[0]["overflow"] or len(clean) < 4 or not all(np.isfinite(clean)) \
+            or not clean[-1] < clean[0]:
+        raise AssertionError("the first steps did not overflow, or the clean losses are "
+                             "not finite and falling")
+    del opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = _fp16_opt_model()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params={
+        "train_batch_size": FP16_OPT_BATCH, "steps_per_print": 1000,
+        "bf16": {"enabled": False},
+        "fp16": {"enabled": True, "loss_scale": 0,
+                 "initial_scale_power": FP16_OPT_SCALE_POWER,
+                 "hysteresis": FP16_OPT["hysteresis"]},
+        "gradient_clipping": FP16_OPT["clip_grad"],
+        "optimizer": {"type": "AdamW", "params": {
+            "lr": FP16_OPT["lr"], "betas": list(FP16_OPT["betas"]), "eps": FP16_OPT["eps"],
+            "weight_decay": FP16_OPT["weight_decay"]}}})
+    eng_rows = []
+    for _ in range(FP16_OPT_STEPS):
+        skipped = engine.skipped_steps
+        loss = engine(tokens, labels)
+        engine.backward(loss)
+        engine.step()
+        eng_rows.append({"loss": loss.item(), "overflow": engine.skipped_steps > skipped,
+                         "scale": engine.loss_scale()})
+    diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(rows, eng_rows))
+    same_skips = [r["overflow"] for r in rows] == [r["overflow"] for r in eng_rows]
+    res = {"steps": FP16_OPT_STEPS, "skipped": sum(r["overflow"] for r in rows),
+           "scales": [r["scale"] for r in rows], "losses": [r["loss"] for r in rows],
+           "engine_losses": [r["loss"] for r in eng_rows],
+           "max_loss_diff_vs_engine": diff, "tol": FP16_OPT_TOL,
+           "same_steps_skipped": same_skips,
+           "step_ms_median_clean": statistics.median(
+               [t * 1e3 for t, r in zip(step_s, rows) if not r["overflow"]][1:]),
+           "step_ms_all": [t * 1e3 for t in step_s], "max_memory_allocated_gb": peak / 1e9,
+           "journal_events": len(journal),
+           "flash_launches": launches, "tensor_core_launches": tc}
+    log(f"[fp16-optimizer] {json.dumps(res)}")
+    if diff > FP16_OPT_TOL or not same_skips:
+        raise AssertionError("the custom loop disagrees with initialize's fp16 engine")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 def published_fused_vs_two_step(tokens, labels):
     """The published pair at gas 1 through the fused step and through the
@@ -2145,13 +2472,13 @@ LARGE_STEPS = 3
 # bench.py:1240-1323's max_params_offload: the deepest 1600-wide GPT-2 whose
 # bf16 params and grads and full-remat activations at tokens (4, 1024) fit on
 # the card, probed in fresh processes (chip_smoke.py --probe N) at bench.py's
-# 8-layer granularity, seeded at (616, 624): with the device memory this
+# 8-layer granularity, seeded at (616, 624, 632): with the device memory this
 # process holds by then, the limit has been found at 616 and at 624 layers
-# (H100 80GB HBM3; a fresh parent leaves room for 632), and this pair finds
-# either in two to four probes. A seed that misses starts the search from the
-# floor: 7 more probes, about 200 s. The analytic ceiling is
+# (H100 80GB HBM3; a fresh parent leaves room for 632), and these seeds find
+# either in two or three probes (632 in four). A seed that misses starts the
+# search from the floor: 7 more probes. The analytic ceiling is
 # (80 GB - activations) / (4 B x 30.7 M params a layer)
-CAPACITY_SEED = (616, 624)
+CAPACITY_SEED = (616, 624, 632)
 CAPACITY_FLOOR, CAPACITY_CEILING = 48, 640
 PROBE_TOKENS = (4, 1024)
 PROBE_TIMEOUT_S = 300
@@ -2398,9 +2725,9 @@ def phase_train_offload():
 # ---------------------------------------------------------------- checkpointing
 # save -> continue against fresh engine -> load -> continue, at GPT-2 1.5B's
 # full width in bf16: (1) the slice-2 config (TRAIN_MODEL, TRAIN_CONFIG) at
-# CKPT_FULL_LAYERS layers, its whole state; (2) the published config (bench.py:391-420) at 48
-# layers with the engine's resilience block saving every CKPT_INTERVAL steps
-# on the writer thread, then auto_resume; (3) ZeRO-Offload's host tier at
+# CKPT_FULL_LAYERS layers, its whole state; (2) the published config (bench.py:391-420) at
+# CKPT_PUBLISHED_LAYERS layers with the engine's resilience block saving every
+# CKPT_INTERVAL steps on the writer thread, then auto_resume; (3) ZeRO-Offload's host tier at
 # CKPT_OFFLOAD_LAYERS (the code path is the same at any depth), then its
 # checkpoint into a device engine
 CKPT_STEPS = 4                  # steps before the save, and after it
@@ -2412,6 +2739,10 @@ CKPT_OFFLOAD_LAYERS = 12
 # 115 s of save and load, to keep the whole script inside its time limit;
 # the path is the same at any depth)
 CKPT_FULL_LAYERS = 12
+# the published config's three async saves at 12 of the 48 layers (cut from
+# 48 to keep the whole script inside its time limit on a host with a slow
+# disk, PERF.md; the path is the same at any depth)
+CKPT_PUBLISHED_LAYERS = 12
 CKPT_FREE_FACTOR = 1.2          # free bytes needed over the largest round trip
 CKPT_PROBE_BYTES = 1 << 30      # the disk's write rate: one file, written and fsynced
 
@@ -2607,8 +2938,9 @@ def _ckpt_full_state(root, n_layer):
 
 
 def _ckpt_published(root):
-    """Part 2: the published config with the resilience block (async saves
-    every CKPT_INTERVAL steps), then auto_resume in a fresh engine."""
+    """Part 2: the published config at CKPT_PUBLISHED_LAYERS layers with the
+    resilience block (async saves every CKPT_INTERVAL steps), then
+    auto_resume in a fresh engine."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.checkpoint import checkpointing as ckpt
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
@@ -2621,7 +2953,7 @@ def _ckpt_published(root):
     def build(seed, resilience):
         gc.collect()
         torch.cuda.empty_cache()
-        model = GPT2Model(GPT2Config(**PUBLISHED_MODEL))
+        model = GPT2Model(GPT2Config(**dict(PUBLISHED_MODEL, n_layer=CKPT_PUBLISHED_LAYERS)))
         model.init(torch.Generator(device="cuda").manual_seed(seed))
         engine, _, _, _ = deepspeed_tpu_torch.initialize(
             model=model, optimizer=shard_optimizer(32),
@@ -2755,10 +3087,10 @@ def phase_checkpoint(clip_rounding):
     ``clip_rounding`` is [train-offload]'s device-engine clip-rounding gap."""
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        n_full, n_off = _n_params(MODEL["n_layer"]), _n_params(CKPT_OFFLOAD_LAYERS)
+        n_pub, n_off = _n_params(CKPT_PUBLISHED_LAYERS), _n_params(CKPT_OFFLOAD_LAYERS)
         reckoned = {"full_state": 16 * _n_params(CKPT_FULL_LAYERS),  # params widened,
                     # master, two moments
-                    "published_3_saves": 3 * (4 * n_full + 3 * 4 * (n_full // 32)),
+                    "published_3_saves": 3 * (4 * n_pub + 3 * 4 * (n_pub // 32)),
                     "offload": 16 * n_off}
         free = shutil.disk_usage(root).free
         rate = disk_write_rate(root)
@@ -4360,8 +4692,12 @@ def main():
         e["launches_published"] = n
     for e, n in zip(flash, _timed_phase(phase_train_telemetry)):
         e["launches_telemetry"] = n
+    for e, n in zip(flash, _timed_phase(phase_train_observatories)):
+        e["launches_observatories"] = n
     for e, n in zip(flash, _timed_phase(phase_train_fused)):
         e["launches_fused"] = n
+    for e, n in zip(flash, _timed_phase(phase_fp16_optimizer)):
+        e["launches_fp16_optimizer"] = n
     offload_launches, clip_rounding = _timed_phase(phase_train_offload)
     for e, n in zip(flash, offload_launches):
         e["launches_offload"] = n

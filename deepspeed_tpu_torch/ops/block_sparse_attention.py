@@ -554,15 +554,90 @@ block_sparse_bwd_dq.launches = block_sparse_bwd_dq.tensor_core_launches = 0
 block_sparse_bwd_dkv.launches = block_sparse_bwd_dkv.tensor_core_launches = 0
 
 
+# The kernels' dispatcher ops (the flop counter sees them:
+# utils/flops_profiler.py) take the LUTs by a key into this registry, and the
+# active block pairs of the layout as an integer the flop formula reads.
+_OP_LUTS: Dict[int, DeviceLuts] = {}
+
+
+def _op_key(luts: DeviceLuts) -> int:
+    key = luts.work.get("op_key")
+    if key is None:
+        key = luts.work["op_key"] = len(_OP_LUTS)
+        _OP_LUTS[key] = luts
+    return key
+
+
+def active_blocks(counts: np.ndarray, lut: np.ndarray, nb: int, causal: bool) -> int:
+    """Active (q-block, k-block) pairs over the heads of a forward LUT
+    (``build_luts``' ``counts``, ``cols``; ``nb`` blocks a row); under
+    ``causal`` the pairs above the diagonal, which the kernels skip, are
+    left out."""
+    total = 0
+    for r, n in enumerate(np.asarray(counts)):
+        cols = np.asarray(lut[r, :n])
+        total += int(np.count_nonzero(cols <= r % nb)) if causal else int(n)
+    return total
+
+
+def _active(luts: DeviceLuts, nb: int, causal: bool) -> int:
+    key = ("active", nb, bool(causal))
+    hit = luts.work.get(key)
+    if hit is None:
+        hit = luts.work[key] = active_blocks(luts.host[0], luts.host[1], nb, causal)
+    return hit
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::bs_fwd", mutates_args=())
+def _bs_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, luts_key: int,
+               causal: bool, sm_scale: float, block: int,
+               active: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return block_sparse_fwd(q, k, v, _OP_LUTS[luts_key], block=block, causal=causal,
+                            sm_scale=sm_scale)
+
+
+@_bs_fwd_op.register_fake
+def _(q, k, v, luts_key, causal, sm_scale, block, active):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::bs_bwd_dq", mutates_args=())
+def _bs_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+              lse: torch.Tensor, delta: torch.Tensor, luts_key: int, causal: bool,
+              sm_scale: float, block: int, active: int) -> torch.Tensor:
+    return block_sparse_bwd_dq(q, k, v, do, lse, delta, _OP_LUTS[luts_key], block=block,
+                               causal=causal, sm_scale=sm_scale)
+
+
+@_bs_dq_op.register_fake
+def _(q, k, v, do, lse, delta, luts_key, causal, sm_scale, block, active):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::bs_bwd_dkv", mutates_args=())
+def _bs_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+               lse: torch.Tensor, delta: torch.Tensor, luts_key: int, causal: bool,
+               sm_scale: float, block: int, active: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return block_sparse_bwd_dkv(q, k, v, do, lse, delta, _OP_LUTS[luts_key], block=block,
+                                causal=causal, sm_scale=sm_scale)
+
+
+@_bs_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, luts_key, causal, sm_scale, block, active):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
 class _BlockSparseAttention(torch.autograd.Function):
-    """Kernel forward; backward by the dq and dk/dv kernels."""
+    """Kernel forward; backward by the dq and dk/dv kernels; each launch
+    through its dispatcher op."""
 
     @staticmethod
     def forward(ctx, q, k, v, luts, block, causal, sm_scale):
-        kw = dict(block=block, causal=causal, sm_scale=sm_scale)
-        out, lse = block_sparse_fwd(q, k, v, luts, **kw)
+        static = (_op_key(luts), bool(causal), float(sm_scale), int(block),
+                  _active(luts, q.shape[2] // block, causal))
+        out, lse = _bs_fwd_op(q, k, v, *static)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.luts, ctx.kw = luts, kw
+        ctx.static = static
         return out
 
     @staticmethod
@@ -571,8 +646,8 @@ class _BlockSparseAttention(torch.autograd.Function):
         do = _aligned16(g.contiguous())
         # the softmax-normalization term, in float32 from the rounded out
         delta = (do.float() * out.float()).sum(-1).contiguous()
-        dq = block_sparse_bwd_dq(q, k, v, do, lse, delta, ctx.luts, **ctx.kw)
-        dk, dv = block_sparse_bwd_dkv(q, k, v, do, lse, delta, ctx.luts, **ctx.kw)
+        dq = _bs_dq_op(q, k, v, do, lse, delta, *ctx.static)
+        dk, dv = _bs_dkv_op(q, k, v, do, lse, delta, *ctx.static)
         return dq, dk, dv, None, None, None, None
 
 

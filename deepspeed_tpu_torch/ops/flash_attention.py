@@ -20,7 +20,8 @@ For CUDA tensors they run the kernels through the custom op
 visible to the dispatcher, so that a selective-checkpoint policy can keep its
 ``(out, lse)``; its autograd saves ``(q, k, v, out, lse)``, forms
 ``delta = rowsum(dO * O) - g_lse`` with torch ops and launches the two
-backward kernels). For CPU tensors they run the plain version
+backward kernels through their ops ``deepspeed_tpu_torch::flash_bwd_dq`` and
+``flash_bwd_dkv``, which the flop counter sees: utils/flops_profiler.py). For CPU tensors they run the plain version
 (``flash_attention_reference``: dense float32 softmax, autograd for the
 backward). There is no other fallback. Each launch function counts its
 launches in ``<function>.launches`` (a plain integer; set it to 0 to start a
@@ -285,15 +286,47 @@ def _(q, k, v, bias, causal, sm_scale, rate, seed, q_off, k_off):
 def _flash_setup(ctx, inputs, output):
     q, k, v, bias, causal, sm_scale, rate, seed, q_off, k_off = inputs
     ctx.save_for_backward(q, k, v, *output, bias)
-    ctx.kw = dict(causal=causal, sm_scale=sm_scale, dropout_rate=rate, dropout_seed=seed,
-                  q_offset=q_off, k_offset=k_off)
+    ctx.kw = (causal, sm_scale, rate, seed, q_off, k_off)
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                     lse: torch.Tensor, delta: torch.Tensor, bias: Optional[torch.Tensor],
+                     causal: bool, sm_scale: float, rate: float, seed: int, q_off: int,
+                     k_off: int) -> torch.Tensor:
+    """The dq kernel as an op the dispatcher sees (the flop counter counts
+    it: utils/flops_profiler.py)."""
+    return flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
+                                  bias=bias, dropout_rate=rate, dropout_seed=seed,
+                                  q_offset=q_off, k_offset=k_off)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, bias, causal, sm_scale, rate, seed, q_off, k_off):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::flash_bwd_dkv", mutates_args=())
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                      lse: torch.Tensor, delta: torch.Tensor, bias: Optional[torch.Tensor],
+                      causal: bool, sm_scale: float, rate: float, seed: int, q_off: int,
+                      k_off: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel as an op the dispatcher sees."""
+    return flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
+                                   bias=bias, dropout_rate=rate, dropout_seed=seed,
+                                   q_offset=q_off, k_offset=k_off)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, bias, causal, sm_scale, rate, seed, q_off, k_off):
+    return torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_backward(ctx, g_out, g_lse):
-    """The two backward kernels. Both outputs are differentiable: an lse
-    cotangent folds into delta."""
+    """The two backward kernels, each through its op. Both outputs are
+    differentiable: an lse cotangent folds into delta."""
     q, k, v, out, lse, bias = ctx.saved_tensors
-    kw = dict(ctx.kw, bias=bias)
+    kw = ctx.kw
     do = torch.zeros_like(out) if g_out is None else g_out.contiguous()
     # delta = rowsum(dO * O): the softmax-normalization term; an lse
     # cotangent adds g_lse * p to dS, i.e. it subtracts from delta
@@ -301,8 +334,9 @@ def _flash_backward(ctx, g_out, g_lse):
     if g_lse is not None:
         delta = delta - g_lse.float()
     delta = delta.contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    args = (q, k, v, do, lse, delta, bias, *kw)
+    dq = _flash_bwd_dq_op(*args)
+    dk, dv = _flash_bwd_dkv_op(*args)
     return dq, dk, dv, None, None, None, None, None, None, None
 
 

@@ -86,7 +86,23 @@ JAX's ``loss_and_grad``), ``apply_update``, ``fused_step``, ``offload_step``
 and ``eval_loss``; ``ds_fwd_bwd`` and ``ds_apply_update`` name their regions
 (``named_scope``). The step fetches its window losses (and the grad norm)
 once, in ``TelemetrySession.fetch_window``, for the ``Train/Samples/*``
-scalars and the session both.
+scalars and the session both. ``telemetry.anatomy`` prices each step by its
+counted flops and bytes at a roofline spec, ``telemetry.profile`` ingests the
+trace window, ``telemetry.hbm`` installs ``memory_manifest``'s classes.
+
+Numerics (deepspeed_tpu/runtime/engine.py:546-582, 1328-1400, 2219-2238,
+2317-2360): with the ``numerics`` block, ``_prep_grads`` forms the
+per-subtree grad sums of squares and nonfinite counts (``utils/numerics.py``;
+the norm and the overflow flag are then derived from them, their cross-rank
+sums replacing the plain path's), ``_apply_update`` the weight and update
+norms where the engine holds a master (keeping the pre-update master for the
+update's: this rank's slice, 4 bytes a parameter); the offload step the grad
+stats only. They come to the host with the step's one fetch, as does the
+desync audit's ``[dp, n_subtrees]`` checksum matrix on its interval (an
+all-gather of int64 sums mod 2^32; at world 1 too, where the JAX engine
+skips it). The cluster monitor and the goodput ledger ride the numerics
+flight recorder. ``memory_manifest`` and ``flops_profile`` as in JAX
+(``utils/hbm.py``, ``utils/flops_profiler.py``).
 
 What the slice does not carry raises ``NotImplementedError`` naming its
 ROADMAP.md item.
@@ -95,6 +111,7 @@ in eager PyTorch; it is ignored.
 """
 
 import re
+import time
 
 import numpy as np
 import torch
@@ -343,7 +360,14 @@ class DeepSpeedEngine:
             act_ckpt.set_default_mesh(mesh)
         if self.config.dump_state:
             self.config.print("DeepSpeedEngine configuration")
+        self._numerics = None
+        self._sentinel_index = None
+        self._pending_sentinel = None
+        self._audit_plan = None
         self._configure_observatories()
+        if self.config.numerics_enabled:
+            self._configure_numerics()
+        self._configure_cluster_goodput()
 
         self._ckpt_key_list = None          # _ckpt_keys, built at first use
         self.last_checkpoint_load = None    # load_checkpoint's seconds by stage
@@ -359,8 +383,16 @@ class DeepSpeedEngine:
 
         # ---- the fused step (deepspeed_tpu/runtime/engine.py:1183-1205, 1473-1527)
         self._fused = self._fused_eligible()
-        self._fused_pending = None          # (overflow, norm) of the uncommitted update
+        self._fused_pending = None          # (overflow, norm, sentinel) of the uncommitted update
         self._warned_fused_cpu_ckpt = False
+
+        # ---- memory observatory (deepspeed_tpu/runtime/engine.py:664-674):
+        # the per-class resident bytes into the telemetry session
+        if self.telemetry is not None and self.config.telemetry_hbm_enabled:
+            from ..utils import hbm as _hbm
+            manifest = self.memory_manifest()
+            _, class_bytes = _hbm.manifest_signatures(manifest)
+            self.telemetry.set_memory_manifest(class_bytes, geometry=manifest.get("geometry"))
 
     def _refuse_unported(self):
         c = self.config
@@ -376,21 +408,11 @@ class DeepSpeedEngine:
             raise _later("comm.overlap.mode='bucketed'", "item 18")
         if c.sequence_parallel_enabled:
             raise _later("sequence_parallel", "item 14")
-        for on, what in ((c.numerics_enabled, "numerics (the in-graph sentinel, "
-                          "loss-scale journal and flight recorder)"),
-                         (c.telemetry_enabled and c.telemetry_anatomy_enabled,
-                          "telemetry.anatomy (the step-anatomy roofline)"),
-                         (c.telemetry_enabled and c.telemetry_profile_enabled,
-                          "telemetry.profile (the measured-profile ingest)"),
-                         (c.telemetry_enabled and c.telemetry_hbm_enabled,
-                          "telemetry.hbm (the memory manifest)")):
-            if on:
-                raise _later(what, "item 22b")
 
     def _configure_observatories(self):
-        """The monitor, the telemetry session with its metrics and alerts, the
-        cluster monitor and the goodput ledger, in the JAX engine's order
-        (deepspeed_tpu/runtime/engine.py:469-661)."""
+        """The monitor and the telemetry session with its anatomy spec,
+        profile, metrics and alerts, in the JAX engine's order
+        (deepspeed_tpu/runtime/engine.py:469-545)."""
         c = self.config
         if c.tensorboard_enabled:
             from ..utils.monitor import SummaryMonitor
@@ -399,13 +421,28 @@ class DeepSpeedEngine:
         if not c.telemetry_enabled:
             return
         from ..utils.telemetry import TelemetrySession
+        anatomy_spec = None
+        if c.telemetry_anatomy_enabled:
+            # the step-anatomy roofline spec, resolved once
+            from ..utils.roofline import resolve_spec
+            anatomy_spec = resolve_spec(c.telemetry_anatomy_chip, c.telemetry_anatomy_peak_tflops,
+                                        c.telemetry_anatomy_hbm_gbps,
+                                        c.telemetry_anatomy_ici_gbps,
+                                        c.telemetry_anatomy_dcn_gbps)
+        # with anatomy on and no explicit MFU peak, price MFU off the same spec
+        peak_tflops = c.telemetry_peak_tflops or (anatomy_spec.peak_tflops
+                                                  if anatomy_spec else 0.0)
         self.telemetry = TelemetrySession(
-            monitor=self.monitor, peak_tflops=c.telemetry_peak_tflops or None,
+            monitor=self.monitor, peak_tflops=peak_tflops or None,
             trace_dir=c.telemetry_trace_dir or None,
             trace_steps=c.telemetry_trace_steps, mfu_window=c.telemetry_mfu_window,
             recompile_warn=c.telemetry_recompile_warn,
             output_path=c.telemetry_output_path or None,
-            job_name=c.telemetry_job_name, device=self.device)
+            job_name=c.telemetry_job_name, device=self.device, anatomy_spec=anatomy_spec)
+        if c.telemetry_profile_enabled:
+            self.telemetry.configure_profile(
+                True, reconcile_tolerance=c.telemetry_profile_reconcile_tolerance,
+                emit_scalars=c.telemetry_profile_emit_scalars)
         if c.telemetry_metrics_enabled or c.telemetry_alerts_enabled:
             self.telemetry.configure_metrics(
                 ring_len=c.telemetry_metrics_ring_len,
@@ -413,13 +450,62 @@ class DeepSpeedEngine:
                 export_path=c.telemetry_metrics_export_path or None)
         if c.telemetry_alerts_enabled:
             self.telemetry.configure_alerts(rules=c.telemetry_alerts_rules)
+
+    def _configure_numerics(self):
+        """The numerics observatory (deepspeed_tpu/runtime/engine.py:546-582):
+        the subtree index over the JAX tree paths, the loss-scale journal
+        (fp16), the flight recorder and the monitor; page alerts dump
+        through its recorder."""
+        c = self.config
+        from ..utils.numerics import FlightRecorder, NumericsMonitor, build_subtree_index
+        self._sentinel_index = build_subtree_index(self._sentinel_tree(),
+                                                   c.numerics_subtree_depth, positions=True)
+        # the index's device tensors and, at dp > 1, the masks of the sharded
+        # leaves: made here, so that no step copies them to the device
+        self._sentinel_index.members(self.device)
+        self._shard_masks = {}
+        if self.dp_size > 1:
+            for axes in (self._grad_axes, self._axes):
+                if any(a is not None for a in axes):
+                    self._shard_masks[id(axes)] = torch.tensor(
+                        [a is not None for a in axes], device=self.device)
+        journal = None
+        if self.fp16_enabled():
+            # host shadow of the scaler, seeded from the config
+            init_scale = (float(c.loss_scale) if c.loss_scale and c.loss_scale > 0
+                          else float(2 ** c.initial_scale_power))
+            journal = ls.LossScaleJournal(self._dynamic_scale, init_scale,
+                                          scale_window=c.loss_scale_window,
+                                          min_scale=c.min_loss_scale, hysteresis=c.hysteresis)
+        recorder = FlightRecorder(capacity=c.numerics_ring_size,
+                                  dump_dir=c.numerics_dump_dir or "numerics_dumps",
+                                  telemetry=self.telemetry, host_id=self.dp_rank)
+        recorder.install(c.numerics_install_signal_handlers)
+        self._numerics = NumericsMonitor(
+            self._sentinel_index, monitor=self.monitor, telemetry=self.telemetry,
+            journal=journal, recorder=recorder, audit_interval=c.numerics_audit_interval,
+            consecutive_skip_trigger=c.numerics_consecutive_skip_trigger,
+            trigger_on_nonfinite_loss=c.numerics_trigger_on_nonfinite_loss)
+        if self.telemetry is not None and self.telemetry.alert_engine is not None:
+            self.telemetry.alert_engine.recorder = recorder
+
+    def _configure_cluster_goodput(self):
+        """The cluster monitor and the goodput ledger
+        (deepspeed_tpu/runtime/engine.py:590-661), riding the numerics
+        recorder when there is one."""
+        c = self.config
+        if self.telemetry is None:
+            return
+        num_recorder = self._numerics.recorder if self._numerics is not None else None
         if c.telemetry_cluster_enabled:
-            # no numerics recorder to ride (item 22b): the watchdog gets its own
             from ..utils.cluster import ClusterMonitor
-            from ..utils.numerics import FlightRecorder
-            cluster_dump_dir = c.telemetry_cluster_dump_dir or "cluster_dumps"
-            recorder = FlightRecorder(capacity=64, dump_dir=cluster_dump_dir,
-                                      telemetry=self.telemetry, host_id=self.dp_rank)
+            recorder, cluster_dump_dir = num_recorder, None
+            if recorder is None:
+                # no numerics recorder to ride: the watchdog gets its own
+                from ..utils.numerics import FlightRecorder
+                cluster_dump_dir = c.telemetry_cluster_dump_dir or "cluster_dumps"
+                recorder = FlightRecorder(capacity=64, dump_dir=cluster_dump_dir,
+                                          telemetry=self.telemetry, host_id=self.dp_rank)
             self._cluster = ClusterMonitor(
                 telemetry=self.telemetry, recorder=recorder,
                 heartbeat_interval=c.telemetry_cluster_heartbeat_interval,
@@ -435,7 +521,9 @@ class DeepSpeedEngine:
                 self.telemetry.alert_engine.recorder = recorder
         if c.telemetry_goodput_enabled:
             from ..utils.goodput import RunLedger
-            gp_recorder = self._cluster.recorder if self._cluster is not None else None
+            gp_recorder = num_recorder
+            if gp_recorder is None and self._cluster is not None:
+                gp_recorder = self._cluster.recorder
             ledger_dir = (c.telemetry_goodput_ledger_dir
                           or (gp_recorder.dump_dir if gp_recorder is not None else None)
                           or "goodput_ledgers")
@@ -652,6 +740,25 @@ class DeepSpeedEngine:
         for i, leaf in zip(pytree.tree_leaves(self._layout), pytree.tree_leaves(tree)):
             out[i] = leaf
         return out
+
+    def _sentinel_tree(self):
+        """The tree whose paths name the sentinel's subtrees, its leaves the
+        engine's leaf positions: the module's ``params_tree()`` with sorted
+        keys (the JAX paths), else the parameter names split on "."."""
+        if callable(getattr(self.module, "params_tree", None)):
+            return self._client_layout()
+        tree = {}
+        for i, name in enumerate(self._names):
+            node = tree
+            *parents, leaf = name.split(".")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = i
+
+        def order(node):
+            return ({k: order(node[k]) for k in sorted(node)} if isinstance(node, dict)
+                    else node)
+        return order(tree)
 
     def _client_step(self, grads, step):
         """``apply(grads, state, master, step, hyper)``: hyper the JAX
@@ -897,15 +1004,38 @@ class DeepSpeedEngine:
             dist.all_reduce(s, op=dist.ReduceOp.SUM)
         return s
 
+    def _sum_sharded(self, per_leaf, axes):
+        """A per-leaf vector with the entries of the leaves ``axes`` shards
+        summed over the ranks (their slices' parts); the others, whole on
+        every rank, kept. The masks are built with the sentinel, so no step
+        copies one to the device."""
+        mask = self._shard_masks.get(id(axes))
+        if mask is None:
+            return per_leaf
+        part = torch.where(mask, per_leaf, torch.zeros_like(per_leaf))
+        dist.all_reduce(part, op=dist.ReduceOp.SUM)
+        return torch.where(mask, part, per_leaf)
+
     def _prep_grads(self, grads):
         """deepspeed_tpu/runtime/engine.py:1328-1369 ``prep_grads``: the fp16
         overflow check and unscale, the predivide, the global norm, the clip.
-        Returns (grads, overflow, norm)."""
+        With the numerics sentinel, also the per-subtree grad sums of squares
+        and nonfinite counts, from which the overflow flag and the norm are
+        then derived (one pass over the tree, and the collectives replaced,
+        not added). Returns (grads, overflow, norm, sentinel or None)."""
         fp16 = self.fp16_enabled()
-        overflow, _ = detect_overflow(grads, fp16)
+        index = self._sentinel_index
+        nonfinite = None
+        if index is not None:
+            from ..utils.numerics import bucket_nonfinite, leaf_nonfinite
+            counts = self._sum_sharded(leaf_nonfinite(grads), self._grad_axes)
+            nonfinite = bucket_nonfinite(None, index, per_leaf=counts)
+            overflow = nonfinite.sum() > 0
+        else:
+            overflow, _ = detect_overflow(grads, fp16)
         if fp16:
             flag = overflow.to(self.device, torch.float32)
-            if self.dp_size > 1:
+            if self.dp_size > 1 and index is None:
                 dist.all_reduce(flag, op=dist.ReduceOp.MAX)
             overflow = bool(flag)
             scale = self.scaler_state.cur_scale
@@ -919,23 +1049,36 @@ class DeepSpeedEngine:
         predivide = float(self.config.gradient_predivide_factor or 1.0)
         if self.config.prescale_gradients and predivide != 1.0:
             grads = [g.mul_(torch.tensor(predivide, dtype=g.dtype)) for g in grads]
-        norm = self._grad_norm(grads)
+        sent = None
+        if index is not None:
+            from ..utils.numerics import bucket_sumsq, leaf_sumsq
+            gss = bucket_sumsq(None, index,
+                               per_leaf=self._sum_sharded(leaf_sumsq(grads), self._grad_axes))
+            norm = torch.sqrt(gss.sum())
+            sent = {"grad_sumsq": gss, "grad_nonfinite": nonfinite}
+        else:
+            norm = self._grad_norm(grads)
         clip = float(self.gradient_clipping() or 0.0)
         if clip > 0:
             clip_grads_by_global_norm(grads, clip, norm=norm)
-        return grads, overflow, norm
+        return grads, overflow, norm, sent
 
     @torch.no_grad()
     def _update(self, grads):
         """deepspeed_tpu/runtime/engine.py:1371-1400 ``apply_update``, the one
         body of the two-step path and the fused step: prep, the optimizer on
         this rank's slices and the master -> compute re-cast (skipped on
-        overflow), the scaler update. Returns (overflow, norm)."""
+        overflow), the scaler update. Returns (overflow, norm, sentinel)."""
         with ds_named_scope("ds_apply_update"):
             return self._apply_update(grads)
 
     def _apply_update(self, grads):
-        grads, overflow, norm = self._prep_grads(grads)
+        grads, overflow, norm, sent = self._prep_grads(grads)
+        # the sentinel's weight and update norms need an engine-held master;
+        # the update's needs the pre-update master, copied for it (4 bytes a
+        # parameter of this rank's slice: the sentinel's one memory cost)
+        track = sent is not None and self._master is not None
+        old = [m.clone() for m in self._master] if track and not overflow else None
         if not overflow:
             # stage 1 holds whole grads and sliced master: take this rank's slice
             opt_grads = [g if self._grad_axes[i] is not None
@@ -952,8 +1095,21 @@ class DeepSpeedEngine:
             if not self._external_master:
                 for p, m, a in zip(self._params, self._master, self._axes):
                     p.copy_(unshard(m.to(self.compute_dtype), a, self.dp_size))
+        if track:
+            from ..utils.numerics import bucket_sumsq, leaf_sumsq
+            index = self._sentinel_index
+            wss = self._sum_sharded(leaf_sumsq(self._master), self._axes)
+            if old is None:     # a skipped step: the update is exactly zero
+                uss = torch.zeros_like(wss)
+            else:
+                uss = self._sum_sharded(
+                    torch.stack([torch.sum(torch.square(m - o))
+                                 for m, o in zip(self._master, old)]), self._axes)
+            del old
+            sent = dict(sent, weight_sumsq=bucket_sumsq(None, index, per_leaf=wss),
+                        update_sumsq=bucket_sumsq(None, index, per_leaf=uss))
         self._update_scaler(overflow)
-        return overflow, norm
+        return overflow, norm, sent
 
     def _update_scaler(self, overflow):
         self.scaler_state = ls.update(
@@ -972,13 +1128,13 @@ class DeepSpeedEngine:
         if self._grad_acc is _FUSED:
             # deepspeed_tpu/runtime/engine.py:2042-2048: the state was adopted
             # at forward(); commit the bookkeeping
-            overflow, self._last_grad_norm = self._fused_pending
+            overflow, self._last_grad_norm, self._pending_sentinel = self._fused_pending
             self._fused_pending = None
             self._finish_step(self.fp16_enabled() and overflow)
         elif self._offload is not None:
             self._finish_step(self._program("offload_step", self._offload_step)())
         else:
-            overflow, self._last_grad_norm = self._program(
+            overflow, self._last_grad_norm, self._pending_sentinel = self._program(
                 "apply_update", self._update)(self._grad_acc)
             self._finish_step(overflow)
 
@@ -992,13 +1148,30 @@ class DeepSpeedEngine:
         grads = self._grad_acc
         handles = self._offload.begin_grad_fetch(grads)
         fp16 = self.fp16_enabled()
-        norm_dev = self._grad_norm(grads)
+        index = self._sentinel_index
+        sent = None
         flag = torch.zeros((), dtype=torch.float32, device=self.device)
-        if fp16:
-            flag = detect_overflow(grads, True)[0].to(self.device, torch.float32)
-            if self.dp_size > 1:
-                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
-        norm_raw, flag = torch.stack([norm_dev, flag]).tolist()   # the one host sync
+        if index is not None:
+            # the sentinel's vectors give the norm and the flag, and ride the
+            # step's one host sync
+            from ..utils.numerics import (bucket_nonfinite, bucket_sumsq, leaf_nonfinite,
+                                          leaf_sumsq)
+            sent = {"grad_sumsq": bucket_sumsq(None, index, per_leaf=self._sum_sharded(
+                        leaf_sumsq(grads), self._grad_axes)),
+                    "grad_nonfinite": bucket_nonfinite(None, index, per_leaf=self._sum_sharded(
+                        leaf_nonfinite(grads), self._grad_axes))}
+            norm_dev = torch.sqrt(sent["grad_sumsq"].sum())
+            if fp16:
+                flag = (sent["grad_nonfinite"].sum() > 0).to(torch.float32)
+        else:
+            norm_dev = self._grad_norm(grads)
+            if fp16:
+                flag = detect_overflow(grads, True)[0].to(self.device, torch.float32)
+                if self.dp_size > 1:
+                    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        from ..utils.telemetry import pack_fetch
+        buf, unpack = pack_fetch([norm_dev, flag], sent)
+        (norm_raw, flag), sent = unpack(buf.cpu())   # the one host sync
         overflow = bool(flag)
         scale = float(self.scaler_state.cur_scale)
         factor = 1.0
@@ -1009,6 +1182,11 @@ class DeepSpeedEngine:
             factor *= predivide
         norm = norm_raw * factor
         self._last_grad_norm = norm
+        if index is not None:
+            # sums of squares of the raw (still scaled) grads: factor^2 gives
+            # the unscaled values the device path's sentinel reports
+            self._pending_sentinel = {"grad_sumsq": sent["grad_sumsq"] * (factor * factor),
+                                      "grad_nonfinite": sent["grad_nonfinite"]}
         clip = float(self.gradient_clipping() or 0.0)
         if clip > 0 and norm > clip:
             factor *= clip / (norm + 1e-6)
@@ -1044,7 +1222,7 @@ class DeepSpeedEngine:
             log_dist(f"step={self.global_steps + 1}, skipped={self.skipped_steps}, "
                      f"lr={self.get_lr()}, mom={self.get_mom()}", ranks=[0])
         self.global_steps += 1
-        self._observe_step()
+        self._observe_step(overflowed)
         self._window_losses = []
         interval = self.config.resilience_save_interval
         if (self._resilience is not None and interval > 0
@@ -1063,21 +1241,34 @@ class DeepSpeedEngine:
             self.timers.log(["forward_microstep", "backward_microstep", "step_microstep"],
                             memory_breakdown=self.config.memory_breakdown)
 
-    def _observe_step(self):
+    def _observe_step(self, overflowed=False):
         """The monitor's ``Train/Samples/*`` scalars, the session's
-        ``end_step`` and the cluster heartbeat
-        (deepspeed_tpu/runtime/engine.py:2160-2194). The window losses and the
-        grad norm come to the host in one fetch, shared by both."""
-        if self.monitor is None and self.telemetry is None:
+        ``end_step``, the numerics commit (and, on its interval, the desync
+        audit) and the cluster heartbeat (deepspeed_tpu/runtime/engine.py:
+        2160-2194). The window losses, the grad norm, the sentinel's vectors
+        and an audit step's checksum matrix come to the host in one fetch,
+        shared by all."""
+        sent = self._pending_sentinel
+        self._pending_sentinel = None
+        if self.monitor is None and self.telemetry is None and self._numerics is None:
             return
+        audit_s = None
+        if self._numerics is not None and self._numerics.audit_due(self.global_steps):
+            t0 = time.perf_counter()
+            sent = dict(sent or {}, audit=self._audit_matrix())
+            audit_s = time.perf_counter() - t0
         norm = self._last_grad_norm
         extra = [norm] if isinstance(norm, torch.Tensor) else []
+        numerics_host = None
         if self.telemetry is not None:
-            window, fetched = self.telemetry.fetch_window(self._window_losses, extra)
-        elif self._window_losses:
-            vals = torch.stack([t.detach().float().reshape(())
-                                for t in self._window_losses + extra]).cpu()
-            host = [float(v) for v in vals.tolist()]
+            window, fetched = self.telemetry.fetch_window(self._window_losses, extra,
+                                                          numerics=sent)
+            numerics_host = self.telemetry.last_numerics if sent is not None else None
+        elif self._window_losses or sent is not None:
+            from ..utils.telemetry import pack_fetch
+            values = [t.detach().float().reshape(()) for t in self._window_losses + extra]
+            buf, unpack = pack_fetch(values, sent)
+            host, numerics_host = unpack(buf.cpu())
             window, fetched = host[:len(self._window_losses)], host[len(self._window_losses):]
         else:
             window, fetched = [], []
@@ -1099,10 +1290,78 @@ class DeepSpeedEngine:
             self.monitor.flush()
         if self.telemetry is not None:
             self.telemetry.end_step(self.global_steps, self.train_batch_size(),
-                                    pending=self._window_losses,
+                                    pending=self._window_losses, numerics=sent,
                                     run_goodput=self._goodput_scalars())
+        if self._numerics is not None:
+            grad_norm = (fetched[0] if extra else float(norm)) if norm is not None else None
+            self._commit_numerics(numerics_host, overflowed, window[-1] if window else None,
+                                  grad_norm, audit_s)
         if self._cluster is not None:
             self._cluster.on_step_end(self.global_steps)
+
+    # ------------------------------------------------------------------ numerics
+    def _commit_numerics(self, numerics_host, overflowed, loss, grad_norm, audit_s):
+        """deepspeed_tpu/runtime/engine.py:2219-2238: the step's host values
+        into the numerics monitor, and an audit step's matrix into its
+        audit. Every input is on the host already (it rode the step's
+        fetch): no sync of its own."""
+        host = dict(numerics_host or {})
+        matrix = host.pop("audit", None)
+        self._numerics.commit_step(self.global_steps, host or None, loss=loss,
+                                   overflowed=bool(overflowed), grad_norm=grad_norm)
+        if matrix is not None:
+            self._numerics.commit_audit(self.global_steps, matrix.reshape(
+                self.dp_size, -1).tolist(), self._audit_plan[0], seconds=audit_s)
+
+    def _build_audit(self):
+        """(names, [(subtree id, leaf)]) of the desync audit: every leaf that
+        is whole on every rank, the compute params (``params/<subtree>``)
+        and the replicated optimizer leaves (``opt/<field>/<subtree>``, one
+        level deeper, as JAX's optimizer trees nest), with the JAX engine's
+        names (deepspeed_tpu/runtime/engine.py:2345-2394)."""
+        from ..utils.numerics import subtree_name
+        depth = self.config.numerics_subtree_depth
+        names, ids, picks = [], {}, []
+
+        def add(name, leaf):
+            if name not in ids:
+                ids[name] = len(names)
+                names.append(name)
+            picks.append((ids[name], leaf))
+
+        paths = pytree.tree_flatten_with_path(self._sentinel_tree())[0]
+        for path, i in paths:
+            add(f"params/{subtree_name(path, depth)}", self._params[i])
+        if self._offload is None and getattr(self, "opt_state", None) is not None:
+            if self._client_optimizer is not None:
+                for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
+                    add(f"opt/{subtree_name(path, depth + 1)}", leaf)
+            else:
+                for field, leaves_ in zip(self.opt_state._fields, self.opt_state):
+                    for path, i in paths:
+                        if self._axes[i] is None:       # a sharded slice differs by rank
+                            add(f"opt/{field}/{subtree_name(path, depth)}", leaves_[i])
+        return names, picks
+
+    def _audit_matrix(self):
+        """The desync audit (deepspeed_tpu/runtime/engine.py:2317-2360): the
+        per-subtree uint32 checksums of the replicated leaves (int64 mod
+        2^32), all-gathered over the ranks into ``[dp, n_subtrees]`` on the
+        device; its host copy rides the step's fetch. At world 1 the one
+        row (the JAX engine skips the audit there)."""
+        from ..utils.numerics import leaf_checksum
+        if self._audit_plan is None:
+            self._audit_plan = self._build_audit()
+        names, picks = self._audit_plan
+        vec = torch.zeros(len(names), dtype=torch.int64, device=self.device)
+        for j, leaf in picks:
+            vec[j] += leaf_checksum(leaf)
+        vec = torch.remainder(vec, 1 << 32)
+        if self.dp_size > 1:
+            rows = [torch.empty_like(vec) for _ in range(self.dp_size)]
+            dist.all_gather(rows, vec)
+            return torch.stack(rows)
+        return vec[None]
 
     # ------------------------------------------------------------------ goodput
     # Run-lifecycle ledger hooks (deepspeed_tpu/runtime/engine.py:2232-2314):
@@ -1258,12 +1517,159 @@ class DeepSpeedEngine:
                                     load_optimizer_states=load_optimizer_states,
                                     load_lr_scheduler_states=load_lr_scheduler_states)
 
-    # ------------------------------------------------------------------ not ported
+    # ------------------------------------------------------------------ observatories
+    def _meta(self, tree, dtype=None):
+        """Meta tensors of a tree's shapes (``dtype``, else each leaf's)."""
+        return pytree.tree_map(
+            lambda t: torch.empty(t.shape, dtype=dtype or t.dtype, device="meta")
+            if isinstance(t, torch.Tensor) else t, tree)
+
+    def _update_cost_program(self):
+        """The update's cost on meta tensors of its shapes: the norm, the
+        clip, the optimizer and the re-cast (the state is not touched)."""
+        grads = [torch.empty(m.shape, dtype=self._acc_dtype, device="meta")
+                 for m in (self._master if self._master is not None else self._params)]
+        hyper = self.optimizer.current_hyper()
+
+        def run():
+            norm = torch.sqrt(torch.stack([torch.sum(torch.square(g.float()))
+                                           for g in grads]).sum())
+            clip = float(self.gradient_clipping() or 0.0)
+            if clip > 0:
+                clip_grads_by_global_norm(grads, clip, norm=norm)
+            state = self._meta(self.opt_state)
+            if self._client_optimizer is not None:
+                g = self.optimizer.param_groups[0]
+                h = {k: torch.tensor(v, dtype=torch.float32, device="meta")
+                     for k, v in (("lr", g["lr"]), ("beta1", g["betas"][0]),
+                                  ("beta2", g["betas"][1]), ("eps", g["eps"]),
+                                  ("weight_decay", g["weight_decay"]))}
+                master = (None if self._external_master
+                          else self._client_tree(self._meta(self._master)))
+                step = torch.tensor(1, dtype=torch.int32, device="meta")
+                self._opt_apply(self._client_tree(grads), state, master, step, h)
+                if self._external_master:
+                    return
+                master = self._meta(self._master)
+            else:
+                master = self._meta(self._master)
+                kw = ({"sumsq": lambda i, t: torch.sum(torch.square(t))}
+                      if self._opt_apply is lamb_opt.apply else {})
+                self._opt_apply(grads, state, master, 1, hyper, groups=self._groups, **kw)
+            for m in master:
+                m.to(self.compute_dtype)
+        return run
+
     def flops_profile(self, *inputs, peak_tflops=None):
-        raise _later("flops_profile", "item 22b")
+        """The cost of THIS engine's step (deepspeed_tpu/runtime/engine.py:
+        2430) by ``utils/flops_profiler.py``: the forward and the backward
+        of one micro-batch ``inputs`` run on the engine's tensors under the
+        flop and byte counters (their grads dropped after; the RNG state
+        restored, so the run changes nothing), and the update's cost on meta
+        tensors of its shapes (the optimizer's state is not touched). Under
+        ZeRO-Offload the update runs on the host tier and only the device
+        program is counted. ``report["flops"]`` covers one micro-batch and
+        one update; ``report["program_flops"]`` splits it
+        (``loss_and_grad``, ``apply_update``; one ``fused_step`` on the
+        fused path)."""
+        from ..utils.flops_profiler import profile as _profile
+        batch = tuple(self._to_device(x) for x in inputs)
+        cpu_rng = torch.get_rng_state()
+        cuda_rng = torch.cuda.get_rng_state(self.device) if self.device.type == "cuda" else None
+
+        def loss_and_grad(*b):
+            loss = self._loss(b)
+            self._scaled(loss).backward()
+            return loss.detach()
+
+        try:
+            report = _profile(loss_and_grad, *batch, peak_tflops=peak_tflops)
+        finally:
+            for p in self._params:
+                p.grad = None
+            torch.set_rng_state(cpu_rng)
+            if cuda_rng is not None:
+                torch.cuda.set_rng_state(cuda_rng, self.device)
+        report["program_flops"] = {"loss_and_grad": report["flops"]}
+        if self._offload is None:
+            upd = _profile(self._update_cost_program())
+            for k in ("flops", "bytes_accessed"):
+                report[k] += upd[k]
+            report["program_flops"]["apply_update"] = upd["flops"]
+            report["arithmetic_intensity"] = (report["flops"] / report["bytes_accessed"]
+                                              if report["bytes_accessed"] else 0.0)
+            if peak_tflops:
+                report["optimal_seconds"] = report["flops"] / (peak_tflops * 1e12)
+        if self._fused:
+            report["program_flops"] = {"fused_step": report["flops"]}
+        report["programs"] = list(report["program_flops"])
+        report["params"] = sum(int(p.numel()) for p in self._params)
+        return report
 
     def lint_programs(self, sample_batch):
         raise _later("lint_programs", "item 23")
 
     def memory_manifest(self):
-        raise _later("memory_manifest", "item 22b")
+        """deepspeed_tpu/runtime/engine.py:1754-1830: every persistent
+        device-resident tree this engine owns, grouped into the memory
+        observatory's classes (``utils/hbm.py``), with the geometry the
+        closed-form ZeRO model needs. Live tensors, or meta tensors for what
+        exists only inside a step. Classes, JAX's keys:
+
+        - ``params``: the compute-dtype parameters;
+        - ``grads``: the accumulation buffer handed from the backward to the
+          update on the two-step and offload paths (meta: it lives between
+          the two); absent on the fused path;
+        - ``master`` / ``optimizer``: this rank's float32 master and moment
+          slices (absent under ZeRO-Offload, whose state is in host memory;
+          an external-master client pair's state is ``optimizer`` alone).
+        """
+        classes = {"params": list(self._params)}
+        offload = self._offload is not None
+        fused = bool(self._fused)
+
+        def grads_like(dtype):
+            return [torch.empty(m.shape if a is not None else p.shape, dtype=dtype,
+                                device="meta")
+                    for p, m, a in zip(self._params,
+                                       self._master if self._master is not None
+                                       else self._params, self._grad_axes)]
+
+        if offload:
+            classes["grads"] = grads_like(self._grad_dtype)
+            grad_itemsize = torch.empty((), dtype=self._grad_dtype).element_size()
+        elif not fused:
+            classes["grads"] = grads_like(self._acc_dtype)
+            grad_itemsize = torch.empty((), dtype=self._acc_dtype).element_size()
+        else:
+            grad_itemsize = torch.empty((), dtype=self._grad_dtype).element_size()
+        master_numel = 0
+        if offload:
+            pass                    # master and moments live in host memory
+        elif self._external_master:
+            classes["optimizer"] = self.opt_state
+            # the client-declared quantity: an external master is an Adam
+            # style float32 triple (master, m1, m2) over the client's shard
+            master_numel = sum(int(t.numel()) for t in pytree.tree_leaves(self.opt_state)
+                               if isinstance(t, torch.Tensor)) // 3
+        else:
+            classes["master"] = list(self._master)
+            classes["optimizer"] = self.opt_state
+        psi = sum(int(p.numel()) for p in self._params)
+        geometry = {
+            "kind": "training",
+            "psi": psi,
+            "param_itemsize": torch.empty((), dtype=self.compute_dtype).element_size(),
+            "grad_itemsize": int(grad_itemsize),
+            "dp": int(self.dp_size),
+            "zero_stage": int(self.zero_optimization_stage()),
+            "zero_sharded_fraction": self._zero_sharded_fraction,
+            "external_master": bool(self._external_master),
+            "master_numel": int(master_numel),
+            "offload": offload,
+            "fused": fused,
+            "gas": int(self.gradient_accumulation_steps()),
+            "comm_ef_bytes": 0,
+            "n_buckets": 0,
+        }
+        return {"classes": classes, "geometry": geometry}

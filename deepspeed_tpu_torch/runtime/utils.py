@@ -80,16 +80,23 @@ def has_inf_or_nan_tree(tree) -> torch.Tensor:
 
 
 def detect_overflow(tree, fp16_active: bool, index=None):
-    """``(overflow, None)``: the global inf/nan flag when fp16 is active, a
-    constant False otherwise. The per-subtree ``index`` of the numerics
-    observatory is not ported (ROADMAP.md item 22b)."""
-    if index is not None:
-        raise NotImplementedError(
-            "detect_overflow(index=...): the numerics sentinel (per-subtree "
-            "overflow attribution) is not in the PyTorch port yet: ROADMAP.md item 22b")
-    if fp16_active:
-        return has_inf_or_nan_tree(tree), None
-    return torch.zeros((), dtype=torch.bool), None
+    """The one overflow check of every engine and optimizer path
+    (deepspeed_tpu/runtime/utils.py:94). Returns ``(overflow, nonfinite)``:
+
+    - ``index`` None: the global inf/nan flag (0-d bool tensor) when fp16 is
+      active, a constant False otherwise; ``nonfinite`` None;
+    - ``index`` a ``utils.numerics.SubtreeIndex`` over the tree's leaves:
+      also the per-subtree nonfinite element counts (int64 ``[index.n]``),
+      from which the flag is derived (one pass over the tree)."""
+    if index is None:
+        if fp16_active:
+            return has_inf_or_nan_tree(tree), None
+        return torch.zeros((), dtype=torch.bool), None
+    from ..utils.numerics import bucket_nonfinite
+    nonfinite = bucket_nonfinite(leaves(tree), index)
+    overflow = (nonfinite.sum() > 0) if fp16_active \
+        else torch.zeros((), dtype=torch.bool, device=nonfinite.device)
+    return overflow, nonfinite
 
 
 # ---------------------------------------------------------------------------

@@ -933,5 +933,46 @@ class InferenceEngine:
         raise _later("InferenceEngine.lint_programs", "ROADMAP.md item 23 (lint)")
 
     def memory_manifest(self):
-        raise _later("InferenceEngine.memory_manifest",
-                     "ROADMAP.md item 22b (device observatories: utils/hbm.py)")
+        """deepspeed_tpu/serve/engine.py:962: the serving engine's persistent
+        device residents for the memory observatory (``utils/hbm.py``) —
+        the programs' parameter tree (``serving_params``: compute-dtype
+        weights, float32 LayerNorms and the float32 head copy) and the paged
+        KV pools, plus the draft's params and pool under speculation — with
+        the geometry of the closed-form pool model (2 x L x blocks x
+        block_size x H x Hd x itemsize). JAX's classes and keys."""
+        from torch.utils import _pytree as pytree
+
+        def leaves(tree):
+            return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+        c = self.model.config
+        itemsize = torch.empty((), dtype=c.compute_dtype).element_size()
+        psi = sum(t.numel() for t in leaves(self.params))
+        per_device = sum(t.numel() * t.element_size() for t in leaves(self.params))
+        classes = {"params": self.params, "kv_pool": [self.k_pool, self.v_pool]}
+        geometry = {
+            "kind": "serving",
+            "psi": psi,
+            "param_itemsize": itemsize,
+            "tp": int(self.tp),
+            "param_per_device_fraction": per_device / max(psi * itemsize, 1),
+            "pool": {"n_layer": int(c.n_layer), "num_blocks": int(self.num_blocks),
+                     "block_size": int(self.block_size), "n_head": int(c.n_head),
+                     "head_dim": int(c.head_dim), "itemsize": itemsize,
+                     "shard_factor": int(self.tp) if self.tp > 1 else 1},
+        }
+        if self._spec is not None:
+            dc = self._spec.model.config
+            d_item = torch.empty((), dtype=dc.compute_dtype).element_size()
+            classes["draft_params"] = self._spec.params
+            classes["draft_pool"] = [self._spec.k_pool, self._spec.v_pool]
+            geometry["draft"] = {
+                "psi": sum(t.numel() for t in leaves(self._spec.params)),
+                "param_itemsize": d_item,
+                "pool": {"n_layer": int(dc.n_layer),
+                         "num_blocks": int(self._spec.k_pool.shape[1]),
+                         "block_size": int(self._spec.block_size),
+                         "n_head": int(dc.n_head), "head_dim": int(dc.head_dim),
+                         "itemsize": d_item},
+            }
+        return {"classes": classes, "geometry": geometry}

@@ -1,15 +1,34 @@
-"""The flight recorder and its dump reader (PyTorch port of the host parts of
-``deepspeed_tpu/utils/numerics.py``): ``_sanitize_token``, ``default_run_id``
-and ``FlightRecorder`` (lines 188-438; the bundle's HBM forensics block is
-item 22b), the dump reader (lines 618-704) for auto-resume
-(``resilience/auto_resume.py``), ``merge_first_bad`` and ``summarize_dump``
-(lines 671-734) for the cluster post-mortem. Host file I/O only, copied. The
-numerics observatory itself (``NumericsMonitor``, the in-graph sentinel, the
-subtree index, the desync audit) is ROADMAP.md item 22b.
+"""Numerics observatory: the sentinel, the desync audit and the flight
+recorder (PyTorch port of ``deepspeed_tpu/utils/numerics.py``).
+
+1. **Sentinel bucketing** (JAX lines 52-119): ``SubtreeIndex`` maps the
+   engine's leaves to named parameter subtrees; ``bucket_sumsq`` and
+   ``bucket_nonfinite`` fold per-leaf statistics into per-subtree vectors on
+   the device, inside the engine's update. The subtree names are JAX's for
+   the same model: they come from the same tree paths (``subtree_name`` on
+   the module's ``params_tree()`` with sorted keys, whose torch pytree keys
+   carry ``.key`` / ``.idx`` as JAX's do). The vectors leave the device with
+   the step's one loss fetch (``TelemetrySession.fetch_window``), never
+   through a fetch of their own.
+2. **Desync audit** (JAX lines 122-185): ``leaf_checksum`` is bitwise JAX's
+   uint32 sum of a leaf's bit patterns, wrapping mod 2^32; CUDA torch has no
+   reliable uint32 sum, so the patterns are widened to int64, summed (exact
+   while the leaf has fewer than 2^31 elements, which is checked) and
+   reduced mod 2^32. ``compare_audit_rows`` is the host comparator over the
+   ``[replicas, n_subtrees]`` matrix an audit step's all-gather returns.
+3. **Flight recorder** (JAX lines 188-438), with the bundle's HBM forensics
+   block (``utils/hbm.py`` ``oom_forensics``); copied host code.
+4. ``NumericsMonitor`` (JAX lines 441-616): the host coordinator, copied.
+5. The dump reader (JAX lines 618-734) for auto-resume
+   (``resilience/auto_resume.py``) and the cluster post-mortem.
+
+This module performs no host synchronisation of its own: the device helpers
+return tensors, and the host parts read values the engine already fetched.
 """
 
 import atexit
 import json
+import math
 import os
 import re
 import signal
@@ -17,9 +36,190 @@ import socket
 import time
 from collections import deque
 
+import torch
+
 from .logging import logger
 
 NUMERICS_DUMP_VERSION = 1
+
+# ------------------------------------------------------------------ subtrees
+
+
+def subtree_name(path, depth=1):
+    """Join the first ``depth`` components of a tree key path (JAX's
+    ``DictKey.key`` / ``SequenceKey.idx`` / ``GetAttrKey.name``, or torch
+    pytree's ``MappingKey.key`` / ``SequenceKey.idx`` / ``GetAttrKey.name``)."""
+    parts = []
+    for p in path[:depth]:
+        key = getattr(p, "key", None)
+        if key is None:
+            key = getattr(p, "idx", None)
+        if key is None:
+            key = getattr(p, "name", None)
+        if key is None:
+            key = p
+        parts.append(str(key))
+    return "/".join(parts) if parts else "<root>"
+
+
+class SubtreeIndex:
+    """Static mapping of leaves to named parameter subtrees: ``names`` in
+    the order of their first leaf in the tree, ``leaf_buckets[i]`` the
+    subtree of leaf ``i`` (in the order the leaves are handed to
+    ``bucket_sumsq``)."""
+
+    __slots__ = ("names", "leaf_buckets", "_members")
+
+    def __init__(self, names, leaf_buckets):
+        self.names = list(names)
+        self.leaf_buckets = list(leaf_buckets)
+        self._members = {}
+
+    @property
+    def n(self):
+        return len(self.names)
+
+    def members(self, device):
+        """Per subtree, the int64 indices of its leaves on ``device``
+        (built once a device)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = str(device)
+        hit = self._members.get(key)
+        if hit is None:
+            hit = self._members[key] = [
+                torch.tensor([i for i, b in enumerate(self.leaf_buckets) if b == j],
+                             dtype=torch.long, device=device)
+                for j in range(self.n)]
+        return hit
+
+
+def build_subtree_index(tree, depth=1, positions=False):
+    """The index of a tree's leaves (nested dicts, lists, tuples), walked
+    as ``jax.tree_util`` walks it: dict keys sorted. Names come in the order
+    of their first leaf. ``positions``: the tree's leaves are the positions
+    (ints) at which the device helpers receive them (the engine's parameter
+    order, which differs from the tree's), and ``leaf_buckets`` follows
+    those positions."""
+    from torch.utils import _pytree as pytree
+
+    def by_key(node):
+        if isinstance(node, dict):
+            return {k: by_key(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)) and not hasattr(node, "_fields"):
+            return type(node)(by_key(n) for n in node)
+        return node
+
+    pairs = pytree.tree_flatten_with_path(by_key(tree))[0]
+    names, name_to_id = [], {}
+    buckets = [None] * len(pairs)
+    for k, (path, leaf) in enumerate(pairs):
+        name = subtree_name(path, depth)
+        if name not in name_to_id:
+            name_to_id[name] = len(names)
+            names.append(name)
+        buckets[int(leaf) if positions else k] = name_to_id[name]
+    return SubtreeIndex(names, buckets)
+
+
+# ------------------------------------------------------------- device math
+
+
+def _segment(vals, index):
+    """Per-subtree sums of a per-leaf vector, each a sum over its members
+    in leaf order (deterministic, unlike an atomic scatter)."""
+    return torch.stack([vals.index_select(0, m).sum() for m in index.members(vals.device)])
+
+
+def leaf_sumsq(leaves):
+    """float32 ``[n_leaves]``: each leaf's sum of squares."""
+    return torch.stack([torch.sum(torch.square(t.float())) for t in leaves])
+
+
+def leaf_nonfinite(leaves):
+    """int64 ``[n_leaves]``: each leaf's count of inf and nan elements."""
+    return torch.stack([torch.count_nonzero(~torch.isfinite(t)) for t in leaves])
+
+
+def bucket_sumsq(leaves, index, per_leaf=None):
+    """Per-subtree sum of squares (float32 ``[index.n]``) of a list of
+    tensors in the index's leaf order; ``per_leaf`` the leaves' own sums
+    when already formed (the engine's, after its cross-rank sum)."""
+    vals = leaf_sumsq(leaves) if per_leaf is None else per_leaf
+    return _segment(vals, index)
+
+
+def bucket_nonfinite(leaves, index, per_leaf=None):
+    """Per-subtree nonfinite element count (int64 ``[index.n]``; JAX's
+    int32 counts, widened)."""
+    vals = leaf_nonfinite(leaves) if per_leaf is None else per_leaf
+    return _segment(vals, index)
+
+
+_CHECKSUM_MAX_ELEMENTS = 1 << 31    # n * (2^32 - 1) stays below 2^63
+
+
+def leaf_checksum(leaf):
+    """Bitwise JAX's ``leaf_checksum``: the uint32 sum, wrapping mod 2^32,
+    of a tensor's bit patterns (bool as 0/1; 8-byte dtypes folded to 4
+    bytes first, floats to float32, integers to int32), as an int64 0-d
+    tensor in [0, 2^32). The patterns are widened to int64 and summed
+    exactly, which holds below 2^31 elements (else ValueError)."""
+    if leaf.numel() >= _CHECKSUM_MAX_ELEMENTS:
+        raise ValueError(f"leaf_checksum: {leaf.numel()} elements overflow the int64 "
+                         "sum of 32-bit patterns")
+    x = leaf.detach().contiguous()
+    if x.dtype == torch.bool:
+        bits = x.to(torch.int64)
+    else:
+        if x.element_size() == 8:
+            x = x.to(torch.float32) if x.is_floating_point() else x.to(torch.int32)
+        size = x.element_size()
+        view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[size]
+        mask = (1 << (8 * size)) - 1
+        bits = x.view(view).to(torch.int64) & mask
+    return torch.remainder(bits.sum(), 1 << 32)
+
+
+# --------------------------------------------------------- host-side compare
+
+
+def compare_audit_rows(matrix, names, slice_rows=None):
+    """Host comparator for the audit all-gather result (JAX lines 143-185).
+
+    `matrix` is a [replicas, n_subtrees] array of uint32 checksums (already
+    fetched by the engine). Returns None when every replica agrees, else a
+    dict naming the FIRST diverging subtree and which replicas disagree with
+    replica 0. `slice_rows` (optional) groups the replicas by slice and
+    classifies the divergence as "intra_slice" or "cross_slice"."""
+    rows = [[int(v) for v in row] for row in matrix]
+    if len(rows) <= 1:
+        return None
+    n = len(rows[0])
+    for j in range(n):
+        col = [row[j] for row in rows]
+        if any(c != col[0] for c in col):
+            div = {
+                "subtree": names[j] if j < len(names) else f"<{j}>",
+                "index": j,
+                "checksums": col,
+                "diverging_replicas": [i for i, c in enumerate(col) if c != col[0]],
+            }
+            if slice_rows and len(slice_rows) > 1:
+                intra = any(
+                    any(col[r] != col[grp[0]] for r in grp if r < len(col))
+                    for grp in slice_rows if grp and grp[0] < len(col))
+                div["level"] = "intra_slice" if intra else "cross_slice"
+                ref = col[slice_rows[0][0]] if slice_rows[0][0] < len(col) else col[0]
+                div["diverging_slices"] = [
+                    s for s, grp in enumerate(slice_rows)
+                    if grp and grp[0] < len(col) and col[grp[0]] != ref]
+            return div
+    return None
+
+
+# ------------------------------------------------------------ flight recorder
 
 
 def _sanitize_token(s):
@@ -140,7 +340,20 @@ class FlightRecorder:
             out["serving_request_trace"] = self.request_trace.bundle()
         if self.cluster is not None:
             out["cluster"] = self.cluster.bundle()
-        # (the HBM forensics block, "hbm", is ROADMAP.md item 22b)
+        snap = None
+        if self.telemetry is not None:
+            snapper = getattr(self.telemetry, "memory_snapshot", None)
+            if snapper is not None:
+                try:
+                    snap = snapper()
+                except Exception:  # forensics must never block the dump
+                    snap = None
+        if snap is not None:
+            try:
+                from .hbm import oom_forensics
+                out["hbm"] = oom_forensics(snap)
+            except Exception:
+                out["hbm"] = {"error": "oom_forensics failed", "snapshot": snap}
         if self.telemetry is not None:
             # measured-time observatory: the last closed trace window's
             # summary rides along so a post-mortem sees what the device
@@ -260,6 +473,175 @@ class FlightRecorder:
 
 
 # --------------------------------------------------------- numerics monitor
+
+
+class NumericsMonitor:
+    """Host-side coordinator: consumes the per-step sentinel stats (already
+    fetched through the telemetry loss ride-along), feeds the journal,
+    monitor scalars/events, and the flight recorder, and decides triggers."""
+
+    def __init__(self, index, *, monitor=None, telemetry=None, journal=None,
+                 recorder=None, audit_interval=0, consecutive_skip_trigger=8,
+                 trigger_on_nonfinite_loss=True):
+        self.index = index
+        self.monitor = monitor
+        self.telemetry = telemetry
+        self.journal = journal
+        self.recorder = recorder
+        self.audit_interval = int(audit_interval)
+        self.consecutive_skip_trigger = int(consecutive_skip_trigger)
+        self.trigger_on_nonfinite_loss = bool(trigger_on_nonfinite_loss)
+        self.anomaly_count = 0
+        self.audit_runs = 0
+        self.audit_seconds = 0.0
+        self.desync = None
+        self.last_record = None
+        self._warned = 0
+        if journal is not None:
+            journal.emit = self._on_journal_event
+
+    # -- plumbing ----------------------------------------------------------
+    def _on_journal_event(self, ev, step):
+        if self.monitor is not None:
+            self.monitor.event("loss_scale", ev, step)
+        if self.recorder is not None:
+            self.recorder.record_event("loss_scale", ev, step)
+
+    def _scalar(self, tag, value, step):
+        if self.monitor is not None:
+            self.monitor.add_scalar(tag, value, step)
+
+    # -- per-step commit ---------------------------------------------------
+    def commit_step(self, step, stats, *, loss=None, overflowed=False,
+                    grad_norm=None):
+        """All inputs are HOST values (the engine fetched them alongside the
+        loss). `stats` maps sentinel keys to per-subtree vectors, or is None
+        on paths that produce no sentinel (e.g. a pure-eval step)."""
+        if self.journal is not None:
+            self.journal.record(step, overflowed)
+        loss_scale = self.journal.cur_scale if self.journal is not None else None
+
+        names = self.index.names
+        anomaly = None
+        record = {"step": step, "overflow": bool(overflowed), "loss": loss,
+                  "loss_scale": loss_scale, "grad_norm": grad_norm,
+                  "subtrees": names}
+
+        if stats is not None:
+            gss = [float(v) for v in stats.get("grad_sumsq", [])]
+            wss = [float(v) for v in stats.get("weight_sumsq", [])]
+            uss = [float(v) for v in stats.get("update_sumsq", [])]
+            nonfinite = [int(v) for v in stats.get("grad_nonfinite", [])]
+
+            record["grad_norm_per_subtree"] = [
+                math.sqrt(max(v, 0.0)) for v in gss]
+            if wss:
+                record["weight_norm_per_subtree"] = [
+                    math.sqrt(max(v, 0.0)) for v in wss]
+            if uss and wss:
+                record["update_ratio_per_subtree"] = [
+                    (math.sqrt(max(u, 0.0)) / math.sqrt(w))
+                    if w > 0.0 else 0.0
+                    for u, w in zip(uss, wss)]
+            record["nonfinite_total"] = sum(nonfinite)
+            record["nonfinite_per_subtree"] = nonfinite
+
+            for j, name in enumerate(names):
+                if j < len(gss):
+                    self._scalar(f"Numerics/grad_norm/{name}",
+                                 record["grad_norm_per_subtree"][j], step)
+                if j < len(wss):
+                    self._scalar(f"Numerics/weight_norm/{name}",
+                                 record["weight_norm_per_subtree"][j], step)
+                if "update_ratio_per_subtree" in record and j < len(uss):
+                    self._scalar(f"Numerics/update_ratio/{name}",
+                                 record["update_ratio_per_subtree"][j], step)
+
+            bad = [j for j, c in enumerate(nonfinite) if c > 0]
+            if bad:
+                anomaly = {"kind": "nonfinite_grad",
+                           "subtree": names[bad[0]],
+                           "count": nonfinite[bad[0]],
+                           "per_subtree": {names[j]: nonfinite[j] for j in bad}}
+
+        if loss is not None and not math.isfinite(loss):
+            if anomaly is None:
+                anomaly = {"kind": "nonfinite_loss", "subtree": None}
+            anomaly["nonfinite_loss"] = True
+
+        record["anomaly"] = anomaly
+        self.last_record = record
+        if self.recorder is not None:
+            self.recorder.record_step(record)
+
+        if anomaly is not None:
+            self.anomaly_count += 1
+            if self.recorder is not None:
+                self.recorder.note_anomaly()
+            if self._warned < 3:
+                self._warned += 1
+                logger.warning(
+                    f"numerics: anomaly at step {step}: {anomaly['kind']}"
+                    + (f" in subtree '{anomaly['subtree']}'"
+                       if anomaly.get("subtree") else ""))
+
+        # triggers
+        if self.recorder is not None:
+            if (self.trigger_on_nonfinite_loss and loss is not None
+                    and not math.isfinite(loss)):
+                self.recorder.trigger("nonfinite_loss", {"step": step})
+            elif (self.journal is not None and self.consecutive_skip_trigger > 0
+                  and self.journal.skip_streak == self.consecutive_skip_trigger):
+                self.recorder.trigger(
+                    "consecutive_overflow_skips",
+                    {"step": step, "streak": self.journal.skip_streak})
+        return record
+
+    # -- audit -------------------------------------------------------------
+    def audit_due(self, step):
+        return self.audit_interval > 0 and step > 0 \
+            and step % self.audit_interval == 0
+
+    def commit_audit(self, step, matrix, names, seconds=0.0, slice_rows=None):
+        """`matrix` is the host-fetched [replicas, n] checksum matrix;
+        `slice_rows` (optional, CommTopology.slice_rows) classifies any
+        divergence per network level (intra_slice vs cross_slice)."""
+        self.audit_runs += 1
+        self.audit_seconds += float(seconds)
+        divergence = compare_audit_rows(matrix, names, slice_rows=slice_rows)
+        payload = {"replicas": len(matrix), "subtrees": len(names),
+                   "seconds": seconds,
+                   "divergence": divergence}
+        if self.monitor is not None:
+            self.monitor.event("desync_audit", payload, step)
+        if self.recorder is not None:
+            self.recorder.record_event("desync_audit", payload, step)
+        if divergence is not None:
+            self.desync = dict(divergence, step=step)
+            level = divergence.get("level")
+            logger.error(
+                f"numerics: CROSS-RANK DESYNC at step {step}: subtree "
+                f"'{divergence['subtree']}' disagrees on replicas "
+                f"{divergence['diverging_replicas']}"
+                + (f" (level: {level})" if level else ""))
+            if self.recorder is not None:
+                self.recorder.note_anomaly()
+                self.recorder.trigger("desync", dict(divergence, step=step))
+        return divergence
+
+    # -- reporting ---------------------------------------------------------
+    def summary(self):
+        return {
+            "anomaly_count": self.anomaly_count,
+            "journal_events": len(self.journal.events)
+            if self.journal is not None else 0,
+            "audit_runs": self.audit_runs,
+            "audit_seconds": self.audit_seconds,
+            "desync": self.desync is not None,
+            "dumps": self.recorder.dump_count if self.recorder is not None else 0,
+        }
+
+
 
 # Both the legacy name (numerics_dump_host0_0.json) and the run-namespaced
 # name (numerics_dump_<run>_host0_0.json) parse; legacy dumps group under the

@@ -23,25 +23,26 @@ session rides XLA's machinery; the port maps each pillar onto eager PyTorch:
    record is its CUDA-graph capture (``serve/paged.py`` ``GraphedProgram``),
    with the capture's graph-pool bytes as its temp bytes
    (``record_capture``). "Recompile" means a second record under one name.
-4. **Flops for MFU.** ``cost_analysis()`` (``_analyze_compiled``, lines
-   61-127) has no counterpart. Each program's flops are counted once per
-   signature, on that first call, by ``torch.utils.flop_counter.
-   FlopCounterMode``: the matrix products (``mm``, ``bmm``, ``addmm``,
-   ``baddbmm``, convolutions, scaled-dot-product attention) of everything
-   dispatched through ATen in the call — the forward, autograd's backward
-   and any recompute under activation checkpointing — plus the port's flash
-   forward op (``deepspeed_tpu_torch::flash_fwd``, 4·B·H·Tq·Tk·D, registered
-   here as the sdpa formula counts it). Not counted: elementwise work
-   (LayerNorm, GELU, softmax, the optimizer; XLA's count includes it) and
-   the flash backward kernels, which autograd launches through ctypes
-   without a dispatcher op. Every later call of the program adds the
-   recorded count.
-5. **What reads HLO stays out** (ROADMAP.md item 22b): the step anatomy
-   (``summary()["anatomy"]`` is None), the ICI/DCN wire-byte split and
-   ``set_comm_topology`` (the wire-byte scalars are 0 at world 1), the
-   memory manifest (``Memory/*``), the measured-profile ingest
-   (``Profile/*``) and the numerics sentinel ``end_step`` fetches in JAX;
-   the engine refuses their config blocks.
+4. **Flops and bytes** (``_analyze_compiled``, lines 61-127, reads XLA's
+   cost analysis). Each program's cost is counted once per signature, on
+   that first call, by ``utils/flops_profiler.py`` ``count``: the flop
+   counter over the matrix products and every kernel op of the port (the
+   flash forward and both backward kernels, block-sparse, the fused block:
+   each a dispatcher op with its formula), and the byte counter over every
+   dispatched op. Every later call of the program adds the recorded counts.
+5. **The anatomy, the memory manifest, the profile ingest, the sentinel**
+   (JAX lines 400-475, 581-600, 624-818): with an anatomy spec
+   (``utils/roofline.py``) ``end_step`` prices the step's measured wall by
+   its counted flops and bytes (``Anatomy/*``; exposed collective time is 0
+   at world 1: no program text says what overlaps, and the measured
+   exposure is the profile's); ``set_memory_manifest`` installs the
+   engine's per-class bytes (``Memory/*``); ``configure_profile`` makes the
+   trace window's close ingest its Chrome trace (``utils/profile_ingest.py``,
+   ``Profile/*``); ``end_step(numerics=...)`` hands back the sentinel's host
+   values, which rode the step's one fetch (``fetch_window``: one float64
+   buffer, so int32-range counts stay exact). What reads HLO stays out: the
+   ICI/DCN wire-byte split and ``set_comm_topology`` (the wire-byte scalars
+   are 0 at world 1).
 6. **Memory.** ``hbm_stats`` (JAX line 300) reads ``torch.cuda.memory_stats``:
    allocated bytes in use and their peak; None on the CPU. A host read of
    the caching allocator's counters, no device work.
@@ -74,36 +75,21 @@ def _abstract_signature(args) -> tuple:
     return tuple(sig)
 
 
-_FLASH_FORMULA = []
-
-
-def _register_flash_formula():
-    """Count the port's flash forward op as ``FlopCounterMode`` counts
-    scaled-dot-product attention: two ``[Tq, D] x [D, Tk]``-sized products a
-    head."""
-    if _FLASH_FORMULA:
-        return
-    _FLASH_FORMULA.append(True)
-    from torch.utils.flop_counter import register_flop_formula
-    from ..ops import flash_attention  # noqa: F401  (defines the op)
-
-    @register_flop_formula(torch.ops.deepspeed_tpu_torch.flash_fwd)
-    def _flash_fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
-        B, H, Tq, D = q_shape
-        return 4 * B * H * Tq * k_shape[2] * D
-
-
 class CompileRecord:
     """One observed first call (or capture) of one program signature: the
     JAX record's fields that the port measures."""
 
-    __slots__ = ("signature", "compile_seconds", "flops", "temp_bytes", "count")
+    __slots__ = ("signature", "compile_seconds", "flops", "hbm_bytes", "temp_bytes",
+                 "flops_by_op", "count")
 
-    def __init__(self, signature, compile_seconds, flops=0.0, temp_bytes=0):
+    def __init__(self, signature, compile_seconds, flops=0.0, temp_bytes=0, hbm_bytes=0.0,
+                 flops_by_op=None):
         self.signature = signature
         self.compile_seconds = compile_seconds
         self.flops = flops
+        self.hbm_bytes = hbm_bytes          # the byte counter's bytes of one call
         self.temp_bytes = temp_bytes        # a capture's graph-pool bytes
+        self.flops_by_op = flops_by_op or {}
         self.count = 1
 
 
@@ -118,15 +104,16 @@ class CompileWatchdog:
         self._storm_warned = set()
 
     def record(self, name: str, sig, seconds: float, flops: float = 0.0,
-               temp_bytes: int = 0) -> CompileRecord:
+               temp_bytes: int = 0, hbm_bytes: float = 0.0,
+               flops_by_op=None) -> CompileRecord:
         per = self.records.setdefault(name, {})
         rec = per.get(sig)
         if rec is not None:
             rec.count += 1
             rec.compile_seconds += seconds
         else:
-            rec = per[sig] = CompileRecord(sig, seconds, flops,
-                                           temp_bytes=int(temp_bytes))
+            rec = per[sig] = CompileRecord(sig, seconds, flops, temp_bytes=int(temp_bytes),
+                                           hbm_bytes=hbm_bytes, flops_by_op=flops_by_op)
         n = sum(r.count for r in per.values())
         if len(per) >= self.recompile_warn and name not in self._storm_warned:
             self._storm_warned.add(name)
@@ -159,38 +146,76 @@ class CompileWatchdog:
 
 class _WatchedProgram:
     """Watchdog proxy around one program (a callable on tensors): its first
-    call on each abstract signature runs under ``FlopCounterMode`` and is
-    recorded with its wall time and flops; every call feeds the session's
-    flops counter. Adds no device work and no synchronization."""
+    call on each abstract signature runs under the flop and byte counters
+    and is recorded with its wall time; every call feeds the session's
+    counters and runs inside a ``ds_program/<name>`` profiler range (what
+    the profile ingest attributes device slices by). Adds no device work
+    and no synchronization."""
 
     def __init__(self, name: str, fn, session: "TelemetrySession"):
         self._name = name
         self._fn = fn
         self._session = session
-        self._flops: Dict[tuple, float] = {}
+        self._range = PROGRAM_SCOPE_PREFIX + name
+        self._costs: Dict[tuple, tuple] = {}
 
     def __call__(self, *args):
         sig = _abstract_signature(args)
-        flops = self._flops.get(sig)
-        if flops is None:
-            out, flops, seconds = self._session.count_call(self._fn, *args)
-            self._flops[sig] = flops
-            self._session.watchdog.record(self._name, sig, seconds, flops)
-        else:
-            out = self._fn(*args)
-        self._session.note_execution(flops)
+        cost = self._costs.get(sig)
+        with torch.profiler.record_function(self._range):
+            if cost is None:
+                out, flops, nbytes, per_op, seconds = self._session.count_call(self._fn, *args)
+                cost = self._costs[sig] = (flops, nbytes)
+                self._session.watchdog.record(self._name, sig, seconds, flops,
+                                              hbm_bytes=nbytes, flops_by_op=per_op)
+            else:
+                out = self._fn(*args)
+        self._session.note_execution(cost[0], hbm_bytes=cost[1])
         return out
+
+
+# the profiler range each watched program's calls run in
+PROGRAM_SCOPE_PREFIX = "ds_program/"
+
+
+def pack_fetch(values, numerics=None):
+    """One float64 buffer of 0-d ``values`` and the 1-D tensors of a
+    ``numerics`` dict (host numpy entries pass through), and the function
+    that unpacks its host copy into (floats, {key: numpy array}); integer
+    tensors come back as int64 (float64 holds them exactly below 2^53)."""
+    parts = [torch.as_tensor(v).detach().reshape(1).to(torch.float64) for v in values]
+    layout = []
+    host_entries = {}
+    for key, t in (numerics or {}).items():
+        if isinstance(t, torch.Tensor):
+            flat = t.detach().reshape(-1)
+            layout.append((key, flat.numel(), not flat.is_floating_point()))
+            parts.append(flat.to(torch.float64))
+        else:
+            host_entries[key] = np.asarray(t)
+    buf = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.float64)
+
+    def unpack(host):
+        host = np.asarray(host, dtype=np.float64)
+        n = len(values)
+        floats = [float(v) for v in host[:n]]
+        out = dict(host_entries)
+        for key, size, integral in layout:
+            vals = host[n:n + size]
+            out[key] = vals.astype(np.int64) if integral else vals
+            n += size
+        return floats, out
+
+    return buf, unpack
 
 
 def hbm_stats() -> Optional[Dict[str, int]]:
     """The current CUDA device's allocator counters as the JAX session's
     ``memory_stats`` keys (``bytes_in_use``, ``peak_bytes_in_use``), or None
-    where CUDA is not in use (the CPU, as JAX's CPU backend)."""
-    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
-        return None
-    stats = torch.cuda.memory_stats()
-    return {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0))}
+    where CUDA is not in use (the CPU, as JAX's CPU backend). An alias of
+    ``utils/hbm.py`` ``device_memory_stats``."""
+    from .hbm import device_memory_stats
+    return device_memory_stats()
 
 
 class TelemetrySession:
@@ -207,9 +232,13 @@ class TelemetrySession:
                  mfu_window: int = 20, recompile_warn: int = 3,
                  output_path: Optional[str] = None, job_name: Optional[str] = None,
                  run_id: Optional[str] = None, host_id: Optional[int] = None,
-                 device=None):
+                 device=None, anatomy_spec=None):
         self.watchdog = CompileWatchdog(recompile_warn=recompile_warn)
         self.device = torch.device(device) if device is not None else None
+        # step anatomy: a roofline ChipSpec (utils/roofline.resolve_spec)
+        # switches on the Anatomy/* end_step scalars; None keeps it off
+        self.anatomy_spec = anatomy_spec
+        self.last_anatomy = None
         self.peak_tflops = float(peak_tflops) if peak_tflops else None
         self.trace_dir = trace_dir or "deepspeed_telemetry_trace"
         if run_id is None:
@@ -226,6 +255,12 @@ class TelemetrySession:
             if self.run_id else self.trace_dir)
         self.trace_steps = tuple(trace_steps) if trace_steps is not None else None
         self.trace_path = None              # the exported Chrome trace
+        # profile observatory: off until configure_profile
+        self.profile_enabled = False
+        self.profile_rel_tol = None
+        self.profile_emit_scalars = True
+        self.last_profile = None
+        self._window_counters = None        # counters when the trace window opened
         self.metric_store = None
         self.alert_engine = None
         self.metrics_export_path = None
@@ -239,6 +274,9 @@ class TelemetrySession:
         # step-metric state: host counters fed by the watched programs
         self.flops_executed = 0.0
         self.wire_bytes_executed = 0
+        self.hbm_bytes_executed = 0.0
+        self.exposed_ici_executed = 0.0
+        self.exposed_dcn_executed = 0.0
         self.steps_recorded = 0
         self.last_mfu = None
         self.last_step_ms = None
@@ -248,13 +286,23 @@ class TelemetrySession:
         self.last_wire_bytes_ici = 0
         self.last_wire_bytes_dcn = 0
         self.last_losses = None             # host floats of the last fetch
+        self.last_numerics = None           # the sentinel's host values, same fetch
         self._fetched = None                # (id of the pending list, values)
         self._dispatch_mark = None
         self._window = deque(maxlen=max(int(mfu_window), 1))  # (dt, flops)
         self._last_end = time.perf_counter()
         self._last_flops = 0.0
         self._last_wire = 0
+        self._last_hbm = 0.0
+        self._last_exp_ici = 0.0
+        self._last_exp_dcn = 0.0
         self._last_compiles = 0
+
+        # memory observatory: per-class resident bytes from the engine's
+        # memory_manifest, set once, emitted as Memory/* in end_step
+        self._memory_class_bytes = None
+        self._memory_geometry = None
+        self._forecast_config = None
 
         self._profiler = None
         self._trace_active = False
@@ -273,30 +321,115 @@ class TelemetrySession:
         return _WatchedProgram(name, fn, self)
 
     def count_call(self, fn, *args):
-        """Run ``fn(*args)`` once under ``FlopCounterMode``: returns (output,
-        flops, wall seconds)."""
-        from torch.utils.flop_counter import FlopCounterMode
-        _register_flash_formula()
+        """Run ``fn(*args)`` once under the flop and byte counters
+        (``utils/flops_profiler.py``): returns (output, flops, bytes,
+        {op: flops}, wall seconds)."""
+        from .flops_profiler import count
         t0 = time.perf_counter()
-        counter = FlopCounterMode(display=False)
-        with counter:
-            out = fn(*args)
-        return out, float(counter.get_total_flops()), time.perf_counter() - t0
+        out, flops, nbytes, per_op = count(fn, *args)
+        return out, flops, nbytes, per_op, time.perf_counter() - t0
 
     def record_capture(self, name: str, sig, seconds: float, pool_bytes: int):
         """A serving program's CUDA-graph capture: its record, the graph
         pool's bytes as its temp bytes."""
         return self.watchdog.record(name, sig, seconds, temp_bytes=pool_bytes)
 
-    def note_execution(self, flops: float, wire_bytes: int = 0):
+    def note_execution(self, flops: float, wire_bytes: int = 0, hbm_bytes: float = 0.0,
+                       exposed_ici_s: float = 0.0, exposed_dcn_s: float = 0.0):
         self.flops_executed += flops
         self.wire_bytes_executed += wire_bytes
+        self.hbm_bytes_executed += hbm_bytes
+        self.exposed_ici_executed += exposed_ici_s
+        self.exposed_dcn_executed += exposed_dcn_s
+
+    def set_memory_manifest(self, class_bytes, geometry=None, forecast_config=None):
+        """Install the engine's per-class resident bytes (``utils/hbm.py``
+        ``manifest_signatures`` over ``engine.memory_manifest()``), its
+        geometry and an optional ``utils/hbm.forecast`` config (the flight
+        recorder's OOM forensics suggest fitting deltas from it). Host state
+        only: ``end_step`` emits the classes as ``Memory/*`` scalars."""
+        self._memory_class_bytes = dict(class_bytes) if class_bytes else None
+        self._memory_geometry = dict(geometry) if geometry else None
+        self._forecast_config = forecast_config
+
+    def memory_snapshot(self) -> Optional[Dict[str, Any]]:
+        """The OOM-forensics input: manifest classes, geometry, the
+        allocator's watermarks and the watchdog's temp peak; None without a
+        manifest (telemetry.hbm off)."""
+        if self._memory_class_bytes is None:
+            return None
+        return {
+            "classes": dict(self._memory_class_bytes),
+            "geometry": dict(self._memory_geometry or {}),
+            "measured": hbm_stats(),
+            "temp_peak_bytes": self.watchdog.peak_temp_bytes(),
+            "forecast_config": self._forecast_config,
+        }
+
+    def configure_profile(self, enabled: bool, reconcile_tolerance=None,
+                          emit_scalars: bool = True):
+        """Switch the profile observatory on: when a trace window closes,
+        ``end_step`` ingests the Chrome trace it wrote
+        (``utils/profile_ingest.py``) into ``last_profile`` and
+        ``Profile/*`` scalars."""
+        self.profile_enabled = bool(enabled)
+        self.profile_rel_tol = reconcile_tolerance
+        self.profile_emit_scalars = bool(emit_scalars)
 
     def profile_snapshot(self) -> Optional[Dict[str, Any]]:
-        if not self._trace_failed:
+        """Flight-recorder embedding: the last ingested window's report and
+        the window's disposition; None when nothing was ingested and the
+        trace never failed."""
+        if self.last_profile is None and not self._trace_failed:
             return None
-        return {"trace_dir": self.trace_output_dir, "trace_failed": True,
-                "report": None}
+        return {"trace_dir": self.trace_output_dir, "trace_failed": self._trace_failed,
+                "report": self.last_profile}
+
+    def _program_bytes(self, name):
+        per = self.watchdog.records.get(name) or {}
+        return float(list(per.values())[-1].hbm_bytes) if per else 0.0
+
+    def _window_counter_values(self):
+        return {"flops": self.flops_executed, "wire_ici": self.wire_bytes_executed,
+                "wire_dcn": 0}
+
+    def _ingest_profile(self, steps_wall_ms=None):
+        """Read the just-closed window's Chrome trace back into the measured
+        profile report (``utils/profile_ingest.py``), reconciled against the
+        catalog and the session's counters over the window. Host file
+        parsing after the export. On the card an empty trace raises
+        (``ProfileParseError``): a window that saw no kernel is a fault, not
+        a zero."""
+        from .profile_ingest import (catalog_from_watchdog, device_slices, load_trace_dir,
+                                     reconcile_profile, summarize_slices)
+        a, b = self.trace_steps
+        steps = max(b - a, 1)
+        events, _files = load_trace_dir(self.trace_output_dir)
+        cuda = self.device is not None and self.device.type == "cuda"
+        catalog = catalog_from_watchdog(self.watchdog)
+        slices = device_slices(events, device="cuda" if cuda else "cpu")
+        report = summarize_slices(slices, catalog=catalog, devices=1, steps=steps,
+                                  peak_tflops=self.peak_tflops)
+        base = self._window_counters or self._window_counter_values()
+        end = self._window_counter_values()
+        derived = {"flops_per_step": (end["flops"] - base["flops"]) / steps,
+                   "wire_ici_per_step": (end["wire_ici"] - base["wire_ici"]) // steps,
+                   "wire_dcn_per_step": 0, "step_wall_ms": steps_wall_ms}
+        rec = reconcile_profile(report, catalog, derived,
+                                rel_tol=self.profile_rel_tol or 0.05)
+        report["reconcile"] = {k: v for k, v in rec.items() if k != "measured"}
+        if self.anatomy_spec is not None:
+            # each traced program's anatomy: its counted cost beside its
+            # measured collectives
+            from .anatomy import analyze_program
+            report["anatomy"] = [
+                analyze_program(facts | {"hbm_bytes": self._program_bytes(name)},
+                                self.anatomy_spec,
+                                [x for x in slices if x["module"] == name], name=name)
+                for name, facts in sorted(catalog.items())
+                if any(x["module"] == name for x in slices)]
+        self.last_profile = report
+        return report
 
     def configure_metrics(self, enabled: bool = True, ring_len: int = 512,
                           strict: bool = False,
@@ -362,6 +495,8 @@ class TelemetrySession:
                            f"unavailable ({e!r}); trace window [{a}, {b}) skipped")
             return
         self._trace_active = True
+        self._window_counters = self._window_counter_values()
+        self._window_walls = []
         logger.info(f"[deepspeed_tpu_torch] telemetry: profiler trace started for "
                     f"steps {a}..{b - 1} -> {self.trace_output_dir}")
 
@@ -393,39 +528,47 @@ class TelemetrySession:
         heartbeat's allgather, a cross-host rendezvous)."""
         self._dispatch_base = time.perf_counter()
 
-    def fetch_window(self, pending, extra=()):
-        """The step's one blocking operation: a single ``.cpu()`` of the
-        window's loss scalars (0-d tensors) stacked with ``extra`` scalars
-        (the engine's grad norm). Returns (losses, extras) as host floats and
-        remembers them, so ``end_step`` on the same list fetches nothing."""
-        if not pending:
+    def fetch_window(self, pending, extra=(), numerics=None):
+        """The step's one blocking operation: a single ``.cpu()`` of one
+        float64 buffer holding the window's loss scalars (0-d tensors),
+        ``extra`` scalars (the engine's grad norm) and the ``numerics``
+        sentinel's vectors (``pack_fetch``). Returns (losses, extras) as
+        host floats and remembers them with the sentinel's host values
+        (``last_numerics``), so ``end_step`` on the same list fetches
+        nothing."""
+        if not pending and numerics is None:
             return [], []
         key = id(pending)
         if self._fetched is not None and self._fetched[0] == key:
             return self._fetched[1]
-        vals = torch.stack([torch.as_tensor(v).detach().float().reshape(())
-                            for v in list(pending) + list(extra)])
-        host = [float(v) for v in np.asarray(vals.cpu(), dtype=np.float64)]
+        values = list(pending) + list(extra)
+        buf, unpack = pack_fetch(values, numerics)
+        host, self.last_numerics = unpack(buf.cpu())
         out = (host[:len(pending)], host[len(pending):])
         self._fetched = (key, out)
-        self.last_losses = out[0]
+        if pending:
+            self.last_losses = out[0]
         return out
 
     def end_step(self, global_step: int, samples_per_step: int, pending=None,
-                 serving=None, schedule_goodput=None, run_goodput=None):
-        """Close one optimizer step's metrics (JAX lines 624-816, without the
-        numerics sentinel, item 22b). The ONLY blocking operation is the fetch
-        of ``pending``'s loss scalars (``fetch_window``; already done when the
-        engine emitted its own scalars from it). ``global_step`` is the count
-        of completed steps. ``schedule_goodput``, ``run_goodput`` and
-        ``serving`` emit ``Pipeline/Goodput/*``, ``Run/Goodput/*`` and
-        ``Serving/Latency/*`` scalars, as in JAX."""
+                 numerics=None, serving=None, schedule_goodput=None, run_goodput=None):
+        """Close one optimizer step's metrics (JAX lines 624-818). The ONLY
+        blocking operation is the fetch of ``pending``'s loss scalars with
+        the ``numerics`` sentinel's vectors (``fetch_window``; already done
+        when the engine emitted its own scalars from it). ``global_step`` is
+        the count of completed steps. Returns the sentinel's host values (or
+        None). ``schedule_goodput``, ``run_goodput`` and ``serving`` emit
+        ``Pipeline/Goodput/*``, ``Run/Goodput/*`` and ``Serving/Latency/*``
+        scalars, as in JAX."""
         fetch_start = self._dispatch_mark
         if fetch_start is None:
             fetch_start = time.perf_counter()
         self._dispatch_mark = None
-        if pending:
-            self.fetch_window(pending)
+        numerics_host = None
+        if pending or numerics is not None:
+            self.fetch_window(pending, numerics=numerics)
+            if numerics is not None:
+                numerics_host = self.last_numerics
         self._fetched = None
         now = time.perf_counter()
         compiles = self.watchdog.compiles()
@@ -436,10 +579,16 @@ class TelemetrySession:
         self._dispatch_base = None
         flops_d = self.flops_executed - self._last_flops
         wire_d = self.wire_bytes_executed - self._last_wire
+        hbm_d = self.hbm_bytes_executed - self._last_hbm
+        exp_ici_d = self.exposed_ici_executed - self._last_exp_ici
+        exp_dcn_d = self.exposed_dcn_executed - self._last_exp_dcn
         had_compile = compiles != self._last_compiles
         self._last_end = now
         self._last_flops = self.flops_executed
         self._last_wire = self.wire_bytes_executed
+        self._last_hbm = self.hbm_bytes_executed
+        self._last_exp_ici = self.exposed_ici_executed
+        self._last_exp_dcn = self.exposed_dcn_executed
         self._last_compiles = compiles
 
         samples = global_step * samples_per_step
@@ -450,6 +599,8 @@ class TelemetrySession:
         self.last_wire_bytes_ici = wire_d
         self.last_wire_bytes_dcn = 0
         self.steps_recorded += 1
+        if self._trace_active:
+            self._window_walls.append(self.last_step_ms)
         mon.add_scalar("Telemetry/Samples/step_time_ms", dt * 1000.0, samples)
         if dt > 0:
             mon.add_scalar("Telemetry/Samples/samples_per_sec",
@@ -462,9 +613,10 @@ class TelemetrySession:
         if not had_compile and flops_d > 0 and dt > 0:
             self._window.append((dt, flops_d))
         if self.peak_tflops and self._window:
+            from .flops_profiler import mfu as _mfu
             tot_dt = sum(d for d, _ in self._window)
             tot_f = sum(f for _, f in self._window)
-            self.last_mfu = tot_f / (tot_dt * self.peak_tflops * 1e12)
+            self.last_mfu = _mfu({"flops": tot_f}, tot_dt, self.peak_tflops)
             mon.add_scalar("Telemetry/Samples/mfu", self.last_mfu, samples)
         stats = hbm_stats()
         if stats is not None:
@@ -473,6 +625,27 @@ class TelemetrySession:
             mon.add_scalar("Telemetry/Samples/hbm_peak_bytes",
                            stats.get("peak_bytes_in_use", 0), samples)
         mon.add_scalar("Telemetry/Samples/compile_count", compiles, samples)
+        # per-class resident bytes: host constants the engine installed once
+        if self._memory_class_bytes is not None:
+            for cls, nbytes in sorted(self._memory_class_bytes.items()):
+                mon.add_scalar(f"Memory/{cls}_bytes", nbytes, samples)
+            mon.add_scalar("Memory/compiled_temp_peak_bytes",
+                           self.watchdog.peak_temp_bytes(), samples)
+        # step anatomy: the roofline attribution of this step's measured wall
+        # from the counted flops and bytes (host arithmetic)
+        if self.anatomy_spec is not None and dt > 0 and not had_compile:
+            from .roofline import roofline
+            rf = roofline(flops_d, hbm_d, exp_ici_d, exp_dcn_d, self.anatomy_spec,
+                          measured_seconds=dt)
+            self.last_anatomy = rf
+            mon.add_scalar("Anatomy/compute_ms", rf["compute_s"] * 1000.0, samples)
+            mon.add_scalar("Anatomy/hbm_bound_ms", rf["hbm_bound_s"] * 1000.0, samples)
+            mon.add_scalar("Anatomy/exposed_ici_ms", rf["exposed_ici_s"] * 1000.0, samples)
+            mon.add_scalar("Anatomy/exposed_dcn_ms", rf["exposed_dcn_s"] * 1000.0, samples)
+            mon.add_scalar("Anatomy/host_gap_ms", rf["host_gap_s"] * 1000.0, samples)
+            mon.add_scalar("Anatomy/predicted_floor_ms", rf["predicted_floor_s"] * 1000.0,
+                           samples)
+            mon.add_scalar("Anatomy/mfu_ceiling", rf["mfu_ceiling"], samples)
         if schedule_goodput:
             for key in ("fwd_seconds", "bwd_seconds", "p2p_seconds", "load_seconds",
                         "reduce_seconds", "opt_seconds", "bubble_seconds",
@@ -493,9 +666,35 @@ class TelemetrySession:
         if self._trace_active and self.trace_steps is not None \
                 and global_step >= self.trace_steps[1]:
             self._stop_trace()
+            if self.profile_enabled and not self._trace_failed:
+                walls = self._window_walls
+                prof = self._ingest_profile(sum(walls) / len(walls) if walls else None)
+                if self.profile_emit_scalars:
+                    self._emit_profile(prof, samples)
         if self.alert_engine is not None:
             # host-side reads of the metric ring on the end_step axis
             self.alert_engine.evaluate(samples)
+        return numerics_host
+
+    def _emit_profile(self, prof, samples):
+        mon = self.monitor
+        steps = max(prof["steps"], 1)
+        cls = prof["classes"]
+        mon.add_scalar("Profile/compute_ms", cls["compute"]["busy_us"] / steps / 1e3, samples)
+        mon.add_scalar("Profile/collective_ici_ms",
+                       cls["collective_ici"]["busy_us"] / steps / 1e3, samples)
+        mon.add_scalar("Profile/collective_dcn_ms",
+                       cls["collective_dcn"]["busy_us"] / steps / 1e3, samples)
+        mon.add_scalar("Profile/exposed_ici_ms",
+                       cls["collective_ici"]["exposed_us"] / steps / 1e3, samples)
+        mon.add_scalar("Profile/exposed_dcn_ms",
+                       cls["collective_dcn"]["exposed_us"] / steps / 1e3, samples)
+        mon.add_scalar("Profile/host_gap_ms", cls["host_gap"]["gap_us"] / steps / 1e3,
+                       samples)
+        mon.add_scalar("Profile/step_wall_ms", prof["step_wall_us"] / 1e3, samples)
+        if prof.get("measured_mfu") is not None:
+            mon.add_scalar("Profile/mfu", prof["measured_mfu"], samples)
+        mon.flush()
 
     # ------------------------------------------------------------- breakdown gate
     def warn_perturbing_once(self):
@@ -522,6 +721,35 @@ class TelemetrySession:
     def summary(self) -> Dict[str, Any]:
         """One-shot digest (JAX lines 839-905)."""
         stats = hbm_stats() or {}
+        anatomy = None
+        if self.last_anatomy is not None:
+            rf = self.last_anatomy
+            anatomy = {
+                "predicted_floor_ms": round(rf["predicted_floor_s"] * 1e3, 6),
+                "compute_ms": round(rf["compute_s"] * 1e3, 6),
+                "hbm_bound_ms": round(rf["hbm_bound_s"] * 1e3, 6),
+                "exposed_ici_ms": round(rf["exposed_ici_s"] * 1e3, 6),
+                "exposed_dcn_ms": round(rf["exposed_dcn_s"] * 1e3, 6),
+                "host_gap_ms": round(rf["host_gap_s"] * 1e3, 6),
+                "mfu_ceiling": round(rf["mfu_ceiling"], 4),
+            }
+        profile = None
+        if self.last_profile is not None:
+            prof = self.last_profile
+            steps = max(prof["steps"], 1)
+            cls = prof["classes"]
+            profile = {
+                "compute_ms": round(cls["compute"]["busy_us"] / steps / 1e3, 6),
+                "collective_ici_ms": round(cls["collective_ici"]["busy_us"] / steps / 1e3, 6),
+                "collective_dcn_ms": round(cls["collective_dcn"]["busy_us"] / steps / 1e3, 6),
+                "exposed_ici_ms": round(cls["collective_ici"]["exposed_us"] / steps / 1e3, 6),
+                "exposed_dcn_ms": round(cls["collective_dcn"]["exposed_us"] / steps / 1e3, 6),
+                "host_gap_ms": round(cls["host_gap"]["gap_us"] / steps / 1e3, 6),
+                "step_wall_ms": round(prof["step_wall_us"] / 1e3, 6),
+                "measured_mfu": prof.get("measured_mfu"),
+                "scopes": sorted(prof.get("scopes", {})),
+                "steps": prof["steps"],
+            }
         trace = None
         if self.trace_steps is not None:
             trace = {
@@ -535,9 +763,9 @@ class TelemetrySession:
             "mfu": self.last_mfu,
             "step_time_ms": self.last_step_ms,
             "steps_recorded": self.steps_recorded,
-            "anatomy": None,
+            "anatomy": anatomy,
             "trace": trace,
-            "profile": None,
+            "profile": profile,
             "wire_bytes_per_step": self.last_wire_bytes,
             "wire_bytes_per_step_ici": self.last_wire_bytes_ici,
             "wire_bytes_per_step_dcn": self.last_wire_bytes_dcn,

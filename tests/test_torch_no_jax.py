@@ -49,6 +49,14 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_scan_covers_the_device_observatories():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("utils/flops_profiler.py", "utils/roofline.py", "utils/hbm.py",
+                 "utils/profile_ingest.py", "utils/anatomy.py", "utils/numerics.py",
+                 "runtime/fp16/fused_optimizer.py"):
+        assert f"deepspeed_tpu_torch/{name}" in names, name
+
+
 def test_importing_the_port_loads_no_jax():
     # a subprocess: this test process already holds jax (tests/conftest.py)
     modules = sorted(

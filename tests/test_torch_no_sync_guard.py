@@ -87,7 +87,8 @@ def test_guard_scans_the_real_files():
     for name in ("utils/telemetry.py", "utils/cluster.py", "utils/metrics.py",
                  "utils/alerts.py", "utils/goodput.py", "utils/monitor.py",
                  "utils/pipeline_trace.py", "utils/numerics.py", "utils/timer.py",
-                 "serve/request_trace.py"):
+                 "utils/flops_profiler.py", "utils/hbm.py", "utils/roofline.py",
+                 "utils/profile_ingest.py", "utils/anatomy.py", "serve/request_trace.py"):
         assert name in names, name
 
 
