@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --probe N    # one offload-capacity probe at N layers
+    python3 chip_smoke.py --launched   # the [launcher] phase's child (the runner starts it)
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -257,6 +258,17 @@ result line):
    to the single stream's, warm and cold failover token-identical with
    fewer prefill chunks warm; fleet tok/s, TTFT and TPOT p50/p99, the
    failover's save and load walls;
+   ``[lint]`` — ``ds-tpu-torch lint`` in this process over every ported
+   lint-registry entry on the card, then on the CPU: both exit 0 (no
+   violation outside the shipped allowlist, no stale entry) with the same
+   vids; each program's recorded kernel ops, the paged-decode op once a
+   layer in the serving decode step and as often in all as its wrapper
+   counted; ``[launcher]`` — ``python -m deepspeed_tpu_torch.launcher.runner
+   --num_gpus 1 chip_smoke.py --launched``: the child (bench.py:406-420's
+   widths and engine config at 4 of 48 layers, no remat, 4 steps) prints its
+   env identity, losses, optimizer-state digest and flash launches, and its
+   losses and state equal the same run's in this process bit for bit, at
+   4 x (1, 1, 1) flash launches a step;
 14. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -4637,6 +4649,156 @@ def phase_single_card():
 T0 = time.perf_counter()
 
 
+# [lint]: the lint suite over the registry's engines on the card; the
+# serving entry's decode step runs the paged-decode kernel once a layer
+LINT_DECODE_PROGRAM = "serving:serve_decode_step"
+LINT_N_LAYER = 2                # the registry's tiny GPT-2
+
+
+def phase_lint():
+    """``ds-tpu-torch lint`` in this process over every ported registry entry
+    on the card, then the same on the CPU: exit 0 on both (no violation the
+    shipped allowlist does not cover, no stale entry), the same vids, and
+    each program's recorded kernel ops, the paged-decode op once a layer in
+    the decode step and as many times in all as the wrapper counted. Returns
+    the kernel's launches."""
+    from deepspeed_tpu_torch.lint import cli
+    from deepspeed_tpu_torch.ops.paged_attention import paged_decode_attention as pda
+    from deepspeed_tpu_torch.utils import op_record
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_lint_")
+    reports, times = {}, {}
+    for device in ("cuda", "cpu"):
+        artifacts = []
+        path = os.path.join(out_dir, f"lint_{device}.json")
+        pda.launches = pda.cluster_launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--device", device, "--out", path], artifacts=artifacts)
+        times[device] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[lint] ds-tpu-torch lint --device {device} exited {rc}")
+        with open(path) as f:
+            reports[device] = (f.read(), artifacts, pda.launches, pda.cluster_launches)
+    text, artifacts, launches, cluster = reports["cuda"]
+    rep = json.loads(text)
+    if rep["unused_allowlist_entries"]:
+        raise AssertionError(f"[lint] stale entries {rep['unused_allowlist_entries']}")
+
+    def vids(t):
+        r = json.loads(t)
+        return sorted(v["id"] for v in r["violations"] + r["allowlisted"])
+
+    if vids(text) != vids(reports["cpu"][0]):
+        raise AssertionError(f"[lint] vids differ: cuda {vids(text)} cpu "
+                             f"{vids(reports['cpu'][0])}")
+    recorded = 0
+    for a in artifacts:
+        kernels = op_record.kernel_counts(a.program)
+        recorded += kernels.get("paged_decode", 0)
+        log(f"[lint] {a.name}: {len(a.ops)} ops, kernel ops {kernels}")
+    decode = next(a for a in artifacts if a.name == LINT_DECODE_PROGRAM)
+    if op_record.kernel_counts(decode.program) != {"paged_decode": LINT_N_LAYER}:
+        raise AssertionError(f"[lint] {LINT_DECODE_PROGRAM} recorded "
+                             f"{op_record.kernel_counts(decode.program)}")
+    if recorded != launches or cluster != launches or launches != LINT_N_LAYER:
+        raise AssertionError(f"[lint] {recorded} paged_decode ops recorded, the wrapper "
+                             f"counted {launches} launches ({cluster} cluster design)")
+    log(f"[lint] {json.dumps({'cuda_s': round(times['cuda'], 2), 'cpu_s': round(times['cpu'], 2), 'programs': len(rep['programs']), 'violations': len(rep['violations']), 'allowlisted': vids(text), 'report_bytes_equal_cpu': text == reports['cpu'][0], 'paged_decode_launches': launches})}")
+    return launches
+
+
+# [launcher]: the published config's widths at 4 of 48 layers, no remat (one
+# forward launch a layer), launched as a child through the runner
+LAUNCHER_LAYERS = 4
+LAUNCHER_STEPS = 4
+
+
+def _launcher_run():
+    """(losses, per-step flash launches, sha256 of the optimizer state after
+    the last step) of the launcher phase's training: bench.py:406-420's
+    widths and engine config at LAUNCHER_LAYERS layers, without remat. The
+    external-master pair never moves the parameters (the loss repeats), so
+    its state, which every step moves, is compared too."""
+    import hashlib
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.runtime.client_optimizers import shard_optimizer
+
+    tokens, labels = _published_batch(MODEL["vocab_size"])
+    model = GPT2Model(GPT2Config(**dict(PUBLISHED_MODEL, n_layer=LAUNCHER_LAYERS,
+                                        remat=False, remat_policy=None)))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, optimizer=shard_optimizer(32),
+                                                     config_params=PUBLISHED_CONFIG)
+    losses, launches = [], []
+    for _ in range(LAUNCHER_STEPS):
+        before = _flash_counts()
+        loss = engine(tokens, labels)
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss.float()))
+        launches.append([a - b for a, b in zip(_flash_counts(), before)])
+    state = torch.cat([engine.opt_state[k].reshape(-1) for k in sorted(engine.opt_state)])
+    return losses, launches, hashlib.sha256(state.cpu().numpy().tobytes()).hexdigest()
+
+
+def launched_child():
+    """``chip_smoke.py --launched``: the launcher phase's child. Prints its
+    env identity, losses and flash launches as one ``LAUNCHED`` line."""
+    import deepspeed_tpu_torch  # noqa: F401
+    ident = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                                            "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                                            "CUDA_VISIBLE_DEVICES")}
+    ident["device"] = torch.cuda.current_device()
+    losses, launches, state = _launcher_run()
+    log("LAUNCHED " + json.dumps({"env": ident, "losses": losses, "launches": launches,
+                                  "state_sha256": state}))
+
+
+def phase_launcher():
+    """``python -m deepspeed_tpu_torch.launcher.runner --num_gpus 1
+    chip_smoke.py --launched``: the child's env identity, its losses and
+    optimizer state bit for bit those of the same run in this process, and
+    LAUNCHER_LAYERS x (1, 1, 1) flash launches a step. Returns the child's
+    flash launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+                          "--num_gpus", "1", "chip_smoke.py", "--launched"],
+                         cwd=str(root), env=env, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("LAUNCHED ")]
+    if res.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"[launcher] the launched child failed (exit {res.returncode}):\n"
+                           f"{res.stdout[-3000:]}\n{res.stderr[-4000:]}")
+    if any(ln.startswith("{\"ok\"") for ln in res.stdout.splitlines()):
+        raise AssertionError("[launcher] the child printed a result line")
+    child = json.loads(lines[0][len("LAUNCHED "):])
+    want_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29500",
+                "CUDA_VISIBLE_DEVICES": child["env"]["CUDA_VISIBLE_DEVICES"], "device": 0}
+    if child["env"] != want_env or child["env"]["CUDA_VISIBLE_DEVICES"] is None:
+        raise AssertionError(f"[launcher] child identity {child['env']}")
+    t0 = time.perf_counter()
+    losses, launches, state = _launcher_run()
+    here_s = time.perf_counter() - t0
+    if child["losses"] != losses or child["state_sha256"] != state:
+        raise AssertionError(f"[launcher] differ: child {child['losses']} "
+                             f"{child['state_sha256']}, here {losses} {state}")
+    want = [[LAUNCHER_LAYERS] * 3] * LAUNCHER_STEPS
+    if child["launches"] != want or launches != want:
+        raise AssertionError(f"[launcher] flash launches: child {child['launches']} here "
+                             f"{launches}, want {want}")
+    log(f"[launcher] {json.dumps({'child_env': child['env'], 'losses': losses, 'state_sha256': state, 'bitwise_equal': True, 'flash_launches_a_step': want[0], 'child_s': round(child_s, 2), 'in_process_s': round(here_s, 2)})}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [sum(step[i] for step in child["launches"]) for i in range(3)]
+
+
 def _device_memory():
     """The device memory the driver reports free, and this process's caching
     allocator's reserve, in bytes."""
@@ -4652,11 +4814,14 @@ def _timed_phase(fn, *args):
 
 
 def main():
-    probe = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--probe" else None
-    if len(sys.argv) > 1 and probe is None:
-        print("usage: chip_smoke.py [--probe N_LAYER]", file=sys.stderr)
+    args = sys.argv[1:]
+    probe = args[1] if len(args) == 2 and args[0] == "--probe" else None
+    # the launcher phase's child, as the runner starts it (--local_rank=N first)
+    launched = [a for a in args if not a.startswith("--local_rank=")] == ["--launched"]
+    if args and probe is None and not launched:
+        print("usage: chip_smoke.py [--probe N_LAYER | --launched]", file=sys.stderr)
         sys.exit(2)
-    card = phase_device(quiet=probe is not None)
+    card = phase_device(quiet=probe is not None or launched)
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     try:
@@ -4666,6 +4831,9 @@ def main():
         sys.exit(1)
     if probe is not None:
         probe_offload_footprint(int(probe))
+        return
+    if launched:
+        launched_child()
         return
     host = host_info()
     log(f"[host] {json.dumps(host)}")
@@ -4727,6 +4895,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     entry["launches_fleet"] = _timed_phase(phase_serving_fleet)
+    entry["launches_lint"] = _timed_phase(phase_lint)
+    for e, n in zip(flash, _timed_phase(phase_launcher)):
+        e["launches_launcher"] = n
     log(f"[time] chip_smoke.py phases {time.perf_counter() - T0:.1f} s")
     log(card)
     log(f"host: {host['cpu']}, nproc {host['nproc']}, MemTotal {host['mem_total_gb']:.1f} GB")

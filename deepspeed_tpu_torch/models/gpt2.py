@@ -493,6 +493,39 @@ class GPT2Model(nn.Module):
         out.append(tok[:, None])
         return torch.cat(out, dim=1)
 
+    def decode_lint_programs(self, *, batch=2, prompt_len=4, max_new_tokens=4,
+                             num_beams=2):
+        """``(name, fn, args, manifest)`` for the decode path, in the shape
+        the lint registry consumes (deepspeed_tpu/models/gpt2.py:854): the
+        prefill over fresh caches (written in place), and a whole greedy
+        ``generate`` and ``beam_search`` on the same prompt. Each manifest:
+        no cache-sized input copied (``min_undonated_bytes``), no large
+        collective."""
+        from ..utils.op_record import dtype_name
+        c = self.config
+        B, T0, L, K = int(batch), int(prompt_len), int(max_new_tokens), int(num_beams)
+        dev = self.device
+        tokens = (torch.arange(B * T0, device=dev).reshape(B, T0) % c.vocab_size).to(torch.int32)
+        kcs, vcs = self._decode_caches(B, T0 + L, dev)
+
+        def manifest(inplace_args=()):
+            return {"compute_dtype": dtype_name(c.compute_dtype), "strict": True,
+                    "any_reduction": {"max": 0},
+                    "donation": {"check_unusable": True, "min_undonated_bytes": 1024,
+                                 "inplace_args": list(inplace_args)}}
+
+        def prefill(p, toks, k, v):
+            with torch.no_grad():
+                return self._cached_forward(p, toks, 0, k, v)
+
+        return [
+            ("gpt2_prefill", prefill, (self.params_tree(), tokens, kcs, vcs),
+             manifest([kcs, vcs])),
+            ("gpt2_decode_greedy", lambda toks: self.generate(toks, L), (tokens,), manifest()),
+            ("gpt2_decode_beam", lambda toks: self.beam_search(toks, L, num_beams=K),
+             (tokens,), manifest()),
+        ]
+
     @torch.no_grad()
     def beam_search(self, tokens, max_new_tokens: int, num_beams: int = 4, *,
                     eos_token_id=None, length_penalty: float = 1.0):

@@ -14,8 +14,9 @@ history split across a thread-block cluster, pages staged by TMA, the splits
 merged in the cluster (``cluster_plan`` gives its geometry). Other shapes run
 ``paged_decode``, the first design (one CTA per slot and head).
 
-``paged_decode_attention`` launches a kernel for CUDA tensors and takes the
-plain version only for tensors on the CPU; there is no other fallback.
+``paged_decode_attention`` launches a kernel for CUDA tensors, through the
+dispatcher op ``deepspeed_tpu_torch::paged_decode``, and takes the plain
+version only for tensors on the CPU; there is no other fallback.
 ``paged_decode_attention.launches`` counts kernel launches and
 ``.cluster_launches`` those of the cluster design (plain integers; set them to
 0 to start a count).
@@ -218,6 +219,19 @@ def paged_decode_attention(q, k_pool, v_pool, li, tables, lengths, *,
                                       block_size=block_size)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
+    return _paged_decode_op(q, k_pool, v_pool, li, tables, lengths, block_size)
+
+
+paged_decode_attention.launches = paged_decode_attention.cluster_launches = 0
+
+
+@torch.library.custom_op("deepspeed_tpu_torch::paged_decode", mutates_args=())
+def _paged_decode_op(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor, li: int,
+                     tables: torch.Tensor, lengths: torch.Tensor,
+                     block_size: int) -> torch.Tensor:
+    """Both designs as one op the dispatcher sees (the byte counter, the flop
+    counter and the lint's program recorder), the shape rule choosing
+    between them inside it."""
     cluster = cluster_design(q.dtype, q.shape[3])
     out = _launch(q, k_pool, v_pool, li, tables, lengths, block_size, cluster)
     paged_decode_attention.launches += 1
@@ -225,7 +239,9 @@ def paged_decode_attention(q, k_pool, v_pool, li, tables, lengths, *,
     return out
 
 
-paged_decode_attention.launches = paged_decode_attention.cluster_launches = 0
+@_paged_decode_op.register_fake
+def _(q, k_pool, v_pool, li, tables, lengths, block_size):
+    return torch.empty_like(q)
 
 
 def _lib():

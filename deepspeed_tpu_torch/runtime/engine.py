@@ -129,6 +129,7 @@ from ..resilience.async_ckpt import AsyncCheckpointer
 from ..resilience.auto_resume import auto_resume
 from ..utils import log_dist, logger
 from ..utils.cluster import named_scope as ds_named_scope
+from ..utils.op_record import dtype_name
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer, device_sync
 from .activation_checkpointing import checkpointing as act_ckpt
 from .config import DeepSpeedConfig
@@ -211,6 +212,14 @@ def make_engine(args=None, model=None, optimizer=None, model_parameters=None,
                            lr_scheduler=lr_scheduler, mpu=mpu,
                            dist_init_required=dist_init_required, collate_fn=collate_fn,
                            config_params=config_params, device=device)
+
+
+def _accumulate(acc, grads):
+    """Add one micro-batch's grads into the accumulator in place, in the
+    accumulator's dtype (``a + g.astype(acc_dtype)``)."""
+    for a, g in zip(acc, grads):
+        a.add_(g)
+    return acc
 
 
 class DeepSpeedEngine:
@@ -876,8 +885,7 @@ class DeepSpeedEngine:
             if self._grad_acc is None:
                 self._grad_acc = [g.to(self._acc_dtype) for g in grads]
             else:
-                for a, g in zip(self._grad_acc, grads):
-                    a.add_(g)   # in the accumulator's dtype: a + g.astype(acc_dtype)
+                _accumulate(self._grad_acc, grads)
         self._window_losses.append(self._pending_loss.detach())
         self._pending_loss = None
         self.micro_steps += 1
@@ -1607,7 +1615,95 @@ class DeepSpeedEngine:
         return report
 
     def lint_programs(self, sample_batch):
-        raise _later("lint_programs", "item 23")
+        """``[(name, fn, args, manifest)]`` for every program on this engine's
+        ACTIVE step path, with the manifests the program lint passes check
+        (lint/program_passes.py; deepspeed_tpu/runtime/engine.py:1591-1753):
+
+        - ``loss_and_grad``: one micro-batch's forward and backward (its
+          grads in ``grad_dtype``, reduced over the ranks);
+        - ``accumulate`` (gas > 1): the grads added into the accumulator in
+          place;
+        - ``apply_update``: the update on the accumulator; parameters,
+          master and optimizer state in place;
+        - ``fused_step`` on the fused path, in place of the three;
+        - ``offload_step`` under ZeRO-Offload, in place of the update: the
+          host tier's step, which writes the parameters back in place.
+
+        At dp = 1 no large collective may appear; at dp > 1 the backward
+        reduces in exactly ``grad_dtype`` (the port issues ``reduce_scatter``
+        for the leaves ZeRO >= 2 shards and ``all_reduce`` for the others,
+        both reductions) and the update re-gathers the parameters in the
+        compute dtype where the master is sliced. Budgets count only results
+        above 256 elements, so the norm's scalar all-reduces ride free.
+
+        Capturing a program runs it once: the registry builds throwaway
+        engines for that (lint/registry.py). The update programs take a zero
+        accumulator of the real one's layout."""
+        batch = tuple(self._to_device(x) for x in sample_batch)
+        compute = dtype_name(self.compute_dtype)
+        grad_dt = dtype_name(self._grad_dtype)
+        dp = self.dp_size
+        red = {"min": 1, "dtypes": [grad_dt]} if dp > 1 else {"max": 0}
+        scattered = dp > 1 and any(a is not None for a in self._axes)
+        gather_gate = ({"all-gather": {"min": 1, "dtypes": [compute]}}
+                       if scattered else {})
+
+        def state(*classes):
+            getters = {"params": lambda: list(self._params),
+                       "master": lambda: list(self._master or ()),
+                       "optimizer": lambda: [t for t in pytree.tree_leaves(self.opt_state)
+                                             if isinstance(t, torch.Tensor)]}
+            if self._external_master:
+                classes = [c for c in classes if c == "optimizer"]
+            return {c: getters[c] for c in classes}
+
+        def man(inplace=(), inplace_args=(), **kw):
+            return dict({"compute_dtype": compute, "strict": True,
+                         "donation": {"check_unusable": True, "inplace": dict(inplace),
+                                      "inplace_args": list(inplace_args)}}, **kw)
+
+        def acc_like(dtype):
+            return [torch.zeros(m.shape if a is not None else p.shape, dtype=dtype,
+                                device=self.device)
+                    for p, m, a in zip(self._params,
+                                       self._master if self._master is not None
+                                       else self._params, self._grad_axes)]
+
+        def loss_and_grad(*b):
+            loss = self._fwd(*b)
+            return loss.detach(), self._micro_grads(loss)
+
+        lg = ("loss_and_grad", loss_and_grad, batch,
+              man(any_reduction=red, collectives={}))
+        if self._offload is not None:
+            def offload_step(acc):
+                self._grad_acc = acc
+                try:
+                    return self._offload_step()
+                finally:
+                    self._grad_acc = None
+            return [lg, ("offload_step", offload_step, (acc_like(self._acc_dtype),),
+                         man(state("params"), any_reduction={"max": 0},
+                             collectives=gather_gate))]
+        if self._use_fused():
+            def fused_step(*b):
+                try:
+                    return self._fused_forward(*b)
+                finally:
+                    self._fused_pending = self._pending_loss = None
+                    self._pending_is_fused = False
+            return [("fused_step", fused_step, batch,
+                     man(state("params", "master", "optimizer"), any_reduction=red,
+                         collectives=gather_gate))]
+        progs = [lg]
+        acc = acc_like(self._acc_dtype)
+        if self.gradient_accumulation_steps() > 1:
+            progs.append(("accumulate", _accumulate,
+                          (acc, acc_like(self._grad_dtype)),
+                          man(inplace_args=acc, collectives={})))
+        progs.append(("apply_update", self._update, (acc,),
+                      man(state("params", "master", "optimizer"), collectives=gather_gate)))
+        return progs
 
     def memory_manifest(self):
         """deepspeed_tpu/runtime/engine.py:1754-1830: every persistent

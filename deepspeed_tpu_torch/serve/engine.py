@@ -43,8 +43,8 @@ names (``serve:decode_step``, ``serve:prefill_chunk``, ``serve:spec_verify``,
 ``serve:spec_draft_*``); every iteration emits the ``Serving/*`` scalars and,
 with the request tracer, closes the session's step with its latency summary.
 
-Not in this slice of the port (each raises, naming the ROADMAP.md item that
-brings it): head-sharded serving, and the lint and memory manifests.
+Not in this slice of the port (it raises, naming the ROADMAP.md item that
+brings it): head-sharded serving.
 """
 
 import time
@@ -55,8 +55,17 @@ import torch
 from .block_allocator import NULL_BLOCK
 from .paged import (EagerProgram, GraphedProgram, build_paged_programs, serving_params,
                     stage)
+from ..utils.op_record import dtype_name
 from .request_trace import RequestTracer
 from .scheduler import RequestOutput, Scheduler
+
+
+def _lint_manifest(compute, k_pool, v_pool):
+    """A serving program's lint manifest: the pools in place, no copy of a
+    pool-sized input, no large collective."""
+    return {"compute_dtype": compute, "strict": True, "any_reduction": {"max": 0},
+            "donation": {"check_unusable": True, "min_undonated_bytes": 1024,
+                         "inplace_args": [k_pool, v_pool]}}
 
 
 def _later(what, where):
@@ -928,9 +937,45 @@ class InferenceEngine:
                 self.tracer.on_submit(r)
         self._start_wall = None
 
-    # ---------------------------------------------------- later slices
+    # ------------------------------------------------------------------ lint
     def lint_programs(self, sample_batch=None):
-        raise _later("InferenceEngine.lint_programs", "ROADMAP.md item 23 (lint)")
+        """``(name, fn, args, manifest)`` for the lint registry, the runtime
+        engine's contract (deepspeed_tpu/serve/engine.py:898-961): the raw
+        ``decode_step``, ``prefill_chunk`` and ``copy_blocks`` (and under
+        speculation ``spec_verify`` and the draft's programs), run eagerly on
+        fresh zero pools and all-zero inputs (every lane inactive: the writes
+        go to the null page), never through the CUDA graphs. The manifests:
+        the pools are updated in place, no pool-sized input may be copied
+        (``min_undonated_bytes``), and a single-card program carries no large
+        collective."""
+        c = self.model.config
+        S, MB, C, P = (self.num_slots, self.max_blocks, self.prefill_chunk,
+                       self.copy_width)
+        dev = self.device
+        kp, vp = torch.zeros_like(self.k_pool), torch.zeros_like(self.v_pool)
+        manifest = _lint_manifest(dtype_name(c.compute_dtype), kp, vp)
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        entries = [
+            ("serve_decode_step", self._raw["decode_step"],
+             (self.params, zeros(S), zeros(S), zeros(S, MB), zeros(S, dtype=torch.bool),
+              kp, vp), manifest),
+            ("serve_prefill_chunk", self._raw["prefill_chunk"],
+             (self.params, zeros(1, C), zeros(), torch.ones((), dtype=torch.int32, device=dev),
+              zeros(MB), kp, vp), manifest),
+            ("serve_copy_blocks", self._raw["copy_blocks"],
+             (kp, vp, zeros(P), zeros(P)), manifest),
+        ]
+        if self._spec is not None:
+            D = self.spec_k + 1
+            entries.append(
+                ("serve_spec_verify", self._raw["spec_verify"],
+                 (self.params, zeros(S, D), zeros(S), zeros(S), zeros(S, MB),
+                  zeros(S, dtype=torch.bool), kp, vp), manifest))
+            entries.extend(self._spec.lint_programs())
+        return entries
 
     def memory_manifest(self):
         """deepspeed_tpu/serve/engine.py:962: the serving engine's persistent
@@ -943,7 +988,12 @@ class InferenceEngine:
         from torch.utils import _pytree as pytree
 
         def leaves(tree):
-            return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+            # each storage once: a float32 engine's lm_head is its wte itself
+            out = {}
+            for t in pytree.tree_leaves(tree):
+                if isinstance(t, torch.Tensor):
+                    out.setdefault((t.device, t.untyped_storage().data_ptr()), t)
+            return list(out.values())
 
         c = self.model.config
         itemsize = torch.empty((), dtype=c.compute_dtype).element_size()

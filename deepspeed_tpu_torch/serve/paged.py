@@ -90,6 +90,14 @@ def stage(a, dtype, device):
     return t
 
 
+def graph_captured(fn):
+    """Mark ``fn`` as a program a CUDA graph may capture. ``GraphedProgram``
+    captures nothing else, so the marked functions are exactly the roots
+    the lint's captured-code passes scan (lint/ast_passes.py)."""
+    fn.graph_captured = True
+    return fn
+
+
 def build_paged_programs(model, *, num_slots, block_size, max_blocks,
                          prefill_chunk, use_pallas=False, verify_width=0):
     """Program dict for one engine: ``decode_step``, ``prefill_chunk``,
@@ -120,6 +128,7 @@ def build_paged_programs(model, *, num_slots, block_size, max_blocks,
         return torch.full((), NULL_BLOCK, device=dev, dtype=torch.long)
 
     # ---------------------------------------------------------------- decode
+    @graph_captured
     @torch.no_grad()
     def decode_step(p, toks, pos, tables, active, k_pool, v_pool):
         """One token for every slot: toks/pos/active are [S] (int32, int32,
@@ -154,6 +163,7 @@ def build_paged_programs(model, *, num_slots, block_size, max_blocks,
         return m.logits(x[:, -1], p)
 
     # --------------------------------------------------------------- prefill
+    @graph_captured
     @torch.no_grad()
     def prefill_chunk_fn(p, toks, pos, n_valid, table, k_pool, v_pool):
         """One chunk of ONE sequence's prompt: toks [1, C] padded past
@@ -194,6 +204,7 @@ def build_paged_programs(model, *, num_slots, block_size, max_blocks,
         return m.logits(x.index_select(1, last)[:, 0], p)
 
     # ---------------------------------------------------- speculative verify
+    @graph_captured
     @torch.no_grad()
     def spec_verify(p, toks, pos0, n_valid, tables, active, k_pool, v_pool):
         """Score a drafted continuation for every slot in one step: ``toks``
@@ -375,6 +386,9 @@ class GraphedProgram:
     what its capture added to the graph pool (``memory_reserved``)."""
 
     def __init__(self, fn, name, inputs, params, k_pool, v_pool, pool):
+        if not getattr(fn, "graph_captured", False):
+            raise ValueError(f"{name}: only a function marked @graph_captured is "
+                             "captured (the lint scans exactly those)")
         self.name = name
         self._fixed = (params, k_pool, v_pool)
         dev = k_pool.device

@@ -36,6 +36,7 @@ latest-admitted-first victim policy are untouched.
 import numpy as np
 import torch
 
+from ..utils.op_record import dtype_name
 from .block_allocator import AllocationError, BlockAllocator, NULL_BLOCK
 from .paged import build_paged_programs
 
@@ -129,6 +130,28 @@ class SpeculativeDecoder:
         # instance (a preempt-restart re-admits under a new admission_idx),
         # so stale state can never alias a restarted request
         self._state = {}
+
+    def lint_programs(self):
+        """The draft's programs for the lint registry, on fresh zero pools,
+        with the serving manifest (deepspeed_tpu/serve/speculative.py:251)."""
+        from .engine import _lint_manifest
+        dc = self.model.config
+        S, MB, C = self.num_slots, self.max_blocks, self.prefill_chunk
+        kp, vp = torch.zeros_like(self.k_pool), torch.zeros_like(self.v_pool)
+        manifest = _lint_manifest(dtype_name(dc.compute_dtype), kp, vp)
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        return [
+            ("serve_spec_draft_decode", self._raw["decode_step"],
+             (self.params, zeros(S), zeros(S), zeros(S, MB), zeros(S, dtype=torch.bool),
+              kp, vp), manifest),
+            ("serve_spec_draft_prefill", self._raw["prefill_chunk"],
+             (self.params, zeros(1, C), zeros(),
+              torch.ones((), dtype=torch.int32, device=self.device), zeros(MB), kp, vp),
+             manifest),
+        ]
 
     # ----------------------------------------------------------- group state
     @staticmethod

@@ -14,9 +14,12 @@ is none, so the exposed collective time is 0. With the roofline floors
 exposed collective seconds, the predicted step floor and the MFU ceiling.
 
 ``opportunities``, ``program_schedule_events``, ``to_anatomy_trace_events``
-are copied; ``anatomy_main`` renders saved reports. What reads the lint
-registry (``comm_compare``, ``_registry_slice_sets``, the registry sweep)
-waits for item 23 (ROADMAP.md).
+are copied; ``anatomy_main`` renders saved reports, or sweeps the lint
+registry (``registry_reports``: each program of each ported entry run once
+under the flop and byte counters). The flat-against-hierarchical comparison
+across entries (``comm_compare``, ``_registry_slice_sets``) comes with the
+communication modes' entries (ROADMAP.md item 18): every ported entry runs
+at one rank.
 """
 
 import argparse
@@ -213,16 +216,44 @@ def to_anatomy_trace_events(reports):
                           trace_version=ANATOMY_REPORT_VERSION)
 
 
+def registry_reports(entries=None, spec=None, device="cuda"):
+    """``(reports, errors)``: ``analyze_program`` of every program of the
+    lint registry's entries (default: the ported ones), each run once under
+    the flop and byte counters (``utils/flops_profiler.py`` ``count``) on
+    ``device``; no trace window, so no measured collective rows."""
+    from ..lint import registry
+    from .flops_profiler import count
+    reports, errors = [], []
+    for entry in (list(entries) if entries else registry.PORTED):
+        try:
+            engine, batch = registry.build_entry(entry, device)
+            for name, fn, args, _man in engine.lint_programs(batch):
+                _, flops, nbytes, _ = count(fn, *args)
+                reports.append(analyze_program({"flops": flops, "hbm_bytes": nbytes}, spec,
+                                               name=f"{entry}:{name}"))
+        except Exception as e:      # one entry's failure is reported, not fatal
+            errors.append(f"{entry}: capture failed: {e!r}")
+    return reports, errors
+
+
 def anatomy_main(argv=None):
-    """Render saved anatomy reports: ``--report PATH`` is a JSON list of
-    ``analyze_program`` reports (or ``{"programs": [...]}``); prints each
-    program's floor and the opportunities, writes ``--timeline`` (the
-    predicted schedule) and ``--out`` (the JSON report). The registry sweep
-    waits for the lint registry (ROADMAP.md item 23)."""
+    """The anatomy report: ``--report PATH`` renders saved ``analyze_program``
+    reports (a JSON list, or ``{"programs": [...]}``); without it, the
+    sweep over the lint registry's programs (``--entry``, ``--device``,
+    priced by ``--chip``). Prints each program's floor and the
+    opportunities, writes ``--timeline`` (the predicted schedule) and
+    ``--out`` (the JSON report). Exit 1 when an entry fails to capture."""
     parser = argparse.ArgumentParser(
         prog="anatomy", description="roofline ledger and measured overlap per program")
-    parser.add_argument("--report", metavar="PATH", required=True,
-                        help="saved analyze_program reports (JSON)")
+    parser.add_argument("--report", metavar="PATH",
+                        help="saved analyze_program reports (JSON); default: sweep the "
+                             "lint registry")
+    parser.add_argument("--entry", action="append", metavar="NAME",
+                        help="limit the sweep to a lint-registry entry (repeatable)")
+    parser.add_argument("--device", default="cuda",
+                        help="device of the sweep's engines (default: cuda)")
+    parser.add_argument("--chip", default="",
+                        help="chip spec to price against ('' detects the card)")
     parser.add_argument("--json", action="store_true",
                         help="emit the full report as JSON on stdout")
     parser.add_argument("--out", metavar="PATH", help="also write the JSON report to PATH")
@@ -233,17 +264,24 @@ def anatomy_main(argv=None):
                         help="ignore zero-overlap collectives below this wire size "
                              "(default: %(default)s)")
     args = parser.parse_args(argv)
-    with open(args.report) as f:
-        saved = json.load(f)
-    reports = sorted(saved["programs"] if isinstance(saved, dict) else saved,
-                     key=lambda r: r["name"])
+    errors = []
+    if args.report:
+        with open(args.report) as f:
+            saved = json.load(f)
+        reports = saved["programs"] if isinstance(saved, dict) else saved
+    else:
+        from .logging import log_to_stderr
+        from .roofline import resolve_spec
+        log_to_stderr()      # stdout belongs to the report
+        reports, errors = registry_reports(args.entry, resolve_spec(args.chip), args.device)
+    reports = sorted(reports, key=lambda r: r["name"])
     report = {
         "version": ANATOMY_REPORT_VERSION,
         "kind": ANATOMY_REPORT_KIND,
         "programs": [_program_json(r) for r in reports],
         "opportunities": opportunities(reports, min_bytes=args.opportunity_min_bytes),
-        "errors": [],
-        "ok": True,
+        "errors": sorted(errors),
+        "ok": not errors,
     }
     text = json.dumps(report, indent=2, sort_keys=True) + "\n"
     if args.out:
@@ -266,9 +304,11 @@ def anatomy_main(argv=None):
             print(f"OPPORTUNITY {o['program']}#{o['instruction']}: {o['op']} "
                   f"({o['level']}, {o['bytes']} B, {o['exposed_us']}us "
                   f"exposed) — {o['hint']}")
+        for e in report["errors"]:
+            print(f"ERROR {e}")
         print(f"{len(report['programs'])} program(s), "
               f"{len(report['opportunities'])} opportunity(ies)")
-    return 0
+    return 0 if report["ok"] else 1
 
 
 if __name__ == "__main__":

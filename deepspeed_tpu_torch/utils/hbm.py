@@ -22,9 +22,15 @@ card's memory (``torch.cuda.mem_get_info``, or ``budget_gib``);
 of ``torch.cuda.memory._snapshot()`` on the card. ``hbm_main`` renders,
 diffs and forecasts reports on disk.
 
-Left out, with their reasons: the lint-registry sweep (``sweep_entry``,
-``sweep_registry``, JAX lines 482-551) waits for the lint registry (ROADMAP.md
-item 23); ``forecast_round5`` (JAX line 410) re-derives a TPU v5e round's
+``sweep_entry`` / ``sweep_registry`` run the same over the lint registry's
+engines (``lint/registry.py``), each program recorded once at the
+dispatcher (``lint/program_passes.py``): per program, the bytes of each
+manifest class its ops touched and of the arguments outside every class,
+and on the card the allocator's peak over the call above what it leaves
+(``temp_size_in_bytes``), where the JAX function reads the optimized entry
+layout and ``memory_analysis``.
+
+Left out: ``forecast_round5`` (JAX line 410) re-derives a TPU v5e round's
 measured OOM frontier, a TPU's numbers.
 """
 
@@ -39,6 +45,7 @@ from torch.utils import _pytree as pytree
 
 HBM_REPORT_VERSION = 1
 HBM_REPORT_KIND = "hbm_engine_report"
+HBM_SWEEP_KIND = "hbm_report"
 
 # live-vs-modeled reconciliation gate: relative slack for real divergence
 # (scalar optimizer fields, padding), absolute slack so tiny classes aren't
@@ -413,6 +420,115 @@ def engine_report(engine, rel_tol=HBM_REL_TOL, abs_tol=HBM_ABS_TOL) -> Dict[str,
             "measured": device_memory_stats(), "reconciled": ok, "ok": ok}
 
 
+def _storage_keys(tree):
+    return {(str(t.device), t.untyped_storage().data_ptr()): t.untyped_storage().nbytes()
+            for t in _leaves(tree) if t.device.type != "meta"}
+
+
+def program_attribution(artifact, manifest) -> Dict[str, Any]:
+    """The memory a recorded program touched (``lint/program_passes.py``
+    ``ProgramArtifact``): ``by_class`` the bytes of each manifest class, its
+    live tensors counted where the program's ops read or wrote their
+    storage, then its arguments by (dtype, shape) signature against each
+    class's leaves, as the JAX module's ``classify_program`` signs an entry
+    layout (a serving program's fresh pools are ``kv_pool``);
+    ``other_bytes`` the arguments no class claims; ``parameter_bytes`` both."""
+    from .op_record import storage_key
+    prog = artifact.program
+    touched = {t.storage for r in prog.ops for t in r.inputs + r.outputs}
+    touched |= {a.storage for a in prog.args}
+    ordinal = prog.storages
+    classes = manifest.get("classes") or {}
+    signatures, _ = manifest_signatures(manifest)
+    remaining = {cls: Counter(sig) for cls, sig in signatures.items()}
+    by_class, claimed = {cls: 0 for cls in classes}, set()
+    for cls, tree in classes.items():
+        for t in _leaves(tree):
+            key = storage_key(t) if t.device.type != "meta" else None
+            if key is None or key in claimed or ordinal.get(key) not in touched:
+                continue
+            claimed.add(key)
+            dt, shape, _ = leaf_signature(t)
+            remaining[cls][(dt, shape)] -= 1
+            by_class[cls] += t.untyped_storage().nbytes()
+    other = 0
+    for key, a in zip(prog.arg_keys, prog.args):
+        if key in claimed:
+            continue
+        claimed.add(key)
+        cls = next((c for c in remaining if remaining[c][(a.dtype, a.shape)] > 0), None)
+        if cls is None:
+            other += a.nbytes
+        else:
+            remaining[cls][(a.dtype, a.shape)] -= 1
+            by_class[cls] += a.nbytes
+    return {"by_class": by_class, "other_bytes": other,
+            "parameter_bytes": sum(by_class.values()) + other}
+
+
+def sweep_entry(entry, builders=None, device="cuda", rel_tol=HBM_REL_TOL,
+                abs_tol=HBM_ABS_TOL) -> Dict[str, Any]:
+    """Live + modeled attribution of one lint-registry entry, with each of
+    its programs' attribution (``program_attribution``) and, on the card,
+    its temp bytes."""
+    from ..lint.program_passes import ProgramArtifact
+    if builders is None:
+        from ..lint.registry import BUILDERS as builders
+    engine, batch = builders[entry](device)
+    manifest = engine.memory_manifest()
+    _, class_bytes = manifest_signatures(manifest)
+    programs = {}
+    for name, fn, args, man in engine.lint_programs(batch):
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        artifact = ProgramArtifact.capture(f"{entry}:{name}", fn, args, man)
+        rep = program_attribution(artifact, manifest)
+        rep["measured"] = ({"temp_size_in_bytes": max(torch.cuda.max_memory_allocated()
+                                                      - torch.cuda.memory_allocated(), 0)}
+                           if cuda else {})
+        programs[name] = rep
+    live = measure_classes(manifest)
+    geometry = dict(manifest.get("geometry") or {})
+    modeled = modeled_classes(geometry) if geometry else {}
+    classes, ok = reconcile(live, modeled, class_bytes, rel_tol=rel_tol, abs_tol=abs_tol)
+    return {
+        "geometry": geometry,
+        "classes": classes,
+        "programs": programs,
+        "activations": {"measured_temp_bytes_max": max(
+            (p["measured"].get("temp_size_in_bytes", 0) for p in programs.values()),
+            default=0)},
+        "reconciled": ok,
+    }
+
+
+def sweep_registry(entries=None, device="cuda", rel_tol=HBM_REL_TOL,
+                   abs_tol=HBM_ABS_TOL) -> Dict[str, Any]:
+    """The sweep over the lint registry (default: every ported entry; the
+    others are listed under ``skipped``)."""
+    from ..lint.registry import PORTED, UNPORTED
+    names = list(entries) if entries else PORTED
+    out_entries, errors = {}, []
+    for entry in names:
+        try:
+            out_entries[entry] = sweep_entry(entry, device=device, rel_tol=rel_tol,
+                                             abs_tol=abs_tol)
+        except Exception as e:      # one entry's failure is reported, not fatal
+            errors.append(f"{entry}: sweep failed: {e!r}")
+    drift = sorted(e for e, rep in out_entries.items() if not rep["reconciled"])
+    return {
+        "version": HBM_REPORT_VERSION,
+        "kind": HBM_SWEEP_KIND,
+        "tolerance": {"rel": rel_tol, "abs": abs_tol},
+        "entries": out_entries,
+        "skipped": {} if entries else dict(UNPORTED),
+        "drift_entries": drift,
+        "errors": sorted(errors),
+        "ok": not errors and not drift,
+    }
+
+
 def stable_projection(report) -> Dict[str, Any]:
     """The pinnable slice of a report: per-class live/modeled bytes and
     verdicts, without the allocator's watermarks (they move with the
@@ -481,8 +597,9 @@ def hbm_main(argv=None):
     """The memory observatory's CLI over reports on disk: ``--report PATH``
     renders an engine report (``engine_report``, saved as JSON), ``--diff A
     B`` gates two of them, ``--forecast CONFIG.json`` predicts a training
-    config's peak. Exit 1 on drift or a regression. The registry sweep
-    waits for the lint registry (ROADMAP.md item 23)."""
+    config's peak; with none of them, the sweep over the lint registry
+    (``--entry``, ``--device``). Exit 1 on drift, a failed entry or a
+    regression."""
     parser = argparse.ArgumentParser(
         prog="hbm", description="memory attribution: live vs modeled per class; "
                                 "offline OOM feasibility forecasts")
@@ -499,6 +616,11 @@ def hbm_main(argv=None):
     parser.add_argument("--diff", nargs=2, metavar=("OLD", "NEW"),
                         help="compare two reports; exit 1 on byte growth beyond "
                              "tolerance")
+    parser.add_argument("--entry", action="append", metavar="NAME",
+                        help="limit the registry sweep to a lint-registry entry "
+                             "(repeatable; default: every ported entry)")
+    parser.add_argument("--device", default="cuda",
+                        help="device of the registry sweep's engines (default: cuda)")
     args = parser.parse_args(argv)
 
     if args.diff:
@@ -515,7 +637,9 @@ def hbm_main(argv=None):
     elif args.report:
         report = _load_json(args.report)
     else:
-        parser.error("one of --report, --diff or --forecast is required")
+        from .logging import log_to_stderr
+        log_to_stderr()      # stdout belongs to the report
+        report = sweep_registry(args.entry, device=args.device, rel_tol=args.tolerance)
 
     text = json.dumps(report, indent=2, sort_keys=True) + "\n"
     if args.out:
@@ -545,6 +669,16 @@ def _print_report(report):
         for d in report.get("fitting_deltas", []):
             print(f"  delta: {d['change']} -> {d['value']} "
                   f"({d['predicted_peak_bytes'] / GIB:.3f} GiB)")
+    elif kind == HBM_SWEEP_KIND:
+        for entry, rep in sorted(report["entries"].items()):
+            print(f"[{'ok' if rep['reconciled'] else 'DRIFT'}] {entry}")
+            for cls, row in sorted(rep["classes"].items()):
+                print(f"  {cls:<14} live {row['parsed_bytes']:>14,} B  "
+                      f"modeled {row['modeled_bytes']:>14,} B  [{row['status']}]")
+        for entry, item in sorted(report.get("skipped", {}).items()):
+            print(f"skipped {entry} ({item})")
+        for e in report["errors"]:
+            print(f"ERROR {e}")
     elif kind == "hbm_diff":
         for r in report["regressions"]:
             print(f"REGRESSION {r}")

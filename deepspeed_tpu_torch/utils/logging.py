@@ -49,3 +49,11 @@ def log_dist(message: str, ranks: Optional[Iterable[int]] = None, level: int = l
     should_log = not ranks or (-1 in ranks) or (my_rank in ranks)
     if should_log:
         logger.log(level, f"[Rank {my_rank}] {message}")
+
+
+def log_to_stderr() -> None:
+    """Move the logger's stdout handler to stderr: a command whose stdout is
+    its report (``--json > out.json``) keeps engine-build lines out of it."""
+    for h in logger.handlers:
+        if isinstance(h, logging.StreamHandler) and h.stream is sys.stdout:
+            h.stream = sys.stderr

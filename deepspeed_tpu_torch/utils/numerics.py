@@ -20,12 +20,15 @@ recorder (PyTorch port of ``deepspeed_tpu/utils/numerics.py``).
    block (``utils/hbm.py`` ``oom_forensics``); copied host code.
 4. ``NumericsMonitor`` (JAX lines 441-616): the host coordinator, copied.
 5. The dump reader (JAX lines 618-734) for auto-resume
-   (``resilience/auto_resume.py``) and the cluster post-mortem.
+   (``resilience/auto_resume.py``) and the cluster post-mortem, and its
+   command line ``inspect_dump_main`` (``ds-tpu-torch inspect-dump``; JAX
+   lines 737-826), copied.
 
 This module performs no host synchronisation of its own: the device helpers
 return tensors, and the host parts read values the engine already fetched.
 """
 
+import argparse
 import atexit
 import json
 import math
@@ -767,3 +770,94 @@ def summarize_dump(bundle):
                         and (e.get("payload") or {}).get("divergence")), None),
         "compile_records": bundle.get("compile_records", []),
     }
+
+
+def _inspect_dump_dir(dump_dir, run, as_json):
+    """Directory mode: merge the newest run's per-host dumps into one view."""
+    run_key, by_host = load_run_bundles(dump_dir, run=run)
+    if not by_host:
+        print(f"no flight-recorder dumps in {dump_dir}"
+              + (f" for run '{run}'" if run else ""))
+        return 2
+    fb_step, fb_host = merge_first_bad(by_host)
+    summaries = {h: summarize_dump(by_host[h]) for h in sorted(by_host)}
+    if as_json:
+        print(json.dumps({
+            "run": run_key,
+            "hosts": {str(h): summaries[h] for h in summaries},
+            "first_bad_step": fb_step,
+            "first_bad_host": fb_host,
+        }, indent=2, default=float))
+        return 0
+    print(f"numerics post-mortem: {dump_dir} "
+          f"(run '{run_key}', {len(by_host)} host(s))")
+    print(f"  first bad step : {fb_step}")
+    print(f"  first bad host : {fb_host}")
+    for h in sorted(summaries):
+        s = summaries[h]
+        print(f"  host {h:<4}: reason={s['reason']} "
+              f"first_bad_step={s['first_bad_step']} "
+              f"subtree={s['offending_subtree']} "
+              f"steps={s['steps_recorded']} events={s['events_recorded']}")
+    return 0
+
+
+def inspect_dump_main(argv=None):
+    """Entry point for `ds-tpu-torch inspect-dump <dump.json | dump_dir>`."""
+    parser = argparse.ArgumentParser(
+        prog="ds-tpu-torch inspect-dump",
+        description="Summarize a numerics flight-recorder post-mortem bundle, "
+                    "or merge a directory of per-host dumps.")
+    parser.add_argument("dump", help="path to a numerics_dump_*.json bundle, "
+                                     "or a dump directory of per-host bundles")
+    parser.add_argument("--run", default=None,
+                        help="directory mode: inspect this run instead of the "
+                             "newest one")
+    parser.add_argument("--json", action="store_true",
+                        help="print the machine-readable summary instead")
+    args = parser.parse_args(argv)
+
+    if os.path.isdir(args.dump):
+        return _inspect_dump_dir(args.dump, args.run, args.json)
+
+    with open(args.dump) as f:
+        bundle = json.load(f)
+    s = summarize_dump(bundle)
+
+    if args.json:
+        print(json.dumps(s, indent=2, default=float))
+        return 0
+
+    print(f"numerics post-mortem: {args.dump}")
+    print(f"  trigger reason    : {s['reason']}")
+    if s["detail"]:
+        print(f"  trigger detail    : {s['detail']}")
+    print(f"  host              : {s['host']}")
+    print(f"  first bad step    : {s['first_bad_step']}")
+    print(f"  offending subtree : {s['offending_subtree']}")
+    print(f"  steps recorded    : {s['steps_recorded']}")
+    print(f"  events recorded   : {s['events_recorded']}")
+    if s.get("span"):
+        sp = s["span"]
+        mono = float(sp.get("mono_end", 0.0)) - float(sp.get("mono_start", 0.0))
+        print(f"  step span         : steps {sp.get('first_step')}"
+              f"..{sp.get('last_step')} over {mono:.3f}s "
+              f"({sp.get('steps_spanned')} interval(s))")
+    if s["desync"]:
+        d = s["desync"]
+        print(f"  DESYNC            : subtree '{d.get('subtree')}' on replicas "
+              f"{d.get('diverging_replicas')}")
+    traj = s["loss_scale_trajectory"]
+    if traj:
+        print("  loss-scale trajectory (step, scale):")
+        shown = traj if len(traj) <= 16 else traj[:8] + traj[-8:]
+        for step, scale in shown:
+            print(f"    {step:>8}  {scale}")
+        if len(traj) > 16:
+            print(f"    ... ({len(traj)} points total)")
+    if s["compile_records"]:
+        print("  compile records:")
+        for rec in s["compile_records"]:
+            print(f"    {rec['program']}: {rec['count']} run(s), "
+                  f"{rec['compile_seconds']:.3f}s compile")
+    return 0

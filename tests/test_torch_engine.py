@@ -244,9 +244,13 @@ def test_unported_arguments_and_methods_raise():
     with pytest.raises(NotImplementedError, match="item 16"):
         deepspeed_tpu_torch.initialize(model=PipelineModule(), config_params=cfg,
                                        device="cpu")
+    # the lint hook is ported: the active path's programs, with manifests
     eng = DeepSpeedEngine(model=_Quadratic(), config_params=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        eng.lint_programs(None)
+    progs = eng.lint_programs((torch.ones(1, 4),))
+    assert [name for name, *_ in progs] == ["loss_and_grad", "apply_update"]
+    assert all(man["strict"] and man["any_reduction" if name == "loss_and_grad"
+                                      else "collectives"] is not None
+               for name, _, _, man in progs)
 
 
 def test_eval_runs_without_grad_and_add_config_arguments():

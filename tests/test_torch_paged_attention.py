@@ -107,6 +107,29 @@ def test_masked_positions_do_not_count():
     assert not np.array_equal(got[s].numpy(), base[s].numpy())
 
 
+def test_kernel_is_a_dispatcher_op_and_the_cpu_path_is_unchanged():
+    """Both CUDA designs sit behind ``deepspeed_tpu_torch::paged_decode``,
+    whose fake kernel gives the output's shape; CPU tensors take the plain
+    version without the op (no op dispatched, no launch counted), bit for
+    bit the plain function."""
+    import torch
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    from deepspeed_tpu_torch.utils import op_record
+    op = torch.ops.deepspeed_tpu_torch.paged_decode
+    q, kp, vp, tables, lengths = (_torch(a) for a in _inputs())
+    meta = [t.to("meta") for t in (q, kp, vp, tables, lengths)]
+    out = op(meta[0], meta[1], meta[2], 0, meta[3], meta[4], BS)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    counts = (pa.paged_decode_attention.launches, pa.paged_decode_attention.cluster_launches)
+    prog = op_record.record(lambda: paged_decode_attention(q, kp, vp, 0, tables, lengths,
+                                                            block_size=BS))
+    assert op_record.kernel_counts(prog) == {}
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_decode_attention.cluster_launches) == counts
+    ref = pa.paged_decode_reference(q, kp, vp, 0, tables, lengths, block_size=BS)
+    assert torch.equal(prog.result, ref)
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "tables", "device"])
 def test_wrapper_refuses_bad_inputs(bad):
     q, kp, vp, tables, lengths = (_torch(a) for a in _inputs())

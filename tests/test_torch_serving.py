@@ -268,8 +268,9 @@ def test_engine_refuses_later_slices(models, serving, error, match):
 def test_engine_refuses_mirror_telemetry_and_warm_restart(models):
     """The mirror with the prefix cache and a snapshot of another geometry are
     refused with the JAX package's words; telemetry is accepted (the
-    observatories slice); the lint manifest is a later slice (item 23), the
-    memory manifest is ported (tests/test_torch_hbm.py holds its bytes)."""
+    observatories slice); the lint programs (tests/test_torch_lint_programs.py
+    checks them) and the memory manifest (tests/test_torch_hbm.py holds its
+    bytes) are ported."""
     from deepspeed_tpu_torch.serve.engine import InferenceEngine
     _, _, tm = models
     geo = dict(num_slots=S, block_size=BS, num_blocks=NB, max_model_len=ML,
@@ -282,8 +283,8 @@ def test_engine_refuses_mirror_telemetry_and_warm_restart(models):
     assert InferenceEngine(tm, telemetry=session, **geo).telemetry is session
     session.close()
     eng = InferenceEngine(tm, **geo)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        eng.lint_programs()
+    assert [name for name, *_ in eng.lint_programs()] == [
+        "serve_decode_step", "serve_prefill_chunk", "serve_copy_blocks"]
     assert set(eng.memory_manifest()["classes"]) == {"params", "kv_pool"}
     with pytest.raises(ValueError, match="geometry does not match"):
         eng.load_state_dict({"geometry": dict(eng.geometry(), num_blocks=NB + 1)})
