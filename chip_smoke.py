@@ -185,7 +185,16 @@ result line):
    a profiler window of one step; then the same model without remat (the
    kernel-vs-plain check at 2 layers, and 5 steps with the forward once a
    layer) and with dense flash attention for 6 steps, for the sparse/dense
-   step ratio;
+   step ratio; ``[onebit-long]`` — the same model at full size (12 layers,
+   remat "dots") with 1-bit Adam (lr 1e-4, ``freeze_step`` 3) at ZeRO 0 for
+   8 steps, into the frozen phase: the block-sparse launches as above, all
+   on the tensor cores; finite, falling losses; each warmup step's moments
+   and master against the no-bias-correction formula written out here on
+   the card's own grads; at the first frozen step ``exp_avg_sq`` unchanged
+   bit for bit and the worker error non-zero, the exchange's error-feedback
+   identity (m + we + se = out + we' + se', 4e-6) and the exchange equal to
+   the same function on the CPU from copies of its inputs (1e-5); step ms
+   and peak beside ``[long]``'s Adam ZeRO-2 step;
 9. fused-block kernels — the two entries of the fused transformer block in
    the design the shape rule names (tensor cores: LayerNorm + qkv, then
    attention + projection; CUDA cores: K/V pass, q pass) and the wrapper
@@ -258,6 +267,15 @@ result line):
    to the single stream's, warm and cold failover token-identical with
    fewer prefill chunks warm; fleet tok/s, TTFT and TPOT p50/p99, the
    failover's save and load walls;
+   ``[resnet]`` — the CIFAR ResNet (width 32, stages (2, 2, 2), GroupNorm 8)
+   through ``initialize`` at batch 256 on seeded synthetic CIFAR-shaped
+   batches (docs/cifar.md: Adam, OneCycle), ZeRO 0 in float32 then ZeRO 2
+   (bf16 parameters, float32 compute), 4 steps each: losses falling, the
+   first step's loss and grad norm against the CPU's, and one backward's
+   grads against the CPU's (TRAIN_TOL_F32), TF32 off;
+   ``[crash-sim]`` — ``ds-tpu-torch crash-sim`` and ``crash-sim --goodput``
+   on the card while the same two run on the CPU in child processes: every
+   scenario recovered, the transcripts byte for byte the CPU's;
    ``[lint]`` — ``ds-tpu-torch lint`` in this process over every ported
    lint-registry entry on the card, then on the CPU: both exit 0 (no
    violation outside the shipped allowlist, no stale entry) with the same
@@ -3739,6 +3757,7 @@ def phase_long_training():
            "block_sparse_tensor_core_launches (fwd, dq, dkv)": tc_launches,
            "kernel_vs_plain": checks}
     log(f"[long] {json.dumps(res)}")
+    LONG.update(res)
     profile_step("profile-long", engine, tokens, labels)
     del engine, model
     gc.collect()        # the engine and its optimizer refer to each other
@@ -3792,6 +3811,296 @@ def phase_long_training():
     del engine, dense
     torch.cuda.empty_cache()
     return launches
+
+
+# [onebit-long]: the long-sequence model at its full size (12 layers, T 8192,
+# remat "dots", bf16) with 1-bit Adam at ZeRO 0, through the warmup into the
+# frozen phase; at one card the collectives are the identity and the
+# compression runs all the same
+LONG = {}                       # [long]'s Adam ZeRO-2 result, for the comparison
+ONEBIT_CONFIG = dict(LONG_CONFIG, optimizer={"type": "OneBitAdam",
+                                             "params": {"lr": 1e-4, "freeze_step": 3}},
+                     zero_optimization={"stage": 0})
+ONEBIT_STEPS = 8
+ONEBIT_FREEZE = 3
+ONEBIT_EF_TOL = 4e-6            # m + we + se = out + we' + se', x max |m + we + se|
+ONEBIT_CPU_TOL = 1e-5           # the card's exchange against the CPU's, x max |m + we|
+
+
+def _onebit_warmup_check(opt, grads, state, master, step, hyper, apply):
+    """One warmup step through ``apply`` and against the no-bias-correction
+    formula written out here on the same card tensors: (max |m err|, max |v
+    err|, max |master err| / max |master|)."""
+    n_pad = state.exp_avg.numel()
+    g, p0 = opt._flat(grads, n_pad), opt._flat(master, n_pad)
+    m0, v0 = state.exp_avg.clone(), state.exp_avg_sq.clone()
+    apply(grads, state, master, step, hyper)
+    h = hyper[0]
+    b1, b2 = np.float32(h["beta1"]), np.float32(h["beta2"])
+    m1 = m0 * float(b1) + g * float(np.float32(1) - b1)
+    v1 = v0 * float(b2) + g * g * float(np.float32(1) - b2)
+    p1 = p0 - float(np.float32(h["lr"])) * (m1 / (torch.sqrt(v1) + float(np.float32(h["eps"])))
+                                            + float(np.float32(h["weight_decay"])) * p0)
+    p = opt._flat(master, n_pad)
+    return (float((state.exp_avg - m1).abs().max()), float((state.exp_avg_sq - v1).abs().max()),
+            float((p - p1).abs().max() / p1.abs().max()))
+
+
+def phase_onebit_long():
+    """``[long]``'s model at full size with 1-bit Adam (``freeze_step`` 3) at
+    ZeRO 0 through ``initialize`` for ONEBIT_STEPS steps. Checks: the
+    block-sparse kernels' launches as in ``[long]``, all on the tensor
+    cores; finite losses, the last below the first; each warmup step's
+    state and master against the no-bias-correction formula on the card's
+    own grads; at the first frozen step ``exp_avg_sq`` unchanged bit for bit
+    and the worker error non-zero; that step's exchange keeping the error
+    feedback identity, and equal to the same function on the CPU from
+    copies of its inputs. Returns the kernels' launches."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bsa
+
+    tokens, labels = _long_batch(LONG_MODEL["vocab_size"], LONG_MODEL["n_positions"])
+    torch.cuda.reset_peak_memory_stats()
+    model = _long_model()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=ONEBIT_CONFIG)
+    opt = engine._onebit
+    if opt is None or opt.freeze_step != ONEBIT_FREEZE:
+        raise AssertionError("[onebit-long] the engine did not configure 1-bit Adam")
+    checks = {"warmup": []}
+    apply, exchange = engine._opt_apply, opt.exchange
+    rec = {}
+
+    def checked_apply(grads, state, master, step, hyper, groups=None):
+        if step <= ONEBIT_FREEZE:
+            checks["warmup"].append(_onebit_warmup_check(opt, grads, state, master, step,
+                                                         hyper, apply))
+            return master, state
+        v0 = state.exp_avg_sq.clone() if step == ONEBIT_FREEZE + 1 else None
+        out = apply(grads, state, master, step, hyper)
+        if v0 is not None:
+            checks["v_unchanged_bitwise"] = bool(torch.equal(v0, state.exp_avg_sq))
+            checks["worker_error_max"] = float(state.worker_error.abs().max())
+        return out
+
+    def recorded_exchange(m_local, we, se, segs):
+        out = exchange(m_local, we, se, segs)
+        if not rec:
+            rec.update(inputs=(m_local.clone(), we.clone(), se.clone()),
+                       outputs=tuple(t.clone() for t in out), segs=segs)
+        return out
+
+    engine._opt_apply, opt.exchange = checked_apply, recorded_exchange
+    launchers = (bsa.block_sparse_fwd, bsa.block_sparse_bwd_dq, bsa.block_sparse_bwd_dkv)
+    for f in launchers:
+        f.launches = f.tensor_core_launches = 0
+    losses, step_s = _train_steps(engine, tokens, labels, steps=ONEBIT_STEPS)
+    launches = [f.launches for f in launchers]
+    tc_launches = _bs_tensor_core_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_layer = LONG_MODEL["n_layer"]
+    want = [2 * n_layer * ONEBIT_STEPS, n_layer * ONEBIT_STEPS, n_layer * ONEBIT_STEPS]
+    if launches != want or tc_launches != want:
+        raise AssertionError(f"[onebit-long] block-sparse launches {launches}, on the tensor "
+                             f"cores {tc_launches}: not all of {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[onebit-long] losses not finite and falling: {losses}")
+    worst = [max(c[i] for c in checks["warmup"]) for i in range(3)]
+    if len(checks["warmup"]) != ONEBIT_FREEZE or worst[0] or worst[1] or worst[2] > 1e-6:
+        raise AssertionError(f"[onebit-long] warmup steps against the formula: {checks}")
+    if not checks.get("v_unchanged_bitwise") or not checks.get("worker_error_max", 0) > 0:
+        raise AssertionError(f"[onebit-long] first frozen step: {checks}")
+    m, we, se = rec["inputs"]
+    out, we1, se1 = rec["outputs"]
+    lhs = m + we + se
+    ident = float((lhs - (out + we1 + se1)).abs().max() / lhs.abs().max())
+    t0 = time.perf_counter()
+    cpu_out = exchange(*(t.cpu() for t in (m, we, se)), rec["segs"])
+    cpu_s = time.perf_counter() - t0
+    scale = float((m + we).abs().max())
+    cpu_err = [float((a.cpu() - b).abs().max()) / scale for a, b in zip(rec["outputs"], cpu_out)]
+    if ident > ONEBIT_EF_TOL or max(cpu_err) > ONEBIT_CPU_TOL:
+        raise AssertionError(f"[onebit-long] error feedback identity {ident!r} (tol "
+                             f"{ONEBIT_EF_TOL}), card vs CPU {cpu_err} (tol {ONEBIT_CPU_TOL})")
+    steady = step_s[2:]
+    step = statistics.median(steady)
+    res = {"steps": ONEBIT_STEPS, "freeze_step": ONEBIT_FREEZE, "losses": losses,
+           "step_ms_median": step * 1e3, "step_ms_all": [s * 1e3 for s in step_s],
+           "warmup_step_ms": [s * 1e3 for s in step_s[:ONEBIT_FREEZE]],
+           "frozen_step_ms": [s * 1e3 for s in step_s[ONEBIT_FREEZE:]],
+           "max_memory_allocated_gb": peak, "padded_elements": int(m.numel()),
+           "segments": rec["segs"].n_segs,
+           "block_sparse_launches": launches, "tensor_core_launches": tc_launches,
+           "warmup_max_err (m, v, master rel)": worst,
+           "v_unchanged_bitwise": checks["v_unchanged_bitwise"],
+           "worker_error_max": checks["worker_error_max"],
+           "ef_identity_rel_err": ident, "card_vs_cpu_rel_err (out, we, se)": cpu_err,
+           "cpu_exchange_s": cpu_s,
+           "long_adam_zero2_step_ms_median": LONG.get("step_ms_median"),
+           "long_adam_zero2_max_memory_gb": LONG.get("max_memory_allocated_gb")}
+    log(f"[onebit-long] {json.dumps(res)}")
+    del engine, model, rec, m, we, se, out, we1, se1, lhs, cpu_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# [resnet]: the CIFAR ResNet (models/resnet.py's default: width 32, stages
+# (2, 2, 2), GroupNorm 8) on seeded synthetic CIFAR-shaped batches (NHWC
+# 32x32x3, 10 classes; no CIFAR-10 data is in the repository)
+RESNET_BATCH = 256
+RESNET_STEPS = 4
+
+
+def _cifar_batch(batch, classes=10, seed=0):
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, (batch,)).astype(np.int64)
+    images = rng.normal(size=(batch, 32, 32, 3)).astype(np.float32) * 0.3
+    images += (labels[:, None, None, None] / classes - 0.5) * 2.0
+    return images, labels
+
+
+def _resnet_config(stage):
+    # docs/cifar.md: Adam and OneCycle; ZeRO 2 keeps bf16 parameters (the
+    # config's rule) while the model computes in float32
+    return {"train_batch_size": RESNET_BATCH, "steps_per_print": 1000,
+            "bf16": {"enabled": stage > 0},
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+            "scheduler": {"type": "OneCycle", "params": {
+                "cycle_min_lr": 1e-4, "cycle_max_lr": 1e-3, "cycle_first_step_size": 2}},
+            "zero_optimization": {"stage": stage}}
+
+
+def _resnet(device):
+    from deepspeed_tpu_torch.models.resnet import ResNet
+    model = ResNet(device="cpu")
+    model.init(torch.Generator().manual_seed(0))     # the same weights on both devices
+    return model.to(device)
+
+
+def phase_resnet():
+    """The default CIFAR ResNet through ``initialize`` at batch 256, ZeRO 0
+    (float32) then ZeRO 2 (bf16 parameters): losses falling over
+    RESNET_STEPS steps; the first step's loss and grad norm, and the grads
+    of one float32 backward (their whole vector's relative error), equal the
+    CPU's within TRAIN_TOL_F32."""
+    import deepspeed_tpu_torch
+    images, labels = _cifar_batch(RESNET_BATCH)
+    out = {}
+    for stage in (0, 2):
+        first = {}
+        for device in ("cuda", "cpu"):
+            engine, _, _, _ = deepspeed_tpu_torch.initialize(
+                model=_resnet(device), config_params=_resnet_config(stage), device=device)
+            losses, norms, step_s = [], [], []
+            for _ in range(RESNET_STEPS if device == "cuda" else 1):
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                loss = engine(images, labels)
+                engine.backward(loss)
+                engine.step()
+                losses.append(float(loss.detach()))
+                norms.append(float(engine._last_grad_norm))
+                step_s.append(time.perf_counter() - t)
+            first[device] = (losses[0], norms[0])
+            if device == "cuda":
+                if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                    raise AssertionError(f"[resnet] ZeRO {stage} losses not finite and "
+                                         f"falling: {losses}")
+                out[f"zero{stage}"] = {"losses": losses, "step_ms": [s * 1e3 for s in step_s],
+                                       "images_per_s": RESNET_BATCH / statistics.median(
+                                           step_s[1:])}
+            del engine
+        rel = [abs(a - b) / abs(b) for a, b in zip(first["cuda"], first["cpu"])]
+        out[f"zero{stage}"].update(first_step_cuda=first["cuda"], first_step_cpu=first["cpu"],
+                                   first_step_rel_diff=rel)
+        if max(rel) > TRAIN_TOL_F32:
+            raise AssertionError(f"[resnet] ZeRO {stage} first step (loss, grad norm) "
+                                 f"{first} differ by {rel} (tol {TRAIN_TOL_F32})")
+    grads = {}
+    for device in ("cuda", "cpu"):
+        model = _resnet(device)
+        loss = model(torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device))
+        loss.backward()
+        grads[device] = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    cpu = grads["cpu"]
+    # the whole gradient's relative error; a leaf's own (a GroupNorm scale's
+    # grad sums 262,144 products with cancellation) is logged beside it
+    diff = math.sqrt(sum(float(((grads["cuda"][n] - g) ** 2).sum()) for n, g in cpu.items()))
+    whole = math.sqrt(sum(float((g ** 2).sum()) for g in cpu.values()))
+    out["grad_rel_err"] = diff / whole
+    out["per_leaf_grad_norm_max_rel_diff"] = max(
+        abs(float(grads["cuda"][n].norm()) - float(g.norm())) / max(float(g.norm()), 1e-30)
+        for n, g in cpu.items())
+    out["params"] = sum(g.numel() for g in cpu.values())
+    if out["grad_rel_err"] > TRAIN_TOL_F32:
+        raise AssertionError(f"[resnet] the card's grads differ from the CPU's by "
+                             f"{out['grad_rel_err']} (tol {TRAIN_TOL_F32})")
+    log(f"[resnet] {json.dumps(out)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_crash_sim():
+    """``ds-tpu-torch crash-sim`` and ``crash-sim --goodput`` on the card and
+    on the CPU: every scenario recovers (bit-equal retrain, warm restart
+    token-identical with fewer prefill chunks) and the card's transcripts
+    equal the CPU's byte for byte. The recovery run on the CPU overlaps the
+    card's; the goodput runs bill wall-clock against injected stalls within
+    10%, so each runs with no other process of this script busy."""
+    from deepspeed_tpu_torch import cli
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    runs = {"crash": [], "goodput": ["--goodput"]}
+
+    def cpu_run(name):
+        cmd = [sys.executable, "-m", "deepspeed_tpu_torch.cli", "crash-sim", *runs[name],
+               "--device", "cpu", "--json", os.path.join(out_dir, f"{name}_cpu.json")]
+        with open(os.path.join(out_dir, f"{name}_cpu.log"), "wb") as out:
+            return subprocess.Popen(cmd, cwd=str(root), env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+
+    def card_run(name):
+        t0 = time.perf_counter()
+        rc = cli.main(["crash-sim", *runs[name], "--device", "cuda", "--json",
+                       os.path.join(out_dir, f"{name}_cuda.json")])
+        times[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[crash-sim] {name} on the card exited {rc}")
+
+    def wait(name, child):
+        if child.wait(timeout=300) != 0:
+            out = Path(out_dir, f"{name}_cpu.log").read_text(errors="replace")
+            raise AssertionError(f"[crash-sim] {name} on the CPU exited "
+                                 f"{child.returncode}: {out[-3000:]}")
+
+    times, child = {}, cpu_run("crash")
+    try:
+        card_run("crash")
+        wait("crash", child)
+        card_run("goodput")
+        child = cpu_run("goodput")
+        wait("goodput", child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    texts = {}
+    for name in runs:
+        for device in ("cuda", "cpu"):
+            with open(os.path.join(out_dir, f"{name}_{device}.json")) as f:
+                texts[name, device] = f.read()
+        if texts[name, "cuda"] != texts[name, "cpu"]:
+            raise AssertionError(f"[crash-sim] {name} transcripts differ between the card "
+                                 f"and the CPU")
+    crash = json.loads(texts["crash", "cuda"])
+    serve = {k: (v["warm_prefill_chunks"], v["cold_prefill_chunks"])
+             for k, v in crash["scenarios"].items() if k.startswith("serve_")}
+    if not crash["ok"] or any(w >= c for w, c in serve.values()):
+        raise AssertionError(f"[crash-sim] recovery failed: {crash}")
+    log(f"[crash-sim] {json.dumps({'card_s': times, 'transcripts_equal_cpu': True, 'scenarios': sorted(crash['scenarios']), 'warm_vs_cold_prefill_chunks': serve, 'goodput_ok': json.loads(texts['goodput', 'cuda'])['ok']})}")
+    shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def profile_step(tag, engine, *batch, top=15):
@@ -4875,6 +5184,8 @@ def main():
     sparse = _timed_phase(phase_block_sparse_kernels)
     for e, n in zip(sparse, _timed_phase(phase_long_training)):
         e["launches"] = n
+    for e, n in zip(sparse, _timed_phase(phase_onebit_long)):
+        e["launches_onebit"] = n
     fused = _timed_phase(phase_fused_block_kernels)
     for e, n in zip(fused, _timed_phase(phase_fused_training)):
         e["launches"] = n
@@ -4895,6 +5206,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     entry["launches_fleet"] = _timed_phase(phase_serving_fleet)
+    _timed_phase(phase_resnet)
+    _timed_phase(phase_crash_sim)
     entry["launches_lint"] = _timed_phase(phase_lint)
     for e, n in zip(flash, _timed_phase(phase_launcher)):
         e["launches_launcher"] = n

@@ -19,7 +19,11 @@ dense mirror, the request tracer and warm restart
 Training takes activation checkpointing (``GPT2Config.remat`` / ``remat_policy``, the
 config's ``activation_checkpointing`` block; ``checkpointing``), client
 ``(init, apply)`` optimizers, ZeRO-Offload, and checkpoints in the JAX
-package's format (``checkpoint``) with the ``resilience`` block.
+package's format (``checkpoint``) with the ``resilience`` block, and the
+data-parallel exchanges: 1-bit Adam (``ops.onebit_adam``), the two-level and
+compressed schedules and their bucketed overlap (``comm``), row-sparse
+gradients (``runtime.sparse_tensor``). ``models.resnet`` is the CIFAR
+ResNet; ``resilience.crash_sim`` the kill/restart harness.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ``__version__``, ``__git_hash__``, ``__git_branch__`` and ``installed_ops``
 are read lazily (``git_version_info``); ``deepspeed_tpu_torch.pt`` is the

@@ -51,7 +51,7 @@ import torch
 import torch.distributed as dist
 
 from ..runtime.fp16.loss_scaler import LossScaleState
-from ..runtime.zero.sharding import elastic_split, shard
+from ..runtime.zero.sharding import elastic_split, shard, unshard
 from ..utils import logger
 
 
@@ -397,6 +397,26 @@ def _load_offload_full(engine, master, exp_avg, exp_avg_sq):
                 buf[r.offset:r.offset + r.size].copy_(part.reshape(-1))
 
 
+def comm_ef_geometry(engine):
+    """The geometry of the engine-held compressed-exchange error feedback
+    (``_comm_we`` / ``_comm_se``), or None when the engine holds none: what a
+    save records beside the buffers and a restore validates
+    (``resilience/elastic.py``; the JAX engine's ``comm_ef.json``)."""
+    if getattr(engine, "_comm_we", None) is None:
+        return None
+    plan = engine._overlap_plan
+    geo = {"dp": int(engine.dp_size), "slice_size": int(engine._comm_groups.topo.slice_size)}
+    if plan is not None:
+        geo["layout"] = "bucketed"
+        geo["buckets"] = [{"sizes": [int(s) for s in b["sizes"]], "n": int(b["n"]),
+                           "n_pad": int(b["n_pad"])} for b in plan]
+    else:
+        geo["layout"] = "monolithic"
+        geo["n"] = int(sum(int(p.numel()) for p in engine._params))
+        geo["n_pad"] = int(engine._n_pad)
+    return geo
+
+
 # ------------------------------------------------------------------ save
 def _barrier(engine):
     """Rendezvous across ranks: a save returns only after EVERY rank's files
@@ -473,6 +493,16 @@ def snapshot_checkpoint(engine, tag: Optional[str] = None, client_state: Dict = 
             shapes.update({f"opt/{k}": list(v.shape) for k, v in opt_flat.items()})
             files["optim_shapes.json"] = ("json", {"dp_world_size": dp,
                                                   "shapes": shapes})
+
+    # --- engine-held compressed-comm error feedback: every rank's row ---
+    ef_geo = comm_ef_geometry(engine)
+    if ef_geo is not None:
+        rows = {k: unshard(t[None], 0, engine.dp_size)
+                for k, t in (("server_error", engine._comm_se),
+                             ("worker_error", engine._comm_we))}
+        if writer:
+            files["comm_ef.npz"] = ("npz", {k: to_host(t) for k, t in rows.items()})
+            files["comm_ef.json"] = ("json", ef_geo)
 
     return {"tag": str(tag), "writer": writer,
             "single_process": engine.dp_size == 1,
@@ -733,12 +763,24 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                         engine._ckpt_import("master", master_flat)
                     else:
                         engine._master_from_params()
+                    if engine._onebit is not None and meta["dp_world_size"] != engine.dp_size:
+                        # 1-bit Adam's state sizes depend on dp (padded moments,
+                        # per-rank error buffers): adapt them
+                        template = engine._onebit.state_template(engine.opt_state)
+                        opt_flat = engine._onebit.elastic_adapt(
+                            {k: opt_flat[k] for k in template if k in opt_flat}, template)
                     engine._ckpt_import("opt", opt_flat)
     elif offload is not None:
         # re-derive master from loaded params (fp16-derived restore, stage2.py:1781-1836)
         _load_offload_full(engine, engine._ckpt_export("params"), None, None)
     else:
         engine._master_from_params()
+
+    if engine._comm_we is not None:
+        # engine-held compressed-comm error feedback: restored, remapped on a
+        # dp change, or left at zero for a checkpoint without it
+        from ..resilience.elastic import restore_comm_ef
+        restore_comm_ef(engine, ckpt_dir)
 
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)

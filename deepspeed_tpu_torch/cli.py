@@ -5,8 +5,10 @@ anything else is a launch, ``ds-tpu-torch [launcher args] script.py
 [script args]`` (``launcher/runner.py``). The sub-commands that read files
 only (``inspect-dump``, ``timeline``, ``cluster-dump``, ``goodput``,
 ``alerts``, ``metrics``, ``serve-timeline``) need no card; ``lint``,
-``anatomy``, ``hbm``, ``profile --reconcile`` and ``serve-sim`` build
-engines on the card unless told ``--device cpu``.
+``anatomy``, ``hbm``, ``profile --reconcile``, ``serve-sim`` and
+``crash-sim`` build engines on the card unless told ``--device cpu``;
+``comm-sim`` records its engines on the CPU in a fake process group of 8
+ranks.
 """
 
 import sys
@@ -27,19 +29,13 @@ COMMANDS = {
     "hbm": ("deepspeed_tpu_torch.utils.hbm", "hbm_main"),
     "profile": ("deepspeed_tpu_torch.utils.profile_ingest", "profile_main"),
     "serve-sim": ("deepspeed_tpu_torch.serve.sim", "main"),
-}
-# sub-commands of the JAX front end the port has not yet -> ROADMAP.md item
-LATER = {
-    "crash-sim": "item 20b (resilience/crash_sim.py)",
-    "comm-sim": "item 18 (communication)",
+    "crash-sim": ("deepspeed_tpu_torch.resilience.crash_sim", "main"),
+    "comm-sim": ("deepspeed_tpu_torch.comm.sim", "main"),
 }
 
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in LATER:
-        raise NotImplementedError(f"ds-tpu-torch {argv[0]} is not in the PyTorch port yet: "
-                                  f"ROADMAP.md {LATER[argv[0]]}")
     if argv and argv[0] in COMMANDS:
         import importlib
         module, fn = COMMANDS[argv[0]]

@@ -18,9 +18,16 @@ the JAX entry takes the gather path): on the card each decode step shows
 takes the plain version. The GPT-2 decode programs attend over dense caches,
 as the JAX package's do.
 
+The communication entries (``comm_hierarchical``, ``comm_compressed``,
+``comm_overlap``, ``comm_overlap_compressed``) and ``standard``, the flat
+exchange they are compared with, train at 8 ranks factorized 2 x 4, as the
+JAX entries do on the 8-device mesh: they are built and
+captured inside torch's fake process group of 8 ranks, this process rank 0
+(``entry_world``; ``utils/op_record.py`` ``fake_world``), so each
+collective is recorded with its group and moves no data.
+
 Entries the port cannot build yet raise ``NotImplementedError`` naming
-their ROADMAP.md item: the two-level and compressed communication modes
-(``comm_*``, item 18), the pipeline (item 16) and head-sharded serving
+their ROADMAP.md item: the pipeline (item 16) and head-sharded serving
 (``serving_sharded``, items 15 / 10.6). ``capture_registry()`` with no names
 takes the ported entries (``PORTED``); the CLI names the others as skipped.
 
@@ -120,6 +127,44 @@ def _build_external_master_accum(device):
     return eng, _sample_batch()
 
 
+def _build_comm_hierarchical(device):
+    # the two-level exchange (uncompressed): reduce-scatter and all-gather
+    # inside the 2 x 4 slices, one float32 all-reduce across them
+    eng = _engine(device, zero_optimization={"stage": 2},
+                  comm={"mode": "hierarchical", "dcn_slices": 2})
+    return eng, _sample_batch()
+
+
+def _build_comm_compressed(device):
+    # the error-feedback 1-bit cross-slice exchange: packed u8 signs over the
+    # all-to-all and all-gather, float32 per-segment scales
+    eng = _engine(device, zero_optimization={"stage": 2},
+                  comm={"mode": "hierarchical_compressed", "dcn_slices": 2})
+    return eng, _sample_batch()
+
+
+def _build_comm_overlap(device):
+    # the bucketed exchange over the two-level topology: 0.004 MB buckets cut
+    # the model into three equal padded buckets ((b1, b2) / (w1) / (w2),
+    # 1024 elements each)
+    eng = _engine(device, zero_optimization={"stage": 2},
+                  comm={"mode": "hierarchical", "dcn_slices": 2,
+                        "overlap": {"mode": "bucketed", "bucket_mb": 0.004}})
+    if len(eng._overlap_plan) != 3:
+        raise RuntimeError("lint registry: comm_overlap entry expects the equal "
+                           f"3-bucket plan, got {eng._overlap_plan}")
+    return eng, _sample_batch()
+
+
+def _build_comm_overlap_compressed(device):
+    # the bucketed compressed exchange: per-bucket 1-bit cross-slice phases
+    # with the bucketed error-feedback layout
+    eng = _engine(device, zero_optimization={"stage": 2},
+                  comm={"mode": "hierarchical_compressed", "dcn_slices": 2,
+                        "overlap": {"mode": "bucketed", "bucket_mb": 0.004}})
+    return eng, _sample_batch()
+
+
 def _build_zero_offload(device):
     eng = _engine(device, zero_optimization={"stage": 2, "cpu_offload": True})
     return eng, _sample_batch()
@@ -202,10 +247,10 @@ BUILDERS = {
     "standard": _build_standard,
     "external_master_fused": _build_external_master_fused,
     "external_master_accum": _build_external_master_accum,
-    "comm_hierarchical": _unported("item 18 (communication)"),
-    "comm_compressed": _unported("item 18 (communication)"),
-    "comm_overlap": _unported("item 18 (communication)"),
-    "comm_overlap_compressed": _unported("item 18 (communication)"),
+    "comm_hierarchical": _build_comm_hierarchical,
+    "comm_compressed": _build_comm_compressed,
+    "comm_overlap": _build_comm_overlap,
+    "comm_overlap_compressed": _build_comm_overlap_compressed,
     "zero_offload": _build_zero_offload,
     "pipeline": _unported("item 16 (pipeline)"),
     "gpt2_decode": _build_gpt2_decode,
@@ -217,17 +262,34 @@ PORTED = sorted(k for k, b in BUILDERS.items() if not hasattr(b, "item"))
 UNPORTED = {k: b.item for k, b in sorted(BUILDERS.items()) if hasattr(b, "item")}
 
 
+# the entries built and captured at 8 ranks (a fake process group): the
+# exchanges, and ``standard``, the flat exchange they are compared with
+ENTRY_WORLD = {"standard": 8, "comm_hierarchical": 8, "comm_compressed": 8,
+               "comm_overlap": 8, "comm_overlap_compressed": 8}
+
+
+def entry_world(entry):
+    """The context an entry is built and captured in: the fake process
+    group of its ranks, or nothing (one rank)."""
+    import contextlib
+    from ..utils.op_record import fake_world
+    n = ENTRY_WORLD.get(entry)
+    return fake_world(n) if n else contextlib.nullcontext()
+
+
 def build_entry(entry, device="cuda"):
-    """(engine, sample batch) of one entry."""
+    """(engine, sample batch) of one entry (call it inside
+    ``entry_world(entry)`` for an entry of several ranks)."""
     return BUILDERS[entry](device)
 
 
 def capture_entry(entry, device="cuda"):
     """[ProgramArtifact] for one registry entry, program names prefixed
     ``entry:program``."""
-    engine, batch = build_entry(entry, device)
-    return [ProgramArtifact.capture(f"{entry}:{name}", fn, args, manifest)
-            for name, fn, args, manifest in engine.lint_programs(batch)]
+    with entry_world(entry):
+        engine, batch = build_entry(entry, device)
+        return [ProgramArtifact.capture(f"{entry}:{name}", fn, args, manifest)
+                for name, fn, args, manifest in engine.lint_programs(batch)]
 
 
 def capture_registry(entries=None, device="cuda"):

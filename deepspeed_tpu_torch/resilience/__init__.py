@@ -6,12 +6,14 @@ checkpointing, auto-resume and the serving warm restart.
 - ``auto_resume``: pick the newest committed checkpoint *before* the flight
   recorder's first bad step; restore the journaled loss scale.
 - ``serve_restart``: snapshot and warm restore of a serving replica.
-
-The JAX package's ``elastic`` (the 1-bit error-feedback buffers) and
-``crash_sim`` are ROADMAP.md items 18 and 20.
+- ``elastic``: restore (and remap across world sizes) of the compressed
+  exchange's error feedback.
+- ``crash_sim``: ``ds-tpu-torch crash-sim``, kill/restart scenarios over
+  all of the above (imported on use: it builds engines and servers).
 """
 
 from .async_ckpt import AsyncCheckpointer
 from .auto_resume import auto_resume, find_resume_point
+from .elastic import restore_comm_ef
 
-__all__ = ["AsyncCheckpointer", "auto_resume", "find_resume_point"]
+__all__ = ["AsyncCheckpointer", "auto_resume", "find_resume_point", "restore_comm_ef"]

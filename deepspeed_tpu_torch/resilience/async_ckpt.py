@@ -35,7 +35,8 @@ class AsyncCheckpointer:
     caller-visible cost of the most recent ``save()`` (snapshot + join of the
     previous writer)."""
 
-    def __init__(self, engine, save_dir: str, save_latest: bool = True):
+    def __init__(self, engine, save_dir: str, save_latest: bool = True,
+                 fence_delay_s: float = 0.0):
         self.engine = engine
         self.save_dir = save_dir
         self.save_latest = save_latest
@@ -44,6 +45,9 @@ class AsyncCheckpointer:
         self.last_stall_ms = 0.0
         self.saves_started = 0
         self.saves_committed = 0
+        # fault injection (crash-sim's goodput attribution): a known extra
+        # stall inside the snapshot fence, for the ledger's checkpoint_stall
+        self.fence_delay_s = float(fence_delay_s)
 
     @property
     def in_flight(self) -> bool:
@@ -65,6 +69,8 @@ class AsyncCheckpointer:
         device→host copy (and any previous still-running commit)."""
         t0 = time.perf_counter()
         self.wait()
+        if self.fence_delay_s > 0.0:
+            time.sleep(self.fence_delay_s)
         snapshot = snapshot_checkpoint(self.engine, tag=tag, client_state=client_state)
         self.saves_started += 1
         if snapshot["single_process"]:

@@ -17,9 +17,8 @@ reads it) that knows two things a naive "load latest" restart does not:
   backoff had actually converged.
 
 With no dump present (clean preemption, not a numerics crash) every committed
-checkpoint is eligible and the newest wins — plain warm restart. The port's
-engine refuses the ``numerics`` block (ROADMAP.md item 22), so the dump
-directory is the caller's to name.
+checkpoint is eligible and the newest wins — plain warm restart. The dump
+directory defaults to the engine's flight recorder's.
 """
 
 import json
@@ -97,7 +96,10 @@ def find_resume_point(save_dir, dump_dir=None):
 def auto_resume(engine, save_dir, dump_dir=None):
     """Load the resume point into ``engine``. Returns ``(ckpt_path,
     client_state, info)`` — ``(None, {}, None)`` when nothing qualifies (cold
-    start)."""
+    start). ``dump_dir`` defaults to the engine's flight-recorder dir."""
+    if dump_dir is None and getattr(engine, "_numerics", None) is not None \
+            and engine._numerics.recorder is not None:
+        dump_dir = engine._numerics.recorder.dump_dir
     info = find_resume_point(save_dir, dump_dir)
     if info is None:
         logger.info(f"[deepspeed_tpu_torch] auto-resume: no committed checkpoint "
@@ -116,6 +118,9 @@ def auto_resume(engine, save_dir, dump_dir=None):
             engine.scaler_state = engine.scaler_state._replace(cur_scale=new_scale)
             logger.info(f"[deepspeed_tpu_torch] auto-resume: loss scale clamped "
                         f"{ckpt_scale} -> {new_scale} (journaled)")
+        if getattr(engine, "_numerics", None) is not None \
+                and engine._numerics.journal is not None:
+            engine._numerics.journal.cur_scale = new_scale
     logger.info(f"[deepspeed_tpu_torch] auto-resume: restored {info['tag']} "
                 f"(step {info['global_steps']}, first bad step "
                 f"{info['first_bad_step']})")

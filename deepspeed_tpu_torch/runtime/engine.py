@@ -28,6 +28,24 @@ global-batch gradient when the ranks hold equal numbers of valid labels.
 - the global norm sums the sharded squares over the ranks.
 With one rank every collective is skipped.
 
+The mean over the ranks is the exchange ``_configure_exchange`` picks, in
+the JAX engine's precedence (deepspeed_tpu/runtime/engine.py:1060-1301):
+1-bit Adam (``optimizer.type: OneBitAdam``, ZeRO 0, one group) keeps each
+rank's grads local and averages its momentum with the compressed
+allreduce (``ops/onebit_adam.py``); ``sparse_gradients`` all-gathers the
+(indices, values) of the model's ``sparse_grad_paths`` tables
+(``runtime/sparse_tensor.py``); ``comm.overlap.mode: bucketed`` cuts the
+grads into buckets whose exchange begins from the grad hooks as the
+backward completes each (``register_post_accumulate_grad_hook``,
+asynchronous collectives waited on before the update); ``comm.mode:
+hierarchical`` runs the two-level schedule over the ``comm.dcn_slices``
+topology (``comm/``); ``hierarchical_compressed`` switches to the
+error-feedback compressed exchange at ``comm.compress_start_step``, the
+engine holding its error feedback (``_comm_we`` / ``_comm_se``, saved with
+checkpoints and remapped across world sizes, ``resilience/elastic.py``).
+The flat vectors are in the JAX package's leaf order (``_jax_order``), so
+the 1-bit state and the error feedback keep the JAX checkpoint's layout.
+
 The engine updates master, moments and accumulators in place (the JAX
 functions return new trees; the port keeps one copy of each). A client
 optimizer is the JAX package's ``(init, apply)`` pair on its trees
@@ -120,6 +138,8 @@ from torch import nn
 from torch.utils import _pytree as pytree
 
 from ..checkpoint import checkpointing as ckpt
+from ..comm import hierarchical as hier
+from ..comm.topology import CommGroups, CommTopology, derive_topology
 from ..device import resolve_device
 from ..ops import adam as adam_opt
 from ..ops.cpu_adam import DeepSpeedCPUAdam
@@ -133,9 +153,9 @@ from ..utils.op_record import dtype_name
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer, device_sync
 from .activation_checkpointing import checkpointing as act_ckpt
 from .config import DeepSpeedConfig
-from .constants import (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, COMM_MODE_FLAT,
-                        COMM_OVERLAP_BUCKETED, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
-                        ROUTE_TRAIN, SGD_OPTIMIZER)
+from .constants import (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, COMM_MODE_COMPRESSED,
+                        COMM_MODE_FLAT, COMM_OVERLAP_BUCKETED, LAMB_OPTIMIZER,
+                        ONEBIT_ADAM_OPTIMIZER, ROUTE_TRAIN, SGD_OPTIMIZER)
 from .dataloader import DeepSpeedDataLoader
 from .fp16 import loss_scaler as ls
 from .lr_schedules import get_scheduler
@@ -260,7 +280,18 @@ class DeepSpeedEngine:
             raise ValueError("DeepSpeed requires --deepspeed_config or config_params")
         self.config = DeepSpeedConfig(config_params if config_params is not None
                                       else config_file, world_size=self.dp_size)
+        # the comm topology, derived for every engine; the mode decides whether
+        # the grad exchange runs the two-level schedule
+        self._comm_mode = self.config.comm_mode
+        self._comm_topo = derive_topology(self.dp_size, self.config.comm_dcn_slices)
+        self._refuse_comm()
         self._refuse_unported()
+        # 1-bit Adam keeps each rank's grads unreduced: its compressed momentum
+        # exchange replaces the gradient mean (reference onebit_adam.py:372)
+        self._use_stacked_grads = (self.config.optimizer_name == ONEBIT_ADAM_OPTIMIZER
+                                   and (optimizer is None or isinstance(optimizer, str)))
+        if self._use_stacked_grads and self.zero_optimization_stage() != 0:
+            raise AssertionError("1-bit Adam does not compose with ZeRO (reference parity)")
         offload = bool(self.config.zero_enabled and self.config.zero_config.cpu_offload)
         if offload:
             self._refuse_offload_optimizer(optimizer)
@@ -288,6 +319,7 @@ class DeepSpeedEngine:
         named = list(model.named_parameters())
         self._names = [n for n, _ in named]
         self._params = [p for _, p in named]
+        self._ckpt_key_list = None          # _ckpt_keys, built at first use
         stage = self.zero_optimization_stage()
         self._axes = [zero_spec(tuple(p.shape), self.dp_size) if stage >= 1 else None
                       for p in self._params]
@@ -322,6 +354,14 @@ class DeepSpeedEngine:
                      f"({self._zero_sharded_fraction:.1%}) of master+optimizer state "
                      f"sharded over data={self.dp_size}", ranks=[0])
 
+        self._sparse_flags = self._sparse_grad_flags(model)
+        # optional hint: the token count of this rank's micro-batch (the JAX
+        # engine's hint takes the global batch and divides by dp)
+        self._sparse_tokens_fn = getattr(model, "sparse_grad_tokens", None)
+        self._pending_tokens = None
+        self._comm_groups = None
+        self._onebit = None
+        self._configure_exchange()
         self._configure_optimizer()
 
         self._dynamic_scale = self.fp16_enabled() and self.config.loss_scale == 0
@@ -378,7 +418,6 @@ class DeepSpeedEngine:
             self._configure_numerics()
         self._configure_cluster_goodput()
 
-        self._ckpt_key_list = None          # _ckpt_keys, built at first use
         self.last_checkpoint_load = None    # load_checkpoint's seconds by stage
         # ---- resilience: periodic async checkpointing and auto-resume
         # (deepspeed_tpu/runtime/engine.py:676-700). All host-side: the save
@@ -388,7 +427,22 @@ class DeepSpeedEngine:
         if self.config.resilience_enabled and self.config.resilience_save_dir:
             self._resilience = AsyncCheckpointer(self, self.config.resilience_save_dir)
             if self.config.resilience_auto_resume:
-                auto_resume(self, self.config.resilience_save_dir)
+                _, _, resume_info = auto_resume(self, self.config.resilience_save_dir)
+                if self._goodput is not None and resume_info is not None:
+                    # restart-replay billing (deepspeed_tpu/runtime/engine.py:
+                    # 688-706): the steps between the restore point and the
+                    # pre-crash step were paid for once already. The pre-crash
+                    # step is the recorder's first bad step (exclusive) or,
+                    # after a clean preemption, the dump's last recorded step.
+                    stop = resume_info.get("first_bad_step")
+                    if stop is not None:
+                        stop = int(stop) - 1
+                    elif self._numerics is not None:
+                        from ..utils.numerics import scan_dump_dir
+                        bundle = scan_dump_dir(self._numerics.recorder.dump_dir) or {}
+                        stop = (bundle.get("span") or {}).get("last_step")
+                    if stop is not None:
+                        self._goodput.set_replay_until(int(stop))
 
         # ---- the fused step (deepspeed_tpu/runtime/engine.py:1183-1205, 1473-1527)
         self._fused = self._fused_eligible()
@@ -407,16 +461,130 @@ class DeepSpeedEngine:
         c = self.config
         if c.zero_enabled and c.zero_optimization_stage >= 3:
             raise _later("ZeRO stage 3", "item 17b")
-        if c.optimizer_name == ONEBIT_ADAM_OPTIMIZER:
-            raise _later("1-bit Adam", "item 18")
-        if c.sparse_gradients_enabled:
-            raise _later("sparse_gradients", "item 18")
-        if c.comm_mode != COMM_MODE_FLAT:
-            raise _later(f"comm.mode={c.comm_mode!r}", "item 18")
-        if c.comm_overlap_mode == COMM_OVERLAP_BUCKETED:
-            raise _later("comm.overlap.mode='bucketed'", "item 18")
         if c.sequence_parallel_enabled:
             raise _later("sequence_parallel", "item 14")
+
+    def _refuse_comm(self):
+        """The JAX engine's refusals for the two-level and bucketed exchanges
+        (deepspeed_tpu/runtime/engine.py:185-235)."""
+        c = self.config
+        offload = c.zero_enabled and c.zero_config.cpu_offload
+        stage = self.zero_optimization_stage()
+        mode = self._comm_mode
+        if mode != COMM_MODE_FLAT:
+            if offload:
+                raise ValueError(f"comm.mode={mode!r} does not compose with ZeRO-Offload "
+                                 "(the host-tier step owns the grad layout)")
+            if stage >= 3:
+                raise ValueError(f"comm.mode={mode!r} requires ZeRO stage <= 2: the "
+                                 "two-level exchange reduces whole replicated leaves")
+            if c.sparse_gradients_enabled:
+                raise ValueError(f"comm.mode={mode!r} does not compose with "
+                                 "sparse_gradients (the row-sparse reduction owns the "
+                                 "grad exchange); pick one")
+            if (mode == COMM_MODE_COMPRESSED and self.gradient_accumulation_steps() > 1
+                    and c.optimizer_name != ONEBIT_ADAM_OPTIMIZER):
+                raise ValueError(
+                    "comm.mode='hierarchical_compressed' requires "
+                    "gradient_accumulation_steps == 1: error-feedback compression "
+                    "of per-micro-batch partial gradients would accumulate "
+                    "compression error across the window")
+        if c.comm_overlap_mode == COMM_OVERLAP_BUCKETED:
+            if offload:
+                raise ValueError("comm.overlap.mode='bucketed' does not compose with "
+                                 "ZeRO-Offload (the host-tier step owns the grad layout)")
+            if stage >= 3:
+                raise ValueError("comm.overlap.mode='bucketed' requires ZeRO stage <= 2: "
+                                 "the bucketed exchange reduces whole replicated leaves")
+            if c.sparse_gradients_enabled:
+                raise ValueError("comm.overlap.mode='bucketed' does not compose with "
+                                 "sparse_gradients (the row-sparse reduction owns the "
+                                 "grad exchange); pick one")
+
+    def _configure_exchange(self):
+        """The data-parallel grad exchange, by the JAX engine's precedence
+        (deepspeed_tpu/runtime/engine.py:1060-1301): 1-bit Adam's local
+        grads (``stacked``), the row-sparse reduction (``sparse``), the
+        bucketed overlap (``bucketed``), the two-level schedule
+        (``hierarchical``), else the per-leaf mean (``flat``). Under
+        ``hierarchical_compressed`` the engine holds the error feedback
+        (``_comm_we`` / ``_comm_se``, this rank's rows) and the exchange
+        compresses from ``comm.compress_start_step`` on. At one rank only the
+        1-bit Adam path differs from ``flat``."""
+        c, dp = self.config, self.dp_size
+        self._overlap_plan = None
+        self._comm_we = self._comm_se = None
+        self._compress = False
+        overlap_requested = c.comm_overlap_mode == COMM_OVERLAP_BUCKETED
+        overlap_active = (overlap_requested and not self._use_stacked_grads
+                          and self._sparse_flags is None and dp > 1 and self._offload is None)
+        if overlap_requested and not overlap_active and dp > 1:
+            logger.warning("[deepspeed_tpu_torch] comm.overlap.mode='bucketed' requested but "
+                           "the gradient exchange is owned elsewhere (1-bit Adam's local "
+                           "grads or the sparse-gradient reduction); overlap is inert")
+        hierarchical = self._comm_mode != COMM_MODE_FLAT
+        if self._use_stacked_grads:
+            kind = "stacked"
+        elif self._sparse_flags is not None and dp > 1:
+            kind = "sparse"
+        elif overlap_active:
+            kind = "bucketed"
+        elif hierarchical and dp > 1:
+            kind = "hierarchical"
+        else:
+            kind = "flat"
+        self._exchange_kind = kind
+        if kind not in ("stacked", "bucketed", "hierarchical"):
+            return
+        self._jax_order = pytree.tree_leaves(self._sentinel_tree())
+        ordered = [self._params[i] for i in self._jax_order]
+        topo = self._comm_topo if hierarchical else CommTopology(dp, 1)
+        self._comm_groups = CommGroups(topo, self.dp_rank)
+        sizes = [int(p.numel()) for p in ordered]
+        n_total = sum(sizes)
+        self._n_pad = hier.padded_size(n_total, dp)
+        if kind == "bucketed":
+            bucket_bytes = int(c.comm_overlap_bucket_mb * (1 << 20))
+            self._overlap_plan = hier.bucket_plan(ordered, bucket_bytes, dp)
+            self._bucket_of = {}
+            for k, b in enumerate(self._overlap_plan):
+                for j in b["leaf_indices"]:
+                    self._bucket_of[self._jax_order[j]] = k
+            self._ready = {}
+            self._inflight = {}
+            self._collecting = False
+            for i, p in enumerate(self._params):
+                p.register_post_accumulate_grad_hook(self._grad_hook(i))
+        self._compress = self._comm_mode == COMM_MODE_COMPRESSED and kind != "stacked"
+        if self._compress:
+            if kind == "bucketed":
+                self._bucket_segs = [hier.leaf_segments(b["sizes"], b["n_pad"])
+                                     for b in self._overlap_plan]
+                we_shape, se_shape = hier.bucketed_error_state_shapes(self._overlap_plan, topo)
+            else:
+                self._segs = hier.leaf_segments(sizes, self._n_pad)
+                we_shape, se_shape = hier.error_state_shapes(self._n_pad, topo)
+            self._comm_we = torch.zeros(we_shape[1], dtype=torch.float32, device=self.device)
+            self._comm_se = torch.zeros(se_shape[1], dtype=torch.float32, device=self.device)
+
+    def _sparse_grad_flags(self, model):
+        """Per-leaf flags of the row-sparse leaves (deepspeed_tpu/runtime/
+        engine.py:305-343): 2-D leaves whose JAX path matches the model's
+        ``sparse_grad_paths()``; None when none does or the mode is off."""
+        if not self.config.sparse_gradients_enabled or self._use_stacked_grads:
+            return None
+        patterns = tuple(getattr(model, "sparse_grad_paths", lambda: ())())
+        if not patterns:
+            logger.warning("sparse_gradients requested but the model defines no "
+                           "sparse_grad_paths(); falling back to dense reduction")
+            return None
+        from .sparse_tensor import match_sparse_paths
+        flags = [False] * len(self._params)
+        for key, i in self._ckpt_keys():
+            flags[i] = self._params[i].dim() == 2 and match_sparse_paths(key, patterns)
+        logger.info(f"[deepspeed_tpu_torch] sparse gradients enabled for {sum(flags)} "
+                    f"embedding leaves (patterns={patterns})")
+        return flags if any(flags) else None
 
     def _configure_observatories(self):
         """The monitor and the telemetry session with its anatomy spec,
@@ -670,6 +838,9 @@ class DeepSpeedEngine:
             return
         self._groups = self._group_ids(specs) if specs else None
         name = self.config.optimizer_name or ADAM_OPTIMIZER
+        if name == ONEBIT_ADAM_OPTIMIZER:
+            self._configure_onebit(specs)
+            return
         if name not in _OPTIMIZERS:
             raise ValueError(f"Unrecognized optimizer {name!r}")
         self.optimizer = OptimizerHandle(name, self.config.optimizer_params or {},
@@ -686,6 +857,25 @@ class DeepSpeedEngine:
         self._opt_init, self._opt_apply = _OPTIMIZERS[name]
         self.opt_state = self._opt_init(self._master)
         log_dist(f"Using DeepSpeed Optimizer param name {self.optimizer.name}", ranks=[0])
+
+    def _configure_onebit(self, specs):
+        """1-bit Adam (deepspeed_tpu/runtime/engine.py:894-906): one group,
+        ``freeze_step`` from the optimizer block, its momentum exchange over
+        the engine's comm groups (two-level under a hierarchical
+        ``comm.mode``), the flat vector in the JAX leaf order."""
+        from ..ops.onebit_adam import OneBitAdam
+        if specs:
+            raise AssertionError("1-bit Adam runs a single param group (compressed "
+                                 "error feedback is not per-group)")
+        params = self.config.optimizer_params or {}
+        self._onebit = OneBitAdam(freeze_step=params.get("freeze_step", 100000),
+                                  dp_size=self.dp_size, groups=self._comm_groups,
+                                  order=self._jax_order)
+        self._opt_init, self._opt_apply = self._onebit.init, self._onebit.apply
+        self.optimizer = OptimizerHandle(ONEBIT_ADAM_OPTIMIZER, params)
+        self.opt_state = self._opt_init(self._master)
+        log_dist(f"Using 1-bit Adam (freeze_step {self._onebit.freeze_step}, "
+                 f"{self.opt_state.exp_avg.numel()} padded elements)", ranks=[0])
 
     def _configure_client_optimizer(self, specs):
         """A client ``(init, apply)`` pair, with the JAX engine's refusals
@@ -841,6 +1031,8 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown():
             self.timers("forward_microstep").start()
         batch = tuple(self._to_device(x) for x in inputs)
+        if self._in_training and self._exchange_kind == "sparse":
+            self._pending_tokens = self._local_tokens(batch)
         if self._in_training and self._use_fused():
             loss = self._program("fused_step", self._fused_forward)(*batch)
         elif self._in_training:
@@ -900,19 +1092,160 @@ class DeepSpeedEngine:
             factor = factor / np.float32(self.config.gradient_predivide_factor or 1.0)
         return loss * float(factor)
 
-    def _micro_grads(self, loss):
+    def _micro_grads(self, loss, compress=None):
         """This micro-batch's grads, every leaf in ``grad_dtype`` (zeros for
-        a leaf the loss does not reach) and reduced over the ranks."""
-        with ds_named_scope("ds_fwd_bwd"):
-            self._scaled(loss).backward()
+        a leaf the loss does not reach), through the data-parallel exchange
+        (``_exchange``). Under the bucketed overlap a bucket's exchange
+        begins inside the backward, once its last leaf's grad is there."""
+        if compress is None:
+            compress = self._compress_now()
+        overlap = self._exchange_kind == "bucketed" and not compress
+        if overlap:
+            self._missing = [len(b["leaf_indices"]) for b in self._overlap_plan]
+            self._collecting = True
+        try:
+            with ds_named_scope("ds_fwd_bwd"):
+                self._scaled(loss).backward()
+        finally:
+            if overlap:
+                self._collecting = False
         grads = []
         for p in self._params:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             p.grad = None
             grads.append(g.to(self._grad_dtype))
         if self.dp_size > 1:
-            grads = [self._reduce(g, a) for g, a in zip(grads, self._grad_axes)]
+            grads = self._exchange(grads, compress)
         return grads
+
+    def _local_tokens(self, batch):
+        """The token count of this rank's micro-batch, which bounds the
+        nonzero rows of an embedding grad: the model's ``sparse_grad_tokens``
+        hint, else batch arg 0 when it holds integer token ids, else None
+        (then the dense reduction: a guessed capacity could drop rows)."""
+        if self._sparse_tokens_fn is not None:
+            return int(self._sparse_tokens_fn(*batch))
+        if batch and isinstance(batch[0], torch.Tensor) and not batch[0].is_floating_point():
+            return int(batch[0].numel())
+        return None
+
+    def _compress_now(self) -> bool:
+        """Whether this step's exchange is the compressed one
+        (``hierarchical_compressed`` from ``comm.compress_start_step``)."""
+        return self._compress and self.global_steps >= self.config.comm_compress_start_step
+
+    def _exchange(self, grads, compress):
+        """The mean over the ranks of this rank's grads, by the exchange
+        ``_configure_exchange`` chose; a stage-2 sharded leaf then keeps this
+        rank's slice. 1-bit Adam's grads stay local."""
+        kind = self._exchange_kind
+        if kind == "stacked":
+            return grads
+        if kind == "flat":
+            return [self._reduce(g, a) for g, a in zip(grads, self._grad_axes)]
+        if kind == "sparse":
+            out = self._sparse_reduce(grads)
+        elif compress:
+            out = self._compressed_mean(grads)
+        elif kind == "bucketed":
+            out = self._bucketed_mean(grads)
+        else:
+            out = self._hierarchical_mean(grads)
+        return [shard(g, a, self.dp_rank, self.dp_size) for g, a in zip(out, self._grad_axes)]
+
+    def _from_ordered(self, ordered):
+        out = [None] * len(self._params)
+        for j, i in enumerate(self._jax_order):
+            out[i] = ordered[j]
+        return out
+
+    def _hierarchical_mean(self, grads):
+        """The two-level mean of the whole grad vector (JAX leaf order,
+        padded), in ``grad_dtype`` (deepspeed_tpu/runtime/engine.py:1154-1180)."""
+        vec, recipe = hier.flatten_tree([grads[i] for i in self._jax_order])
+        vec = torch.nn.functional.pad(vec, (0, self._n_pad - vec.numel()))
+        mean = hier.two_level_sum(vec, self._comm_groups) / self.dp_size
+        return self._from_ordered(hier.unflatten_tree(mean.to(self._grad_dtype), recipe))
+
+    def _compressed_mean(self, grads):
+        """The compressed exchange (deepspeed_tpu/runtime/engine.py:1221-1301)
+        in float32 whatever ``grad_dtype`` is (the signs and scales are the
+        wire format), the engine's error feedback updated in place; per
+        bucket under the overlap."""
+        ordered = [grads[i] for i in self._jax_order]
+        if self._overlap_plan is not None:
+            out, we, se = hier.bucketed_two_level_compressed(
+                ordered, self._comm_we, self._comm_se, self._overlap_plan,
+                self._comm_groups, self._bucket_segs)
+        else:
+            vec, recipe = hier.flatten_tree(ordered)
+            vec = torch.nn.functional.pad(vec.float(), (0, self._n_pad - vec.numel()))
+            mean, we, se = hier.two_level_compressed(vec, self._comm_we, self._comm_se,
+                                                     self._comm_groups, self._segs)
+            out = hier.unflatten_tree(mean.to(self._grad_dtype), recipe)
+        self._comm_we.copy_(we)
+        self._comm_se.copy_(se)
+        return self._from_ordered(out)
+
+    def _grad_hook(self, i):
+        """Leaf ``i``'s post-accumulate hook under the bucketed overlap: keep
+        its grad and, when it completes its bucket, begin that bucket's
+        exchange (``hier.two_level_start``, asynchronous)."""
+        import weakref
+        ref = weakref.ref(self)
+
+        def hook(p):
+            eng = ref()
+            if eng is None or not eng._collecting:
+                return
+            eng._ready[i] = p.grad.to(eng._grad_dtype)
+            k = eng._bucket_of[i]
+            eng._missing[k] -= 1
+            if eng._missing[k] == 0:
+                eng._issue_bucket(k, eng._ready)
+        return hook
+
+    def _issue_bucket(self, k, source):
+        bucket = self._overlap_plan[k]
+        leaves = {j: source[self._jax_order[j]] for j in bucket["leaf_indices"]}
+        with ds_named_scope(f"{hier.GRAD_BUCKET_SCOPE}{k}"):
+            self._inflight[k] = hier.two_level_start(hier.bucket_vec(leaves, bucket),
+                                                     self._comm_groups)
+
+    def _bucketed_mean(self, grads):
+        """Wait on every bucket's exchange in plan order (issuing those no
+        hook issued: a bucket with a leaf the loss does not reach), finish
+        it and unpack the means (deepspeed_tpu/comm/hierarchical.py
+        ``bucketed_two_level_mean``)."""
+        ordered = [grads[i] for i in self._jax_order]
+        out = [None] * len(ordered)
+        for k, bucket in enumerate(self._overlap_plan):
+            if k not in self._inflight:
+                self._issue_bucket(k, grads)
+            work, buf = self._inflight.pop(k)
+            with ds_named_scope(f"{hier.GRAD_BUCKET_SCOPE}{k}"):
+                mean = hier.two_level_finish(work, buf, self._comm_groups) / self.dp_size
+            hier.bucket_unpack(mean, bucket, ordered, out)
+        self._ready.clear()
+        return self._from_ordered(out)
+
+    def _sparse_reduce(self, grads):
+        """Row-sparse leaves by all-gathering (indices, values) when the
+        table is sparse this step, the rest by the mean
+        (deepspeed_tpu/runtime/engine.py:1084-1127)."""
+        from .sparse_tensor import row_sparse_allreduce
+        tokens = self._pending_tokens
+        out = []
+        for g, sparse in zip(grads, self._sparse_flags):
+            sparse = sparse and tokens is not None
+            cap = min(tokens, g.shape[0]) if sparse else 0
+            # the gather ships dp * cap rows: only when the table is sparse
+            if sparse and cap * self.dp_size < g.shape[0]:
+                out.append(row_sparse_allreduce(g, cap))
+            else:
+                dist.all_reduce(g, op=dist.ReduceOp.SUM)
+                out.append(g.div_(self.dp_size))
+        return out
 
     def _reduce(self, g, axis):
         """The mean over the ranks: reduce-scattered to this rank's slice for
@@ -934,19 +1267,25 @@ class DeepSpeedEngine:
         return act_ckpt.cpu_checkpointing_enabled()
 
     def _fused_eligible(self) -> bool:
-        """The JAX engine's rule: ``fused_step`` needs gas 1, no ZeRO-Offload
-        and no cpu activation checkpointing (else it warns and takes the
-        two-step path); an external-master pair at gas 1 is always fused."""
+        """The JAX engine's rule: ``fused_step`` needs gas 1, the plain or the
+        uncompressed bucketed exchange, no ZeRO-Offload and no cpu activation
+        checkpointing (else it warns and takes the two-step path); an
+        external-master pair at gas 1 is always fused."""
         gas1 = self.gradient_accumulation_steps() == 1
-        if self.config.fused_step and not (gas1 and self._offload is None
+        exchange_ok = (self._exchange_kind == "flat"
+                       or (self._exchange_kind == "bucketed" and not self._compress))
+        if self.config.fused_step and not (gas1 and exchange_ok and self._offload is None
                                            and not self._cpu_checkpointing_active()):
             logger.warning(
                 "[deepspeed_tpu_torch] fused_step requested but ineligible (it needs "
-                "gradient_accumulation_steps == 1, no ZeRO-Offload and no cpu "
-                "activation checkpointing); using the two-step path")
+                "gradient_accumulation_steps == 1, the plain local grad path or the "
+                "bucketed overlap exchange — no 1-bit Adam local grads, sparse-gradient "
+                "reduction, non-overlapped hierarchical comm or compressed comm — no "
+                "ZeRO-Offload and no cpu activation checkpointing); using the two-step "
+                "path")
             return False
         if self._external_master:
-            return gas1
+            return gas1 and exchange_ok
         return bool(self.config.fused_step)
 
     def _use_fused(self) -> bool:
@@ -1037,6 +1376,8 @@ class DeepSpeedEngine:
         if index is not None:
             from ..utils.numerics import bucket_nonfinite, leaf_nonfinite
             counts = self._sum_sharded(leaf_nonfinite(grads), self._grad_axes)
+            if self._use_stacked_grads and self.dp_size > 1:
+                dist.all_reduce(counts, op=dist.ReduceOp.SUM)    # every rank's grads
             nonfinite = bucket_nonfinite(None, index, per_leaf=counts)
             overflow = nonfinite.sum() > 0
         else:
@@ -1057,15 +1398,25 @@ class DeepSpeedEngine:
         predivide = float(self.config.gradient_predivide_factor or 1.0)
         if self.config.prescale_gradients and predivide != 1.0:
             grads = [g.mul_(torch.tensor(predivide, dtype=g.dtype)) for g in grads]
+        norm_grads = grads
+        if self._use_stacked_grads and self.dp_size > 1:
+            # 1-bit Adam's local grads: the logical gradient is their mean over
+            # the ranks; norm (and clip) on that, not on one rank's
+            norm_grads = []
+            for g in grads:
+                t = g.clone()
+                dist.all_reduce(t, op=dist.ReduceOp.SUM)
+                norm_grads.append(t.div_(self.dp_size))
         sent = None
         if index is not None:
             from ..utils.numerics import bucket_sumsq, leaf_sumsq
-            gss = bucket_sumsq(None, index,
-                               per_leaf=self._sum_sharded(leaf_sumsq(grads), self._grad_axes))
+            gss = bucket_sumsq(None, index, per_leaf=self._sum_sharded(leaf_sumsq(norm_grads),
+                                                                        self._grad_axes))
             norm = torch.sqrt(gss.sum())
             sent = {"grad_sumsq": gss, "grad_nonfinite": nonfinite}
         else:
-            norm = self._grad_norm(grads)
+            norm = self._grad_norm(norm_grads)
+        del norm_grads
         clip = float(self.gradient_clipping() or 0.0)
         if clip > 0:
             clip_grads_by_global_norm(grads, clip, norm=norm)
@@ -1344,6 +1695,10 @@ class DeepSpeedEngine:
             if self._client_optimizer is not None:
                 for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
                     add(f"opt/{subtree_name(path, depth + 1)}", leaf)
+            elif self._onebit is not None:
+                # the moments are whole on every rank; the error rows differ
+                for field in ("exp_avg", "exp_avg_sq"):
+                    add(f"opt/{field}", getattr(self.opt_state, field))
             else:
                 for field, leaves_ in zip(self.opt_state._fields, self.opt_state):
                     for path, i in paths:
@@ -1450,7 +1805,9 @@ class DeepSpeedEngine:
         full host array}, in the JAX engine's (identity) layout: each ZeRO
         slice all-gathered leaf by leaf, which every rank joins, and copied to
         the host only where ``materialize``. The built-in optimizers' state
-        keys by field (``exp_avg/<key>``), a client pair's by its own tree."""
+        keys by field (``exp_avg/<key>``), a client pair's by its own tree,
+        1-bit Adam's by field alone (its flat vectors, and the error buffers
+        as the JAX engine's ``(dp, cols)`` arrays: every rank's row)."""
         out = {}
 
         def put(key, t, axis):
@@ -1468,6 +1825,12 @@ class DeepSpeedEngine:
         elif self._client_optimizer is not None:
             for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
                 put(ckpt._path_key(path), leaf, None)
+        elif self._onebit is not None:
+            for field, t in zip(self.opt_state._fields, self.opt_state):
+                if field.endswith("_error"):
+                    put(field, t[None], 0)
+                else:
+                    put(field, t, None)
         else:
             for field, leaves in zip(self.opt_state._fields, self.opt_state):
                 for key, i in keys:
@@ -1494,6 +1857,12 @@ class DeepSpeedEngine:
         elif self._client_optimizer is not None:
             for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
                 leaf.copy_(get(ckpt._path_key(path), leaf.shape))
+        elif self._onebit is not None:
+            for field, t in zip(self.opt_state._fields, self.opt_state):
+                if field.endswith("_error"):
+                    t.copy_(get(field, (self.dp_size, t.numel()))[self.dp_rank])
+                else:
+                    t.copy_(get(field, t.shape))
         else:
             for field, leaves in zip(self.opt_state._fields, self.opt_state):
                 for key, i in keys:
@@ -1643,10 +2012,31 @@ class DeepSpeedEngine:
         compute = dtype_name(self.compute_dtype)
         grad_dt = dtype_name(self._grad_dtype)
         dp = self.dp_size
-        red = {"min": 1, "dtypes": [grad_dt]} if dp > 1 else {"max": 0}
+        # one reduction a bucket under the bucketed overlap (a re-fused
+        # monolithic exchange fails the floor); 1-bit Adam's grads stay local
+        n_buckets = len(self._overlap_plan) if self._overlap_plan else 0
+        red = ({"min": max(1, n_buckets), "dtypes": [grad_dt]}
+               if dp > 1 and self._exchange_kind != "stacked" else {"max": 0})
         scattered = dp > 1 and any(a is not None for a in self._axes)
         gather_gate = ({"all-gather": {"min": 1, "dtypes": [compute]}}
                        if scattered else {})
+        # the two-level schedule's intra-slice all-gather (one a bucket) is
+        # a declared collective of the backward
+        hier_gate = ({"all-gather": {"min": max(1, n_buckets),
+                                     "dtypes": sorted({grad_dt, "f32"})}}
+                     if self._exchange_kind in ("bucketed", "hierarchical")
+                     and self._comm_mode != COMM_MODE_FLAT else {})
+        if n_buckets:
+            # the smallest bucket's shard must cross the large-collective floor
+            small = {"small_element_threshold": max(
+                8, min(b["n_pad"] for b in self._overlap_plan) // dp - 1)}
+        elif dp > 1 and self._exchange_kind in ("flat", "sparse"):
+            # the per-leaf exchange: the smallest leaf's reduction result
+            small = {"small_element_threshold": max(8, min(
+                (p.numel() // dp if a is not None else p.numel())
+                for p, a in zip(self._params, self._grad_axes)) - 1)}
+        else:
+            small = {}
 
         def state(*classes):
             getters = {"params": lambda: list(self._params),
@@ -1671,10 +2061,10 @@ class DeepSpeedEngine:
 
         def loss_and_grad(*b):
             loss = self._fwd(*b)
-            return loss.detach(), self._micro_grads(loss)
+            return loss.detach(), self._micro_grads(loss, compress=False)
 
         lg = ("loss_and_grad", loss_and_grad, batch,
-              man(any_reduction=red, collectives={}))
+              man(any_reduction=red, collectives=dict(hier_gate), **small))
         if self._offload is not None:
             def offload_step(acc):
                 self._grad_acc = acc
@@ -1694,8 +2084,23 @@ class DeepSpeedEngine:
                     self._pending_is_fused = False
             return [("fused_step", fused_step, batch,
                      man(state("params", "master", "optimizer"), any_reduction=red,
-                         collectives=gather_gate))]
+                         collectives=dict(gather_gate, **hier_gate), **small))]
         progs = [lg]
+        if self._compress:
+            # the compressed exchange: packed u8 signs over the cross-slice
+            # all-to-all and all-gather, float32 scales and intra-slice steps
+            def loss_and_grad_comm(*b):
+                loss = self._fwd(*b)
+                return loss.detach(), self._micro_grads(loss, compress=True)
+
+            progs.append(("loss_and_grad_comm", loss_and_grad_comm, batch, man(
+                [("comm_ef", lambda: [self._comm_we, self._comm_se])],
+                any_reduction={"min": 1, "dtypes": ["f32"]},
+                collectives={"all-gather": {"min": max(1, n_buckets),
+                                            "dtypes": sorted({"f32", "u8", "s8", grad_dt})},
+                             "all-to-all": {"min": max(1, n_buckets),
+                                            "dtypes": ["s8", "u8"]}},
+                small_element_threshold=8 if n_buckets else 16)))
         acc = acc_like(self._acc_dtype)
         if self.gradient_accumulation_steps() > 1:
             progs.append(("accumulate", _accumulate,
@@ -1751,6 +2156,11 @@ class DeepSpeedEngine:
         else:
             classes["master"] = list(self._master)
             classes["optimizer"] = self.opt_state
+        comm_ef_bytes = 0
+        if self._comm_we is not None:
+            # the compressed exchange's error feedback: this rank's rows
+            classes["comm_ef"] = [self._comm_we, self._comm_se]
+            comm_ef_bytes = 4 * (self._comm_we.numel() + self._comm_se.numel())
         psi = sum(int(p.numel()) for p in self._params)
         geometry = {
             "kind": "training",
@@ -1765,7 +2175,7 @@ class DeepSpeedEngine:
             "offload": offload,
             "fused": fused,
             "gas": int(self.gradient_accumulation_steps()),
-            "comm_ef_bytes": 0,
-            "n_buckets": 0,
+            "comm_ef_bytes": int(comm_ef_bytes),
+            "n_buckets": len(self._overlap_plan) if self._overlap_plan else 0,
         }
         return {"classes": classes, "geometry": geometry}

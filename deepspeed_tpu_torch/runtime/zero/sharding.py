@@ -43,12 +43,14 @@ def zero_spec(shape, dp_size: int, min_size: int = 1024) -> Optional[int]:
 
 
 def shard(t: torch.Tensor, axis: Optional[int], rank: int, dp_size: int) -> torch.Tensor:
-    """Rank ``rank``'s slice of ``t`` along ``axis`` (a contiguous copy), or
-    ``t`` itself when the leaf is replicated."""
+    """Rank ``rank``'s slice of ``t`` along ``axis`` (a contiguous copy in
+    storage of its own: a narrow view would keep the whole leaf's storage
+    alive), or ``t`` itself when the leaf is replicated."""
     if axis is None:
         return t
     n = t.shape[axis] // dp_size
-    return t.narrow(axis, rank * n, n).contiguous()
+    view = t.narrow(axis, rank * n, n)
+    return torch.empty(view.shape, dtype=t.dtype, device=t.device).copy_(view)
 
 
 def slice_bounds(shape, axis: Optional[int], rank: int, dp_size: int):

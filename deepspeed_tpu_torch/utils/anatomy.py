@@ -14,12 +14,17 @@ is none, so the exposed collective time is 0. With the roofline floors
 exposed collective seconds, the predicted step floor and the MFU ceiling.
 
 ``opportunities``, ``program_schedule_events``, ``to_anatomy_trace_events``
-are copied; ``anatomy_main`` renders saved reports, or sweeps the lint
-registry (``registry_reports``: each program of each ported entry run once
-under the flop and byte counters). The flat-against-hierarchical comparison
-across entries (``comm_compare``, ``_registry_slice_sets``) comes with the
-communication modes' entries (ROADMAP.md item 18): every ported entry runs
-at one rank.
+and ``comm_compare`` are copied; ``anatomy_main`` renders saved reports, or
+sweeps the lint registry (``registry_reports``: each program of each ported
+entry run once under the flop and byte counters and recorded at the
+dispatcher). A recorded program's collectives (the communication entries
+run at 8 ranks in a fake process group) become rows of their own: the
+level by their group against the slices (``_registry_slice_sets``), the
+bytes what one rank receives, priced at the spec's link rate and counted
+exposed whole, since a recording measures no overlap. ``comm_compare`` over
+the sweep's entries compares the exchanges' exposed cross-slice time; its
+overlap clause needs measured windows, so the sweep reports it and does
+not gate on it.
 """
 
 import argparse
@@ -56,7 +61,24 @@ def _field(record, key):
     return float(record[key] if isinstance(record, dict) else getattr(record, key))
 
 
-def analyze_program(record, spec, slices=None, name=""):
+def recorded_collectives(program, slice_sets):
+    """``[(kind, level, bytes)]`` of a recorded program's collectives
+    (``utils/op_record.py``): ``ici`` when the op's group lies in one slice
+    set (one rank's group: its ranks, or none), else ``dcn``."""
+    from .op_record import dtype_bytes
+    sets = [frozenset(x) for x in slice_sets]
+    rows = []
+    for r in program.ops:
+        if r.kind is None:
+            continue
+        group = set(r.group or ())
+        intra = len(sets) <= 1 or not group or any(group <= x for x in sets)
+        rows.append((r.kind, "ici" if intra else "dcn",
+                     sum(n * (dtype_bytes(dt) or 0) for dt, n in r.results)))
+    return rows
+
+
+def analyze_program(record, spec, slices=None, name="", recorded=None):
     """The anatomy of one program from its record (``flops`` and
     ``hbm_bytes``: a dict or the watchdog's ``CompileRecord``) and, when
     given, its measured device slices (``[{"op", "ts", "dur", "stream",
@@ -69,7 +91,9 @@ def analyze_program(record, spec, slices=None, name=""):
     "async", "zero_overlap", "bucket", "comm_s", "overlap_s",
     "exposed_s"}``: its bytes are None (no program text gives them), it is
     ``async`` (its own stream), and its overlap is what the compute slices
-    of the other streams cover of it."""
+    of the other streams cover of it. ``recorded`` (``recorded_collectives``)
+    adds a row a recorded collective, priced at the link rate of its level
+    and exposed whole."""
     from .profile_ingest import is_collective_op
     flops = _field(record, "flops")
     hbm_bytes = _field(record, "hbm_bytes")
@@ -90,13 +114,23 @@ def analyze_program(record, spec, slices=None, name=""):
             "bucket": int(m.group(1)) if m else None,
             "comm_s": comm_s, "overlap_s": overlap_s, "exposed_s": comm_s - overlap_s,
         })
-    exposed = {"ici": sum(r["exposed_s"] for r in rows), "dcn": 0.0}
+    wire = {"ici": 0, "dcn": 0}
+    for kind, level, nbytes in recorded or ():
+        comm_s = nbytes / (spec.link_gbps(level) * 1e9)
+        wire[level] += nbytes
+        rows.append({
+            "instruction": f"{kind}.{len(rows)}", "op": kind, "line": len(rows),
+            "level": level, "bytes": nbytes, "async": False, "zero_overlap": True,
+            "bucket": None, "comm_s": comm_s, "overlap_s": 0.0, "exposed_s": comm_s,
+        })
+    exposed = {lvl: sum(r["exposed_s"] for r in rows if r["level"] == lvl)
+               for lvl in ("ici", "dcn")}
     return {
         "name": name,
         "flops": flops,
         "hbm_bytes": hbm_bytes,
         "collectives": rows,
-        "wire_bytes": {"ici": 0, "dcn": 0},
+        "wire_bytes": wire,
         "exposed_s": exposed,
         "roofline": roofline(flops, hbm_bytes, exposed["ici"], exposed["dcn"], spec),
     }
@@ -216,21 +250,82 @@ def to_anatomy_trace_events(reports):
                           trace_version=ANATOMY_REPORT_VERSION)
 
 
-def registry_reports(entries=None, spec=None, device="cuda"):
+def comm_compare(entry_reports):
+    """The flat-vs-hierarchical-vs-compressed-vs-overlap exchange comparison
+    (the JAX function): summed exposed cross-slice time and wire bytes per
+    registry entry, plus each mode's reduction over the flat exchange.
+    ``ok`` iff every two-level mode exposes strictly less cross-slice time
+    than flat, AND the bucketed overlap exposes strictly less than the
+    monolithic hierarchical exchange with exactly zero exposed intra-slice
+    time on its bucket-tagged collectives."""
+    modes = {"flat": "standard", "hierarchical": "comm_hierarchical",
+             "compressed": "comm_compressed", "overlap": "comm_overlap"}
+    if not all(entry in entry_reports for entry in modes.values()):
+        return None
+    out = {}
+    for mode, entry in modes.items():
+        reports = entry_reports[entry]
+        out[mode] = {
+            "entry": entry,
+            "exposed_dcn_us": _us(sum(r["exposed_s"]["dcn"] for r in reports)),
+            "exposed_ici_us": _us(sum(r["exposed_s"]["ici"] for r in reports)),
+            "wire_dcn_bytes": sum(r["wire_bytes"]["dcn"] for r in reports),
+            "wire_ici_bytes": sum(r["wire_bytes"]["ici"] for r in reports),
+        }
+    out["overlap"]["grad_ici_exposed_us"] = _us(sum(
+        c["exposed_s"] for r in entry_reports["comm_overlap"]
+        for c in r["collectives"]
+        if c["bucket"] is not None and c["level"] == "ici"))
+    flat_dcn = out["flat"]["exposed_dcn_us"]
+    reductions = {}
+    for mode in ("hierarchical", "compressed", "overlap"):
+        reductions[mode] = (round(1.0 - out[mode]["exposed_dcn_us"] / flat_dcn, 4)
+                            if flat_dcn > 0 else 0.0)
+    out["exposed_dcn_reduction_vs_flat"] = reductions
+    out["ok"] = (flat_dcn > out["hierarchical"]["exposed_dcn_us"]
+                 and flat_dcn > out["compressed"]["exposed_dcn_us"]
+                 and (out["hierarchical"]["exposed_dcn_us"]
+                      > out["overlap"]["exposed_dcn_us"])
+                 and out["overlap"]["grad_ici_exposed_us"] == 0.0)
+    return out
+
+
+def _registry_slice_sets():
+    """Rank slice sets of the registry's communication entries: the same
+    2-slice factorization of 8 ranks they train on (``dcn_slices: 2``)."""
+    from ..comm.topology import CommTopology, derive_num_slices
+    from ..lint.registry import ENTRY_WORLD
+    n = ENTRY_WORLD["comm_hierarchical"]
+    topo = CommTopology(n, derive_num_slices(n, process_count=1))
+    return [frozenset(g) for g in topo.ici_groups]
+
+
+def registry_reports(entries=None, spec=None, device="cuda", by_entry=None):
     """``(reports, errors)``: ``analyze_program`` of every program of the
     lint registry's entries (default: the ported ones), each run once under
-    the flop and byte counters (``utils/flops_profiler.py`` ``count``) on
-    ``device``; no trace window, so no measured collective rows."""
+    the flop and byte counters (``utils/flops_profiler.py`` ``count``) and
+    recorded at the dispatcher, on ``device``; no trace window, so its
+    collective rows are the recorded ones (``recorded_collectives``).
+    ``by_entry``, a dict, also gets each entry's reports."""
     from ..lint import registry
     from .flops_profiler import count
+    from .op_record import record
+    slice_sets = _registry_slice_sets()
     reports, errors = [], []
     for entry in (list(entries) if entries else registry.PORTED):
         try:
-            engine, batch = registry.build_entry(entry, device)
-            for name, fn, args, _man in engine.lint_programs(batch):
-                _, flops, nbytes, _ = count(fn, *args)
-                reports.append(analyze_program({"flops": flops, "hbm_bytes": nbytes}, spec,
-                                               name=f"{entry}:{name}"))
+            with registry.entry_world(entry):
+                engine, batch = registry.build_entry(entry, device)
+                mine = []
+                for name, fn, args, _man in engine.lint_programs(batch):
+                    prog = record(count, fn, *args)
+                    _, flops, nbytes, _ = prog.result
+                    mine.append(analyze_program(
+                        {"flops": flops, "hbm_bytes": nbytes}, spec, name=f"{entry}:{name}",
+                        recorded=recorded_collectives(prog, slice_sets)))
+            reports += mine
+            if by_entry is not None:
+                by_entry[entry] = mine
         except Exception as e:      # one entry's failure is reported, not fatal
             errors.append(f"{entry}: capture failed: {e!r}")
     return reports, errors
@@ -259,12 +354,15 @@ def anatomy_main(argv=None):
     parser.add_argument("--out", metavar="PATH", help="also write the JSON report to PATH")
     parser.add_argument("--timeline", metavar="PATH",
                         help="write the predicted-schedule Perfetto trace")
+    parser.add_argument("--comm-compare-out", metavar="PATH",
+                        help="write the flat-vs-hierarchical comparison JSON")
     parser.add_argument("--opportunity-min-bytes", type=int,
                         default=DEFAULT_OPPORTUNITY_MIN_BYTES,
                         help="ignore zero-overlap collectives below this wire size "
                              "(default: %(default)s)")
     args = parser.parse_args(argv)
     errors = []
+    compare = None
     if args.report:
         with open(args.report) as f:
             saved = json.load(f)
@@ -273,13 +371,17 @@ def anatomy_main(argv=None):
         from .logging import log_to_stderr
         from .roofline import resolve_spec
         log_to_stderr()      # stdout belongs to the report
-        reports, errors = registry_reports(args.entry, resolve_spec(args.chip), args.device)
+        by_entry = {}
+        reports, errors = registry_reports(args.entry, resolve_spec(args.chip), args.device,
+                                           by_entry=by_entry)
+        compare = comm_compare(by_entry)
     reports = sorted(reports, key=lambda r: r["name"])
     report = {
         "version": ANATOMY_REPORT_VERSION,
         "kind": ANATOMY_REPORT_KIND,
         "programs": [_program_json(r) for r in reports],
         "opportunities": opportunities(reports, min_bytes=args.opportunity_min_bytes),
+        "comm_compare": compare,
         "errors": sorted(errors),
         "ok": not errors,
     }
@@ -287,6 +389,9 @@ def anatomy_main(argv=None):
     if args.out:
         with open(args.out, "w") as f:
             f.write(text)
+    if args.comm_compare_out:
+        with open(args.comm_compare_out, "w") as f:
+            f.write(json.dumps(compare, indent=2, sort_keys=True) + "\n")
     if args.timeline:
         with open(args.timeline, "w") as f:
             f.write(serialize_trace(to_anatomy_trace_events(reports)))
@@ -304,6 +409,12 @@ def anatomy_main(argv=None):
             print(f"OPPORTUNITY {o['program']}#{o['instruction']}: {o['op']} "
                   f"({o['level']}, {o['bytes']} B, {o['exposed_us']}us "
                   f"exposed) — {o['hint']}")
+        if compare is not None:
+            red = compare["exposed_dcn_reduction_vs_flat"]
+            print(f"comm compare: flat {compare['flat']['exposed_dcn_us']}us exposed DCN; "
+                  f"hierarchical -{round(red['hierarchical'] * 100, 2)}%, compressed "
+                  f"-{round(red['compressed'] * 100, 2)}%, overlap "
+                  f"-{round(red['overlap'] * 100, 2)}% (recorded, overlap not measured)")
         for e in report["errors"]:
             print(f"ERROR {e}")
         print(f"{len(report['programs'])} program(s), "

@@ -471,9 +471,15 @@ def sweep_entry(entry, builders=None, device="cuda", rel_tol=HBM_REL_TOL,
     """Live + modeled attribution of one lint-registry entry, with each of
     its programs' attribution (``program_attribution``) and, on the card,
     its temp bytes."""
-    from ..lint.program_passes import ProgramArtifact
+    from ..lint.registry import entry_world
     if builders is None:
         from ..lint.registry import BUILDERS as builders
+    with entry_world(entry):
+        return _sweep_entry(entry, builders, device, rel_tol, abs_tol)
+
+
+def _sweep_entry(entry, builders, device, rel_tol, abs_tol):
+    from ..lint.program_passes import ProgramArtifact
     engine, batch = builders[entry](device)
     manifest = engine.memory_manifest()
     _, class_bytes = manifest_signatures(manifest)

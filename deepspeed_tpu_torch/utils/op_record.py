@@ -142,9 +142,12 @@ class OpRecord:
     input position} for results that alias an input; ``kind`` the
     collective kind of a c10d op (else None) and ``results`` what one
     participant receives from it, ``[(dtype, elements)]``; ``sources`` the
-    producing op's index of each input (None: made outside the call) and ``convert`` ``(from, to)`` for a dtype cast."""
+    producing op's index of each input (None: made outside the call),
+    ``convert`` ``(from, to)`` for a dtype cast, and ``group`` the global
+    ranks of a c10d op's process group (the JAX ``replica_groups``: the
+    comm simulator classifies each collective by them)."""
     __slots__ = ("index", "name", "inputs", "outputs", "mutates", "aliases", "kind",
-                 "results", "sources", "convert")
+                 "results", "sources", "convert", "group")
 
     def __init__(self, index, name):
         self.index, self.name = index, name
@@ -156,6 +159,7 @@ class OpRecord:
         self.results: List[Tuple[str, int]] = []
         self.sources: List[Optional[int]] = []
         self.convert: Optional[Tuple[str, str]] = None
+        self.group: Optional[Tuple[int, ...]] = None
 
     @property
     def op(self) -> str:
@@ -182,6 +186,18 @@ def _arg_positions(func, args, kwargs):
         out.append((a, list(range(pos, pos + n))))
         pos += n
     return out
+
+
+def _group_ranks(args) -> Optional[Tuple[int, ...]]:
+    """The global ranks of the process group among a c10d op's arguments."""
+    import torch.distributed as dist
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return tuple(dist.get_process_group_ranks(dist.ProcessGroup.unbox(a)))
+            except (RuntimeError, ValueError):
+                continue       # another script object (a ReduceOp)
+    return None
 
 
 def _collective_results(op, args, out):
@@ -231,6 +247,7 @@ class ProgramRecorder(TorchDispatchMode):
                 # c10d's in-place ops carry no alias annotation: they write
                 # their first argument
                 rec.mutates = list(range(len(_tensors(args[0]))))
+                rec.group = _group_ranks(args)
         else:
             sets = {}
             for a, positions in _arg_positions(func, args, kwargs):
@@ -368,3 +385,28 @@ def fresh_outputs(program: Program) -> List[int]:
     """Flat output positions whose storage no input of the call had."""
     seen = {a.storage for a in program.args}
     return [j for j, o in enumerate(program.outs) if o.storage not in seen]
+
+
+class fake_world:
+    """Context manager: torch's fake process group of ``world_size`` ranks,
+    this process rank 0, for recording a program's collectives without a
+    second process (collectives dispatch, and are recorded, but move no
+    data). Refuses to nest inside a process group that is already up."""
+
+    def __init__(self, world_size: int):
+        self.world_size = int(world_size)
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        if dist.is_initialized():
+            raise RuntimeError("a process group is already initialized; the fake "
+                               f"world of {self.world_size} ranks records in a process "
+                               "of its own")
+        dist.init_process_group("fake", store=FakeStore(), world_size=self.world_size,
+                                rank=0)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()

@@ -26,7 +26,8 @@ import torch.multiprocessing as mp
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as ls
-from deepspeed_tpu_torch.runtime.zero.sharding import sharding_coverage, unshard, zero_spec
+from deepspeed_tpu_torch.runtime.zero.sharding import (shard, sharding_coverage, unshard,
+                                                       zero_spec)
 
 DIMS = dict(vocab_size=64, n_positions=32, n_embd=32, n_layer=2, n_head=2)
 MICRO, GAS, T = 2, 2, 16
@@ -204,14 +205,24 @@ def test_fp16_overflow_skips_the_step():
 
 
 def _refused():
+    """(config, exception, message) of each refusal: the unported items name
+    their ROADMAP.md item; the communication modes refuse what the JAX
+    engine refuses, with its exception (deepspeed_tpu/runtime/engine.py:
+    185-235, 294-301)."""
     base = {"train_batch_size": 1}
+    zero2 = {"zero_optimization": {"stage": 2}, "bf16": {"enabled": True}}
     return [
-        dict(base, zero_optimization={"stage": 3}),
-        dict(base, optimizer={"type": "OneBitAdam", "params": {"lr": 1e-3}}),
-        dict(base, sparse_gradients=True),
-        dict(base, comm={"mode": "hierarchical"}),
-        dict(base, comm={"overlap": {"mode": "bucketed"}}),
-        dict(base, sequence_parallel={"enabled": True}),
+        (dict(base, zero_optimization={"stage": 3}), NotImplementedError, "ROADMAP.md"),
+        (dict(base, optimizer={"type": "OneBitAdam", "params": {"lr": 1e-3}}, **zero2),
+         AssertionError, "1-bit Adam does not compose with ZeRO"),
+        (dict(base, sparse_gradients=True, comm={"overlap": {"mode": "bucketed"}}),
+         ValueError, "does not compose with sparse_gradients"),
+        (dict(base, comm={"mode": "hierarchical"}, zero_optimization={"stage": 3},
+              bf16={"enabled": True}), ValueError, "requires ZeRO stage <= 2"),
+        (dict(base, comm={"mode": "hierarchical_compressed"}, bf16={"enabled": True},
+              zero_optimization={"stage": 2, "cpu_offload": True}),
+         ValueError, "does not compose with ZeRO-Offload"),
+        (dict(base, sequence_parallel={"enabled": True}), NotImplementedError, "ROADMAP.md"),
     ]
 
 
@@ -219,9 +230,9 @@ _REFUSED_IDS = ["zero_optimization", "optimizer", "sparse_gradients", "comm", "c
                 "sequence_parallel"]
 
 
-@pytest.mark.parametrize("cfg", _refused(), ids=_REFUSED_IDS)
-def test_unported_config_raises(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("cfg,exc,match", _refused(), ids=_REFUSED_IDS)
+def test_unported_config_raises(cfg, exc, match):
+    with pytest.raises(exc, match=match):
         deepspeed_tpu_torch.initialize(model=_Quadratic(), config_params=cfg, device="cpu")
 
 
@@ -333,6 +344,20 @@ def test_runtime_utils_match_jax():
     bad = [torch.ones(2), torch.tensor([1.0, float("inf")])]
     assert bool(tutils.detect_overflow(bad, True)[0])
     assert not bool(tutils.detect_overflow(bad, False)[0])
+
+
+def test_shard_copies_into_storage_of_its_own():
+    """A rank's ZeRO slice owns storage of its slice's size: a view would keep
+    the whole leaf alive (a slice along axis 0 of a contiguous leaf is
+    contiguous), and the master would hold the full leaf on every rank."""
+    full = torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8)
+    for axis in (0, 1):
+        for rank in range(4):
+            part = shard(full, axis, rank, 4)
+            assert part.is_contiguous()
+            assert part.untyped_storage().nbytes() == part.numel() * 4
+            assert torch.equal(part, full.chunk(4, dim=axis)[rank])
+    assert shard(full, None, 0, 4) is full
 
 
 # ------------------------------------------------------------------ dp = 2

@@ -251,19 +251,23 @@ def test_mpi_world_without_master_addr_raises_naming_it(no_identity):
 
 
 # ----------------------------------------------------------------- front end
-def test_cli_dispatches_and_refuses_by_item(capsys):
+def test_cli_dispatches_and_refuses_by_item(capsys, tmp_path):
+    """Every sub-command of the JAX front end dispatches; ``crash-sim`` and
+    ``comm-sim`` write their JSON."""
     from deepspeed_tpu_torch import cli
-    assert set(cli.COMMANDS) | set(cli.LATER) == {
+    assert set(cli.COMMANDS) == {
         "inspect-dump", "timeline", "cluster-dump", "hang-sim", "goodput", "alerts",
         "metrics", "alert-sim", "serve-timeline", "lint", "anatomy", "hbm", "profile",
         "serve-sim", "crash-sim", "comm-sim"}
     import importlib
     for module, fn in cli.COMMANDS.values():
         assert callable(getattr(importlib.import_module(module), fn))
-    with pytest.raises(NotImplementedError, match="item 20b"):
-        cli.main(["crash-sim"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        cli.main(["comm-sim"])
+    crash, comm = tmp_path / "crash.json", tmp_path / "comm.json"
+    assert cli.main(["crash-sim", "--kill-points", "auto_resume", "--device", "cpu",
+                     "--json", str(crash)]) == 0
+    assert json.loads(crash.read_text())["scenarios"]["trainer_auto_resume"]["ok"]
+    assert cli.main(["comm-sim", "--out", str(comm)]) == 0
+    assert json.loads(comm.read_text())["ok"]
     assert cli.main(["lint", "--ast-only"]) == 0
     assert "0 violation(s)" in capsys.readouterr().out
 

@@ -57,6 +57,15 @@ def test_scan_covers_the_device_observatories():
         assert f"deepspeed_tpu_torch/{name}" in names, name
 
 
+def test_scan_covers_the_communication_and_crash_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("comm/topology.py", "comm/hierarchical.py", "comm/sim.py",
+                 "runtime/custom_collectives.py", "runtime/sparse_tensor.py",
+                 "ops/onebit_adam.py", "resilience/elastic.py", "resilience/crash_sim.py",
+                 "models/resnet.py"):
+        assert f"deepspeed_tpu_torch/{name}" in names, name
+
+
 def test_importing_the_port_loads_no_jax():
     # a subprocess: this test process already holds jax (tests/conftest.py)
     modules = sorted(
