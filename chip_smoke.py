@@ -152,7 +152,13 @@ result line):
    then ``auto_resume`` in a fresh engine at step 12 bit for bit; (3) the
    offload host tier at 12 layers round-tripped bit for bit, then loaded
    into a device engine: its master bit for bit, its losses within
-   ``[train-offload]``'s bound; ``[offload-large]``:
+   ``[train-offload]``'s bound; ``[train-zero3]``: the slice-2 training
+   config at 12 layers at ZeRO stage 3, then at stage 2, 4 steps each on
+   the same batches: at one rank nothing is sharded, so the losses and grad
+   norms bit for bit, 96 / 96 / 96 flash launches each on the tensor cores,
+   the peaks within 64 MB, the memory manifest equal and reconciled with
+   the ZeRO model, the stage-3 gather counter at 0, each step's ms;
+   ``[offload-large]``:
    1600-wide GPT-2 at LARGE_LAYERS (5.0 B params), which the device engine
    could not hold (16 B a parameter), with full remat for 3 steps;
    ``[offload-capacity]``: ``bench.py``'s ``max_params_offload``, the deepest
@@ -3150,6 +3156,103 @@ def phase_checkpoint(clip_rounding):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# [train-zero3]: TRAIN_CONFIG at ZeRO stage 3 and at stage 2, at 12 of the 48
+# layers (as [checkpoint] cuts it; the path is the same at any depth)
+ZERO3_LAYERS = 12
+ZERO3_STEPS = 4
+ZERO3_PEAK_TOL = 64 << 20       # bytes between the two runs' peaks
+
+
+def _zero3_run(stage, batches):
+    """TRAIN_CONFIG at ``stage`` from seed 0: each step's loss, grad norm
+    and ms, the flash launches, the peak, the stage-3 gather counter and the
+    memory manifest against the ZeRO model."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.utils import hbm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPT2Model(GPT2Config(**dict(TRAIN_MODEL, n_layer=ZERO3_LAYERS)))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=dict(TRAIN_CONFIG, zero_optimization={"stage": stage}))
+    if engine._gather is not None:
+        engine._gather.reset_counters()
+    gas = engine.gradient_accumulation_steps()
+    _zero_flash_counts()
+    losses, norms, step_ms = [], [], []
+    for tokens, labels in batches:
+        mb = tokens.shape[0] // gas
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        window = []
+        for m in range(gas):
+            loss = engine(tokens[m * mb:(m + 1) * mb], labels[m * mb:(m + 1) * mb])
+            engine.backward(loss)
+            engine.step()
+            window.append(loss.detach())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append([float(x) for x in window])
+        norms.append(float(engine._last_grad_norm))
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    manifest = engine.memory_manifest()
+    _, class_bytes = hbm.manifest_signatures(manifest)
+    report = hbm.engine_report(engine)
+    res = {"stage": stage, "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "flash_launches": launches, "tensor_core_launches": tc,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "gathers": None if engine._gather is None else engine._gather.gathers,
+           "gathered_peak_bytes": None if engine._gather is None else engine._gather.peak_bytes,
+           "manifest": class_bytes, "live": hbm.measure_classes(manifest),
+           "reconciled": report["reconciled"],
+           "modeled": {k: v["modeled_bytes"] for k, v in report["classes"].items()}}
+    del engine, model
+    return res
+
+
+def phase_train_zero3():
+    """ZeRO stage 3 on one card: TRAIN_CONFIG (GPT-2 at the 1.5B widths, 12
+    of 48 layers, flash attention, bf16, AdamW, 4 x 2 accumulation) at stage
+    3, then at stage 2, 4 steps each on the same seeded batches. At one rank
+    ``zero_spec`` shards nothing, so stage 3 must be stage 2 bit for bit:
+    the losses and grad norms, the flash launches, the peak (within
+    ZERO3_PEAK_TOL), and the memory manifest, reconciled with the ZeRO model
+    at stage 3; the gather counter reads 0. The gathers and their
+    reduce-scatters run at dp > 1 only (the CPU tests, over gloo)."""
+    card = phase_device(quiet=True)
+    batches = _ckpt_batches(ZERO3_STEPS, TRAIN_CONFIG["train_batch_size"])
+    z3 = _zero3_run(3, batches)
+    z2 = _zero3_run(2, batches)
+    want = [ZERO3_LAYERS * TRAIN_CONFIG["gradient_accumulation_steps"] * ZERO3_STEPS] * 3
+    for r in (z3, z2):
+        log(f"[train-zero3] stage {r['stage']}: {json.dumps(r)}; {card}")
+    checks = {
+        "losses_bit_equal": z3["losses"] == z2["losses"],
+        "grad_norms_bit_equal": z3["grad_norms"] == z2["grad_norms"],
+        "losses_finite": all(math.isfinite(x) for w in z3["losses"] for x in w),
+        "flash_launches": z3["flash_launches"] == z2["flash_launches"] == want
+        and z3["tensor_core_launches"] == want,
+        "peaks_within_tol": abs(z3["peak_bytes"] - z2["peak_bytes"]) <= ZERO3_PEAK_TOL,
+        "no_gather_at_one_rank": z3["gathers"] == 0 and z3["gathered_peak_bytes"] == 0,
+        "manifest_equal_to_stage2": z3["manifest"] == z2["manifest"],
+        # the live tensors are the manifest's, but for the grads, which live
+        # only between the backward and the update (meta in the manifest)
+        "manifest_reconciled": z3["reconciled"] and all(
+            z3["live"][k] == v for k, v in z3["manifest"].items() if k != "grads"),
+    }
+    log(f"[train-zero3] checks {json.dumps(checks)}; step ms stage 3 "
+        f"{z3['step_ms']}, stage 2 {z2['step_ms']}; peak bytes stage 3 "
+        f"{z3['peak_bytes']}, stage 2 {z2['peak_bytes']}; {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[train-zero3] failed: {failed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return z3["flash_launches"]
+
+
 def phase_offload_large():
     """A model the device engine cannot hold: LARGE_LAYERS x 1600 with full
     remat, ZeRO-Offload, batch 8 x 1024, LARGE_STEPS steps."""
@@ -5179,6 +5282,8 @@ def main():
     for e, n in zip(flash, offload_launches):
         e["launches_offload"] = n
     _timed_phase(phase_checkpoint, clip_rounding)
+    for e, n in zip(flash, _timed_phase(phase_train_zero3)):
+        e["launches_zero3"] = n
     _timed_phase(phase_offload_large)
     _timed_phase(phase_offload_capacity)
     sparse = _timed_phase(phase_block_sparse_kernels)

@@ -294,7 +294,7 @@ def _snapshot_offload_regions(engine):
         regions_meta.append({"tag": tag, "leaf": li, "starts": list(r.starts),
                              "stops": list(r.stops)})
     manifest = {"n_procs": engine.dp_size, "proc": engine.dp_rank,
-                "leaves": [{"key": key, "shape": list(engine._params[i].shape)}
+                "leaves": [{"key": key, "shape": list(engine._shapes[i])}
                            for key, i in keys],
                 "regions": regions_meta}
     return shard_, manifest
@@ -350,7 +350,7 @@ def _scatter_offload_regions(ckpt_dir: str, engine) -> bool:
     off = engine._offload
     local = {(key, tuple(off._regions[i].starts), tuple(off._regions[i].stops)):
              off._regions[i] for key, i in engine._ckpt_keys()}
-    shapes = {key: list(engine._params[i].shape) for key, i in engine._ckpt_keys()}
+    shapes = {key: list(engine._shapes[i]) for key, i in engine._ckpt_keys()}
     bufs = _offload_buffers(off)
     matched = set()
     for mpath in _offload_manifests(ckpt_dir):
@@ -392,7 +392,7 @@ def _load_offload_full(engine, master, exp_avg, exp_avg_sq):
                 if key not in flat:
                     raise KeyError(f"checkpoint missing array {key!r}")
                 full = torch.from_numpy(np.asarray(flat[key], np.float32))
-                part = shard(full.reshape(engine._params[i].shape), engine._axes[i],
+                part = shard(full.reshape(engine._shapes[i]), engine._axes[i],
                              engine.dp_rank, engine.dp_size)
                 buf[r.offset:r.offset + r.size].copy_(part.reshape(-1))
 
@@ -412,7 +412,7 @@ def comm_ef_geometry(engine):
                            "n_pad": int(b["n_pad"])} for b in plan]
     else:
         geo["layout"] = "monolithic"
-        geo["n"] = int(sum(int(p.numel()) for p in engine._params))
+        geo["n"] = int(engine._numel())
         geo["n_pad"] = int(engine._n_pad)
     return geo
 

@@ -31,8 +31,11 @@ are drawn before the blocks and each block draws from generators of its
 seeds, so a recompute draws the same masks (JAX splits a key per block
 outside the checkpoint in the same way). It cannot match ``jax.random`` bit
 for bit, except the flash kernels' attention dropout, which hashes
-coordinates. MoE comes with a later slice and raises
-``NotImplementedError`` when asked for.
+coordinates. Under ZeRO stage 3 (``set_param_gather``) each parameter holds
+its rank's slice and the training forward gathers the leaves where it uses
+them: a block's inside the block, ``wte`` at the embedding and again at the
+head. MoE comes with a later slice and raises ``NotImplementedError`` when
+asked for.
 """
 
 import math
@@ -162,6 +165,7 @@ class GPT2Model(nn.Module):
         self.wpe = nn.Parameter(torch.empty(c.n_positions, c.n_embd, device=dev))
         self.ln_f = _LayerNorm(c.n_embd, dev)
         self.blocks = nn.ModuleList(_Block(c.n_embd, dev) for _ in range(c.n_layer))
+        self._param_gather = None
 
     @property
     def device(self):
@@ -245,6 +249,18 @@ class GPT2Model(nn.Module):
         from ..runtime.utils import param_count
         return param_count(params if params is not None else dict(self.named_parameters()))
 
+    def set_param_gather(self, gather):
+        """ZeRO stage 3 (runtime/zero/sharding.py ``ParamGather``):
+        ``gather.tree`` gives the whole leaves of a subtree of slices. The
+        training forward calls it where it uses them, so that one block's
+        leaves (and ``wte``) are whole at a time: inside each block (inside
+        the remat region, so a recompute gathers again), at the embedding,
+        the final LayerNorm and the head."""
+        self._param_gather = gather
+
+    def _use(self, node):
+        return node if self._param_gather is None else self._param_gather.tree(node)
+
     def _dropout(self, x, rng):
         """Inverted dropout at ``config.dropout``, the mask drawn from ``rng``:
         a ``torch.Generator`` on x's device, or an int seed of a fresh one."""
@@ -306,8 +322,9 @@ class GPT2Model(nn.Module):
     def _embed(self, p, tokens, generator=None):
         c = self.config
         pos = torch.arange(tokens.shape[1], device=tokens.device)
-        x = (p["wte"][tokens.long()].to(c.compute_dtype)
-             + p["wpe"][pos].to(c.compute_dtype))
+        # one gathered table at a time: each is dropped once indexed
+        x = (self._use(p["wte"])[tokens.long()].to(c.compute_dtype)
+             + self._use(p["wpe"])[pos].to(c.compute_dtype))
         if generator is not None and c.dropout > 0:
             x = self._dropout(x, generator)
         return x
@@ -317,6 +334,7 @@ class GPT2Model(nn.Module):
         dropout seeds, ints drawn before the block, None without dropout."""
         c = self.config
         eps = c.layer_norm_epsilon
+        bp = self._use(bp)
         if c.fused_block and seeds is None:
             # the whole attention half (LayerNorm + qkv + attention + proj +
             # residual) in the fused-block kernels
@@ -350,7 +368,7 @@ class GPT2Model(nn.Module):
         block = checkpoint_wrapper(self._block, policy=c.remat_policy) if c.remat else self._block
         for bp, s in zip(p["blocks"], seeds):
             x = block(x, bp, s)
-        return self._layer_norm(x, p["ln_f"], c.layer_norm_epsilon)
+        return self._layer_norm(x, self._use(p["ln_f"]), c.layer_norm_epsilon)
 
     @staticmethod
     def _head(x, wte):
@@ -361,7 +379,7 @@ class GPT2Model(nn.Module):
 
     def logits(self, p, tokens, generator=None):
         """float32 logits ``[B, T, vocab]``."""
-        return self._head(self._backbone(p, tokens, generator), p["wte"])
+        return self._head(self._backbone(p, tokens, generator), self._use(p["wte"]))
 
     def _chunked_ce(self, x, wte, labels, chunk):
         """Cross-entropy over sequence chunks; each chunk's float32 logits are
@@ -383,13 +401,14 @@ class GPT2Model(nn.Module):
         labels = labels.long()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         T = x.shape[1]
+        wte = self._use(p["wte"])
         if self.config.loss_chunk:
             # largest divisor of T not above loss_chunk (gpt2.py:532)
             chunk = next(cc for cc in range(min(self.config.loss_chunk, T), 0, -1)
                          if T % cc == 0)
             if chunk < T:
-                return self._chunked_ce(x, p["wte"], labels, chunk), aux
-        total, n_valid = _ce_sums(x, p["wte"].to(x.dtype).float(), labels)
+                return self._chunked_ce(x, wte, labels, chunk), aux
+        total, n_valid = _ce_sums(x, wte.to(x.dtype).float(), labels)
         return total / n_valid.clamp(min=1.0), aux
 
     def forward(self, tokens, labels=None, generator=None):

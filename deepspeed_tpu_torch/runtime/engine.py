@@ -23,6 +23,13 @@ global-batch gradient when the ranks hold equal numbers of valid labels.
   all-gathered;
 - stage 2: as stage 1, but each micro-step's grads are reduce-scattered into
   a sharded accumulator;
+- stage 3: as stage 2, and each compute parameter holds its slice too
+  (deepspeed_tpu/runtime/engine.py:356-366). ``zero/sharding.py``
+  ``ParamGather`` all-gathers a leaf at each use in the forward (GPT-2
+  inside each block; another module at each access to the parameter), the
+  backward reduce-scatters its grad (a sum), and saved-tensor hooks keep a
+  gathered copy that autograd saves as its slice; the update casts the
+  master slice into the compute slice and gathers nothing;
 - leaves ``zero_spec`` keeps replicated (under 1024 elements, or no
   divisible axis) are all-reduced and updated whole on every rank;
 - the global norm sums the sharded squares over the ranks.
@@ -51,13 +58,18 @@ functions return new trees; the port keeps one copy of each). A client
 optimizer is the JAX package's ``(init, apply)`` pair on its trees
 (``_client_tree``): ``init(master) -> state``, ``apply(grads, state, master,
 step, hyper) -> (master, state)``, the returned master adopted and the
-compute params re-cast; an ``apply`` marked ``external_master`` owns the
-parameter state, so the engine holds no float32 master (``master_params`` is
-a float32 view of the compute params), hands it None and re-casts nothing.
+compute params re-cast. Under ZeRO at dp > 1 it sees whole trees, as in the
+JAX engine (deepspeed_tpu/runtime/engine.py:917-945): the grads, the master
+and each state field that mirrors the param tree are all-gathered from this
+rank's slices, and the engine keeps its slices of the result; a field that
+does not mirror the tree stays whole on every rank. An ``apply`` marked
+``external_master`` owns the parameter state, so the engine holds no float32
+master (``master_params`` is a float32 view of the compute params), hands it
+None and re-casts nothing.
 The ``activation_checkpointing`` block configures
 ``activation_checkpointing/checkpointing.py``.
 
-ZeRO-Offload (``zero_optimization.cpu_offload``, stage 2): the float32 master
+ZeRO-Offload (``zero_optimization.cpu_offload``, stage 2 or 3): the float32 master
 and the Adam moments live in the host's memory (``ops/cpu_adam.py``
 ``DeepSpeedCPUAdam``, filled leaf by leaf from the module's parameters, so no
 float32 copy of the model stays on the card); grads stay in the compute
@@ -128,6 +140,7 @@ ROADMAP.md item.
 in eager PyTorch; it is ignored.
 """
 
+import contextlib
 import re
 import time
 
@@ -160,8 +173,8 @@ from .dataloader import DeepSpeedDataLoader
 from .fp16 import loss_scaler as ls
 from .lr_schedules import get_scheduler
 from .utils import clip_grads_by_global_norm, detect_overflow
-from .zero.sharding import (reduce_scatter, shard, sharding_coverage, slice_bounds, unshard,
-                            zero_spec)
+from .zero.sharding import (ParamGather, reduce_scatter, shard, sharding_coverage, slice_bounds,
+                            unshard, zero_spec)
 
 
 def _later(what, item):
@@ -295,10 +308,6 @@ class DeepSpeedEngine:
         offload = bool(self.config.zero_enabled and self.config.zero_config.cpu_offload)
         if offload:
             self._refuse_offload_optimizer(optimizer)
-        if (client_apply is not None and self.config.zero_enabled and self.dp_size > 1):
-            raise _later("a client (init, apply) optimizer under ZeRO at dp > 1 (the JAX "
-                         "engine hands it global trees; the port holds per-rank slices)",
-                         "item 24")
 
         if self.fp16_enabled():
             self.compute_dtype = torch.float16
@@ -320,9 +329,13 @@ class DeepSpeedEngine:
         self._names = [n for n, _ in named]
         self._params = [p for _, p in named]
         self._ckpt_key_list = None          # _ckpt_keys, built at first use
+        # full leaf shapes: at stage 3 a compute parameter holds its slice
+        self._shapes = [tuple(p.shape) for p in self._params]
         stage = self.zero_optimization_stage()
         self._axes = [zero_spec(tuple(p.shape), self.dp_size) if stage >= 1 else None
                       for p in self._params]
+        # stage 3: the compute params carry the master's layout
+        self._param_axes = self._axes if stage >= 3 else [None] * len(self._params)
         self._offload = None
         with torch.no_grad():
             if offload:
@@ -343,16 +356,29 @@ class DeepSpeedEngine:
                                        self.dp_size)
                                  for p, a in zip(self._params, self._axes)])
             model.to(self.compute_dtype)
+            for p, a in zip(self._params, self._param_axes):
+                # stage 3: this rank's slice, in storage of its own
+                p.data = shard(p.data, a, self.dp_rank, self.dp_size)
         # stage 2 keeps the accumulated grads reduce-scattered like the master
         self._grad_axes = self._axes if stage >= 2 else [None] * len(self._params)
         self._zero_sharded_fraction = None
         if stage >= 1 and self.dp_size > 1:
             sharded_b, total_b = sharding_coverage(
-                self._axes, [p.detach().float() for p in self._params])
+                self._axes, [torch.empty(s, device="meta") for s in self._shapes])
             self._zero_sharded_fraction = sharded_b / max(total_b, 1)
             log_dist(f"ZeRO-{stage}: {sharded_b / 2**20:.1f}/{total_b / 2**20:.1f} MiB "
-                     f"({self._zero_sharded_fraction:.1%}) of master+optimizer state "
-                     f"sharded over data={self.dp_size}", ranks=[0])
+                     f"({self._zero_sharded_fraction:.1%}) of master+optimizer"
+                     + ("+parameter" if stage >= 3 else "")
+                     + f" state sharded over data={self.dp_size}", ranks=[0])
+        # stage 3's gather at use: where the model says (set_param_gather),
+        # else at each attribute access to a sharded parameter
+        self._gather = None
+        if stage >= 3:
+            self._gather = ParamGather(self._params, self._param_axes, self.dp_size)
+            if callable(getattr(model, "set_param_gather", None)):
+                model.set_param_gather(self._gather)
+            elif self._gather.sharded:
+                self._gather.install(model)
 
         self._sparse_flags = self._sparse_grad_flags(model)
         # optional hint: the token count of this rank's micro-batch (the JAX
@@ -459,8 +485,6 @@ class DeepSpeedEngine:
 
     def _refuse_unported(self):
         c = self.config
-        if c.zero_enabled and c.zero_optimization_stage >= 3:
-            raise _later("ZeRO stage 3", "item 17b")
         if c.sequence_parallel_enabled:
             raise _later("sequence_parallel", "item 14")
 
@@ -572,6 +596,12 @@ class DeepSpeedEngine:
         engine.py:305-343): 2-D leaves whose JAX path matches the model's
         ``sparse_grad_paths()``; None when none does or the mode is off."""
         if not self.config.sparse_gradients_enabled or self._use_stacked_grads:
+            return None
+        if self.zero_optimization_stage() >= 3:
+            # the row-sparse exchange reduces whole replicated leaves; stage 3
+            # gathers only at the use points
+            logger.warning("[deepspeed_tpu_torch] sparse_gradients is inactive under ZeRO "
+                           "stage 3 (sharded parameters); using dense gradient reduction")
             return None
         patterns = tuple(getattr(model, "sparse_grad_paths", lambda: ())())
         if not patterns:
@@ -901,12 +931,70 @@ class DeepSpeedEngine:
         self.optimizer = OptimizerHandle("client", self.config.optimizer_params or {})
         self._layout = self._client_layout()
         with torch.no_grad():
-            # external master: init sees the params' float32 upcast, dropped after
-            master = (self._master if not self._external_master
-                      else [p.detach().float() for p in self._params])
-            self.opt_state = self._opt_init(self._client_tree(master))
+            # init sees the global master (external master: the params' float32
+            # upcast, dropped after); the engine keeps this rank's slices of the
+            # state fields that mirror the param tree
+            master = (self._full(self._master, self._axes) if not self._external_master
+                      else [p.float() for p in self._full(
+                          [p.detach() for p in self._params], self._param_axes)])
+            state = self._opt_init(self._client_tree(master))
+            del master
+            self._client_state_axes = self._state_axes(state)
+            self.opt_state = self._slice_state(state)
         log_dist(f"Using client optimizer (external_master={self._external_master})",
                  ranks=[0])
+
+    def _full(self, tensors, axes):
+        """Whole leaves from this rank's slices (all-gathered where sharded)."""
+        return [unshard(t, a, self.dp_size) for t, a in zip(tensors, axes)]
+
+    def _numel(self):
+        """The model's parameter count (whole leaves, whatever the stage)."""
+        return sum(int(np.prod(s, dtype=np.int64)) for s in self._shapes)
+
+    def _full_shape(self, leaf, axis):
+        shape = list(leaf.shape)
+        if axis is not None:
+            shape[axis] *= self.dp_size
+        return tuple(shape)
+
+    def _state_axes(self, state):
+        """The ZeRO axis of each leaf of a client pair's state (in
+        ``tree_leaves`` order), by the JAX engine's ``field_shardings``
+        (deepspeed_tpu/runtime/engine.py:930-945): a field that mirrors the
+        param tree (each leaf at its parameter's path, of its parameter's
+        shape) takes the master's axes; another field stays whole on every
+        rank. A namedtuple is judged field by field, any other state as one
+        tree."""
+        def field_axes(field):
+            items = pytree.tree_flatten_with_path(field)[0]
+            paths = [ckpt._path_key(path) for path, _ in items]
+            if sorted(paths) != sorted(self._layout_index):
+                return None
+            return [self._axes[i] if isinstance(leaf, torch.Tensor)
+                    and tuple(leaf.shape) == self._shapes[i] else None
+                    for (_, leaf), i in zip(items, (self._layout_index[p] for p in paths))]
+
+        n = len(pytree.tree_leaves(state))
+        if self.dp_size == 1 or not self.config.zero_enabled:
+            return [None] * n
+        if hasattr(state, "_fields"):
+            axes = []
+            for field in state:
+                axes += field_axes(field) or [None] * len(pytree.tree_leaves(field))
+            return axes
+        axes = field_axes(state)
+        if axes is None:
+            logger.warning("client optimizer state does not mirror the param tree; "
+                           "optimizer state will be replicated")
+            return [None] * n
+        return axes
+
+    def _slice_state(self, state):
+        leaves, spec = pytree.tree_flatten(state)
+        return pytree.tree_unflatten(
+            [shard(t, a, self.dp_rank, self.dp_size)
+             for t, a in zip(leaves, self._client_state_axes)], spec)
 
     def _client_layout(self):
         """The tree a client pair sees, its leaves indices into the engine's
@@ -928,6 +1016,8 @@ class DeepSpeedEngine:
         layout = build(tree)
         if sorted(pytree.tree_leaves(layout)) != list(range(len(self._params))):
             raise ValueError("params_tree() must hold every parameter once")
+        self._layout_index = {ckpt._path_key(path): i
+                              for path, i in pytree.tree_flatten_with_path(layout)[0]}
         return layout
 
     def _client_tree(self, values):
@@ -961,22 +1051,29 @@ class DeepSpeedEngine:
 
     def _client_step(self, grads, step):
         """``apply(grads, state, master, step, hyper)``: hyper the JAX
-        engine's dict of 0-d float32 scalars, step a 0-d int32."""
+        engine's dict of 0-d float32 scalars, step a 0-d int32. Under ZeRO at
+        dp > 1 it sees global trees, as in the JAX engine: the grads, the
+        master and the mirroring state fields all-gathered from this rank's
+        slices (``grads``: the optimizer's slices); the engine keeps its slices
+        of what it returns."""
         g = self.optimizer.param_groups[0]
         hyper = {k: torch.tensor(v, dtype=torch.float32, device=self.device)
                  for k, v in (("lr", g["lr"]), ("beta1", g["betas"][0]),
                               ("beta2", g["betas"][1]), ("eps", g["eps"]),
                               ("weight_decay", g["weight_decay"]))}
         step = torch.tensor(step, dtype=torch.int32, device=self.device)
-        grads = self._client_tree(grads)
+        grads = self._client_tree(self._full(grads, self._axes))
+        leaves, spec = pytree.tree_flatten(self.opt_state)
+        state = pytree.tree_unflatten(self._full(leaves, self._client_state_axes), spec)
+        master = (None if self._external_master
+                  else self._client_tree(self._full(self._master, self._axes)))
+        master, state = self._opt_apply(grads, state, master, step, hyper)
+        self.opt_state = self._slice_state(state)
         if self._external_master:
-            _, self.opt_state = self._opt_apply(grads, self.opt_state, None, step, hyper)
             return
-        master, self.opt_state = self._opt_apply(grads, self.opt_state,
-                                                 self._client_tree(self._master), step, hyper)
-        for m, new in zip(self._master, self._client_leaves(master)):
+        for m, new, a in zip(self._master, self._client_leaves(master), self._axes):
             if new is not m:
-                m.copy_(new)
+                m.copy_(shard(new, a, self.dp_rank, self.dp_size))
 
     def _configure_lr_scheduler(self, client_lr_scheduler):
         if client_lr_scheduler is not None:
@@ -1048,8 +1145,16 @@ class DeepSpeedEngine:
         return loss
 
     def _loss(self, batch):
-        loss = self.module(*batch)
+        with self._gather_scope(save_slices=True):
+            loss = self.module(*batch)
         return loss[0] if isinstance(loss, (tuple, list)) else loss
+
+    def _gather_scope(self, save_slices=False):
+        """Stage 3: the gathers at use are live (the forward, and the
+        backward's recomputes and re-gathers); nothing otherwise."""
+        if self._gather is None:
+            return contextlib.nullcontext()
+        return self._gather.scope(save_slices)
 
     def _fwd(self, *batch):
         with ds_named_scope("ds_fwd_bwd"):
@@ -1104,7 +1209,7 @@ class DeepSpeedEngine:
             self._missing = [len(b["leaf_indices"]) for b in self._overlap_plan]
             self._collecting = True
         try:
-            with ds_named_scope("ds_fwd_bwd"):
+            with ds_named_scope("ds_fwd_bwd"), self._gather_scope():
                 self._scaled(loss).backward()
         finally:
             if overlap:
@@ -1137,12 +1242,15 @@ class DeepSpeedEngine:
     def _exchange(self, grads, compress):
         """The mean over the ranks of this rank's grads, by the exchange
         ``_configure_exchange`` chose; a stage-2 sharded leaf then keeps this
-        rank's slice. 1-bit Adam's grads stay local."""
+        rank's slice. 1-bit Adam's grads stay local. A stage-3 sharded leaf's
+        grad left the backward as its slice of the sum over the ranks (the
+        gather's backward): only the division remains."""
         kind = self._exchange_kind
         if kind == "stacked":
             return grads
         if kind == "flat":
-            return [self._reduce(g, a) for g, a in zip(grads, self._grad_axes)]
+            return [g.div_(self.dp_size) if pa is not None else self._reduce(g, a)
+                    for g, a, pa in zip(grads, self._grad_axes, self._param_axes)]
         if kind == "sparse":
             out = self._sparse_reduce(grads)
         elif compress:
@@ -1452,8 +1560,11 @@ class DeepSpeedEngine:
                                 self.optimizer.current_hyper(), groups=self._groups, **kw)
             del opt_grads
             if not self._external_master:
-                for p, m, a in zip(self._params, self._master, self._axes):
-                    p.copy_(unshard(m.to(self.compute_dtype), a, self.dp_size))
+                # stage 3: the master slice casts into the compute slice
+                for p, m, a, pa in zip(self._params, self._master, self._axes,
+                                       self._param_axes):
+                    p.copy_(unshard(m.to(self.compute_dtype), a if pa is None else None,
+                                    self.dp_size))
         if track:
             from ..utils.numerics import bucket_sumsq, leaf_sumsq
             index = self._sentinel_index
@@ -1554,19 +1665,20 @@ class DeepSpeedEngine:
             leaf_hypers = (None if self._groups is None else
                            [hyper[gi] for gi in self._groups])
             g = hyper[0]
-            sharded = self.dp_size > 1
+            # the push lands in the compute params, or in a slice that is
+            # gathered into them (stage <= 2 at dp > 1)
+            gathered = [a is not None and pa is None
+                        for a, pa in zip(self._axes, self._param_axes)]
             out = [torch.empty(m.shape, dtype=self.compute_dtype, device=self.device)
-                   if sharded and a is not None else p.data
-                   for p, m, a in zip(self._params, self._master, self._axes)]
+                   if g else p.data for p, m, g in zip(self._params, self._master, gathered)]
             self._offload.step_regions(
                 handles, self.global_steps + 1 - self.skipped_steps, lr=g["lr"],
                 beta1=g["beta1"], beta2=g["beta2"], eps=g["eps"],
                 weight_decay=g["weight_decay"], grad_scale=factor, leaf_hypers=leaf_hypers,
                 out=out)
-            if sharded:
-                for p, part, a in zip(self._params, out, self._axes):
-                    if a is not None:
-                        p.copy_(unshard(part, a, self.dp_size))
+            for p, part, a, g in zip(self._params, out, self._axes, gathered):
+                if g:
+                    p.copy_(unshard(part, a, self.dp_size))
         self._update_scaler(overflow)
         return overflow
 
@@ -1690,11 +1802,14 @@ class DeepSpeedEngine:
 
         paths = pytree.tree_flatten_with_path(self._sentinel_tree())[0]
         for path, i in paths:
-            add(f"params/{subtree_name(path, depth)}", self._params[i])
+            if self._param_axes[i] is None:     # a stage-3 slice differs by rank
+                add(f"params/{subtree_name(path, depth)}", self._params[i])
         if self._offload is None and getattr(self, "opt_state", None) is not None:
             if self._client_optimizer is not None:
-                for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
-                    add(f"opt/{subtree_name(path, depth + 1)}", leaf)
+                for (path, leaf), axis in zip(pytree.tree_flatten_with_path(self.opt_state)[0],
+                                              self._client_state_axes):
+                    if axis is None:
+                        add(f"opt/{subtree_name(path, depth + 1)}", leaf)
             elif self._onebit is not None:
                 # the moments are whole on every rank; the error rows differ
                 for field in ("exp_avg", "exp_avg_sq"):
@@ -1817,14 +1932,16 @@ class DeepSpeedEngine:
 
         keys = self._ckpt_keys()
         if kind == "params":
+            # whole leaves on disk at every stage (stage 3 gathers one at a time)
             for key, i in keys:
-                put(key, self._params[i], None)
+                put(key, self._params[i], self._param_axes[i])
         elif kind == "master":
             for key, i in keys:
                 put(key, self._master[i], self._axes[i])
         elif self._client_optimizer is not None:
-            for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
-                put(ckpt._path_key(path), leaf, None)
+            for (path, leaf), axis in zip(pytree.tree_flatten_with_path(self.opt_state)[0],
+                                          self._client_state_axes):
+                put(ckpt._path_key(path), leaf, axis)
         elif self._onebit is not None:
             for field, t in zip(self.opt_state._fields, self.opt_state):
                 if field.endswith("_error"):
@@ -1850,13 +1967,16 @@ class DeepSpeedEngine:
         keys = self._ckpt_keys()
         if kind == "params":
             for key, i in keys:
-                self._params[i].copy_(get(key, self._params[i].shape))
+                self._params[i].copy_(shard(get(key, self._shapes[i]), self._param_axes[i],
+                                            self.dp_rank, self.dp_size))
         elif kind == "master":
             for key, i in keys:
-                self._place_master(i, get(key, self._params[i].shape))
+                self._place_master(i, get(key, self._shapes[i]))
         elif self._client_optimizer is not None:
-            for path, leaf in pytree.tree_flatten_with_path(self.opt_state)[0]:
-                leaf.copy_(get(ckpt._path_key(path), leaf.shape))
+            for (path, leaf), axis in zip(pytree.tree_flatten_with_path(self.opt_state)[0],
+                                          self._client_state_axes):
+                full = get(ckpt._path_key(path), self._full_shape(leaf, axis))
+                leaf.copy_(shard(full, axis, self.dp_rank, self.dp_size))
         elif self._onebit is not None:
             for field, t in zip(self.opt_state._fields, self.opt_state):
                 if field.endswith("_error"):
@@ -1866,7 +1986,7 @@ class DeepSpeedEngine:
         else:
             for field, leaves in zip(self.opt_state._fields, self.opt_state):
                 for key, i in keys:
-                    leaves[i].copy_(shard(get(f"{field}/{key}", self._params[i].shape),
+                    leaves[i].copy_(shard(get(f"{field}/{key}", self._shapes[i]),
                                           self._axes[i], self.dp_rank, self.dp_size))
 
     @torch.no_grad()
@@ -1882,7 +2002,7 @@ class DeepSpeedEngine:
         a checkpoint that holds none (external master), or a load without
         the optimizer states (fp16-derived restore, stage2.py:1781-1836)."""
         for i, p in enumerate(self._params):
-            self._place_master(i, p.detach().float())
+            self._place_master(i, unshard(p.detach(), self._param_axes[i], self.dp_size).float())
 
     def save_checkpoint(self, save_dir, tag=None, client_state={}, save_latest=True):
         return ckpt.save_checkpoint(self, save_dir, tag=tag, client_state=client_state,
@@ -1903,9 +2023,12 @@ class DeepSpeedEngine:
 
     def _update_cost_program(self):
         """The update's cost on meta tensors of its shapes: the norm, the
-        clip, the optimizer and the re-cast (the state is not touched)."""
-        grads = [torch.empty(m.shape, dtype=self._acc_dtype, device="meta")
-                 for m in (self._master if self._master is not None else self._params)]
+        clip, the optimizer and the re-cast (the state is not touched). A
+        client pair's apply runs on whole leaves."""
+        client = self._client_optimizer is not None
+        grads = [torch.empty(s if client else m.shape, dtype=self._acc_dtype, device="meta")
+                 for s, m in zip(self._shapes, self._master if self._master is not None
+                                 else self._params)]
         hyper = self.optimizer.current_hyper()
 
         def run():
@@ -1915,14 +2038,19 @@ class DeepSpeedEngine:
             if clip > 0:
                 clip_grads_by_global_norm(grads, clip, norm=norm)
             state = self._meta(self.opt_state)
-            if self._client_optimizer is not None:
+            if client:
+                leaves, spec = pytree.tree_flatten(state)
+                state = pytree.tree_unflatten(
+                    [torch.empty(self._full_shape(t, a), dtype=t.dtype, device="meta")
+                     if a is not None else t
+                     for t, a in zip(leaves, self._client_state_axes)], spec)
                 g = self.optimizer.param_groups[0]
                 h = {k: torch.tensor(v, dtype=torch.float32, device="meta")
                      for k, v in (("lr", g["lr"]), ("beta1", g["betas"][0]),
                                   ("beta2", g["betas"][1]), ("eps", g["eps"]),
                                   ("weight_decay", g["weight_decay"]))}
-                master = (None if self._external_master
-                          else self._client_tree(self._meta(self._master)))
+                master = (None if self._external_master else self._client_tree(
+                    [torch.empty(s, device="meta") for s in self._shapes]))
                 step = torch.tensor(1, dtype=torch.int32, device="meta")
                 self._opt_apply(self._client_tree(grads), state, master, step, h)
                 if self._external_master:
@@ -1956,7 +2084,8 @@ class DeepSpeedEngine:
 
         def loss_and_grad(*b):
             loss = self._loss(b)
-            self._scaled(loss).backward()
+            with self._gather_scope():
+                self._scaled(loss).backward()
             return loss.detach()
 
         try:
@@ -1980,7 +2109,7 @@ class DeepSpeedEngine:
         if self._fused:
             report["program_flops"] = {"fused_step": report["flops"]}
         report["programs"] = list(report["program_flops"])
-        report["params"] = sum(int(p.numel()) for p in self._params)
+        report["params"] = self._numel()
         return report
 
     def lint_programs(self, sample_batch):
@@ -2002,7 +2131,10 @@ class DeepSpeedEngine:
         reduces in exactly ``grad_dtype`` (the port issues ``reduce_scatter``
         for the leaves ZeRO >= 2 shards and ``all_reduce`` for the others,
         both reductions) and the update re-gathers the parameters in the
-        compute dtype where the master is sliced. Budgets count only results
+        compute dtype where the master is sliced. At stage 3 the forward and
+        backward all-gather the sharded parameters in the compute dtype and
+        reduce-scatter their grads in it, and the update gathers nothing; a
+        client pair's update gathers whole trees. Budgets count only results
         above 256 elements, so the norm's scalar all-reduces ride free.
 
         Capturing a program runs it once: the registry builds throwaway
@@ -2015,11 +2147,26 @@ class DeepSpeedEngine:
         # one reduction a bucket under the bucketed overlap (a re-fused
         # monolithic exchange fails the floor); 1-bit Adam's grads stay local
         n_buckets = len(self._overlap_plan) if self._overlap_plan else 0
-        red = ({"min": max(1, n_buckets), "dtypes": [grad_dt]}
+        # stage 3: the forward and the backward all-gather the sharded params
+        # at their uses (deepspeed_tpu/runtime/engine.py:1635-1641), and the
+        # gathers' backward reduce-scatters their grads in the compute dtype
+        at_use = self._gather is not None and self._gather.sharded
+        red = ({"min": max(1, n_buckets),
+                "dtypes": sorted({grad_dt, compute}) if at_use else [grad_dt]}
                if dp > 1 and self._exchange_kind != "stacked" else {"max": 0})
-        scattered = dp > 1 and any(a is not None for a in self._axes)
+        use_gate = {"all-gather": {"min": 1, "dtypes": [compute]}} if at_use else {}
+        # the update re-gathers the compute params where the master is sliced
+        # and they are not (stage <= 2)
+        scattered = dp > 1 and any(a is not None and pa is None
+                                   for a, pa in zip(self._axes, self._param_axes))
         gather_gate = ({"all-gather": {"min": 1, "dtypes": [compute]}}
                        if scattered else {})
+        upd_gate = dict(gather_gate)
+        if self._client_optimizer is not None and dp > 1 and self.config.zero_enabled:
+            # a client pair's apply sees whole trees gathered from the slices
+            upd_gate = {"all-gather": {"min": int(any(a is not None for a in self._axes)),
+                                       "dtypes": sorted({dtype_name(self._acc_dtype), grad_dt,
+                                                         compute, "f32"})}}
         # the two-level schedule's intra-slice all-gather (one a bucket) is
         # a declared collective of the backward
         hier_gate = ({"all-gather": {"min": max(1, n_buckets),
@@ -2033,8 +2180,8 @@ class DeepSpeedEngine:
         elif dp > 1 and self._exchange_kind in ("flat", "sparse"):
             # the per-leaf exchange: the smallest leaf's reduction result
             small = {"small_element_threshold": max(8, min(
-                (p.numel() // dp if a is not None else p.numel())
-                for p, a in zip(self._params, self._grad_axes)) - 1)}
+                (int(np.prod(s)) // dp if a is not None else int(np.prod(s)))
+                for s, a in zip(self._shapes, self._grad_axes)) - 1)}
         else:
             small = {}
 
@@ -2064,7 +2211,7 @@ class DeepSpeedEngine:
             return loss.detach(), self._micro_grads(loss, compress=False)
 
         lg = ("loss_and_grad", loss_and_grad, batch,
-              man(any_reduction=red, collectives=dict(hier_gate), **small))
+              man(any_reduction=red, collectives=dict(hier_gate, **use_gate), **small))
         if self._offload is not None:
             def offload_step(acc):
                 self._grad_acc = acc
@@ -2084,7 +2231,7 @@ class DeepSpeedEngine:
                     self._pending_is_fused = False
             return [("fused_step", fused_step, batch,
                      man(state("params", "master", "optimizer"), any_reduction=red,
-                         collectives=dict(gather_gate, **hier_gate), **small))]
+                         collectives={**use_gate, **upd_gate, **hier_gate}, **small))]
         progs = [lg]
         if self._compress:
             # the compressed exchange: packed u8 signs over the cross-slice
@@ -2107,7 +2254,7 @@ class DeepSpeedEngine:
                           (acc, acc_like(self._grad_dtype)),
                           man(inplace_args=acc, collectives={})))
         progs.append(("apply_update", self._update, (acc,),
-                      man(state("params", "master", "optimizer"), collectives=gather_gate)))
+                      man(state("params", "master", "optimizer"), collectives=upd_gate)))
         return progs
 
     def memory_manifest(self):
@@ -2161,7 +2308,7 @@ class DeepSpeedEngine:
             # the compressed exchange's error feedback: this rank's rows
             classes["comm_ef"] = [self._comm_we, self._comm_se]
             comm_ef_bytes = 4 * (self._comm_we.numel() + self._comm_se.numel())
-        psi = sum(int(p.numel()) for p in self._params)
+        psi = self._numel()
         geometry = {
             "kind": "training",
             "psi": psi,

@@ -15,12 +15,21 @@ states the same per-leaf choice and moves the data itself:
 - ``sharding_coverage`` says how many bytes the layout actually shards;
 - ``chunk_spans`` cuts a flat range into the offload pipeline's work spans;
 - ``elastic_split`` cuts a host array into the flat dp parts of the elastic
-  checkpoint layout.
+  checkpoint layout;
+- ``ParamGather`` is stage 3's gather at use: a compute parameter holds
+  rank r's slice, and each use all-gathers the full leaf (the counterpart of
+  the JAX engine's sharded compute params, which XLA all-gathers where each
+  leaf is used, deepspeed_tpu/runtime/engine.py:356-366). The backward
+  reduce-scatters the leaf's gradient (a sum over the ranks) back to the
+  slice. Under its saved-tensor hooks autograd keeps a gathered copy as its
+  slice and gathers it again when the backward reads it.
 
 The axis is an int (or None for a replicated leaf) where the JAX package
 returns a ``PartitionSpec``.
 """
 
+import contextlib
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -119,3 +128,145 @@ def elastic_split(arr, dp: int):
     exactly what ``_MergedElastic`` concatenates back, so save@dp_a →
     restore@dp_b round-trips bit-exactly for any (dp_a, dp_b)."""
     return np.array_split(np.asarray(arr).reshape(-1), dp)
+
+
+class _GatherAtUse(torch.autograd.Function):
+    """Forward: the full leaf from every rank's slice. Backward: this rank's
+    slice of the full gradient summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, part, axis, gather):
+        ctx.axis, ctx.gather = axis, gather
+        # the slice, for the saved-tensor hooks' pack (not read by backward)
+        ctx.ds_gathered_part = part
+        return gather._all_gather(part, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad.contiguous(), ctx.axis, ctx.gather.dp_size), None, None
+
+
+class ParamGather:
+    """ZeRO stage 3's gather at use over ``params`` (the engine's leaves,
+    each holding its slice along ``axes[i]``; None = replicated).
+
+    ``gather(p)`` is the full leaf of ``p`` while a ``scope`` is open (the
+    engine's forward and backward), through ``_GatherAtUse``; ``p`` itself
+    for a replicated leaf (every leaf at one rank) or outside a scope. A model calls it
+    where it uses a leaf (``models/gpt2.py`` inside each block); any other
+    module gets it at each parameter attribute access (``install``).
+
+    Counters, for the tests and the card's logs: ``gathers`` (all-gathers
+    issued: forward, recompute and the backward's re-gathers),
+    ``alive_bytes`` (gathered full leaves alive now) and ``peak_bytes``
+    (their high-water mark since ``reset_counters``)."""
+
+    def __init__(self, params, axes, dp_size: int):
+        self._axis = {id(p): a for p, a in zip(params, axes)}
+        self.dp_size = dp_size
+        self.sharded = dp_size > 1 and any(a is not None for a in axes)
+        self._depth = 0
+        self.reset_counters()
+
+    def reset_counters(self):
+        self.gathers = 0
+        self.alive_bytes = 0
+        self.peak_bytes = 0
+
+    def _track(self, full):
+        nbytes = full.numel() * full.element_size()
+        self.gathers += 1
+        self.alive_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.alive_bytes)
+        weakref.finalize(full, self._release, nbytes)
+        return full
+
+    def _release(self, nbytes):
+        self.alive_bytes -= nbytes
+
+    def _all_gather(self, part, axis):
+        return self._track(unshard(part, axis, self.dp_size))
+
+    def __call__(self, p):
+        axis = self._axis.get(id(p))
+        if axis is None or self._depth == 0:
+            return p
+        return _GatherAtUse.apply(p, axis, self)
+
+    def tree(self, node):
+        """``gather`` over every leaf of a nested dict / list of parameters."""
+        if isinstance(node, dict):
+            return {k: self.tree(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(self.tree(v) for v in node)
+        return self(node)
+
+    @contextlib.contextmanager
+    def scope(self, save_slices=False):
+        """Gather while open. ``save_slices`` (the forward): autograd keeps
+        each gathered copy it saves as the slice, and gathers it again in
+        the backward; every other saved tensor passes through."""
+        self._depth += 1
+        hooks = (torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
+                 if save_slices and self.sharded else contextlib.nullcontext())
+        try:
+            with hooks:
+                yield
+        finally:
+            self._depth -= 1
+
+    @staticmethod
+    def _gather_node(fn):
+        return fn if fn is not None and hasattr(fn, "ds_gathered_part") else None
+
+    def _pack(self, t):
+        # a gathered leaf, or a dtype cast of one (a float32 model over bf16
+        # parameters), is saved as its slice; anything else as it is
+        fn = t.grad_fn
+        node = self._gather_node(fn)
+        cast = None
+        if node is None and fn is not None and type(fn).__name__ == "ToCopyBackward0":
+            node = self._gather_node(fn.next_functions[0][0])
+            cast = t.dtype
+        if node is None or t.device != node.ds_gathered_part.device:
+            return t
+        return (_Slice, node.ds_gathered_part, node.axis, cast)
+
+    def _unpack(self, packed):
+        if not (isinstance(packed, tuple) and packed and packed[0] is _Slice):
+            return packed
+        _, part, axis, cast = packed
+        with torch.no_grad():
+            full = self._all_gather(part.detach(), axis)
+        return full if cast is None else full.to(cast)
+
+    def install(self, module):
+        """The generic gather at use: every submodule that holds a sharded
+        parameter answers an attribute access to it with ``gather(p)``
+        (its class swapped for a subclass with that ``__getattr__``; its
+        ``named_parameters`` and ``state_dict`` still hold the slices)."""
+        for m in module.modules():
+            if any(self._axis.get(id(p)) is not None for p in m._parameters.values()):
+                m.__dict__["_ds_param_gather"] = self
+                m.__class__ = _gathering_class(type(m))
+
+
+_Slice = object()           # the tag of a saved-tensor slot packed as its slice
+_GATHERING = {}
+
+
+def _gathering_class(cls):
+    if getattr(cls, "_ds_gathering", False):
+        return cls
+    if cls not in _GATHERING:
+        def __getattr__(self, name):
+            value = super(sub, self).__getattr__(name)
+            gather = self.__dict__.get("_ds_param_gather")
+            if gather is not None and isinstance(value, torch.nn.Parameter):
+                return gather(value)
+            return value
+
+        sub = type(cls.__name__, (cls,), {"__getattr__": __getattr__, "_ds_gathering": True,
+                                          "__module__": cls.__module__})
+        _GATHERING[cls] = sub
+    return _GATHERING[cls]

@@ -17,8 +17,8 @@ mesh, on the same seeded micro-batches:
   the params upcast, and the params never change;
 - a plain momentum-SGD pair: the 4-step loss trajectory and the final master
   agree within 1e-5;
-- the JAX engine's refusals, with its messages, and the port's own refusal of
-  a pair under ZeRO at dp > 1.
+- the JAX engine's refusals, with its messages (a pair under ZeRO at dp > 1
+  is tests/test_torch_client_optimizer_dp.py's).
 """
 
 import os
@@ -264,14 +264,3 @@ def test_refusals_match_the_jax_engine():
             DeepSpeedEngine(model=_Quadratic(), config_params={"train_batch_size": 1},
                             device="cpu", optimizer=bad)
 
-
-def test_pair_under_zero_at_dp2_is_refused(monkeypatch):
-    from deepspeed_tpu_torch.runtime import engine as eng_mod
-    monkeypatch.setattr(eng_mod.dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(eng_mod.dist, "get_world_size", lambda *a: 2)
-    monkeypatch.setattr(eng_mod.dist, "get_rank", lambda *a: 0)
-    cfg = {"train_batch_size": 2, "bf16": {"enabled": True},
-           "zero_optimization": {"stage": 2}, "zero_allow_untested_optimizer": True}
-    with pytest.raises(NotImplementedError, match="item 24"):
-        eng_mod.DeepSpeedEngine(model=_Quadratic(), config_params=cfg, device="cpu",
-                                optimizer=_pair())

@@ -212,7 +212,6 @@ def _refused():
     base = {"train_batch_size": 1}
     zero2 = {"zero_optimization": {"stage": 2}, "bf16": {"enabled": True}}
     return [
-        (dict(base, zero_optimization={"stage": 3}), NotImplementedError, "ROADMAP.md"),
         (dict(base, optimizer={"type": "OneBitAdam", "params": {"lr": 1e-3}}, **zero2),
          AssertionError, "1-bit Adam does not compose with ZeRO"),
         (dict(base, sparse_gradients=True, comm={"overlap": {"mode": "bucketed"}}),
@@ -226,8 +225,7 @@ def _refused():
     ]
 
 
-_REFUSED_IDS = ["zero_optimization", "optimizer", "sparse_gradients", "comm", "comm",
-                "sequence_parallel"]
+_REFUSED_IDS = ["optimizer", "sparse_gradients", "comm", "comm", "sequence_parallel"]
 
 
 @pytest.mark.parametrize("cfg,exc,match", _refused(), ids=_REFUSED_IDS)
