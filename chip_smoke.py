@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --probe N    # one offload-capacity probe at N layers
     python3 chip_smoke.py --launched   # the [launcher] phase's child (the runner starts it)
+    python3 chip_smoke.py --tp-child PHASE RANK PORT DIR   # a rank of [train-tp] / [serving-sharded]
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -139,18 +140,18 @@ result line):
    window; ``[checkpoint]``: in a ``tempfile.mkdtemp()`` directory (its free
    bytes, the reckoned bytes of each round trip and the disk's write rate of
    one fsynced 1 GiB file printed first; too little room raises), (1) the
-   slice-2 training config at 12 layers (cut from 48) saved after 4 steps,
+   slice-2 training config at 6 layers (cut from 48) saved after 4 steps,
    a fresh engine from another init loaded and trained 4 more: params,
    master and moments
    after the load and the 4 losses bit for bit against the uninterrupted
    run, the save timed by stage (snapshot, payload write, hash + manifest,
    fsync + rename) and the load (verify, read, place), with their GB/s;
-   (2) the published config at 12 layers (cut from 48) with the
+   (2) the published config at 6 layers (cut from 48) with the
    ``resilience`` block saving every 4 steps on the writer thread for 12
    steps (the step times with a commit in
    flight against those without, each save's stall, 3 commits verified),
    then ``auto_resume`` in a fresh engine at step 12 bit for bit; (3) the
-   offload host tier at 12 layers round-tripped bit for bit, then loaded
+   offload host tier at 6 layers round-tripped bit for bit, then loaded
    into a device engine: its master bit for bit, its losses within
    ``[train-offload]``'s bound; ``[train-zero3]``: the slice-2 training
    config at 12 layers at ZeRO stage 3, then at stage 2, 4 steps each on
@@ -158,6 +159,22 @@ result line):
    norms bit for bit, 96 / 96 / 96 flash launches each on the tensor cores,
    the peaks within 64 MB, the memory manifest equal and reconciled with
    the ZeRO model, the stage-3 gather counter at 0, each step's ms;
+   ``[train-tp]``: tensor parallelism at 2 ranks, two child processes of
+   this script (``--tp-child``) in a gloo group on the one card (NCCL
+   refuses two ranks on one device; the backend is the caller's explicit
+   choice): ``bench_420m``'s widths at 6 of its 12 layers (1536 wide, 12
+   heads of 128, vocab 50304, bf16, flash, full remat with
+   ``partition_activations``, ZeRO-2, Adam) at dp = 1 x tp = 2 against tp = 1
+   in this process, 3 steps: losses and grad norms within 1e-2, each rank's
+   flash kernels at 6 heads on the tensor cores (12 / 6 / 6 launches a
+   step), the manifest
+   reconciled, the tp = 2 checkpoint loaded at tp = 1 bit for bit; step ms
+   logged as gloo-staged; ``[serving-sharded]``: ``bench_serving_420m``'s
+   widths (24 x 1024, 16 heads) in float32 with the paged-decode kernel at
+   ``serving.sharding.model`` = 2 in two such ranks against the tp = 1
+   engine: tokens equal, the kernel at 8 heads a rank once a layer a decode
+   step, one float32 all-reduce a layer, the sharded programs eager (gloo
+   cannot be captured);
    ``[offload-large]``:
    1600-wide GPT-2 at LARGE_LAYERS (5.0 B params), which the device engine
    could not hold (16 B a parameter), with full remat for 3 steps;
@@ -286,8 +303,9 @@ result line):
    lint-registry entry on the card, then on the CPU: both exit 0 (no
    violation outside the shipped allowlist, no stale entry) with the same
    vids; each program's recorded kernel ops, the paged-decode op once a
-   layer in the serving decode step and as often in all as its wrapper
-   counted; ``[launcher]`` — ``python -m deepspeed_tpu_torch.launcher.runner
+   layer in the serving decode step and in the head-sharded one
+   (``serving_sharded``, recorded at 2 ranks), and as often in all as its
+   wrapper counted; ``[launcher]`` — ``python -m deepspeed_tpu_torch.launcher.runner
    --num_gpus 1 chip_smoke.py --launched``: the child (bench.py:406-420's
    widths and engine config at 4 of 48 layers, no remat, 4 steps) prints its
    env identity, losses, optimizer-state digest and flash launches, and its
@@ -3253,6 +3271,454 @@ def phase_train_zero3():
     return z3["flash_launches"]
 
 
+# [train-tp] / [serving-sharded]: tensor parallelism at 2 ranks on the one
+# card. NCCL refuses two ranks on one device, so the two ranks are child
+# processes of this script (``--tp-child``) that join a gloo group by the
+# caller's explicit choice (``init_distributed(backend="gloo",
+# local_rank=0)``), both on cuda:0; gloo carries the CUDA tensors through the
+# host. Their step times are gloo-staged and say nothing of TP over NCCL.
+TP_RANKS = 2
+TP_MODEL = dict(vocab_size=50304, n_positions=1024, n_embd=1536, n_layer=12,
+                n_head=12)      # bench.py:236-247 (bench_420m): 12 heads of dim 128
+# full remat, so that partition_activations has block inputs to partition;
+# 6 of the 12 layers: the tp = 2 checkpoint's save and load (about 42 s of
+# the phase's 83 at 12 layers, PERF.md) halve, the widths stay
+TP_LAYERS = 6
+TP_TRAIN_MODEL = dict(TP_MODEL, n_layer=TP_LAYERS, use_flash_attention=True, remat=True,
+                      loss_chunk=128)
+TP_BATCH = 4
+TP_STEPS = 3
+TP_CONFIG = {"train_batch_size": TP_BATCH, "train_micro_batch_size_per_gpu": TP_BATCH,
+             "steps_per_print": 1000, "bf16": {"enabled": True},
+             "zero_optimization": {"stage": 2},
+             "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+             "activation_checkpointing": {"partition_activations": True}}
+# bf16, tp = 2 against tp = 1: losses and grad norms (measured on the card
+# 2.6e-5 and 3.0e-4; the losses move 1.6e-3 over the 3 steps), and the
+# masters after the last step: |M(tp 2) - M(tp 1)| over |M(tp 1) - M(init)|,
+# the gap between the two runs' updates (measured 0.050: Adam's first steps
+# are about the sign of each grad, and bf16 flips the sign of the smallest;
+# 1 if the tp = 2 run never updated)
+TP_RTOL = 1e-3
+TP_MASTER_RTOL = 0.1
+TP_CHILD_TIMEOUT_S = 400
+SHARDED_MODEL = dict(vocab_size=50304, n_positions=1024, n_embd=1024, n_layer=24,
+                     n_head=16)  # bench.py:1097-1104 (bench_serving_420m)
+SHARDED_NEW_TOKENS = 8         # each gloo-staged all-reduce costs ~18 ms on the card
+SHARDED_SERVING = {"max_seqs": 8, "block_size": 16, "max_model_len": 1024,
+                   "num_blocks": 513, "prefill_chunk": 128, "use_pallas_decode": True}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _tp_spawn(phase, out_dir):
+    """Run ``phase`` in TP_RANKS child processes of this script on the one
+    card (gloo); each writes ``rank<r>.json`` into ``out_dir``. Raises with
+    the children's logs if one fails; kills both at the time limit."""
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(TP_RANKS):
+        logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--tp-child", phase, str(r),
+             str(port), out_dir], stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + TP_CHILD_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    if any(proc.returncode != 0 for proc in procs):
+        tails = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                tails.append(f"--- rank {r} (exit {procs[r].returncode}):\n{f.read()[-6000:]}")
+        raise RuntimeError(f"[{phase}] a rank failed:\n" + "\n".join(tails))
+    out = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def tp_child(phase, rank, port, out_dir):
+    """One rank of ``[train-tp]`` or ``[serving-sharded]``: gloo, card 0."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.runtime.dist import init_distributed
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(TP_RANKS))
+    init_distributed("cuda", backend="gloo", local_rank=0)
+    try:
+        if phase == "train-tp":
+            res, engine = _tp_train_run(TP_RANKS, os.path.join(out_dir, "ckpt"))
+            del engine
+        else:
+            res = _sharded_serving_run(TP_RANKS)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_train_run(tp, ckpt_dir=None, initial=None):
+    """TP_TRAIN_MODEL through ``initialize`` at dp = 1 x tp (``mpu`` and
+    ``param_shardings`` for tp > 1), TP_STEPS steps on seeded batches from
+    seed-0 weights: each step's loss, grad norm and ms, the flash launches
+    and the head counts they ran at, the peak, the memory manifest against
+    the ZeRO model. Saves a checkpoint into ``ckpt_dir`` when given; fills
+    the dict ``initial`` with the master before the first step (a copy on
+    the card by on-disk key) when given: at tp = 1 and dp = 1 every master
+    leaf is whole."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2 as g
+    from deepspeed_tpu_torch.parallel import PipeModelDataParallelTopology, PipelineParallelGrid
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as act
+    from deepspeed_tpu_torch.utils import hbm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    act.reset()
+    model = g.GPT2Model(g.GPT2Config(**TP_TRAIN_MODEL))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    kw = {}
+    if tp > 1:
+        mpu = PipelineParallelGrid(PipeModelDataParallelTopology(num_pp=1, num_mp=tp, num_dp=1))
+        kw = dict(mpu=mpu, param_shardings=model.param_shardings(mpu.mesh))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config_params=TP_CONFIG, **kw)
+    if initial is not None:
+        initial.update(_master_copy(engine))
+    heads, orig = set(), g.flash_attention
+
+    def seen(q, *a, **k):
+        heads.add(int(q.shape[1]))
+        return orig(q, *a, **k)
+
+    losses, norms, step_ms = [], [], []
+    g.flash_attention = seen
+    _zero_flash_counts()
+    try:
+        for tokens, labels in _ckpt_batches(TP_STEPS, TP_BATCH):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = engine(tokens, labels)
+            engine.backward(loss)
+            engine.step()
+            losses.append(float(loss.detach()))
+            norms.append(float(engine._last_grad_norm))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        g.flash_attention = orig
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    manifest = engine.memory_manifest()
+    _, class_bytes = hbm.manifest_signatures(manifest)
+    report = hbm.engine_report(engine)
+    res = {"tp": tp, "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "flash_launches": launches, "tensor_core_launches": tc, "heads": sorted(heads),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "params_local": sum(p.numel() for p in engine.module.parameters()),
+           "manifest": class_bytes, "live": hbm.measure_classes(manifest),
+           "reconciled": report["reconciled"]}
+    if ckpt_dir is not None:
+        t = time.perf_counter()
+        engine.save_checkpoint(ckpt_dir)
+        res["save_s"] = time.perf_counter() - t
+    return res, engine
+
+
+def _master_copy(engine):
+    """A copy of a one-rank engine's float32 master on the card, by on-disk
+    key."""
+    return {k: engine._master[i].detach().clone() for k, i in engine._ckpt_keys()}
+
+
+def _ckpt_equal_files(engine, ckpt_dir, before, initial):
+    """Whether ``engine``'s state is, array for array and bit for bit, the
+    checkpoint in ``ckpt_dir`` (its latest tag): the params file and the
+    merged master and optimizer shards; the names that differ. And how far
+    the file's master lies from the master ``before`` (another run's after
+    its steps) against that run's update from ``initial`` (both
+    ``_master_copy``): (the ratio of the two norms, the largest absolute
+    difference)."""
+    from deepspeed_tpu_torch.checkpoint import checkpointing as ck
+    with open(os.path.join(ckpt_dir, "latest")) as f:
+        tag_dir = os.path.join(ckpt_dir, f.read().strip())
+    bad = []
+    with ck.NpzFile(os.path.join(tag_dir, ck.model_states_name() + ".npz")) as f:
+        for k, v in engine._ckpt_export("params").items():
+            if not np.array_equal(f[k], v):
+                bad.append(f"params/{k}")
+    gap = step = worst = 0.0
+    with ck._MergedElastic(tag_dir) as merged:
+        for kind in ("master", "opt"):
+            for k, v in engine._ckpt_export(kind).items():
+                saved = merged[f"{kind}/{k}"]
+                if not np.array_equal(saved, v):
+                    bad.append(f"{kind}/{k}")
+                if kind == "master":
+                    d = torch.from_numpy(saved).to(before[k].device) - before[k]
+                    gap += float(torch.sum(torch.square(d.double())))
+                    worst = max(worst, float(d.abs().max()))
+                    step += float(torch.sum(torch.square((before[k] - initial[k]).double())))
+    return bad, (math.sqrt(gap) / max(math.sqrt(step), 1e-30), worst)
+
+
+def phase_train_tp():
+    """Tensor parallelism in training on the one card: TP_TRAIN_MODEL
+    (bench_420m's widths at TP_LAYERS of its 12 layers: 1536 wide, 12 heads
+    of dim 128, vocab 50304, T 1024; bf16, flash attention, full remat with
+    partition_activations, ZeRO-2, Adam) at dp = 1 x tp = 2 in two gloo
+    ranks, then at tp = 1 in this process, TP_STEPS steps on the same seeded
+    batches from the same weights. Checks: losses and grad norms within
+    bf16's TP_RTOL; each rank's flash kernels at 6 heads, all three on the
+    tensor-core design, 2 forward (the remat replay) and 1 backward launch a
+    layer a step; each rank's memory manifest reconciled with the ZeRO model
+    and equal to its live tensors; the tp = 2 checkpoint loaded by the tp = 1
+    engine bit for bit, and its master within TP_MASTER_RTOL of the tp = 1
+    run's (relative to that run's update). Returns the flash launches of both
+    ranks together."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    card = phase_device(quiet=True)
+    # the kernels at a rank's shape, n_head / tp heads, against their plain
+    # version (no launch of the main path's count)
+    shape = (TP_BATCH, TP_MODEL["n_head"] // TP_RANKS, TP_MODEL["n_positions"],
+             TP_MODEL["n_embd"] // TP_MODEL["n_head"])
+    tc_before = _tensor_core_launches()
+    got, want = _flash_case(*shape, torch.bfloat16)
+    torch.cuda.synchronize()
+    kernel_errs = {n: float((a - b).abs().max()) / (float(b.abs().max()) + 1e-6)
+                   for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want)}
+    kernel_abs = [max(float((a - b).abs().max()) for a, b in zip(got[i:j], want[i:j]))
+                  for i, j in ((0, 2), (2, 3), (3, 5))]
+    kernel_tc = [a - b for a, b in zip(_tensor_core_launches(), tc_before)] == [1, 1, 1]
+    del got, want
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t = time.perf_counter()
+        ranks = _tp_spawn("train-tp", root)
+        spawn_s = time.perf_counter() - t
+        initial = {}
+        ref, engine = _tp_train_run(1, initial=initial)
+        before = _master_copy(engine)
+        t = time.perf_counter()
+        engine.load_checkpoint(os.path.join(root, "ckpt"))
+        load_s = time.perf_counter() - t
+        bad, (master_gap, master_worst) = _ckpt_equal_files(
+            engine, os.path.join(root, "ckpt"), before, initial)
+        del initial, before
+        steps_loaded = engine.global_steps
+        del engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    L = TP_LAYERS
+    want = [2 * L * TP_STEPS, L * TP_STEPS, L * TP_STEPS]
+    local_heads = TP_MODEL["n_head"] // TP_RANKS
+    hd = TP_MODEL["n_embd"] // TP_MODEL["n_head"]
+
+    def close(a, b):
+        return all(abs(x - y) <= TP_RTOL * abs(y) for x, y in zip(a, b))
+
+    for r, res in enumerate(ranks):
+        log(f"[train-tp] rank {r} of {TP_RANKS} (gloo-staged): {json.dumps(res)}; {card}")
+    log(f"[train-tp] tp = 1: {json.dumps(ref)}; {card}")
+    checks = {
+        "kernels_at_rank_shape": max(kernel_errs.values()) <= FLASH_TOL[torch.bfloat16]
+        and kernel_tc,
+        "losses_within_bf16": all(close(r["losses"], ref["losses"]) for r in ranks),
+        "grad_norms_within_bf16": all(close(r["grad_norms"], ref["grad_norms"])
+                                      for r in ranks),
+        "losses_finite": all(math.isfinite(x) for r in ranks for x in r["losses"]),
+        "ranks_agree": all(r["losses"] == ranks[0]["losses"] for r in ranks),
+        "flash_at_local_heads": all(r["heads"] == [local_heads] for r in ranks)
+        and ref["heads"] == [TP_MODEL["n_head"]],
+        "flash_launches": all(r["flash_launches"] == want for r in ranks),
+        "tensor_core_design": fa._tensor_core_path(torch.bfloat16, hd)
+        and all(r["tensor_core_launches"] == want for r in ranks),
+        "manifest_reconciled": all(r["reconciled"] and all(
+            r["live"][k] == v for k, v in r["manifest"].items() if k != "grads") for r in ranks),
+        "params_halved": all(r["params_local"] < 0.6 * ref["params_local"] for r in ranks),
+        "checkpoint_tp2_to_tp1_bit_equal": not bad and steps_loaded == TP_STEPS,
+        "tp2_master_near_tp1": master_gap <= TP_MASTER_RTOL,
+    }
+    log(f"[train-tp] flash kernels at a rank's shape {list(shape)} bf16 causal against "
+        f"the plain version (scaled by max |ref|, tol {FLASH_TOL[torch.bfloat16]}): "
+        f"{json.dumps(kernel_errs)}; max abs err fwd / dq / dk,dv {kernel_abs}; {card}")
+    log(f"[train-tp] checks {json.dumps(checks)}; two ranks {spawn_s:.1f} s (spawn, "
+        f"CUDA start, build-cache load, training, save), checkpoint load at tp = 1 "
+        f"{load_s:.1f} s; mismatched arrays {bad[:5]}; the tp = 2 checkpoint's master "
+        f"against the tp = 1 run's: |gap| / |tp = 1 update| {master_gap} (bound "
+        f"{TP_MASTER_RTOL}), max abs {master_worst}; step ms (gloo-staged, not TP speed) "
+        f"rank 0 {ranks[0]['step_ms']}, tp = 1 {ref['step_ms']}; peak bytes a rank "
+        f"{[r['peak_bytes'] for r in ranks]}, tp = 1 {ref['peak_bytes']}; {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[train-tp] failed: {failed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [sum(r["flash_launches"][i] for r in ranks) for i in range(3)], kernel_abs
+
+
+def _sharded_trace():
+    """A handful of requests: five greedy and a beam of 4, SHARDED_NEW_TOKENS
+    new tokens each."""
+    from deepspeed_tpu_torch.serve.scheduler import Request
+    rng = np.random.RandomState(3)
+    reqs = [Request(f"greedy{i}", rng.randint(0, 50257, size=int(rng.randint(64, 300))).tolist(),
+                    SHARDED_NEW_TOKENS, arrival=i // 2) for i in range(5)]
+    reqs.append(Request("beam4", rng.randint(0, 50257, size=96).tolist(), SHARDED_NEW_TOKENS,
+                        num_beams=4, arrival=1))
+    return reqs
+
+
+def _sharded_serving_run(tp):
+    """SHARDED_MODEL in float32 (seed-0 weights) through ``init_inference``
+    with SHARDED_SERVING at ``serving.sharding.model`` = tp: the tokens, the
+    pool's heads, the paged-decode launches, the all-reduces the programs
+    issued, and whether the programs were captured."""
+    import deepspeed_tpu_torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.ops.paged_attention import paged_decode_attention as pda
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = _seeded_model(SHARDED_MODEL, torch.float32, 0)
+    serving = dict(SHARDED_SERVING, sharding={"model": tp})
+    eng = deepspeed_tpu_torch.init_inference(model, config_params={"serving": serving})
+    calls, orig = [], dist.all_reduce
+
+    def counted(t, *a, **k):
+        calls.append(str(t.dtype))
+        return orig(t, *a, **k)
+
+    graphs = sorted(eng.graphs())
+    runs = {"_decode": 0, "_prefill": 0}
+
+    def runs_of(name):
+        prog = getattr(eng, name)
+
+        def run(*a, **k):
+            runs[name] += 1
+            return prog(*a, **k)
+        return run
+
+    for name in runs:
+        setattr(eng, name, runs_of(name))
+    pda.launches = pda.cluster_launches = 0
+    dist.all_reduce = counted
+    try:
+        t = time.perf_counter()
+        outs, _ = eng.run(_sharded_trace())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        dist.all_reduce = orig
+    steps, chunks = runs["_decode"], runs["_prefill"]
+    return {"tp": tp, "tokens": [o.tokens for o in outs], "status": [o.status for o in outs],
+            "pool_heads": int(eng.k_pool.shape[3]), "launches": pda.launches,
+            "cluster_launches": pda.cluster_launches, "decode_steps": steps,
+            "prefill_chunks": chunks, "all_reduces": len(calls),
+            "all_reduce_dtypes": sorted(set(calls)), "captured": eng.captured,
+            "capture_note": eng.capture_note, "graphs": graphs, "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_serving_sharded():
+    """Head-sharded serving on the one card: SHARDED_MODEL (bench_serving_420m's
+    widths: 24 layers of 1024, 16 heads, vocab 50304) in float32, the
+    dtype of the CPU test's token identity, with the paged-decode kernel on,
+    at ``serving.sharding.model`` = 2 in two gloo ranks against the tp = 1
+    engine in this process on the same requests. Checks: every request
+    finished, the tokens equal on both ranks and to tp = 1's; each rank's
+    pools at 8 heads and its decode kernel launched once a layer a decode
+    step on the cluster design; one float32 all-reduce a layer a program
+    call and no other; the sharded engines ran eagerly (gloo cannot be
+    captured), the tp = 1 engine's programs captured. Returns the kernel's
+    launches on both ranks together."""
+    card = phase_device(quiet=True)
+    kernel_err = _sharded_decode_check()
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        t = time.perf_counter()
+        ranks = _tp_spawn("serving-sharded", root)
+        spawn_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ref = _sharded_serving_run(1)
+    L = SHARDED_MODEL["n_layer"]
+    for r, res in enumerate(ranks):
+        log(f"[serving-sharded] rank {r} of {TP_RANKS} (gloo-staged): {json.dumps(res)}; {card}")
+    log(f"[serving-sharded] tp = 1: {json.dumps(ref)}; {card}")
+    checks = {
+        "kernel_at_rank_shape": kernel_err is not None,
+        "finished": all(st == "finished" for r in ranks + [ref] for st in r["status"]),
+        "tokens_equal_tp1": all(r["tokens"] == ref["tokens"] for r in ranks),
+        "pool_heads": all(r["pool_heads"] == SHARDED_MODEL["n_head"] // TP_RANKS
+                          for r in ranks),
+        "decode_launches": all(r["launches"] == r["cluster_launches"] == L * r["decode_steps"]
+                               for r in ranks),
+        "one_f32_all_reduce_a_layer": all(
+            r["all_reduces"] == L * (r["decode_steps"] + r["prefill_chunks"])
+            and r["all_reduce_dtypes"] == ["torch.float32"] for r in ranks),
+        "eager_under_gloo": all(not r["captured"] and r["graphs"] == [] for r in ranks)
+        and ref["captured"] and ref["graphs"] == ["decode_step", "prefill_chunk"],
+    }
+    log(f"[serving-sharded] paged_decode at a rank's shape (8 heads of 64, float32 pools, "
+        f"the cluster design) against its plain version: max abs err {kernel_err!r} "
+        f"(tol {F32_TOL}); {card}")
+    log(f"[serving-sharded] checks {json.dumps(checks)}; two ranks {spawn_s:.1f} s (spawn, "
+        f"CUDA start, serving); serving wall rank 0 {ranks[0]['wall_s']:.2f} s (eager, "
+        f"gloo-staged), tp = 1 {ref['wall_s']:.2f} s (graphed); {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[serving-sharded] failed: {failed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(r["launches"] for r in ranks), kernel_err
+
+
+def _sharded_decode_check():
+    """paged_decode at a sharded rank's shape (SHARDED_SERVING's slots and
+    pages, n_head / TP_RANKS heads, float32 pools of 2 layers) against its
+    plain version, on the cluster design: the max abs error, or None where
+    it is outside F32_TOL or another design ran."""
+    from deepspeed_tpu_torch.ops import paged_attention as pa
+    S, BS, NB = SHARDED_SERVING["max_seqs"], SHARDED_SERVING["block_size"], \
+        SHARDED_SERVING["num_blocks"]
+    MB = SHARDED_SERVING["max_model_len"] // BS
+    NH, HD = SHARDED_MODEL["n_head"] // TP_RANKS, SHARDED_MODEL["n_embd"] // SHARDED_MODEL["n_head"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kp, vp = (torch.randn((2, NB, BS, NH, HD), generator=gen, device="cuda") for _ in range(2))
+    q = torch.randn((S, NH, 1, HD), generator=gen, device="cuda")
+    tables = (torch.randperm(NB - 1, generator=gen, device="cuda") + 1)[:S * MB]
+    tables = tables.reshape(S, MB).to(torch.int32).contiguous()
+    lengths = torch.tensor(KERNEL_LENGTHS, dtype=torch.int32, device="cuda")
+    before = pa.paged_decode_attention.cluster_launches, pa.paged_decode_attention.launches
+    worst = 0.0
+    for li in (0, 1):
+        y = pa.paged_decode_attention(q, kp, vp, li, tables, lengths, block_size=BS)
+        ref = pa.paged_decode_reference(q, kp, vp, li, tables, lengths, block_size=BS)
+        torch.cuda.synchronize()
+        err, ok = _within(y, ref, F32_TOL)
+        if not ok or not torch.isfinite(y).all():
+            return None
+        worst = max(worst, err)
+    # the check's launches leave the main path's count as it was
+    ran = pa.paged_decode_attention.cluster_launches - before[0]
+    pa.paged_decode_attention.cluster_launches, pa.paged_decode_attention.launches = before
+    return worst if ran == 2 else None
+
+
 def phase_offload_large():
     """A model the device engine cannot hold: LARGE_LAYERS x 1600 with full
     remat, ZeRO-Offload, batch 8 x 1024, LARGE_STEPS steps."""
@@ -4148,47 +4614,49 @@ def phase_crash_sim():
     """``ds-tpu-torch crash-sim`` and ``crash-sim --goodput`` on the card and
     on the CPU: every scenario recovers (bit-equal retrain, warm restart
     token-identical with fewer prefill chunks) and the card's transcripts
-    equal the CPU's byte for byte. The recovery run on the CPU overlaps the
-    card's; the goodput runs bill wall-clock against injected stalls within
-    10%, so each runs with no other process of this script busy."""
-    from deepspeed_tpu_torch import cli
+    equal the CPU's byte for byte. Each run is the CLI in a process of its
+    own, as a user starts it: the goodput runs bill wall-clock against
+    injected stalls within 10%, which this process, holding every earlier
+    phase's heap and threads, must not share. The recovery runs on the two
+    devices overlap; each goodput run runs with no other process of this
+    script busy."""
+    import threading
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_crash_")
     root = Path(__file__).resolve().parent
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     runs = {"crash": [], "goodput": ["--goodput"]}
+    threads = sorted(t.name for t in threading.enumerate())
 
-    def cpu_run(name):
+    def start(name, device):
+        env = dict(os.environ, **({"CUDA_VISIBLE_DEVICES": ""} if device == "cpu" else {}))
         cmd = [sys.executable, "-m", "deepspeed_tpu_torch.cli", "crash-sim", *runs[name],
-               "--device", "cpu", "--json", os.path.join(out_dir, f"{name}_cpu.json")]
-        with open(os.path.join(out_dir, f"{name}_cpu.log"), "wb") as out:
-            return subprocess.Popen(cmd, cwd=str(root), env=env, stdout=out,
-                                    stderr=subprocess.STDOUT)
+               "--device", device, "--json", os.path.join(out_dir, f"{name}_{device}.json")]
+        with open(os.path.join(out_dir, f"{name}_{device}.log"), "wb") as out:
+            children[name, device] = (time.perf_counter(), subprocess.Popen(
+                cmd, cwd=str(root), env=env, stdout=out, stderr=subprocess.STDOUT))
 
-    def card_run(name):
-        t0 = time.perf_counter()
-        rc = cli.main(["crash-sim", *runs[name], "--device", "cuda", "--json",
-                       os.path.join(out_dir, f"{name}_cuda.json")])
-        times[name] = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"[crash-sim] {name} on the card exited {rc}")
-
-    def wait(name, child):
+    def wait(name, device):
+        t0, child = children[name, device]
         if child.wait(timeout=300) != 0:
-            out = Path(out_dir, f"{name}_cpu.log").read_text(errors="replace")
-            raise AssertionError(f"[crash-sim] {name} on the CPU exited "
+            out = Path(out_dir, f"{name}_{device}.log").read_text(errors="replace")
+            raise AssertionError(f"[crash-sim] {name} on {device} exited "
                                  f"{child.returncode}: {out[-3000:]}")
+        if device == "cuda":
+            times[name] = time.perf_counter() - t0
 
-    times, child = {}, cpu_run("crash")
+    times, children = {}, {}
     try:
-        card_run("crash")
-        wait("crash", child)
-        card_run("goodput")
-        child = cpu_run("goodput")
-        wait("goodput", child)
+        start("crash", "cuda")
+        start("crash", "cpu")
+        wait("crash", "cuda")
+        wait("crash", "cpu")
+        for device in ("cuda", "cpu"):
+            start("goodput", device)
+            wait("goodput", device)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for _, child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     texts = {}
     for name in runs:
         for device in ("cuda", "cpu"):
@@ -4202,7 +4670,7 @@ def phase_crash_sim():
              for k, v in crash["scenarios"].items() if k.startswith("serve_")}
     if not crash["ok"] or any(w >= c for w, c in serve.values()):
         raise AssertionError(f"[crash-sim] recovery failed: {crash}")
-    log(f"[crash-sim] {json.dumps({'card_s': times, 'transcripts_equal_cpu': True, 'scenarios': sorted(crash['scenarios']), 'warm_vs_cold_prefill_chunks': serve, 'goodput_ok': json.loads(texts['goodput', 'cuda'])['ok']})}")
+    log(f"[crash-sim] {json.dumps({'card_process_s': times, 'parent_threads': threads, 'transcripts_equal_cpu': True, 'scenarios': sorted(crash['scenarios']), 'warm_vs_cold_prefill_chunks': serve, 'goodput_ok': json.loads(texts['goodput', 'cuda'])['ok']})}")
     shutil.rmtree(out_dir, ignore_errors=True)
 
 
@@ -5063,7 +5531,7 @@ T0 = time.perf_counter()
 
 # [lint]: the lint suite over the registry's engines on the card; the
 # serving entry's decode step runs the paged-decode kernel once a layer
-LINT_DECODE_PROGRAM = "serving:serve_decode_step"
+LINT_DECODE_PROGRAMS = ("serving:serve_decode_step", "serving_sharded:serve_decode_step")
 LINT_N_LAYER = 2                # the registry's tiny GPT-2
 
 
@@ -5108,11 +5576,15 @@ def phase_lint():
         kernels = op_record.kernel_counts(a.program)
         recorded += kernels.get("paged_decode", 0)
         log(f"[lint] {a.name}: {len(a.ops)} ops, kernel ops {kernels}")
-    decode = next(a for a in artifacts if a.name == LINT_DECODE_PROGRAM)
-    if op_record.kernel_counts(decode.program) != {"paged_decode": LINT_N_LAYER}:
-        raise AssertionError(f"[lint] {LINT_DECODE_PROGRAM} recorded "
-                             f"{op_record.kernel_counts(decode.program)}")
-    if recorded != launches or cluster != launches or launches != LINT_N_LAYER:
+    # the serving decode step and the head-sharded one (one local head of
+    # the tiny model's two, in the fake process group of 2 ranks)
+    for name in LINT_DECODE_PROGRAMS:
+        decode = next(a for a in artifacts if a.name == name)
+        if op_record.kernel_counts(decode.program) != {"paged_decode": LINT_N_LAYER}:
+            raise AssertionError(f"[lint] {name} recorded "
+                                 f"{op_record.kernel_counts(decode.program)}")
+    want = LINT_N_LAYER * len(LINT_DECODE_PROGRAMS)
+    if recorded != launches or cluster != launches or launches != want:
         raise AssertionError(f"[lint] {recorded} paged_decode ops recorded, the wrapper "
                              f"counted {launches} launches ({cluster} cluster design)")
     log(f"[lint] {json.dumps({'cuda_s': round(times['cuda'], 2), 'cpu_s': round(times['cpu'], 2), 'programs': len(rep['programs']), 'violations': len(rep['violations']), 'allowlisted': vids(text), 'report_bytes_equal_cpu': text == reports['cpu'][0], 'paged_decode_launches': launches})}")
@@ -5230,10 +5702,13 @@ def main():
     probe = args[1] if len(args) == 2 and args[0] == "--probe" else None
     # the launcher phase's child, as the runner starts it (--local_rank=N first)
     launched = [a for a in args if not a.startswith("--local_rank=")] == ["--launched"]
-    if args and probe is None and not launched:
-        print("usage: chip_smoke.py [--probe N_LAYER | --launched]", file=sys.stderr)
+    # a rank of [train-tp] / [serving-sharded]: --tp-child PHASE RANK PORT OUT_DIR
+    tp_rank = args[1:] if len(args) == 5 and args[0] == "--tp-child" else None
+    if args and probe is None and not launched and tp_rank is None:
+        print("usage: chip_smoke.py [--probe N_LAYER | --launched | --tp-child PHASE RANK "
+              "PORT OUT_DIR]", file=sys.stderr)
         sys.exit(2)
-    card = phase_device(quiet=probe is not None or launched)
+    card = phase_device(quiet=probe is not None or launched or tp_rank is not None)
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
     try:
@@ -5246,6 +5721,9 @@ def main():
         return
     if launched:
         launched_child()
+        return
+    if tp_rank is not None:
+        tp_child(tp_rank[0], int(tp_rank[1]), int(tp_rank[2]), tp_rank[3])
         return
     host = host_info()
     log(f"[host] {json.dumps(host)}")
@@ -5284,6 +5762,11 @@ def main():
     _timed_phase(phase_checkpoint, clip_rounding)
     for e, n in zip(flash, _timed_phase(phase_train_zero3)):
         e["launches_zero3"] = n
+    tp_launches, tp_errs = _timed_phase(phase_train_tp)
+    for e, n, err in zip(flash, tp_launches, tp_errs):
+        e.update(launches_tp=n, max_abs_err_tp=err)
+    entry["launches_sharded"], entry["max_abs_err_sharded"] = _timed_phase(
+        phase_serving_sharded)
     _timed_phase(phase_offload_large)
     _timed_phase(phase_offload_capacity)
     sparse = _timed_phase(phase_block_sparse_kernels)

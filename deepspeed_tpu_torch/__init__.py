@@ -22,7 +22,10 @@ config's ``activation_checkpointing`` block; ``checkpointing``), client
 package's format (``checkpoint``) with the ``resilience`` block, and the
 data-parallel exchanges: 1-bit Adam (``ops.onebit_adam``), the two-level and
 compressed schedules and their bucketed overlap (``comm``), row-sparse
-gradients (``runtime.sparse_tensor``). ``models.resnet`` is the CIFAR
+gradients (``runtime.sparse_tensor``), ZeRO stage 3, and Megatron tensor
+parallelism (``parallel``: the topology, the grid with its process groups,
+the mesh; ``initialize(mpu=..., param_shardings=...)``), with head-sharded
+serving (``serving.sharding.model``). ``models.resnet`` is the CIFAR
 ResNet; ``resilience.crash_sim`` the kill/restart harness.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ``__version__``, ``__git_hash__``, ``__git_branch__`` and ``installed_ops``
@@ -59,7 +62,7 @@ _sys.modules[__name__ + ".pt.deepspeed_config"] = _rt_config
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
-               collate_fn=None, config_params=None, device=None):
+               collate_fn=None, config_params=None, device=None, param_shardings=None):
     """Initialize the training engine (``deepspeed.initialize``-shaped).
 
     ``model`` is a ``torch.nn.Module`` whose ``forward(*batch)`` returns the
@@ -68,15 +71,21 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     an optional name -> tensor dict loaded into it (``params_from_jax``
     gives one). The engine runs on ``device``: the card unless ``"cpu"``; no
     card and no ``"cpu"`` raises. With ``WORLD_SIZE`` > 1 in the environment
-    the process group is joined first (``runtime/dist.py``). Returns
-    ``(engine, optimizer, training_dataloader, lr_scheduler)``."""
+    the process group is joined first (``runtime/dist.py``). ``mpu`` (a
+    ``parallel.PipelineParallelGrid``, or any object with the mpu sizes)
+    gives the engine its (pipe, data, model) mesh; with
+    ``param_shardings=model.param_shardings(mesh)`` the model is
+    tensor-parallel over the model axis (Megatron's layout) and ZeRO
+    partitions over the data axis. Returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)``."""
     from .runtime.engine import make_engine
 
     engine = make_engine(args=args, model=model, optimizer=optimizer,
                          model_parameters=model_parameters, training_data=training_data,
                          lr_scheduler=lr_scheduler, mpu=mpu,
                          dist_init_required=dist_init_required, collate_fn=collate_fn,
-                         config_params=config_params, device=device)
+                         config_params=config_params, device=device,
+                         param_shardings=param_shardings)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
@@ -112,7 +121,11 @@ def init_inference(model, model_parameters=None, config_params=None,
     it (the config's ``draft_model`` string is a report label). ``telemetry``
     is a ``utils.telemetry.TelemetrySession``: the engine's captures (or, on
     the CPU, first calls) reach its compile watchdog and every iteration
-    emits ``Serving/*`` scalars through its monitor."""
+    emits ``Serving/*`` scalars through its monitor. ``serving.sharding.model``
+    > 1 shards the attention heads and the KV pools over the ranks of the
+    ``torch.distributed`` world, which must have that many: every rank calls
+    this and drives the same requests. A module whose parameters are slices (a ZeRO
+    stage-3 or tensor-parallel engine's) serves from its whole leaves."""
     from .device import resolve_device
     from .serve.engine import InferenceEngine
 

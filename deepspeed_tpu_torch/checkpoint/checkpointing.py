@@ -421,7 +421,7 @@ def comm_ef_geometry(engine):
 def _barrier(engine):
     """Rendezvous across ranks: a save returns only after EVERY rank's files
     are on disk (an immediate load may otherwise race another rank's writes)."""
-    if engine.dp_size > 1:
+    if getattr(engine, "_world_size", engine.dp_size) > 1:
         dist.barrier()
 
 
@@ -440,7 +440,9 @@ def snapshot_checkpoint(engine, tag: Optional[str] = None, client_state: Dict = 
     # the model-states/scaler/optim-shard/latest files are shared paths —
     # exactly one WRITER (rank 0); every rank runs every export below, since
     # the ZeRO slices need an all-gather that every rank joins
-    writer = engine.dp_rank == 0
+    # under tensor parallelism every rank holds data rank 0's coordinate of
+    # its model-axis group: the writer is world rank 0
+    writer = engine.dp_rank == 0 and (not dist.is_initialized() or dist.get_rank() == 0)
     files: Dict[str, Any] = {}  # filename -> ("npz", flat dict) | ("json", obj)
 
     if offload is not None:
@@ -505,7 +507,7 @@ def snapshot_checkpoint(engine, tag: Optional[str] = None, client_state: Dict = 
             files["comm_ef.json"] = ("json", ef_geo)
 
     return {"tag": str(tag), "writer": writer,
-            "single_process": engine.dp_size == 1,
+            "single_process": getattr(engine, "_world_size", engine.dp_size) == 1,
             "offload": offload is not None,
             "n_procs": engine.dp_size,
             "manifest_meta": {"tag": str(tag),

@@ -83,6 +83,10 @@ def run_program_surface(report, allowlist, entries=None, device="cuda", artifact
         if entry in skipped:
             continue
         captured = registry.capture_entry(entry, device)
+        n = registry.ENTRY_WORLD.get(entry)
+        if n:
+            print(f"captured {entry} at {n} ranks of the {registry.entry_axis(entry)} axis",
+                  file=sys.stderr)
         report.programs += [a.name for a in captured]
         report.extend(run_program_passes(captured), allowlist)
         if artifacts is not None:

@@ -10,6 +10,10 @@ A copy of ``deepspeed_tpu/lint/config_pass.py`` over the port's
 ``runtime/constants.py``. The consumers are JAX's list less
 ``runtime/pipe/engine.py``, which the port has not yet (ROADMAP.md item 16);
 a key the port refuses is read where it refuses it, so it counts as reached.
+The keys of the model axis (``serving.sharding.model``,
+``activation_checkpointing.partition_activations``) are read by
+``runtime/config.py`` and ``runtime/activation_checkpointing/config.py``
+and act since tensor parallelism is in the port.
 """
 
 import ast

@@ -26,10 +26,16 @@ captured inside torch's fake process group of 8 ranks, this process rank 0
 (``entry_world``; ``utils/op_record.py`` ``fake_world``), so each
 collective is recorded with its group and moves no data.
 
+``serving_sharded`` records the head-sharded decode and prefill at
+``serving.sharding.model`` 2 in the fake process group of 2 ranks, the
+model axis (``ENTRY_AXIS``): its manifest admits one float32 all-reduce a
+layer and no other collective, the JAX budget
+(deepspeed_tpu/serve/engine.py:912-915).
+
 Entries the port cannot build yet raise ``NotImplementedError`` naming
-their ROADMAP.md item: the pipeline (item 16) and head-sharded serving
-(``serving_sharded``, items 15 / 10.6). ``capture_registry()`` with no names
-takes the ported entries (``PORTED``); the CLI names the others as skipped.
+their ROADMAP.md item: the pipeline (item 16). ``capture_registry()`` with
+no names takes the ported entries (``PORTED``); the CLI names the others as
+skipped, and logs the axis of each entry captured at several ranks.
 
 The lint model computes in the engine's compute dtype, with only the loss
 in float32, so a clean low-precision program has no float32 product.
@@ -235,6 +241,12 @@ def _build_serving_speculative(device):
     return _SpecPrograms(eng), None
 
 
+def _build_serving_sharded(device):
+    # the head-sharded programs at sharding.model = 2, recorded in the fake
+    # process group of 2 ranks (entry_world): one float32 all-reduce a layer
+    return _serving_engine(_tiny_gpt2(device), sharding={"model": 2}), None
+
+
 def _unported(item):
     def build(device):
         raise NotImplementedError(f"this lint-registry entry is not in the PyTorch port "
@@ -256,16 +268,24 @@ BUILDERS = {
     "gpt2_decode": _build_gpt2_decode,
     "serving": _build_serving,
     "serving_speculative": _build_serving_speculative,
-    "serving_sharded": _unported("items 15 / 10.6 (head-sharded serving)"),
+    "serving_sharded": _build_serving_sharded,
 }
 PORTED = sorted(k for k, b in BUILDERS.items() if not hasattr(b, "item"))
 UNPORTED = {k: b.item for k, b in sorted(BUILDERS.items()) if hasattr(b, "item")}
 
 
-# the entries built and captured at 8 ranks (a fake process group): the
-# exchanges, and ``standard``, the flat exchange they are compared with
+# the entries built and captured at several ranks (a fake process group):
+# the exchanges, and ``standard``, the flat exchange they are compared with,
+# at 8 ranks of the data axis; the head-sharded serving programs at 2 ranks
+# of the model axis
 ENTRY_WORLD = {"standard": 8, "comm_hierarchical": 8, "comm_compressed": 8,
-               "comm_overlap": 8, "comm_overlap_compressed": 8}
+               "comm_overlap": 8, "comm_overlap_compressed": 8, "serving_sharded": 2}
+ENTRY_AXIS = {"serving_sharded": "model"}
+
+
+def entry_axis(entry):
+    """The mesh axis an entry's ranks lie on ("data" unless named)."""
+    return ENTRY_AXIS.get(entry, "data")
 
 
 def entry_world(entry):

@@ -34,16 +34,32 @@ for bit, except the flash kernels' attention dropout, which hashes
 coordinates. Under ZeRO stage 3 (``set_param_gather``) each parameter holds
 its rank's slice and the training forward gathers the leaves where it uses
 them: a block's inside the block, ``wte`` at the embedding and again at the
-head. MoE comes with a later slice and raises ``NotImplementedError`` when
-asked for.
+head. Tensor parallelism (``with_tp``, the JAX model's ``with_tp`` with
+``param_shardings``' Megatron layout, deepspeed_tpu/models/gpt2.py:136-149,
+225-253, 319-406): each parameter holds this model-axis rank's slice —
+column-parallel ``c_attn`` (the rank-grouped qkv columns of
+``qkv_tp_permutation``) and ``c_fc``, row-parallel ``c_proj`` whose float32
+partial sums are all-reduced before the bias, a vocab-sharded ``wte`` (a masked
+local lookup plus an all-reduce at the embedding; the tied head and the
+cross-entropy vocab-parallel, over float32 all-reduces of the row max, the sum
+of exponentials and the target logit); the rest replicated. The collectives
+are Megatron's f / g autograd functions (``parallel/mesh.py``). Outside the
+engine's scope (``sliced_scope``), a module whose parameters are slices (ZeRO
+stage 3 or tensor parallelism) computes on whole leaves: ``forward``,
+``generate`` and ``beam_search`` (and ``init_inference``) open
+``whole_parameters``, which gathers every leaf without grad over the group
+that holds its slices and restores the slices after. MoE comes with a later
+slice and raises ``NotImplementedError`` when asked for.
 """
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -52,6 +68,8 @@ from ..device import resolve_device
 from ..ops.block_sparse_attention import block_sparse_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_block import fused_transformer_block
+from ..parallel.mesh import (MODEL_AXIS, all_gather_cat, copy_to_group, fold_tp_seed,
+                             gather_from_group, reduce_from_group)
 from ..runtime.activation_checkpointing.checkpointing import checkpoint_name, checkpoint_wrapper
 
 
@@ -123,6 +141,28 @@ class _Block(nn.Module):
         self.mlp = _MLP(e, device)
 
 
+def qkv_tp_permutation(n_embd: int, tp: int) -> np.ndarray:
+    """Column permutation turning the ``[q | k | v]`` fused-qkv layout into
+    rank-grouped ``[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]``, so that a contiguous
+    model-axis slice of width 3*n_embd/tp is a valid local (q, k, v) triple
+    (deepspeed_tpu/models/gpt2.py:79)."""
+    per = n_embd // tp
+    cols = []
+    for r in range(tp):
+        for third in range(3):
+            start = third * n_embd + r * per
+            cols.append(np.arange(start, start + per))
+    return np.concatenate(cols)
+
+
+class _TP:
+    """A model's tensor-parallel group: its size, this rank's index in it and
+    the torch process group."""
+
+    def __init__(self, size, rank, group):
+        self.size, self.rank, self.group = int(size), int(rank), group
+
+
 def nucleus_keep(logits, top_p):
     """The top-p keep mask of ``generate``'s sampler, the JAX model's rule
     (deepspeed_tpu/models/gpt2.py:804-815): tokens ordered by a stable
@@ -166,6 +206,8 @@ class GPT2Model(nn.Module):
         self.ln_f = _LayerNorm(c.n_embd, dev)
         self.blocks = nn.ModuleList(_Block(c.n_embd, dev) for _ in range(c.n_layer))
         self._param_gather = None
+        self._tp = None             # _TP under tensor parallelism (with_tp)
+        self._sliced_depth = 0      # > 0 while the engine computes on the slices
 
     @property
     def device(self):
@@ -200,8 +242,168 @@ class GPT2Model(nn.Module):
 
     def load_parameters(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy a full name -> tensor dict into the parameters (strict: every
-        name once, shapes equal)."""
+        name once, shapes equal). Under tensor parallelism the leaves are
+        whole (the JAX layout, global ``[q|k|v]`` order) and each parameter
+        keeps this rank's slice."""
+        if self._tp is not None:
+            params = {n: self.tp_slice(n, t) for n, t in params.items()}
         load_parameters(self, params)
+
+    # ------------------------------------------------------------- tensor parallelism
+    def with_tp(self, mesh, axis: str = MODEL_AXIS) -> "GPT2Model":
+        """This module, made tensor-parallel over ``mesh``'s ``axis`` (a
+        ``parallel.mesh.Mesh``): each parameter that ``param_shardings``
+        puts on the axis is cut, in place, to this rank's slice of its
+        whole value. The JAX model's ``with_tp(axis, size)`` returns a copy
+        that a shard_map feeds slices; the port's module owns its weights
+        and its group, so it takes the mesh and returns itself. The JAX
+        model's asserts (n_head and 4·n_embd divisible by the axis size; no
+        MoE; no ``sparse_attention``), and the vocabulary divisible by it
+        (``wte`` is split into equal row blocks), raise ValueError."""
+        size = mesh.shape[axis]
+        c = self.config
+        if c.n_head % size:
+            raise ValueError(f"n_head={c.n_head} must divide by tp size {size}")
+        if (4 * c.n_embd) % size:
+            raise ValueError(f"4 * n_embd={4 * c.n_embd} must divide by tp size {size}")
+        if c.sparse_attention is not None:
+            raise ValueError("sparse_attention does not compose with manual TP (per-rank "
+                             "head layouts are not split)")
+        if c.vocab_size % size:
+            raise ValueError(f"vocab_size={c.vocab_size} must divide by tp size {size} "
+                             "(wte is split into equal row blocks)")
+        if self._tp is not None:
+            raise ValueError("with_tp on a module that is tensor-parallel already")
+        if size <= 1:
+            return self
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                spec = self._tp_spec(name)
+                if spec is not None:
+                    p.data = self._cut(p.data, spec, mesh.axis_index(axis), size)
+        self._tp = _TP(size, mesh.axis_index(axis), mesh.group(axis))
+        return self
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self._tp is None else self._tp.size
+
+    @staticmethod
+    def _tp_spec(name):
+        """(axis, permuted) of a whole leaf that tensor parallelism splits:
+        ``permuted`` for the fused qkv columns (rank-grouped first); None for
+        a replicated leaf."""
+        if name == "wte":
+            return 0, False
+        leaf = name.split(".", 2)[-1] if name.startswith("blocks.") else name
+        return {"attn.c_attn_w": (1, True), "attn.c_attn_b": (0, True),
+                "attn.c_proj_w": (0, False), "mlp.c_fc_w": (1, False),
+                "mlp.c_fc_b": (0, False), "mlp.c_proj_w": (0, False)}.get(leaf)
+
+    def _cut(self, whole, spec, rank, size):
+        axis, permuted = spec
+        n = whole.shape[axis] // size
+        if permuted:
+            perm = qkv_tp_permutation(self.config.n_embd, size)[rank * n:(rank + 1) * n]
+            return whole.index_select(axis, torch.as_tensor(perm, device=whole.device)).clone()
+        return whole.narrow(axis, rank * n, n).clone()
+
+    def tp_axis(self, name):
+        """The axis of parameter ``name`` that tensor parallelism splits
+        (None: replicated, or no tensor parallelism)."""
+        spec = self._tp_spec(name) if self._tp is not None else None
+        return None if spec is None else spec[0]
+
+    def tp_slice(self, name, whole):
+        """This rank's slice of the whole leaf ``name`` (the leaf itself where
+        it is replicated)."""
+        spec = self._tp_spec(name) if self._tp is not None else None
+        if spec is None:
+            return whole
+        return self._cut(whole, spec, self._tp.rank, self._tp.size)
+
+    def tp_whole(self, name, local):
+        """The whole leaf ``name`` in the JAX layout (global ``[q|k|v]``
+        order) from every model-axis rank's slice: an all-gather over the
+        model group, no grad (``local`` itself where it is replicated)."""
+        spec = self._tp_spec(name) if self._tp is not None else None
+        if spec is None:
+            return local
+        axis, permuted = spec
+        with torch.no_grad():
+            full = all_gather_cat(local.detach(), axis, self._tp.group)
+            if permuted:
+                inv = np.argsort(qkv_tp_permutation(self.config.n_embd, self._tp.size))
+                full = full.index_select(axis, torch.as_tensor(inv, device=full.device))
+        return full
+
+    def param_shardings(self, mesh=None):
+        """The Megatron layout over the mesh's ``model`` axis, in
+        ``params_tree()``'s structure: each leaf's spec a tuple naming the
+        axis on the split dim (deepspeed_tpu/models/gpt2.py:225-253) —
+        column-parallel c_attn / c_fc, row-parallel c_proj, the embedding
+        vocab-sharded; norms and the row-parallel biases replicated
+        (``()``)."""
+        repl = ()
+        ln = {"scale": repl, "bias": repl}
+        block = {
+            "ln_1": ln,
+            "attn": {"c_attn_w": (None, MODEL_AXIS), "c_attn_b": (MODEL_AXIS,),
+                     "c_proj_w": (MODEL_AXIS, None), "c_proj_b": repl},
+            "ln_2": ln,
+            "mlp": {"c_fc_w": (None, MODEL_AXIS), "c_fc_b": (MODEL_AXIS,),
+                    "c_proj_w": (MODEL_AXIS, None), "c_proj_b": repl},
+        }
+        return {"wte": (MODEL_AXIS, None), "wpe": repl, "ln_f": dict(ln),
+                "blocks": [block for _ in range(self.config.n_layer)]}
+
+    def _sliced(self) -> bool:
+        """Whether the parameters hold slices (ZeRO stage 3 at dp > 1, or
+        tensor parallelism)."""
+        g = self._param_gather
+        return self._tp is not None or (g is not None and g.sharded)
+
+    @contextlib.contextmanager
+    def sliced_scope(self):
+        """The engine's scope: while open the module computes on its slices
+        (the gathers at use, the tensor-parallel collectives)."""
+        self._sliced_depth += 1
+        try:
+            yield
+        finally:
+            self._sliced_depth -= 1
+
+    def _computes_whole(self) -> bool:
+        return self._sliced_depth == 0 and self._sliced()
+
+    @contextlib.contextmanager
+    def whole_parameters(self):
+        """Whole leaves while open: every parameter that holds a slice is
+        gathered without grad over the group that holds it (the data group
+        at ZeRO stage 3, then the model group under tensor parallelism), and
+        the module computes as the one-rank module does; the slices come back
+        on exit. Every rank of those groups must open it together."""
+        gather, tp = self._param_gather, self._tp
+        if not self._sliced():
+            yield
+            return
+        kept = []
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                t = p.data
+                if gather is not None and gather.sharded:
+                    t = gather.whole(p)
+                if tp is not None:
+                    t = self.tp_whole(name, t)
+                kept.append((p, p.data))
+                p.data = t
+        self._param_gather, self._tp = None, None
+        try:
+            yield
+        finally:
+            for p, d in kept:
+                p.data = d
+            self._param_gather, self._tp = gather, tp
 
     # ------------------------------------------------------------- layers
     # Both take the JAX package's per-layer parameter dicts and round at the
@@ -223,6 +425,18 @@ class GPT2Model(nn.Module):
         # saves no such residual)
         h = checkpoint_name(h, "ds_dot:mlp_proj")
         return torch.matmul(h, p["c_proj_w"].to(x.dtype)) + p["c_proj_b"].to(x.dtype)
+
+    def _mlp_tp(self, x, p):
+        """The MLP under tensor parallelism: column-parallel c_fc on this
+        rank's columns, row-parallel c_proj whose float32 partial sums are
+        all-reduced before the bias (gpt2.py:399-406)."""
+        group = self._tp.group
+        x = copy_to_group(x, group)
+        h = torch.matmul(x, p["c_fc_w"].to(x.dtype)) + p["c_fc_b"].to(x.dtype)
+        h = F.gelu(h, approximate="tanh")
+        h = checkpoint_name(h, "ds_dot:mlp_proj")
+        part = torch.matmul(h.float(), p["c_proj_w"].to(x.dtype).float())
+        return reduce_from_group(part, group).to(x.dtype) + p["c_proj_b"].to(x.dtype)
 
     # ------------------------------------------------------------- training
     def params_tree(self) -> Dict[str, Any]:
@@ -275,11 +489,19 @@ class GPT2Model(nn.Module):
         """``seed``: the attention dropout's (an int), None without dropout."""
         c = self.config
         B, T, E = x.shape
-        nh, hd = c.n_head, c.head_dim
+        tp = self._tp
+        # local heads under tensor parallelism (gpt2.py:323): this rank's
+        # rank-grouped qkv columns, after Megatron's f
+        nh, hd = c.n_head // (tp.size if tp else 1), c.head_dim
+        if tp is not None:
+            x = copy_to_group(x, tp.group)
+            if seed is not None:
+                seed = fold_tp_seed(seed, tp.rank)
         # announce the fused-qkv product to the remat policies (gpt2.py:320-326)
         x = checkpoint_name(x, "ds_dot:qkv")
         qkv = torch.matmul(x, p["c_attn_w"].to(x.dtype)) + p["c_attn_b"].to(x.dtype)
-        q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2) for t in qkv.split(E, dim=-1))
+        q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2)
+                   for t in qkv.split(nh * hd, dim=-1))
         if c.sparse_attention is not None:
             y = block_sparse_attention(q, k, v, self.sparse_layout(T),
                                        c.sparse_attention.block, causal=True)
@@ -301,9 +523,14 @@ class GPT2Model(nn.Module):
         if c.sparse_attention is not None or not c.use_flash_attention:
             # the "attn" policies keep this output (gpt2.py:387-389)
             y = checkpoint_name(y, "attn_out")
-        y = y.transpose(1, 2).reshape(B, T, E)
+        y = y.transpose(1, 2).reshape(B, T, nh * hd)
         # announce the square output projection (gpt2.py:390-392)
         y = checkpoint_name(y, "ds_dot:proj")
+        if tp is not None:
+            # row-parallel: float32 partial sums over the model group, the
+            # bias added once after (gpt2.py:393-397)
+            part = torch.matmul(y.float(), p["c_proj_w"].to(x.dtype).float())
+            return reduce_from_group(part, tp.group).to(x.dtype) + p["c_proj_b"].to(x.dtype)
         return torch.matmul(y, p["c_proj_w"].to(x.dtype)) + p["c_proj_b"].to(x.dtype)
 
     def sparse_layout(self, T):
@@ -323,8 +550,19 @@ class GPT2Model(nn.Module):
         c = self.config
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         # one gathered table at a time: each is dropped once indexed
-        x = (self._use(p["wte"])[tokens.long()].to(c.compute_dtype)
-             + self._use(p["wpe"])[pos].to(c.compute_dtype))
+        if self._tp is not None:
+            # vocab-parallel: this rank's rows looked up, the others zero,
+            # summed over the model group
+            wte = self._use(p["wte"])
+            rows = wte.shape[0]
+            local = tokens.long() - self._tp.rank * rows
+            inside = (local >= 0) & (local < rows)
+            hit = wte[local.clamp(0, rows - 1)]
+            emb = reduce_from_group(torch.where(inside[..., None], hit, torch.zeros(
+                (), dtype=hit.dtype, device=hit.device)), self._tp.group)
+        else:
+            emb = self._use(p["wte"])[tokens.long()]
+        x = emb.to(c.compute_dtype) + self._use(p["wpe"])[pos].to(c.compute_dtype)
         if generator is not None and c.dropout > 0:
             x = self._dropout(x, generator)
         return x
@@ -335,7 +573,7 @@ class GPT2Model(nn.Module):
         c = self.config
         eps = c.layer_norm_epsilon
         bp = self._use(bp)
-        if c.fused_block and seeds is None:
+        if c.fused_block and seeds is None and self._tp is None:
             # the whole attention half (LayerNorm + qkv + attention + proj +
             # residual) in the fused-block kernels
             ap = bp["attn"]
@@ -348,7 +586,8 @@ class GPT2Model(nn.Module):
             if seeds is not None:
                 a = self._dropout(a, seeds[1])
             x = x + a
-        m = self._mlp(self._layer_norm(x, bp["ln_2"], eps), bp["mlp"])
+        mlp = self._mlp if self._tp is None else self._mlp_tp
+        m = mlp(self._layer_norm(x, bp["ln_2"], eps), bp["mlp"])
         if seeds is not None:
             m = self._dropout(m, seeds[2])
         return x + m
@@ -378,8 +617,14 @@ class GPT2Model(nn.Module):
         return torch.matmul(x.float(), wte.to(x.dtype).float().t())
 
     def logits(self, p, tokens, generator=None):
-        """float32 logits ``[B, T, vocab]``."""
-        return self._head(self._backbone(p, tokens, generator), self._use(p["wte"]))
+        """float32 logits ``[B, T, vocab]`` (under tensor parallelism each
+        rank's vocabulary block, gathered)."""
+        x = self._backbone(p, tokens, generator)
+        if self._tp is None:
+            return self._head(x, self._use(p["wte"]))
+        group = self._tp.group
+        return gather_from_group(self._head(copy_to_group(x, group), self._use(p["wte"])),
+                                 -1, group)
 
     def _chunked_ce(self, x, wte, labels, chunk):
         """Cross-entropy over sequence chunks; each chunk's float32 logits are
@@ -402,6 +647,8 @@ class GPT2Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         T = x.shape[1]
         wte = self._use(p["wte"])
+        if self._tp is not None:
+            return self._vocab_parallel_ce(x, wte, labels), aux
         if self.config.loss_chunk:
             # largest divisor of T not above loss_chunk (gpt2.py:532)
             chunk = next(cc for cc in range(min(self.config.loss_chunk, T), 0, -1)
@@ -411,10 +658,37 @@ class GPT2Model(nn.Module):
         total, n_valid = _ce_sums(x, wte.to(x.dtype).float(), labels)
         return total / n_valid.clamp(min=1.0), aux
 
+    def _vocab_parallel_ce(self, x, wte, labels):
+        """The mean cross-entropy against the vocab-sharded tied head (the
+        chunked CE of gpt2.py:384-394 made vocab-parallel): per chunk of
+        ``loss_chunk`` positions, ``_VocabParallelCE`` over this rank's
+        vocabulary block; the hidden states pass Megatron's f, so their
+        gradient is summed over the model group."""
+        tp = self._tp
+        x = copy_to_group(x, tp.group)
+        w = wte.to(x.dtype).float()
+        start = tp.rank * w.shape[0]
+        T = x.shape[1]
+        chunk = T
+        if self.config.loss_chunk:
+            chunk = next(cc for cc in range(min(self.config.loss_chunk, T), 0, -1)
+                         if T % cc == 0)
+        total = n_valid = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s in range(0, T, chunk):
+            t, n = _VocabParallelCE.apply(x[:, s:s + chunk], w, labels[:, s:s + chunk],
+                                          start, tp.group)
+            total, n_valid = total + t, n_valid + n
+        return total / n_valid.clamp(min=1.0)
+
     def forward(self, tokens, labels=None, generator=None):
         """With labels: the mean token cross-entropy (the training loss).
         Without: float32 logits. ``generator`` (on the module's device)
-        turns dropout on when ``config.dropout > 0``."""
+        turns dropout on when ``config.dropout > 0``. Outside the engine's
+        scope a module of slices computes on whole leaves, without grad
+        (``whole_parameters``)."""
+        if self._computes_whole():
+            with torch.no_grad(), self.whole_parameters():
+                return self.forward(tokens, labels, generator)
         p = self.params_tree()
         if labels is None:
             return self.logits(p, tokens, generator)
@@ -476,6 +750,10 @@ class GPT2Model(nn.Module):
         ``generate`` over the module's own parameters; raises ValueError
         where it asserts. A sampled run cannot match ``jax.random`` bit for
         bit."""
+        if self._sliced():
+            with self.whole_parameters():
+                return self.generate(tokens, max_new_tokens, temperature, generator,
+                                     top_k=top_k, top_p=top_p)
         c = self.config
         B, T0 = tokens.shape
         self._decode_checks(T0, max_new_tokens)
@@ -558,6 +836,11 @@ class GPT2Model(nn.Module):
         Returns ``(sequences [B, T0 + max_new_tokens], scores [B])`` — the
         best beam per row. The JAX package's ``beam_search``; raises
         ValueError where it asserts."""
+        if self._sliced():
+            with self.whole_parameters():
+                return self.beam_search(tokens, max_new_tokens, num_beams,
+                                        eos_token_id=eos_token_id,
+                                        length_penalty=length_penalty)
         c = self.config
         B, T0 = tokens.shape
         K, L, V = int(num_beams), int(max_new_tokens), c.vocab_size
@@ -694,6 +977,51 @@ def _ce_sums(x, w, labels):
     valid = (labels >= 0).float()
     gold = logits.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     return ((lse - gold) * valid).sum(), valid.sum()
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """(sum of token cross-entropies over labels >= 0, their count) of hidden
+    states ``x`` [B, C, E] against this rank's block ``w`` [V / tp, E]
+    (float32) of the head, whose first row is vocabulary id ``start``. The
+    forward all-reduces over ``group`` the row max (MAX), the sum of
+    exponentials and the target logit (SUM), all float32; the backward is
+    local: the softmax recomputed from the saved log-sum-exp, minus the
+    one-hot where this rank holds the target. The gradient of ``x`` is this
+    rank's part (the caller's Megatron f sums it)."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, start, group):
+        logits = torch.matmul(x.float(), w.t())
+        rows = w.shape[0]
+        m = logits.max(dim=-1).values
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        se = torch.exp(logits - m[..., None]).sum(dim=-1)
+        dist.all_reduce(se, op=dist.ReduceOp.SUM, group=group)
+        lse = torch.log(se) + m
+        local = labels - start
+        inside = (local >= 0) & (local < rows) & (labels >= 0)
+        gold = torch.where(inside, logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0],
+                           torch.zeros((), device=x.device))
+        dist.all_reduce(gold, op=dist.ReduceOp.SUM, group=group)
+        valid = (labels >= 0).float()
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.start = start
+        return ((lse - gold) * valid).sum(), valid.sum()
+
+    @staticmethod
+    def backward(ctx, g_total, g_n):
+        x, w, labels, lse = ctx.saved_tensors
+        rows = w.shape[0]
+        xf = x.float()
+        probs = torch.exp(torch.matmul(xf, w.t()) - lse[..., None])
+        local = labels - ctx.start
+        inside = (local >= 0) & (local < rows) & (labels >= 0)
+        probs.scatter_add_(-1, local.clamp(0, rows - 1)[..., None],
+                           -inside.float()[..., None])
+        grad = probs * ((labels >= 0).float() * g_total)[..., None]
+        dx = torch.matmul(grad, w).to(x.dtype)
+        dw = torch.matmul(grad.reshape(-1, rows).t(), xf.reshape(-1, xf.shape[-1]))
+        return dx, dw, None, None, None
 
 
 def params_from_jax(tree, device=None) -> Dict[str, torch.Tensor]:

@@ -13,9 +13,19 @@ Each JAX mechanism has a PyTorch one:
 - ``cpu_checkpointing`` -> full remat with the region's inputs saved in pinned
   host memory (``torch.autograd.graph.save_on_cpu``); it overrides the policy,
   as the JAX offload policy does;
-- ``partition_activations`` -> a no-op while the model axis is 1, as the JAX
-  constraint returns its input there; tensor parallelism is not in the port
-  (ROADMAP.md item 15), so a larger model axis raises;
+- ``partition_activations`` -> over a model axis of more than one rank, each
+  floating input of a region (a block input, replicated across the model
+  group) is kept as this rank's 1/tp slice along its largest divisible dim
+  (the JAX constraint's rule) and all-gathered over the model group inside
+  the region, so the recompute gathers it again; its gradient, the same on
+  every rank of the group, is rebuilt whole by an all-gather of the slices.
+  The region's saved input is the slice whatever mechanism torch's
+  checkpoint keeps its inputs by (the reference's partitioned save,
+  checkpointing.py:265-311). A no-op while the model axis is 1, as the JAX
+  constraint returns its input there. The mesh is a ``parallel.mesh.Mesh``
+  (``configure(mpu_=grid)`` takes the grid's, the engine publishes its own;
+  a mapping of axis name -> size becomes a ``Mesh`` with no groups, over
+  which a model axis above 1 raises);
 - ``profile`` -> a ``torch.profiler.record_function`` range;
 - ``contiguous_memory_optimization``, ``number_checkpoints``, ``synchronize``
   -> accepted and stored.
@@ -51,6 +61,8 @@ from torch.utils import checkpoint as _torch_checkpoint
 from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from ...ops import flash_attention as _flash
+from ...parallel.mesh import Mesh, all_gather_cat, fold_tp_seed, gather_from_group, mesh_from_mpu
+from ...parallel.topology import PipeModelDataParallelTopology
 from ...utils import logger
 
 _ATTN_NAMES = frozenset({"attn_out", "attn_lse"})
@@ -82,7 +94,8 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
               synchronize=None, profile=None, mesh=None, model_axis: Optional[str] = None):
     """Configure the module from a ``DeepSpeedConfig`` (its
     ``activation_checkpointing`` block) and/or explicit flags. ``mesh`` is a
-    mapping of axis name -> size (the port has no device mesh object)."""
+    ``parallel.mesh.Mesh`` or a mapping of axis name -> size; ``mpu_`` (a
+    ``PipelineParallelGrid``) gives its mesh, with the model group."""
     if deepspeed_config is not None:
         ac = deepspeed_config.activation_checkpointing_config
         _config["partition_activations"] = ac.partition_activations
@@ -99,8 +112,10 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
                      ("profile", profile)):
         if val is not None:
             _config[key] = val
+    if mesh is None and mpu_ is not None:
+        mesh = mesh_from_mpu(mpu_)
     if mesh is not None:
-        _config["mesh"] = dict(mesh)
+        _config["mesh"] = _own(mesh)
         _config["mesh_explicit"] = True
     if model_axis is not None:
         _config["model_axis"] = model_axis
@@ -111,10 +126,10 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
 
 
 def set_default_mesh(mesh, model_axis: Optional[str] = None):
-    """Publish the engine's mesh (axis name -> size) without setting any flag
+    """Publish the engine's mesh without setting any flag
     or marking the module configured; a mesh given to ``configure`` wins."""
     if not _config["mesh_explicit"]:
-        _config["mesh"] = None if mesh is None else dict(mesh)
+        _config["mesh"] = None if mesh is None else _own(mesh)
         if model_axis is not None:
             _config["model_axis"] = model_axis
 
@@ -135,15 +150,68 @@ def reset():
                    configured=False, mesh_explicit=False)
 
 
-def _partition_constraint(x):
-    """The saveable as it is while the model axis is 1; tensor parallelism
-    (a larger axis) is not in the port."""
+def _own(mesh):
+    """A ``Mesh`` as it is; a mapping of axis sizes as a ``Mesh`` of those
+    sizes without process groups."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    topo = PipeModelDataParallelTopology(num_pp=mesh.get("pipe", 1), num_mp=mesh.get("model", 1),
+                                         num_dp=mesh.get("data", 1))
+    return Mesh(topo, 0)
+
+
+def _mesh_size(mesh, axis):
+    return 1 if mesh is None else mesh.shape.get(axis, 1)
+
+
+def _partition_plan(x):
+    """(dim, group, size) along which a region input is kept as this rank's
+    slice, or None: no model axis above 1, a 0-d input, or no dim divisible
+    by it (the JAX constraint's rule: the largest divisible dim)."""
     mesh, axis = _config["mesh"], _config["model_axis"]
-    if mesh is None or mesh.get(axis, 1) <= 1 or x.dim() == 0:
-        return x
-    raise NotImplementedError(
-        f"partition_activations over a model axis of {mesh[axis]} is not in the "
-        "PyTorch port yet: ROADMAP.md item 15 (tensor parallelism)")
+    size = _mesh_size(mesh, axis)
+    if size <= 1 or x.dim() == 0:
+        return None
+    if mesh.group(axis) is None:
+        raise ValueError(
+            f"partition_activations over a model axis of {size} needs the model group: "
+            "configure(mpu_=grid) or mesh=Mesh (an engine with mpu publishes its mesh)")
+    for dim in sorted(range(x.dim()), key=lambda d: -x.shape[d]):
+        if x.shape[dim] % size == 0:
+            return dim, mesh.group(axis), size
+    return None
+
+
+class _KeepSlice(torch.autograd.Function):
+    """This rank's slice of a replicated tensor; backward, the gradient
+    (replicated) rebuilt whole from every rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // size
+        return x.narrow(dim, torch.distributed.get_rank(group) * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad, ctx.dim, ctx.group), None, None, None
+
+
+def _partition(args):
+    """The region's inputs with each replicated floating tensor cut to this
+    rank's slice; and the plans that gather them back."""
+    out, plans = [], []
+    for a in args:
+        plan = (_partition_plan(a) if torch.is_tensor(a) and a.is_floating_point()
+                else None)
+        plans.append(plan)
+        out.append(a if plan is None else _KeepSlice.apply(a, *plan))
+    return out, plans
+
+
+def _unpartition(args, plans):
+    return [a if plan is None else gather_from_group(a, plan[0], plan[1])
+            for a, plan in zip(args, plans)]
 
 
 # ---------------------------------------------------------------------------
@@ -373,10 +441,14 @@ def checkpoint_wrapper(fn, policy=None):
         offload = _config["cpu_checkpointing"]
         pol = None if offload else named_policy(policy)
 
+        args_ = args
+        plans = None
+        if _config["partition_activations"]:
+            args_, plans = _partition(args)
+
         def placed(*inner_args):
-            if _config["partition_activations"]:
-                inner_args = [_partition_constraint(a) if torch.is_tensor(a)
-                              and a.is_floating_point() else a for a in inner_args]
+            if plans is not None:
+                inner_args = _unpartition(inner_args, plans)
             stack = _stack()
             stack.append(pol)
             if pol is not None:
@@ -389,11 +461,11 @@ def checkpoint_wrapper(fn, policy=None):
         def run():
             if offload:
                 with torch.autograd.graph.save_on_cpu(pin_memory=True):
-                    return _torch_checkpoint.checkpoint(placed, *args, use_reentrant=False)
+                    return _torch_checkpoint.checkpoint(placed, *args_, use_reentrant=False)
             kw = {}
             if pol is not None:
                 kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, pol)
-            return _torch_checkpoint.checkpoint(placed, *args, use_reentrant=False, **kw)
+            return _torch_checkpoint.checkpoint(placed, *args_, use_reentrant=False, **kw)
 
         if _config["profile"]:
             with torch.profiler.record_function("ds_activation_checkpoint"):
@@ -457,9 +529,15 @@ get_cuda_rng_tracker = get_rng_tracker
 
 def model_parallel_seed(seed: int, axis: Optional[str] = None, device="cpu") -> torch.Generator:
     """The generator of this rank's position on the model axis (dropout must
-    differ across tensor-parallel ranks and stay reproducible). Tensor
-    parallelism is not in the port, so every rank is at position 0 and gets
-    the base stream, as the JAX function does outside a bound axis."""
+    differ across tensor-parallel ranks and stay reproducible): the
+    configured mesh's model-axis index folded into ``seed``
+    (``parallel/mesh.py`` ``fold_tp_seed``, the flash kernels' fold). Without
+    a mesh whose axis is above 1 the base stream, as the JAX function
+    returns the base key outside a bound axis."""
+    mesh = _config["mesh"]
+    axis = axis or _config["model_axis"]
+    if _mesh_size(mesh, axis) > 1:
+        seed = fold_tp_seed(seed, mesh.axis_index(axis)) & 0xFFFFFFFF
     return torch.Generator(device=device).manual_seed(int(seed))
 
 

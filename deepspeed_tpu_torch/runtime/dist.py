@@ -117,11 +117,15 @@ def _mpi_negotiate_master(local_coord):
 
 
 def init_distributed(device=None, world_size: Optional[int] = None,
-                     rank: Optional[int] = None) -> bool:
+                     rank: Optional[int] = None, backend: Optional[str] = None,
+                     local_rank: Optional[int] = None) -> bool:
     """Join the process group if the environment (or the arguments) name a
     world of more than one rank. Returns True when a group is (or already
     was) up, False for a single process. ``device``: the device type the
-    ranks run on ("cuda" -> NCCL, else gloo)."""
+    ranks run on ("cuda" -> NCCL, else gloo). ``backend`` overrides that
+    choice, and ``local_rank`` the card a rank takes (default ``LOCAL_RANK``,
+    else the rank): the caller's explicit choice, as for ranks that share
+    one card over gloo; nothing here falls back from one backend to another."""
     if dist.is_initialized():
         return True
     init_method = "env://"
@@ -138,9 +142,9 @@ def init_distributed(device=None, world_size: Optional[int] = None,
     rank = rank if rank is not None else int(os.environ["RANK"])
     on_card = torch.device(device or "cuda").type == "cuda"
     if on_card:
-        torch.cuda.set_device(_local_rank(rank))
-    dist.init_process_group("nccl" if on_card else "gloo", init_method=init_method,
-                            world_size=world_size, rank=rank)
+        torch.cuda.set_device(_local_rank(rank) if local_rank is None else int(local_rank))
+    dist.init_process_group(backend or ("nccl" if on_card else "gloo"),
+                            init_method=init_method, world_size=world_size, rank=rank)
     logger.info(f"torch.distributed initialized: rank {rank}/{world_size} "
                 f"({dist.get_backend()})")
     return True

@@ -134,6 +134,22 @@ skips it). The cluster monitor and the goodput ledger ride the numerics
 flight recorder. ``memory_manifest`` and ``flops_profile`` as in JAX
 (``utils/hbm.py``, ``utils/flops_profiler.py``).
 
+Tensor parallelism (``mpu`` with ``param_shardings``; the JAX engine's mesh
+and caller layouts, deepspeed_tpu/runtime/engine.py:155-172, 344-364): the
+engine's mesh is ``parallel.mesh.mesh_from_mpu(mpu)`` (without an mpu,
+``build_mesh()``: the world as one data axis), ``dp_size`` its data axis.
+``param_shardings`` must be the model's own Megatron layout
+(``GPT2Model.param_shardings``); the engine makes the module tensor-parallel
+(``with_tp``) after loading whole leaves, so each parameter, master and
+moment holds this rank's slice. ZeRO partitions those slices over the data
+group, whose ranks alone the grad exchange and the gathers reach; the global
+grad norm and the fp16 overflow flag count a replicated leaf once and sum a
+tensor-parallel leaf's over the model group (the norm the JAX engine's GSPMD
+program computes). Checkpoints hold whole leaves in the JAX layout. Under
+tensor parallelism the port leaves out ZeRO-Offload, client optimizer pairs,
+1-bit Adam, sparse gradients, the two-level / bucketed / compressed
+exchanges and the numerics block: each raises ``NotImplementedError``.
+
 What the slice does not carry raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 ``compilation_cache_dir`` names the JAX compile cache and has no counterpart
@@ -154,6 +170,7 @@ from ..checkpoint import checkpointing as ckpt
 from ..comm import hierarchical as hier
 from ..comm.topology import CommGroups, CommTopology, derive_topology
 from ..device import resolve_device
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, build_mesh, mesh_from_mpu
 from ..ops import adam as adam_opt
 from ..ops.cpu_adam import DeepSpeedCPUAdam
 from ..ops import lamb as lamb_opt
@@ -233,7 +250,7 @@ _OPTIMIZERS = {
 
 def make_engine(args=None, model=None, optimizer=None, model_parameters=None,
                 training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
-                collate_fn=None, config_params=None, device=None):
+                collate_fn=None, config_params=None, device=None, param_shardings=None):
     """Engine factory (the JAX package's dispatch point for pipeline models)."""
     if any(c.__name__ == "PipelineModule" for c in type(model).__mro__):
         raise _later("a PipelineModule model", "item 16 (pipeline)")
@@ -244,7 +261,8 @@ def make_engine(args=None, model=None, optimizer=None, model_parameters=None,
                            model_parameters=model_parameters, training_data=training_data,
                            lr_scheduler=lr_scheduler, mpu=mpu,
                            dist_init_required=dist_init_required, collate_fn=collate_fn,
-                           config_params=config_params, device=device)
+                           config_params=config_params, device=device,
+                           param_shardings=param_shardings)
 
 
 def _accumulate(acc, grads):
@@ -260,8 +278,6 @@ class DeepSpeedEngine:
     def __init__(self, args=None, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
                  collate_fn=None, config_params=None, device=None, param_shardings=None):
-        if mpu is not None or param_shardings is not None:
-            raise _later("tensor parallelism (mpu / param_shardings)", "item 15")
         if not isinstance(model, nn.Module):
             raise TypeError("model must be a torch.nn.Module whose forward(*batch) "
                             "returns the loss")
@@ -285,8 +301,15 @@ class DeepSpeedEngine:
         self._goodput = None
         self._programs = {}
 
-        self.dp_size = dist.get_world_size() if dist.is_initialized() else 1
-        self.dp_rank = dist.get_rank() if dist.is_initialized() else 0
+        # the mesh: the mpu's; else the world as one data axis
+        self.mpu = mpu
+        self.mesh = mesh_from_mpu(mpu) if mpu is not None else build_mesh()
+        self._world_size = dist.get_world_size() if dist.is_initialized() else 1
+        if self.mesh.shape[PIPE_AXIS] > 1:
+            raise _later("a mesh with a pipe axis > 1", "item 16 (pipeline)")
+        self.dp_size = self.mesh.shape[DATA_AXIS]
+        self.dp_rank = self.mesh.axis_index(DATA_AXIS)
+        self._dp_group = self.mesh.group(DATA_AXIS)
 
         config_file = getattr(args, "deepspeed_config", None) if args is not None else None
         if config_params is None and config_file is None:
@@ -323,6 +346,7 @@ class DeepSpeedEngine:
             else:
                 model.load_state_dict(model_parameters, strict=True)
         self.module = model
+        self._configure_tensor_parallel(model, param_shardings)
 
         # ---- master (float32, this rank's ZeRO slices) and compute params ----
         named = list(model.named_parameters())
@@ -331,6 +355,11 @@ class DeepSpeedEngine:
         self._ckpt_key_list = None          # _ckpt_keys, built at first use
         # full leaf shapes: at stage 3 a compute parameter holds its slice
         self._shapes = [tuple(p.shape) for p in self._params]
+        # the tensor-parallel axis of each leaf (None: replicated) and the
+        # whole leaf shapes of the JAX layout
+        self._tp_axes = [model.tp_axis(n) if self._tp_size > 1 else None for n in self._names]
+        self._whole_shapes = [self._tp_whole_shape(s, a) for s, a in zip(self._shapes,
+                                                                          self._tp_axes)]
         stage = self.zero_optimization_stage()
         self._axes = [zero_spec(tuple(p.shape), self.dp_size) if stage >= 1 else None
                       for p in self._params]
@@ -374,7 +403,8 @@ class DeepSpeedEngine:
         # else at each attribute access to a sharded parameter
         self._gather = None
         if stage >= 3:
-            self._gather = ParamGather(self._params, self._param_axes, self.dp_size)
+            self._gather = ParamGather(self._params, self._param_axes, self.dp_size,
+                                       self._dp_group)
             if callable(getattr(model, "set_param_gather", None)):
                 model.set_param_gather(self._gather)
             elif self._gather.sharded:
@@ -428,11 +458,10 @@ class DeepSpeedEngine:
             monitor_memory=False, sync_fn=sync)
         # push the block into the process-global module only when this config
         # carries it: a second engine without one must not clobber the first's
-        mesh = {"data": self.dp_size, "model": 1}
         if self.config.activation_checkpointing_config.configured_in_json:
-            act_ckpt.configure(deepspeed_config=self.config, mesh=mesh)
+            act_ckpt.configure(deepspeed_config=self.config, mesh=self.mesh)
         else:
-            act_ckpt.set_default_mesh(mesh)
+            act_ckpt.set_default_mesh(self.mesh)
         if self.config.dump_state:
             self.config.print("DeepSpeedEngine configuration")
         self._numerics = None
@@ -487,6 +516,62 @@ class DeepSpeedEngine:
         c = self.config
         if c.sequence_parallel_enabled:
             raise _later("sequence_parallel", "item 14")
+
+    def _configure_tensor_parallel(self, model, param_shardings):
+        """Make the module tensor-parallel over the mesh's model axis when
+        ``param_shardings`` asks for it (the model's Megatron layout), and
+        refuse what the port leaves out under tensor parallelism."""
+        tp = self.mesh.shape[MODEL_AXIS]
+        if param_shardings is not None and tp > 1:
+            layout = getattr(model, "param_shardings", None)
+            if not callable(getattr(model, "with_tp", None)) or not callable(layout):
+                raise ValueError("param_shardings over a model axis > 1 needs a module with "
+                                 "tensor-parallel layers (with_tp / param_shardings, as "
+                                 "GPT2Model)")
+            if param_shardings != layout(self.mesh):
+                raise ValueError("the port's tensor parallelism takes the model's own "
+                                 "Megatron layout: pass param_shardings=model."
+                                 "param_shardings(mesh)")
+            if getattr(model, "tp_size", 1) == 1:
+                model.with_tp(self.mesh)
+        self._tp_size = int(getattr(model, "tp_size", 1))
+        self._tp_group = model._tp.group if self._tp_size > 1 else None
+        if self._tp_size == 1:
+            return
+        if self._tp_size != tp:
+            raise ValueError(f"the module is tensor-parallel over {self._tp_size} ranks, the "
+                             f"mesh's model axis has {tp}")
+        c = self.config
+        left_out = [("ZeRO-Offload", c.zero_enabled and c.zero_config.cpu_offload),
+                    ("a client optimizer pair", self._client_optimizer is not None),
+                    ("1-bit Adam", self._use_stacked_grads),
+                    ("sparse_gradients", c.sparse_gradients_enabled),
+                    (f"comm.mode={self._comm_mode!r}", self._comm_mode != COMM_MODE_FLAT),
+                    ("comm.overlap.mode='bucketed'",
+                     c.comm_overlap_mode == COMM_OVERLAP_BUCKETED),
+                    ("the numerics block", c.numerics_enabled)]
+        for what, on in left_out:
+            if on:
+                raise NotImplementedError(
+                    f"{what} under tensor parallelism is not in the PyTorch port yet: "
+                    "ROADMAP.md item 15b")
+
+    def _tp_whole_shape(self, shape, axis):
+        if axis is None:
+            return tuple(shape)
+        whole = list(shape)
+        whole[axis] *= self._tp_size
+        return tuple(whole)
+
+    def _tp_join(self, i, t):
+        """Leaf ``i``'s whole value (the JAX layout) from this rank's
+        tensor-parallel slice ``t`` (collective over the model group)."""
+        return t if self._tp_axes[i] is None else self.module.tp_whole(self._names[i], t)
+
+    def _tp_cut(self, i, whole):
+        """This rank's tensor-parallel slice of leaf ``i``'s whole value."""
+        return whole if self._tp_axes[i] is None else self.module.tp_slice(self._names[i],
+                                                                            whole)
 
     def _refuse_comm(self):
         """The JAX engine's refusals for the two-level and bucketed exchanges
@@ -946,7 +1031,7 @@ class DeepSpeedEngine:
 
     def _full(self, tensors, axes):
         """Whole leaves from this rank's slices (all-gathered where sharded)."""
-        return [unshard(t, a, self.dp_size) for t, a in zip(tensors, axes)]
+        return [unshard(t, a, self.dp_size, self._dp_group) for t, a in zip(tensors, axes)]
 
     def _numel(self):
         """The model's parameter count (whole leaves, whatever the stage)."""
@@ -1149,12 +1234,18 @@ class DeepSpeedEngine:
             loss = self.module(*batch)
         return loss[0] if isinstance(loss, (tuple, list)) else loss
 
+    @contextlib.contextmanager
     def _gather_scope(self, save_slices=False):
-        """Stage 3: the gathers at use are live (the forward, and the
-        backward's recomputes and re-gathers); nothing otherwise."""
-        if self._gather is None:
-            return contextlib.nullcontext()
-        return self._gather.scope(save_slices)
+        """The engine's scope over the module: at stage 3 the gathers at use
+        are live (the forward, and the backward's recomputes and re-gathers);
+        a module of slices (``sliced_scope``) computes on them."""
+        with contextlib.ExitStack() as stack:
+            scope = getattr(self.module, "sliced_scope", None)
+            if callable(scope):
+                stack.enter_context(scope())
+            if self._gather is not None:
+                stack.enter_context(self._gather.scope(save_slices))
+            yield
 
     def _fwd(self, *batch):
         with ds_named_scope("ds_fwd_bwd"):
@@ -1351,7 +1442,7 @@ class DeepSpeedEngine:
             if sparse and cap * self.dp_size < g.shape[0]:
                 out.append(row_sparse_allreduce(g, cap))
             else:
-                dist.all_reduce(g, op=dist.ReduceOp.SUM)
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self._dp_group)
                 out.append(g.div_(self.dp_size))
         return out
 
@@ -1359,9 +1450,9 @@ class DeepSpeedEngine:
         """The mean over the ranks: reduce-scattered to this rank's slice for
         a stage-2 sharded leaf, all-reduced otherwise."""
         if axis is not None:
-            g = reduce_scatter(g, axis, self.dp_size)
+            g = reduce_scatter(g, axis, self.dp_size, self._dp_group)
         else:
-            dist.all_reduce(g, op=dist.ReduceOp.SUM)
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=self._dp_group)
         return g.div_(self.dp_size)
 
     # ------------------------------------------------------------------ fused step
@@ -1438,25 +1529,43 @@ class DeepSpeedEngine:
             self._take_model_step()
 
     def _grad_norm(self, grads):
-        """Global L2 norm: squares of sharded grads summed over the ranks,
-        replicated ones counted once (an axis is set only when dp > 1)."""
+        """Global L2 norm: squares of ZeRO-sharded grads summed over the data
+        ranks, replicated ones counted once (an axis is set only when dp >
+        1); under tensor parallelism the squares of the model-axis slices
+        are then summed over the model group, the replicated leaves' counted
+        once."""
         sq = [torch.sum(torch.square(g.float())) for g in grads]
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        whole = [s for s, a in zip(sq, self._grad_axes) if a is None]
-        sharded = [s for s, a in zip(sq, self._grad_axes) if a is not None]
-        if whole:
-            total = total + torch.stack(whole).sum()
-        if sharded:
-            part = torch.stack(sharded).sum()
-            dist.all_reduce(part, op=dist.ReduceOp.SUM)
-            total = total + part
+        tp_part = None
+        for on_tp in ((False, True) if self._tp_size > 1 else (False,)):
+            pick = [(s, a) for s, a, t in zip(sq, self._grad_axes, self._tp_axes)
+                    if (t is not None) == on_tp]
+            whole = [s for s, a in pick if a is None]
+            sharded = [s for s, a in pick if a is not None]
+            acc = torch.zeros((), dtype=torch.float32, device=self.device)
+            if whole:
+                acc = acc + torch.stack(whole).sum()
+            if sharded:
+                part = torch.stack(sharded).sum()
+                dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self._dp_group)
+                acc = acc + part
+            if on_tp:
+                tp_part = acc
+            else:
+                total = total + acc
+        if tp_part is not None:
+            dist.all_reduce(tp_part, op=dist.ReduceOp.SUM, group=self._tp_group)
+            total = total + tp_part
         return torch.sqrt(total)
 
     def _leaf_sumsq(self, i, t):
-        """A master leaf's squared norm, summed over the ranks when sharded."""
+        """A master leaf's squared norm, summed over the data ranks when
+        ZeRO-sharded and over the model group when tensor-parallel."""
         s = torch.sum(torch.square(t))
         if self._axes[i] is not None:
-            dist.all_reduce(s, op=dist.ReduceOp.SUM)
+            dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self._dp_group)
+        if self._tp_axes[i] is not None:
+            dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self._tp_group)
         return s
 
     def _sum_sharded(self, per_leaf, axes):
@@ -1468,7 +1577,7 @@ class DeepSpeedEngine:
         if mask is None:
             return per_leaf
         part = torch.where(mask, per_leaf, torch.zeros_like(per_leaf))
-        dist.all_reduce(part, op=dist.ReduceOp.SUM)
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=self._dp_group)
         return torch.where(mask, part, per_leaf)
 
     def _prep_grads(self, grads):
@@ -1493,7 +1602,10 @@ class DeepSpeedEngine:
         if fp16:
             flag = overflow.to(self.device, torch.float32)
             if self.dp_size > 1 and index is None:
-                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._dp_group)
+            if self._tp_size > 1:
+                # a model-axis slice's overflow skips the step on every rank
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._tp_group)
             overflow = bool(flag)
             scale = self.scaler_state.cur_scale
             inv = 1.0 / scale if scale > 0 else 1.0
@@ -1564,7 +1676,7 @@ class DeepSpeedEngine:
                 for p, m, a, pa in zip(self._params, self._master, self._axes,
                                        self._param_axes):
                     p.copy_(unshard(m.to(self.compute_dtype), a if pa is None else None,
-                                    self.dp_size))
+                                    self.dp_size, self._dp_group))
         if track:
             from ..utils.numerics import bucket_sumsq, leaf_sumsq
             index = self._sentinel_index
@@ -1638,7 +1750,7 @@ class DeepSpeedEngine:
             if fp16:
                 flag = detect_overflow(grads, True)[0].to(self.device, torch.float32)
                 if self.dp_size > 1:
-                    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._dp_group)
         from ..utils.telemetry import pack_fetch
         buf, unpack = pack_fetch([norm_dev, flag], sent)
         (norm_raw, flag), sent = unpack(buf.cpu())   # the one host sync
@@ -1678,7 +1790,7 @@ class DeepSpeedEngine:
                 out=out)
             for p, part, a, g in zip(self._params, out, self._axes, gathered):
                 if g:
-                    p.copy_(unshard(part, a, self.dp_size))
+                    p.copy_(unshard(part, a, self.dp_size, self._dp_group))
         self._update_scaler(overflow)
         return overflow
 
@@ -1837,7 +1949,7 @@ class DeepSpeedEngine:
         vec = torch.remainder(vec, 1 << 32)
         if self.dp_size > 1:
             rows = [torch.empty_like(vec) for _ in range(self.dp_size)]
-            dist.all_gather(rows, vec)
+            dist.all_gather(rows, vec, group=self._dp_group)
             return torch.stack(rows)
         return vec[None]
 
@@ -1925,8 +2037,12 @@ class DeepSpeedEngine:
         as the JAX engine's ``(dp, cols)`` arrays: every rank's row)."""
         out = {}
 
-        def put(key, t, axis):
-            full = unshard(t, axis, self.dp_size)
+        def put(key, t, axis, leaf=None):
+            # the data ranks' slices, then (a tensor-parallel leaf) the model
+            # ranks': whole leaves in the JAX layout, one at a time
+            full = unshard(t, axis, self.dp_size, self._dp_group)
+            if leaf is not None:
+                full = self._tp_join(leaf, full)
             if materialize:
                 out[key] = ckpt.to_host(full)
 
@@ -1934,10 +2050,10 @@ class DeepSpeedEngine:
         if kind == "params":
             # whole leaves on disk at every stage (stage 3 gathers one at a time)
             for key, i in keys:
-                put(key, self._params[i], self._param_axes[i])
+                put(key, self._params[i], self._param_axes[i], i)
         elif kind == "master":
             for key, i in keys:
-                put(key, self._master[i], self._axes[i])
+                put(key, self._master[i], self._axes[i], i)
         elif self._client_optimizer is not None:
             for (path, leaf), axis in zip(pytree.tree_flatten_with_path(self.opt_state)[0],
                                           self._client_state_axes):
@@ -1951,7 +2067,7 @@ class DeepSpeedEngine:
         else:
             for field, leaves in zip(self.opt_state._fields, self.opt_state):
                 for key, i in keys:
-                    put(f"{field}/{key}", leaves[i], self._axes[i])
+                    put(f"{field}/{key}", leaves[i], self._axes[i], i)
         return out
 
     @torch.no_grad()
@@ -1964,14 +2080,18 @@ class DeepSpeedEngine:
                 raise KeyError(f"checkpoint missing array {key!r}")
             return torch.from_numpy(np.asarray(flat[key])).reshape(shape)
 
+        def leaf(key, i):
+            # the whole leaf, cut to this rank's tensor-parallel slice
+            return self._tp_cut(i, get(key, self._whole_shapes[i]))
+
         keys = self._ckpt_keys()
         if kind == "params":
             for key, i in keys:
-                self._params[i].copy_(shard(get(key, self._shapes[i]), self._param_axes[i],
+                self._params[i].copy_(shard(leaf(key, i), self._param_axes[i],
                                             self.dp_rank, self.dp_size))
         elif kind == "master":
             for key, i in keys:
-                self._place_master(i, get(key, self._shapes[i]))
+                self._place_master(i, leaf(key, i))
         elif self._client_optimizer is not None:
             for (path, leaf), axis in zip(pytree.tree_flatten_with_path(self.opt_state)[0],
                                           self._client_state_axes):
@@ -1986,7 +2106,7 @@ class DeepSpeedEngine:
         else:
             for field, leaves in zip(self.opt_state._fields, self.opt_state):
                 for key, i in keys:
-                    leaves[i].copy_(shard(get(f"{field}/{key}", self._shapes[i]),
+                    leaves[i].copy_(shard(leaf(f"{field}/{key}", i),
                                           self._axes[i], self.dp_rank, self.dp_size))
 
     @torch.no_grad()
@@ -2002,7 +2122,8 @@ class DeepSpeedEngine:
         a checkpoint that holds none (external master), or a load without
         the optimizer states (fp16-derived restore, stage2.py:1781-1836)."""
         for i, p in enumerate(self._params):
-            self._place_master(i, unshard(p.detach(), self._param_axes[i], self.dp_size).float())
+            self._place_master(i, unshard(p.detach(), self._param_axes[i], self.dp_size,
+                                          self._dp_group).float())
 
     def save_checkpoint(self, save_dir, tag=None, client_state={}, save_latest=True):
         return ckpt.save_checkpoint(self, save_dir, tag=tag, client_state=client_state,
@@ -2271,6 +2392,9 @@ class DeepSpeedEngine:
         - ``master`` / ``optimizer``: this rank's float32 master and moment
           slices (absent under ZeRO-Offload, whose state is in host memory;
           an external-master client pair's state is ``optimizer`` alone).
+
+        Under tensor parallelism every class and ``psi`` count this rank's
+        slices of the model-axis leaves and the replicated leaves whole.
         """
         classes = {"params": list(self._params)}
         offload = self._offload is not None

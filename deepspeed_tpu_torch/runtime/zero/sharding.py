@@ -24,6 +24,10 @@ states the same per-leaf choice and moves the data itself:
   slice. Under its saved-tensor hooks autograd keeps a gathered copy as its
   slice and gathers it again when the backward reads it.
 
+The collectives run over ``group`` (a torch process group of ``dp_size``
+ranks; None is the world): the data group of a mesh whose model axis is
+larger than one, so that ZeRO partitions over the data-parallel ranks only.
+
 The axis is an int (or None for a replicated leaf) where the JAX package
 returns a ``PartitionSpec``.
 """
@@ -143,7 +147,8 @@ class _GatherAtUse(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_scatter(grad.contiguous(), ctx.axis, ctx.gather.dp_size), None, None
+        return (reduce_scatter(grad.contiguous(), ctx.axis, ctx.gather.dp_size,
+                               ctx.gather.group), None, None)
 
 
 class ParamGather:
@@ -159,11 +164,15 @@ class ParamGather:
     Counters, for the tests and the card's logs: ``gathers`` (all-gathers
     issued: forward, recompute and the backward's re-gathers),
     ``alive_bytes`` (gathered full leaves alive now) and ``peak_bytes``
-    (their high-water mark since ``reset_counters``)."""
+    (their high-water mark since ``reset_counters``). ``whole(p)`` is the
+    full leaf without grad and uncounted, at any time (a module's
+    ``whole_parameters``). The gathers run over ``group`` (None: the
+    world)."""
 
-    def __init__(self, params, axes, dp_size: int):
+    def __init__(self, params, axes, dp_size: int, group=None):
         self._axis = {id(p): a for p, a in zip(params, axes)}
         self.dp_size = dp_size
+        self.group = group
         self.sharded = dp_size > 1 and any(a is not None for a in axes)
         self._depth = 0
         self.reset_counters()
@@ -185,7 +194,16 @@ class ParamGather:
         self.alive_bytes -= nbytes
 
     def _all_gather(self, part, axis):
-        return self._track(unshard(part, axis, self.dp_size))
+        return self._track(unshard(part, axis, self.dp_size, self.group))
+
+    def whole(self, p):
+        """The full leaf of ``p`` gathered without grad (``p``'s data where it
+        is replicated)."""
+        axis = self._axis.get(id(p))
+        if axis is None or not self.sharded:
+            return p.data
+        with torch.no_grad():
+            return unshard(p.detach(), axis, self.dp_size, self.group)
 
     def __call__(self, p):
         axis = self._axis.get(id(p))

@@ -43,9 +43,22 @@ names (``serve:decode_step``, ``serve:prefill_chunk``, ``serve:spec_verify``,
 ``serve:spec_draft_*``); every iteration emits the ``Serving/*`` scalars and,
 with the request tracer, closes the session's step with its latency summary.
 
-Not in this slice of the port (it raises, naming the ROADMAP.md item that
-brings it): head-sharded serving.
+Head-sharded serving (``sharding={"model": tp}``; JAX
+``deepspeed_tpu/serve/engine.py:57-97``): the tp ranks of the
+``torch.distributed`` world (``parallel.build_mesh(model=tp)``) each build the
+same engine and run the same deterministic scheduler on the same requests. The weights stay replicated; the KV pools hold each
+rank's ``n_head / tp`` heads, and each layer's attention ends in one float32
+all-reduce (``serve/paged.py``). The JAX rules stay, with their messages:
+n_head divisible by tp, no mirror, no speculation. Capture rule: a sharded
+engine captures its programs as CUDA graphs only when its group's
+collectives can be captured (the NCCL backend); otherwise (gloo) it runs
+them eagerly, and ``captured`` is False with the reason in
+``capture_note``. A module whose parameters are slices (ZeRO stage 3,
+tensor parallelism) gives its whole leaves (``whole_parameters``).
 """
+
+import contextlib
+
 
 import time
 
@@ -68,10 +81,6 @@ def _lint_manifest(compute, k_pool, v_pool):
                          "inplace_args": [k_pool, v_pool]}}
 
 
-def _later(what, where):
-    return NotImplementedError(f"{what} is not in the PyTorch port yet: {where}")
-
-
 class InferenceEngine:
     def __init__(self, model, params=None, *, num_slots=8, block_size=16,
                  num_blocks=257, max_model_len=256, prefill_chunk=32,
@@ -84,6 +93,9 @@ class InferenceEngine:
             else int(sharding or 1)
         if tp < 1:
             raise ValueError(f"serving.sharding.model must be >= 1, got {tp}")
+        if tp > 1 and c.n_head % tp:
+            raise ValueError(f"n_head {c.n_head} not divisible by "
+                             f"serving.sharding.model {tp}")
         if tp > 1 and mirror:
             raise ValueError(
                 "mirror asserts bitwise identity against the dense "
@@ -96,8 +108,11 @@ class InferenceEngine:
                 "the spec_verify program is single-chip only (shard the "
                 "target OR speculate, not both)")
         if tp > 1:
-            raise _later(f"serving.sharding.model = {tp}",
-                         "ROADMAP.md item 10.6 (head-sharded serving)")
+            import torch.distributed as dist
+            ranks = dist.get_world_size() if dist.is_initialized() else 1
+            if tp > ranks:
+                raise ValueError(f"serving.sharding.model {tp} exceeds {ranks} devices "
+                                 "(the ranks of the torch.distributed world)")
         if max_model_len % block_size != 0:
             raise ValueError(f"max_model_len {max_model_len} not a multiple "
                              f"of block_size {block_size}")
@@ -122,10 +137,16 @@ class InferenceEngine:
         if params is not None:
             model.load_parameters(params)
         self.tp = tp
+        self.mesh = None
+        if tp > 1:
+            from ..parallel.mesh import build_mesh
+            self.mesh = build_mesh(model=tp)
         self.telemetry = telemetry
         self.model = model
         self.device = model.device
-        self.params = serving_params(model)
+        whole = getattr(model, "whole_parameters", None)
+        with whole() if callable(whole) else contextlib.nullcontext():
+            self.params = serving_params(model)
         self.num_slots = int(num_slots)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
@@ -145,11 +166,22 @@ class InferenceEngine:
                 host_id=rt.get("host_id", 0))
 
         # one graph memory pool for every program of this engine, the
-        # draft's included (their outputs are consumed before the next replay)
-        self._graph_pool = (torch.cuda.graph_pool_handle()
-                            if self.device.type == "cuda" else None)
+        # draft's included (their outputs are consumed before the next replay);
+        # a sharded engine captures only when its collectives can be captured
+        self.captured, self.capture_note = self.device.type == "cuda", ""
+        if self.device.type != "cuda":
+            self.capture_note = "eager: no CUDA graphs on the CPU"
+        elif self.mesh is not None:
+            import torch.distributed as dist
+            from ..parallel.mesh import MODEL_AXIS
+            backend = dist.get_backend(self.mesh.group(MODEL_AXIS))
+            if backend != "nccl":
+                self.captured = False
+                self.capture_note = (f"eager: the model group's backend ({backend}) cannot "
+                                     "be captured in a CUDA graph")
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.captured else None
         pool_shape = (c.n_layer, self.num_blocks, self.block_size,
-                      c.n_head, c.head_dim)
+                      c.n_head // tp, c.head_dim)
         self.k_pool = torch.zeros(pool_shape, dtype=c.compute_dtype,
                                   device=self.device)
         self.v_pool = torch.zeros(pool_shape, dtype=c.compute_dtype,
@@ -192,7 +224,7 @@ class InferenceEngine:
             model, num_slots=self.num_slots, block_size=self.block_size,
             max_blocks=self.max_blocks, prefill_chunk=self.prefill_chunk,
             use_pallas=use_pallas,
-            verify_width=self.spec_k + 1 if self._spec is not None else 0)
+            verify_width=self.spec_k + 1 if self._spec is not None else 0, mesh=self.mesh)
         ins = self._raw["inputs"]
         self._decode = self._program("decode_step", self._raw["decode_step"],
                                      ins["decode_step"], self.params,
@@ -268,7 +300,8 @@ class InferenceEngine:
             self.telemetry.monitor.add_scalar(f"Serving/{name}", float(value), self._it)
 
     def graphs(self):
-        """name -> GraphedProgram of this engine (empty on the CPU)."""
+        """name -> GraphedProgram of this engine (empty on the CPU, and for a
+        sharded engine whose group cannot be captured: ``capture_note``)."""
         progs = {"decode_step": self._decode, "prefill_chunk": self._prefill,
                  "spec_verify": self._verify}
         if self._spec is not None:
@@ -953,7 +986,16 @@ class InferenceEngine:
                        self.copy_width)
         dev = self.device
         kp, vp = torch.zeros_like(self.k_pool), torch.zeros_like(self.v_pool)
-        manifest = _lint_manifest(dtype_name(c.compute_dtype), kp, vp)
+        manifest = copy_manifest = _lint_manifest(dtype_name(c.compute_dtype), kp, vp)
+        if self.tp > 1:
+            # head-sharded: exactly one float32 all-reduce a layer (the
+            # attention projection) and nothing else on the wire, however
+            # small (deepspeed_tpu/serve/engine.py:912-915)
+            manifest = dict(manifest, small_element_threshold=0,
+                            collectives={"all-reduce": {"min": c.n_layer, "max": c.n_layer,
+                                                        "dtypes": ["f32"]}})
+            del manifest["any_reduction"]
+            copy_manifest = dict(copy_manifest, small_element_threshold=0)
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -966,7 +1008,7 @@ class InferenceEngine:
              (self.params, zeros(1, C), zeros(), torch.ones((), dtype=torch.int32, device=dev),
               zeros(MB), kp, vp), manifest),
             ("serve_copy_blocks", self._raw["copy_blocks"],
-             (kp, vp, zeros(P), zeros(P)), manifest),
+             (kp, vp, zeros(P), zeros(P)), copy_manifest),
         ]
         if self._spec is not None:
             D = self.spec_k + 1

@@ -28,6 +28,17 @@ Two differences from the JAX programs, both deliberate:
   clamp (``wpe_cap``, ``tp // BS`` against ``MB - 1``, the last valid row of
   a chunk) is clamped here too.
 
+Head-sharded serving (a ``mesh`` whose model axis has ``size`` ranks; JAX
+``deepspeed_tpu/serve/paged.py:362-470``): the weights stay replicated, the
+pools hold this rank's ``n_head / size`` heads, and each rank computes its
+heads' q, k and v from its columns of ``c_attn_w`` (``_qkv_local``), attends
+(decode through the paged-decode kernel at the local head count, prefill
+through the gather path) and multiplies by its rows of ``c_proj_w``
+(``_proj_local``); the float32 partial sums are all-reduced over the group —
+the one collective of a layer — and the bias is added once after. The MLP and
+the logits are computed whole on every rank. ``spec_verify`` stays
+single-rank (the engine refuses speculation with sharding).
+
 On the card the engine runs ``decode_step``, ``prefill_chunk`` and
 ``spec_verify`` as CUDA graphs (``GraphedProgram``), the port's counterpart of
 the JAX package's ``jax.jit``: each is captured once, at fixed addresses, and
@@ -42,8 +53,10 @@ float32 for the float32 logits.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.gpt2 import DecodeMath
+from ..parallel.mesh import MODEL_AXIS
 from .block_allocator import NULL_BLOCK
 
 
@@ -99,20 +112,57 @@ def graph_captured(fn):
 
 
 def build_paged_programs(model, *, num_slots, block_size, max_blocks,
-                         prefill_chunk, use_pallas=False, verify_width=0):
+                         prefill_chunk, use_pallas=False, verify_width=0, mesh=None):
     """Program dict for one engine: ``decode_step``, ``prefill_chunk``,
     ``copy_blocks``, the ``beam_init(K, eos)`` / ``beam_select(K, eos)``
     factories, ``copy_width``, ``inputs`` (each graphable program's per-step
     input shapes and numpy dtypes) and, with ``verify_width`` D > 0,
-    ``spec_verify``."""
+    ``spec_verify``. A ``mesh`` (``parallel.mesh.Mesh``) whose model axis
+    is above 1 builds the head-sharded decode and prefill over pools of this
+    rank's heads."""
     c = model.config
     nh, hd = c.n_head, c.head_dim
+    tp = mesh.shape[MODEL_AXIS] if mesh is not None else 1
+    if tp > 1:
+        if verify_width:
+            raise ValueError("spec_verify is single-rank: no speculation with sharding")
+        if nh % tp:
+            raise ValueError(f"n_head {nh} not divisible by model-axis size {tp}")
+        nh = nh // tp                   # this rank's heads: the pools' and the kernel's
     S, BS, MB, C = int(num_slots), int(block_size), int(max_blocks), int(prefill_chunk)
     D = int(verify_width)
     ML = MB * BS                      # the dense view length the gather rebuilds
     P = S                             # CoW copies per batched copy_blocks call
     V = c.vocab_size
     m = DecodeMath(model)
+    qkv_fn, proj_fn = m.qkv, m.proj
+    if tp > 1:
+        H, h0, width = c.n_head * hd, mesh.axis_index(MODEL_AXIS) * nh * hd, nh * hd
+        group = mesh.group(MODEL_AXIS)
+
+        def qkv_fn(x, bp):
+            """This rank's heads of the attn projection: the column block
+            ``[part * H + h0, + nh_l * hd)`` of ``c_attn_w`` for part in (q,
+            k, v), the same product / bias / reshape as ``DecodeMath.qkv``
+            (JAX ``_qkv_local``)."""
+            B_, Tn, _ = x.shape
+
+            def part(i):
+                lo = i * H + h0
+                out = (torch.matmul(x, bp["c_attn_w"][:, lo:lo + width].to(x.dtype))
+                       + bp["c_attn_b"][lo:lo + width].to(x.dtype))
+                return out.reshape(B_, Tn, nh, hd).transpose(1, 2)
+
+            return part(0), part(1), part(2)
+
+        def proj_fn(y, bp, x_dtype):
+            """This rank's rows of ``c_proj_w``; the float32 partial sums
+            all-reduced over the model group (the layer's one collective),
+            the bias added once after (JAX ``_proj_local``)."""
+            w = bp["c_proj_w"][h0:h0 + width].to(x_dtype)
+            part = torch.matmul(y.float(), w.float())
+            dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+            return part.to(x_dtype) + bp["c_proj_b"].to(x_dtype)
 
     if use_pallas:
         from ..ops.paged_attention import paged_decode_attention
@@ -145,19 +195,19 @@ def build_paged_programs(model, *, num_slots, block_size, max_blocks,
         lengths = pos + 1
 
         def attn(xin, bp, li):
-            q, k, v = m.qkv(xin, bp)
+            q, k, v = qkv_fn(xin, bp)
             k_pool[li, wblk, off] = k[:, :, 0, :].to(k_pool.dtype)
             v_pool[li, wblk, off] = v[:, :, 0, :].to(v_pool.dtype)
             if paged_decode_attention is not None:
                 y = paged_decode_attention(q.contiguous(), k_pool, v_pool, li,
                                            tables, lengths, block_size=BS)
-                return m.proj(y.transpose(1, 2).reshape(S, 1, nh * hd),
+                return proj_fn(y.transpose(1, 2).reshape(S, 1, nh * hd),
                               bp, xin.dtype)
             kg = _gather(k_pool, li, tables_l)
             vg = _gather(v_pool, li, tables_l)
             mask = (torch.arange(ML, device=dev)[None, :]
                     <= pos[:, None])[:, None, None, :]
-            return m.proj(m.attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
+            return proj_fn(m.attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
 
         x = m.blocks_forward(p, x, attn)
         return m.logits(x[:, -1], p)
@@ -190,14 +240,14 @@ def build_paged_programs(model, *, num_slots, block_size, max_blocks,
         tbl1 = table_l[None]                                  # [1, MB]
 
         def attn(xin, bp, li):
-            q, k, v = m.qkv(xin, bp)                          # [1, nh, C, hd]
+            q, k, v = qkv_fn(xin, bp)                          # [1, nh, C, hd]
             k_pool[li, wblk, off] = k[0].transpose(0, 1).to(k_pool.dtype)
             v_pool[li, wblk, off] = v[0].transpose(0, 1).to(v_pool.dtype)
             kg = _gather(k_pool, li, tbl1)
             vg = _gather(v_pool, li, tbl1)
             # the same [C, ML] causal frontier the cached forward masks with
             mask = torch.arange(ML, device=dev)[None, :] <= tp[:, None]
-            return m.proj(m.attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
+            return proj_fn(m.attend(q, kg, vg, mask, xin.dtype), bp, xin.dtype)
 
         x = m.blocks_forward(p, x, attn)
         last = (n_valid - 1).clamp(0, C - 1).reshape(1)

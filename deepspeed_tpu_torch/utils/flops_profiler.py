@@ -133,7 +133,7 @@ def register_kernel_formulas():
 
 
 def gpt2_train_flops(n_embd, n_layer, n_head, vocab_size, seq, batch, remat=False,
-                     flash=True) -> int:
+                     flash=True, tp=1) -> int:
     """What the flop counter counts for one forward and backward of the
     port's GPT-2 (``models/gpt2.py``: the chunked cross-entropy) on
     ``batch`` sequences of ``seq`` tokens, with no remat or remat "dots":
@@ -146,13 +146,16 @@ def gpt2_train_flops(n_embd, n_layer, n_head, vocab_size, seq, batch, remat=Fals
       twice under "dots", which replays it; the backward 10·B·H·T²·D, the
       SDPA-backward convention), else the plain version's products (the
       same forward, the backward's four products 8·B·H·T²·D).
-    Other policies keep other products; they raise."""
+    Other policies keep other products; they raise. ``tp`` > 1: one
+    tensor-parallel rank's count — its n_head/tp heads, its 1/tp of the
+    block products' columns or rows, and its vocab/tp block of the
+    vocab-parallel head (the same four products)."""
     if remat not in (False, None, "dots"):
         raise ValueError(f"gpt2_train_flops: remat {remat!r} (no remat or 'dots' only)")
-    e, L, bt = int(n_embd), int(n_layer), int(batch) * int(seq)
-    att = 4 * int(batch) * int(n_head) * int(seq) ** 2 * (e // int(n_head))
-    blocks = L * 3 * 2 * bt * 12 * e * e
-    head = 4 * 2 * bt * e * int(vocab_size)
+    e, L, bt, tp = int(n_embd), int(n_layer), int(batch) * int(seq), int(tp)
+    att = 4 * int(batch) * (int(n_head) // tp) * int(seq) ** 2 * (e // int(n_head))
+    blocks = L * 3 * 2 * bt * 12 * e * e // tp
+    head = 4 * 2 * bt * e * (int(vocab_size) // tp)
     fwd = L * att * (2 if remat == "dots" else 1)
     bwd = L * (att * 10 // 4 if flash else 2 * att)
     return blocks + head + fwd + bwd

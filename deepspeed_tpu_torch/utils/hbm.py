@@ -259,11 +259,15 @@ def _budget_bytes(config) -> int:
     return int(torch.cuda.mem_get_info()[1])
 
 
-def gpt2_param_count(n_embd, n_layer, vocab_size, n_positions):
-    """Exact GPT-2 Ψ: wte + wpe + per-block (12E² + 13E) + final LN (2E)."""
-    e = int(n_embd)
-    return (int(vocab_size) * e + int(n_positions) * e
-            + int(n_layer) * (12 * e * e + 13 * e) + 2 * e)
+def gpt2_param_count(n_embd, n_layer, vocab_size, n_positions, tp=1):
+    """Exact GPT-2 Ψ: wte + wpe + per-block (12E² + 13E) + final LN (2E).
+    ``tp`` > 1: one tensor-parallel rank's Ψ — its slices of the split
+    leaves (wte's rows; c_attn, c_fc and the c_proj weights: 12E²/tp + 7E/tp
+    a block) and the replicated ones whole (wpe; LayerNorms and the c_proj
+    biases: 6E a block; the final LN)."""
+    e, tp = int(n_embd), int(tp)
+    return (int(vocab_size) * e // tp + int(n_positions) * e
+            + int(n_layer) * ((12 * e * e + 7 * e) // tp + 6 * e) + 2 * e)
 
 
 def forecast(config) -> Dict[str, Any]:

@@ -237,11 +237,6 @@ def test_unported_config_raises(cfg, exc, match):
 def test_unported_arguments_and_methods_raise():
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     cfg = {"train_batch_size": 1}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        DeepSpeedEngine(model=_Quadratic(), config_params=cfg, device="cpu", mpu=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        DeepSpeedEngine(model=_Quadratic(), config_params=cfg, device="cpu",
-                        param_shardings={})
     # a client optimizer must be an (init, apply) pair, as in the JAX engine
     with pytest.raises(TypeError, match=r"\(init_fn, apply_fn\) pair"):
         DeepSpeedEngine(model=_Quadratic(), config_params=cfg, device="cpu",

@@ -66,6 +66,12 @@ def test_scan_covers_the_communication_and_crash_modules():
         assert f"deepspeed_tpu_torch/{name}" in names, name
 
 
+def test_scan_covers_the_parallel_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("parallel/__init__.py", "parallel/topology.py", "parallel/mesh.py"):
+        assert f"deepspeed_tpu_torch/{name}" in names, name
+
+
 def test_importing_the_port_loads_no_jax():
     # a subprocess: this test process already holds jax (tests/conftest.py)
     modules = sorted(

@@ -247,16 +247,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu(models):
 @pytest.mark.parametrize("serving,error,match", [
     pytest.param({"speculation": {"enabled": True}}, ValueError,
                  "speculation.enabled needs a live draft model", id="serving0-speculation"),
-    pytest.param({"sharding": {"model": 2}}, NotImplementedError,
-                 r"sharding.model = 2 is not in the PyTorch port yet: ROADMAP.md item 10\.6",
-                 id="serving1-sharding"),
+    pytest.param({"sharding": {"model": 2}}, ValueError,
+                 r"serving.sharding.model 2 exceeds 1 devices", id="serving1-sharding"),
     pytest.param({"request_trace": {"enabled": True, "capacity": 0}}, ValueError,
                  "request_trace.capacity must be", id="serving2-request_trace"),
 ])
 def test_engine_refuses_later_slices(models, serving, error, match):
-    """Head-sharded serving is a later slice (NotImplementedError naming its
-    ROADMAP item); speculation without a live draft model and a request trace
-    of capacity 0 are refused as the JAX package refuses them (ValueError)."""
+    """Head-sharded serving over more ranks than the world holds (one
+    process here; tests/test_torch_serving_sharded.py serves at 2 gloo
+    ranks), speculation without a live draft model and a request trace of
+    capacity 0 are refused as the JAX package refuses them (ValueError)."""
     _, _, tm = models
     cfg = {"serving": dict({"block_size": BS, "num_blocks": NB, "max_seqs": S,
                             "max_model_len": ML, "prefill_chunk": C}, **serving)}

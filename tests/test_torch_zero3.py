@@ -15,7 +15,9 @@ MLP of width 64 train on seeded micro-batches.
   the generic gather at attribute access), and with the numerics sentinel
   on, its per-subtree norms are one rank's and the desync audit finds none;
   stage 3 + offload equals stage 2 + offload; a checkpoint round trip keeps
-  the state bit for bit, restores at dp = 1 and loads in the JAX engine; the
+  the state bit for bit, restores at dp = 1 and loads in the JAX engine;
+  ``generate``, ``beam_search`` and ``model(tokens)`` on the module of
+  slices, outside the engine, equal the one-rank module's (fault C7); the
   gathered high-water mark on GPT-2 is at most one block's leaves plus
   ``wte``; the memory manifest reconciles with the
   ``utils/hbm.py`` model.
@@ -313,6 +315,22 @@ def _block_bytes(eng):
     return max(blocks), per["wte"], sum(blocks)
 
 
+def _outside_the_engine(module):
+    """``generate``, ``beam_search``, ``model(tokens)`` and a serving engine
+    over a module, on a fixed prompt: what fault C7 broke for a module of
+    stage-3 slices."""
+    from deepspeed_tpu_torch.serve.engine import InferenceEngine
+    from deepspeed_tpu_torch.serve.scheduler import Request
+    tok = torch.from_numpy(np.random.RandomState(7).randint(0, DIMS["vocab_size"], (2, 6)))
+    seqs, scores = module.beam_search(tok, 4, num_beams=2)
+    serving = InferenceEngine(module, num_slots=2, block_size=4, num_blocks=17,
+                              max_model_len=T, prefill_chunk=8)
+    outs, _ = serving.run([Request(f"r{i}", row.tolist(), 4) for i, row in enumerate(tok)])
+    return {"generate": module.generate(tok, 4).numpy(), "beam": seqs.numpy(),
+            "beam_scores": scores.numpy(), "logits": module(tok).detach().numpy(),
+            "serve": np.asarray([o.tokens for o in outs])}
+
+
 def _dp_worker(rank, port, out_dir):
     # one thread a rank: two ranks of tiny ops gain nothing from more, and
     # contend for the cores with the other test workers
@@ -360,6 +378,12 @@ def _dp_worker(rank, port, out_dir):
         again.load_checkpoint(os.path.join(out_dir, "z3"))
         res.update({f"loaded/{k}": v for k, v in _state(again).items()})
         res["loaded_local"] = np.asarray([p.numel() for p in again._params])
+        # fault C7: the module of slices used outside the engine
+        try:
+            res.update({f"c7/{k}": v for k, v in _outside_the_engine(again.module).items()})
+        except Exception as err:  # recorded, so that only the C7 test fails on it
+            res["c7_error"] = np.asarray(repr(err))
+        res["c7_local"] = np.asarray([p.numel() for p in again._params])
         res["loaded_losses"], _ = _train(again, _batches(2 * STEPS * GAS, 2)[STEPS * GAS:],
                                          rows)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
@@ -493,6 +517,25 @@ def test_stage3_checkpoint_restores_at_one_rank():
         np.testing.assert_array_equal(state[k], saved[k], err_msg=k)
     losses, _ = _train(one, _batches(2 * STEPS * GAS, 2)[STEPS * GAS:], DP_MODES["same"][0])
     np.testing.assert_allclose(losses, ranks[0]["saved_losses"], rtol=1e-5, atol=0)
+
+
+def test_stage3_module_outside_the_engine_equals_one_rank():
+    """Fault C7: ``generate``, ``beam_search``, a plain ``model(tokens)`` and
+    a serving engine (``init_inference``'s) on the module of a stage-3 engine
+    at dp = 2 (each parameter a slice) run on whole leaves, gathered without
+    grad, and give what the one-rank engine holding the same state gives
+    (both restored from the same checkpoint)."""
+    out_dir, ranks = _gloo_run()
+    one = _engine(_config(3, micro=2), scale=0.5)
+    one.load_checkpoint(os.path.join(out_dir, "z3"))
+    want = _outside_the_engine(one.module)
+    for res in ranks:
+        assert "c7_error" not in res, str(res.get("c7_error"))
+        got = _sub(res, "c7")
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        # the slices are back after each call
+        assert list(res["c7_local"]) == list(res["loaded_local"])
 
 
 def test_jax_engine_loads_the_stage3_checkpoint():
