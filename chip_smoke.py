@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --probe N    # one offload-capacity probe at N layers
     python3 chip_smoke.py --launched   # the [launcher] phase's child (the runner starts it)
-    python3 chip_smoke.py --tp-child PHASE RANK PORT DIR   # a rank of [train-tp] / [serving-sharded]
+    python3 chip_smoke.py --tp-child PHASE RANK PORT DIR   # a rank of [train-tp],
+                                                          # [serving-sharded], [train-pipe-spmd]
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -174,7 +175,26 @@ result line):
    ``serving.sharding.model`` = 2 in two such ranks against the tp = 1
    engine: tokens equal, the kernel at 8 heads a rank once a layer a decode
    step, one float32 all-reduce a layer, the sharded programs eager (gloo
-   cannot be captured);
+   cannot be captured); ``[train-pipe]``: the pipeline's instruction
+   executor in this process, GPT-2 1.5B's widths at 8 of its 48 layers
+   (bf16, flash, Adam, ZeRO-2) as a ``PipelineModule`` of 4 stages (the
+   embedding tied with the head, 2 blocks a stage over ``GPT2Model._block``),
+   8 micro-batches of 1 x 1024 a window, 3 windows, against the dense
+   ``GPT2Model`` through ``initialize`` with 8 accumulation steps: losses and
+   grad norms within 1e-3, 112 / 64 / 64 flash launches a step on the
+   tensor cores (a stage's blocks run forward twice a micro-batch, the last
+   stage's once), the memory manifest reconciled, the 4-stage checkpoint
+   loaded by a 2-stage engine bit for bit, the tracer's schedule goodput
+   beside ``simulate_schedule``'s; ``[train-pipe-spmd]``: ``GPT2Pipe`` at 2
+   stages (4 blocks a rank, the table vocab-parallel over the pipe group)
+   in two such gloo ranks on the same model and windows, ZeRO-2: losses and
+   grad norms within 1e-3 of the dense run, the ranks' losses equal, 64 /
+   32 / 32 flash launches a rank a step at 25 heads on the tensor cores,
+   each rank's parameters under 0.6 of the dense model's, the manifests
+   reconciled, the trained master's ``to_dense`` export loaded by the dense
+   engine bit for bit and within 0.1 of its run's update; step ms logged as
+   gloo-staged (the two ranks start during ``[train-pipe]``'s checkpoint
+   round trip, which they overlap);
    ``[offload-large]``:
    1600-wide GPT-2 at LARGE_LAYERS (5.0 B params), which the device engine
    could not hold (16 B a parameter), with full remat for 3 steps;
@@ -2526,13 +2546,14 @@ LARGE_STEPS = 3
 # bench.py:1240-1323's max_params_offload: the deepest 1600-wide GPT-2 whose
 # bf16 params and grads and full-remat activations at tokens (4, 1024) fit on
 # the card, probed in fresh processes (chip_smoke.py --probe N) at bench.py's
-# 8-layer granularity, seeded at (616, 624, 632): with the device memory this
-# process holds by then, the limit has been found at 616 and at 624 layers
-# (H100 80GB HBM3; a fresh parent leaves room for 632), and these seeds find
-# either in two or three probes (632 in four). A seed that misses starts the
-# search from the floor: 7 more probes. The analytic ceiling is
+# 8-layer granularity, seeded at 624 and its neighbours: with the device
+# memory this process holds by then, the limit has been found at 616 and at
+# 624 layers (H100 80GB HBM3; a fresh parent leaves room for 632); the seed
+# and the neighbour on the side its probe points to find either in two
+# probes (632 in three, with the ceiling). A seed that misses starts the
+# search from the floor or the ceiling. The analytic ceiling is
 # (80 GB - activations) / (4 B x 30.7 M params a layer)
-CAPACITY_SEED = (616, 624, 632)
+CAPACITY_SEED = 624
 CAPACITY_FLOOR, CAPACITY_CEILING = 48, 640
 PROBE_TOKENS = (4, 1024)
 PROBE_TIMEOUT_S = 300
@@ -2788,15 +2809,12 @@ CKPT_STEPS = 4                  # steps before the save, and after it
 CKPT_ASYNC_STEPS = 12
 CKPT_INTERVAL = 4
 CKPT_BASELINE_STEPS = 3         # after the last commit: steps with none in flight
-CKPT_OFFLOAD_LAYERS = 12
-# the full-state round trip at 12 of the 48 layers (cut from 48, which took
-# 115 s of save and load, to keep the whole script inside its time limit;
-# the path is the same at any depth)
-CKPT_FULL_LAYERS = 12
-# the published config's three async saves at 12 of the 48 layers (cut from
-# 48 to keep the whole script inside its time limit on a host with a slow
-# disk, PERF.md; the path is the same at any depth)
-CKPT_PUBLISHED_LAYERS = 12
+# the three round trips at 6 of the 48 layers (cut from 48, which took 115 s
+# of save and load, and from 12, to make room for the pipeline phases inside
+# the whole script's time limit, PERF.md; the path is the same at any depth)
+CKPT_OFFLOAD_LAYERS = 6
+CKPT_FULL_LAYERS = 6
+CKPT_PUBLISHED_LAYERS = 6
 CKPT_FREE_FACTOR = 1.2          # free bytes needed over the largest round trip
 CKPT_PROBE_BYTES = 1 << 30      # the disk's write rate: one file, written and fsynced
 
@@ -3316,10 +3334,10 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _tp_spawn(phase, out_dir):
-    """Run ``phase`` in TP_RANKS child processes of this script on the one
-    card (gloo); each writes ``rank<r>.json`` into ``out_dir``. Raises with
-    the children's logs if one fails; kills both at the time limit."""
+def _tp_start(phase, out_dir):
+    """Start ``phase`` in TP_RANKS child processes of this script on the one
+    card (gloo); each writes ``rank<r>.json`` into ``out_dir``. Returns the
+    run for ``_tp_wait`` (or ``_tp_stop``)."""
     port = _free_port()
     procs, logs = [], []
     for r in range(TP_RANKS):
@@ -3327,19 +3345,37 @@ def _tp_spawn(phase, out_dir):
         procs.append(subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--tp-child", phase, str(r),
              str(port), out_dir], stdout=logs[-1], stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + TP_CHILD_TIMEOUT_S
+    return {"phase": phase, "dir": out_dir, "procs": procs, "logs": logs,
+            "started": time.perf_counter(),
+            "deadline": time.monotonic() + TP_CHILD_TIMEOUT_S}
+
+
+def _tp_stop(run):
+    """Kill the run's children that are still running; close their logs."""
+    for proc in run["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for f in run["logs"]:
+        f.close()
+
+
+def _tp_spawn(phase, out_dir):
+    """Run ``phase`` in TP_RANKS child processes (``_tp_start``) and wait."""
+    return _tp_wait(_tp_start(phase, out_dir))
+
+
+def _tp_wait(run):
+    """Each child's ``rank<r>.json``, once both have exited. Raises with the
+    children's logs if one fails; kills both at the time limit."""
+    phase, out_dir, procs = run["phase"], run["dir"], run["procs"]
     try:
         for proc in procs:
-            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            proc.wait(timeout=max(run["deadline"] - time.monotonic(), 1))
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for f in logs:
-            f.close()
+        _tp_stop(run)
     if any(proc.returncode != 0 for proc in procs):
         tails = []
         for r in range(TP_RANKS):
@@ -3354,7 +3390,8 @@ def _tp_spawn(phase, out_dir):
 
 
 def tp_child(phase, rank, port, out_dir):
-    """One rank of ``[train-tp]`` or ``[serving-sharded]``: gloo, card 0."""
+    """One rank of ``[train-tp]``, ``[serving-sharded]`` or
+    ``[train-pipe-spmd]``: gloo, card 0."""
     import torch.distributed as dist
     from deepspeed_tpu_torch.runtime.dist import init_distributed
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
@@ -3364,6 +3401,8 @@ def tp_child(phase, rank, port, out_dir):
         if phase == "train-tp":
             res, engine = _tp_train_run(TP_RANKS, os.path.join(out_dir, "ckpt"))
             del engine
+        elif phase == "train-pipe-spmd":
+            res = _pipe_spmd_run(rank, out_dir)
         else:
             res = _sharded_serving_run(TP_RANKS)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3719,6 +3758,448 @@ def _sharded_decode_check():
     return worst if ran == 2 else None
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the instruction executor on the card, GPT2Pipe over a
+# pipe group of two gloo ranks
+# ---------------------------------------------------------------------------
+PIPE_LAYERS = 8                 # of the 1.5B's 48
+PIPE_MODEL = dict(MODEL, n_layer=PIPE_LAYERS, use_flash_attention=True, remat=False,
+                  loss_chunk=128)
+PIPE_STAGES = 4                 # [train-pipe]: the instruction executor
+PIPE_SPMD_STAGES = 2            # [train-pipe-spmd]: two gloo ranks
+PIPE_MICRO = 8                  # micro-batches of 1 x 1024 a window
+PIPE_STEPS = 3
+PIPE_RTOL = 1e-3                # losses and grad norms against the dense model
+PIPE_MASTER_RTOL = 0.1          # |M_pipe - M_dense| / |M_dense - M0| after the steps
+PIPE_CONFIG = {"train_batch_size": PIPE_MICRO, "steps_per_print": 1000,
+               "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+               "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+               "gradient_clipping": 1.0}
+# the flash launches a step: [train-pipe]'s stages 0-2 run each block's
+# forward twice a micro-batch (ForwardPass, then the recompute in its
+# BackwardPass), the last stage once; [train-pipe-spmd]'s ranks run their 4
+# blocks forward twice (the window's pass and the recompute) and backward
+# once a micro-batch, and skip the warm-up and drain steps
+PIPE_WANT = [PIPE_MICRO * (2 * 6 + 2), PIPE_MICRO * PIPE_LAYERS, PIPE_MICRO * PIPE_LAYERS]
+PIPE_SPMD_WANT = [PIPE_MICRO * 2 * 4, PIPE_MICRO * 4, PIPE_MICRO * 4]
+PIPE_REF = {}                   # the dense run both phases hold the pipeline to
+
+
+def _pipe_windows():
+    """PIPE_STEPS windows of PIPE_MICRO seeded [1, 1024] micro-batches."""
+    batches = _ckpt_batches(PIPE_STEPS * PIPE_MICRO, 1)
+    return [batches[i * PIPE_MICRO:(i + 1) * PIPE_MICRO] for i in range(PIPE_STEPS)]
+
+
+def _block_tree(b):
+    ln = lambda m: {"scale": m.scale, "bias": m.bias}  # noqa: E731
+    return {"ln_1": ln(b.ln_1), "ln_2": ln(b.ln_2),
+            "attn": {k: getattr(b.attn, k) for k in ("c_attn_w", "c_attn_b", "c_proj_w",
+                                                    "c_proj_b")},
+            "mlp": {k: getattr(b.mlp, k) for k in ("c_fc_w", "c_fc_b", "c_proj_w", "c_proj_b")}}
+
+
+def _pipe_module(stages):
+    """GPT-2 at PIPE_MODEL as a PipelineModule: the embedding (tied with the
+    head), PIPE_LAYERS blocks over the port's ``GPT2Model._block``, ln_f, the
+    tied head; the loss the token cross-entropy. Partitioned by block count
+    (``type:PipeBlock``), so every stage holds PIPE_LAYERS / stages blocks."""
+    from torch import nn
+    from deepspeed_tpu_torch.models import gpt2 as g
+    from deepspeed_tpu_torch.parallel.pipe import LayerSpec, PipelineModule, TiedLayerSpec
+    cfg = g.GPT2Config(**PIPE_MODEL)
+    layers = g.GPT2Model(dataclasses.replace(cfg, n_layer=0, vocab_size=1, n_positions=1),
+                         device="cpu")
+    dev = torch.device("cuda")
+
+    class PipeEmbed(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.n_embd, device=dev))
+            self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.n_embd, device=dev))
+
+        def forward(self, tokens):
+            return layers._embed({"wte": self.wte, "wpe": self.wpe}, tokens)
+
+    class PipeBlock(g._Block):
+        def __init__(self):
+            super().__init__(cfg.n_embd, dev)
+
+        def forward(self, x):
+            return layers._block(x, _block_tree(self))
+
+    class PipeNorm(g._LayerNorm):
+        def __init__(self):
+            super().__init__(cfg.n_embd, dev)
+
+        def forward(self, x):
+            return layers._layer_norm(x, {"scale": self.scale, "bias": self.bias},
+                                      cfg.layer_norm_epsilon)
+
+    def head(embed, x):
+        return g.GPT2Model._head(x, embed.wte)
+
+    def loss(logits, labels):
+        return torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                                 labels.reshape(-1).long())
+
+    specs = ([TiedLayerSpec("embed", PipeEmbed)] + [LayerSpec(PipeBlock)] * PIPE_LAYERS
+             + [LayerSpec(PipeNorm), TiedLayerSpec("embed", PipeEmbed, forward_fn=head)])
+    return PipelineModule(specs, num_stages=stages, loss_fn=loss,
+                          partition_method="type:PipeBlock")
+
+
+def _pipe_weights(dense):
+    """The dense model's weights in the PipelineModule's names."""
+    out = {}
+    for n, p in dense.named_parameters():
+        if n in ("wte", "wpe"):
+            out[f"tied::embed.{n}"] = p.detach()
+        elif n.startswith("ln_f."):
+            out[f"layer_{PIPE_LAYERS + 1}.{n[5:]}"] = p.detach()
+        else:
+            i, rest = n.split(".", 2)[1:]
+            out[f"layer_{int(i) + 1}.{rest}"] = p.detach()
+    return out
+
+
+def _pipe_engine(stages, weights):
+    import deepspeed_tpu_torch
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=_pipe_module(stages), model_parameters=weights,
+        config_params=dict(PIPE_CONFIG, train_micro_batch_size_per_gpu=1,
+                           gradient_accumulation_steps=PIPE_MICRO, pipeline={"spmd": False},
+                           telemetry={"pipeline_trace": {"enabled": True}}))
+    assert not engine._spmd and engine.num_stages == stages
+    return engine
+
+
+def _pipe_reference():
+    """The dense GPT2Model at PIPE_MODEL through ``initialize`` with
+    PIPE_MICRO accumulation steps, on the seeded windows: each window's mean
+    loss and grad norm, the master before and after. Kept in PIPE_REF."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    dense = GPT2Model(GPT2Config(**PIPE_MODEL))
+    dense.init(torch.Generator(device="cuda").manual_seed(0))
+    weights = _pipe_weights(dense)
+    weights = {k: v.clone() for k, v in weights.items()}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=dense, config_params=dict(PIPE_CONFIG, train_micro_batch_size_per_gpu=1,
+                                        gradient_accumulation_steps=PIPE_MICRO))
+    initial = _master_copy(engine)
+    losses, norms, step_ms = [], [], []
+    for window in _pipe_windows():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        window_losses = []
+        for tokens, labels in window:
+            loss = engine(tokens, labels)
+            engine.backward(loss)
+            engine.step()
+            window_losses.append(loss.detach())
+        losses.append(float(torch.stack(window_losses).float().mean()))
+        norms.append(float(engine._last_grad_norm))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    PIPE_REF.update(engine=engine, weights=weights, initial=initial,
+                    after=_master_copy(engine), losses=losses, norms=norms, step_ms=step_ms)
+
+
+def _pipe_kernel_check(shape):
+    """The flash kernels at the pipeline's shape against their plain version
+    (launches outside any main-path count): errors scaled by max |ref|, max
+    abs errors (fwd, dq, dk/dv), whether all three took the tensor cores."""
+    tc_before = _tensor_core_launches()
+    got, want = _flash_case(*shape, torch.bfloat16)
+    torch.cuda.synchronize()
+    errs = {n: float((a - b).abs().max()) / (float(b.abs().max()) + 1e-6)
+            for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want)}
+    abs_errs = [max(float((a - b).abs().max()) for a, b in zip(got[i:j], want[i:j]))
+                for i, j in ((0, 2), (2, 3), (3, 5))]
+    tc = [a - b for a, b in zip(_tensor_core_launches(), tc_before)] == [1, 1, 1]
+    return errs, abs_errs, tc
+
+
+def phase_train_pipe():
+    """The pipeline's instruction executor on the one card: GPT-2 1.5B's
+    widths at PIPE_LAYERS of its 48 layers (bf16, flash attention, Adam,
+    ZeRO-2) as a PipelineModule of PIPE_STAGES stages, PIPE_MICRO
+    micro-batches of 1 x 1024 a window, PIPE_STEPS windows, against the dense
+    GPT2Model through ``initialize`` with PIPE_MICRO accumulation steps on
+    the same weights and batches. Checks: losses and grad norms within
+    PIPE_RTOL; the flash launches a step PIPE_WANT, all on the tensor-core
+    design; the layer-keyed checkpoint at 4 stages loaded by a 2-stage engine
+    bit for bit; the tracer's schedule goodput printed beside
+    ``simulate_schedule``'s. Returns the flash launches and the kernels'
+    max abs errors at the pipeline's shape."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.utils import hbm
+    from deepspeed_tpu_torch.utils.pipeline_trace import simulate_schedule
+    card = phase_device(quiet=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = (1, MODEL["n_head"], MODEL["n_positions"], MODEL["n_embd"] // MODEL["n_head"])
+    kernel_errs, kernel_abs, kernel_tc = _pipe_kernel_check(shape)
+    t = time.perf_counter()
+    _pipe_reference()
+    ref_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    engine = _pipe_engine(PIPE_STAGES, PIPE_REF["weights"])
+    losses, norms, step_ms = [], [], []
+    _zero_flash_counts()
+    for window in _pipe_windows():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(engine.train_batch(iter(window))))
+        norms.append(float(engine._last_grad_norm))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # [train-pipe-spmd]'s two ranks start now, their start-up and training
+    # overlapping this phase's checkpoint round trip (host-bound); that
+    # phase waits for them
+    spmd_root = tempfile.mkdtemp(prefix="chip_smoke_pipe_spmd_")
+    PIPE_REF["spmd"] = (spmd_root, _tp_start("train-pipe-spmd", spmd_root))
+    try:
+        good = engine.pipe_trace.last_schedule_goodput
+        spans = list(engine.pipe_trace.steps)[-1]["spans"]
+        t_f = statistics.mean(sp[6] for sp in spans if sp[2] == "ForwardPass") / 1e6
+        t_b = statistics.mean(sp[6] for sp in spans if sp[2] == "BackwardPass") / 1e6
+        sim = simulate_schedule(PIPE_MICRO, PIPE_STAGES)
+        sim_measured = simulate_schedule(PIPE_MICRO, PIPE_STAGES, t_fwd=t_f, t_bwd=t_b)
+        reconciled = hbm.engine_report(engine)["reconciled"]
+        root = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+        try:
+            t = time.perf_counter()
+            engine.save_checkpoint(root)
+            save_s = time.perf_counter() - t
+            saved = {k: engine._ckpt_export(k) for k in ("params", "master", "opt")}
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            two = _pipe_engine(2, PIPE_REF["weights"])
+            t = time.perf_counter()
+            two.load_checkpoint(root)
+            load_s = time.perf_counter() - t
+            got = {kind: two._ckpt_export(kind) for kind in saved}
+            bad = [f"{kind}/{k}" for kind, flat in saved.items()
+                   for k in set(flat) | set(got[kind])
+                   if k not in flat or k not in got[kind]
+                   or not np.array_equal(flat[k], got[kind][k])]
+            steps_loaded = two.global_steps
+            del two, saved, got
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        hd = MODEL["n_embd"] // MODEL["n_head"]
+
+        def close(a, b):
+            return all(abs(x - y) <= PIPE_RTOL * abs(y) for x, y in zip(a, b))
+
+        want = [n * PIPE_STEPS for n in PIPE_WANT]
+        checks = {
+            "kernels_at_pipe_shape": max(kernel_errs.values()) <= FLASH_TOL[torch.bfloat16]
+            and kernel_tc,
+            "losses_within_1e-3": close(losses, PIPE_REF["losses"]),
+            "grad_norms_within_1e-3": close(norms, PIPE_REF["norms"]),
+            "losses_finite": all(math.isfinite(x) for x in losses),
+            "flash_launches": launches == want,
+            "tensor_core_design": fa._tensor_core_path(torch.bfloat16, hd) and tc == want,
+            "manifest_reconciled": reconciled,
+            "checkpoint_4_to_2_stages_bit_equal": not bad and steps_loaded == PIPE_STEPS,
+        }
+        res = {"losses": losses, "dense_losses": PIPE_REF["losses"], "grad_norms": norms,
+               "dense_grad_norms": PIPE_REF["norms"], "step_ms": step_ms,
+               "dense_step_ms": PIPE_REF["step_ms"], "flash_launches": launches,
+               "tensor_core_launches": tc, "want": want, "peak_bytes": peak,
+               "save_s": save_s, "load_s": load_s, "dense_run_s": ref_s}
+        log(f"[train-pipe] {json.dumps(res)}; {card}")
+        log(f"[train-pipe] flash kernels at {list(shape)} bf16 causal against the plain version "
+            f"(scaled by max |ref|, tol {FLASH_TOL[torch.bfloat16]}): {json.dumps(kernel_errs)}; "
+            f"max abs err fwd / dq / dk,dv {kernel_abs}; {card}")
+        log(f"[train-pipe] schedule goodput (the tracer, last window): bubble_fraction "
+            f"{good['bubble_fraction']!r}, fwd {good['fwd_seconds']!r} s, bwd "
+            f"{good['bwd_seconds']!r} s, p2p {good['p2p_seconds']!r} s; simulate_schedule"
+            f"({PIPE_MICRO}, {PIPE_STAGES}) at uniform cost: bubble_fraction "
+            f"{sim['bubble_fraction']!r}, at the measured mean ForwardPass {t_f!r} s and "
+            f"BackwardPass {t_b!r} s: {sim_measured['bubble_fraction']!r}; {card}")
+        log(f"[train-pipe] checks {json.dumps(checks)}; mismatched arrays {bad[:5]}; {card}")
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"[train-pipe] failed: {failed}")
+        return launches, kernel_abs
+
+    except BaseException:
+        _tp_stop(PIPE_REF["spmd"][1])
+        shutil.rmtree(spmd_root, ignore_errors=True)
+        raise
+
+def _pipe_spmd_config():
+    return dict(PIPE_CONFIG, train_micro_batch_size_per_gpu=PIPE_MICRO,
+                gradient_accumulation_steps=1)
+
+
+def _pipe_spmd_run(rank, out_dir):
+    """One rank of [train-pipe-spmd]: GPT2Pipe at PIPE_SPMD_STAGES stages from
+    the seed-0 weights through ``initialize`` (the grid's pipe x data mesh,
+    the model's layout), PIPE_STEPS windows of PIPE_MICRO stacked
+    micro-batches; rank 0 writes the trained master exported by
+    ``to_dense``."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2 as g
+    from deepspeed_tpu_torch.models.gpt2_pipe import GPT2Pipe
+    from deepspeed_tpu_torch.parallel import PipeDataParallelTopology, PipelineParallelGrid
+    from deepspeed_tpu_torch.utils import hbm
+    torch.cuda.reset_peak_memory_stats()
+    grid = PipelineParallelGrid(PipeDataParallelTopology(num_pp=PIPE_SPMD_STAGES, num_dp=1))
+    model = GPT2Pipe(g.GPT2Config(**PIPE_MODEL), PIPE_SPMD_STAGES, mesh=grid.mesh)
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, mpu=grid, param_shardings=model.param_shardings(grid.mesh),
+        config_params=_pipe_spmd_config())
+    heads, orig = set(), g.flash_attention
+
+    def seen(q, *a, **k):
+        heads.add(int(q.shape[1]))
+        return orig(q, *a, **k)
+
+    losses, norms, step_ms = [], [], []
+    g.flash_attention = seen
+    _zero_flash_counts()
+    try:
+        for window in _pipe_windows():
+            tokens = torch.stack([t for t, _ in window])
+            labels = torch.stack([lab for _, lab in window])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = engine(tokens, labels)
+            engine.backward(loss)
+            engine.step()
+            losses.append(float(loss.detach()))
+            norms.append(float(engine._last_grad_norm))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        g.flash_attention = orig
+    launches, tc = _flash_counts(), _tensor_core_launches()
+    manifest = engine.memory_manifest()
+    _, class_bytes = hbm.manifest_signatures(manifest)
+    report = hbm.engine_report(engine)
+    res = {"rank": rank, "losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "flash_launches": launches, "tensor_core_launches": tc, "heads": sorted(heads),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "params_local": sum(p.numel() for p in model.parameters()),
+           "manifest": class_bytes, "live": hbm.measure_classes(manifest),
+           "reconciled": report["reconciled"]}
+    # the trained master, whole over the pipe group, as the dense tree
+    flat = engine._ckpt_export("master")
+    if rank == 0:
+        tree = {}
+        for k, v in flat.items():
+            node = tree
+            *path, leaf = k.split("/")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.from_numpy(v)
+        dense = model.to_dense(tree)
+        out = {}
+        for k, v in dense.items():
+            if k == "blocks":
+                for i, b in enumerate(v):
+                    for sub, d in b.items():
+                        for leaf, t in d.items():
+                            out[f"blocks/{i}/{sub}/{leaf}"] = t.numpy()
+            elif isinstance(v, dict):
+                out.update({f"{k}/{leaf}": t.numpy() for leaf, t in v.items()})
+            else:
+                out[k] = v.numpy()
+        np.savez(os.path.join(out_dir, "dense_master.npz"), **out)
+    return res
+
+
+def phase_train_pipe_spmd():
+    """GPT2Pipe over a pipe group of PIPE_SPMD_STAGES gloo ranks on the one
+    card (NCCL refuses two ranks on one device): GPT-2 1.5B's widths at
+    PIPE_LAYERS layers (4 a stage), PIPE_MICRO micro-batches of 1 x 1024 a
+    window, ZeRO-2, PIPE_STEPS windows, against [train-pipe]'s dense run.
+    Checks: losses and grad norms within PIPE_RTOL; the ranks agree on the
+    loss; each rank's flash launches a step PIPE_SPMD_WANT, at 25 heads, on
+    the tensor-core design; each rank's parameters under 0.6 of the dense
+    model's; each rank's memory manifest reconciled and equal to its live
+    tensors; the ``to_dense`` export of the trained master loaded by the dense
+    engine bit for bit, within PIPE_MASTER_RTOL of the dense run's master
+    (relative to that run's update). Returns both ranks' flash launches."""
+    from deepspeed_tpu_torch.checkpoint import checkpointing as ck
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    card = phase_device(quiet=True)
+    ref_losses, ref_norms = PIPE_REF["losses"], PIPE_REF["norms"]
+    root, run = PIPE_REF.pop("spmd")
+    try:
+        ranks = _tp_wait(run)
+        spawn_s = time.perf_counter() - run["started"]
+        engine = PIPE_REF["engine"]
+        path = os.path.join(root, "dense_master.npz")
+        with ck.NpzFile(path) as f:
+            engine._ckpt_import("master", f)
+        with ck.NpzFile(path) as f:
+            exported = engine._ckpt_export("master")
+            bad = [k for k in set(exported) | set(f.files)
+                   if k not in exported or k not in f or not np.array_equal(f[k], exported[k])]
+        gap = step = 0.0
+        worst = 0.0
+        for k, v in exported.items():
+            d = torch.from_numpy(v).cuda() - PIPE_REF["after"][k]
+            gap += float(torch.sum(torch.square(d.double())))
+            worst = max(worst, float(d.abs().max()))
+            step += float(torch.sum(torch.square(
+                (PIPE_REF["after"][k] - PIPE_REF["initial"][k]).double())))
+        master_gap = math.sqrt(gap) / max(math.sqrt(step), 1e-30)
+        n_dense = sum(p.numel() for p in engine.module.parameters())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        PIPE_REF.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    hd = MODEL["n_embd"] // MODEL["n_head"]
+    want = [n * PIPE_STEPS for n in PIPE_SPMD_WANT]
+
+    def close(a, b):
+        return all(abs(x - y) <= PIPE_RTOL * abs(y) for x, y in zip(a, b))
+
+    for r, res in enumerate(ranks):
+        log(f"[train-pipe-spmd] rank {r} of {PIPE_SPMD_STAGES} (gloo-staged): "
+            f"{json.dumps(res)}; {card}")
+    checks = {
+        "losses_within_1e-3": all(close(r["losses"], ref_losses) for r in ranks),
+        "grad_norms_within_1e-3": all(close(r["grad_norms"], ref_norms) for r in ranks),
+        "losses_finite": all(math.isfinite(x) for r in ranks for x in r["losses"]),
+        "ranks_agree": all(r["losses"] == ranks[0]["losses"] for r in ranks),
+        "flash_at_25_heads": all(r["heads"] == [MODEL["n_head"]] for r in ranks),
+        "flash_launches": all(r["flash_launches"] == want for r in ranks),
+        "tensor_core_design": fa._tensor_core_path(torch.bfloat16, hd)
+        and all(r["tensor_core_launches"] == want for r in ranks),
+        "params_under_0.6": all(r["params_local"] < 0.6 * n_dense for r in ranks),
+        "manifest_reconciled": all(r["reconciled"] and all(
+            r["live"][k] == v for k, v in r["manifest"].items() if k != "grads") for r in ranks),
+        "to_dense_loads_bit_equal": not bad,
+        "master_near_dense": master_gap <= PIPE_MASTER_RTOL,
+    }
+    log(f"[train-pipe-spmd] dense losses {ref_losses}, norms {ref_norms}; checks "
+        f"{json.dumps(checks)}; two ranks {spawn_s:.1f} s (spawn, CUDA start, build-cache "
+        f"load, init, training, export; started during [train-pipe]'s checkpoint round "
+        f"trip); mismatched arrays {bad[:5]}; the exported master "
+        f"against the dense run's: |gap| / |dense update| {master_gap} (bound "
+        f"{PIPE_MASTER_RTOL}), max abs {worst}; step ms (gloo-staged, not pipeline speed "
+        f"over NCCL) {[r['step_ms'] for r in ranks]}; peak bytes a rank "
+        f"{[r['peak_bytes'] for r in ranks]}; {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[train-pipe-spmd] failed: {failed}")
+    return [sum(r["flash_launches"][i] for r in ranks) for i in range(3)]
+
+
 def phase_offload_large():
     """A model the device engine cannot hold: LARGE_LAYERS x 1600 with full
     remat, ZeRO-Offload, batch 8 x 1024, LARGE_STEPS steps."""
@@ -3822,12 +4303,16 @@ def phase_offload_capacity():
         return probes[n][0]
 
     lo, hi = None, None
-    for n in CAPACITY_SEED:
-        if fits(n):
-            lo = n
+    if fits(CAPACITY_SEED):
+        lo = CAPACITY_SEED
+        if fits(CAPACITY_SEED + 8):
+            lo = CAPACITY_SEED + 8
         else:
-            hi = n
-            break
+            hi = CAPACITY_SEED + 8
+    else:
+        hi = CAPACITY_SEED
+        if fits(CAPACITY_SEED - 8):
+            lo = CAPACITY_SEED - 8
     if lo is None:
         lo = CAPACITY_FLOOR
         if not fits(lo):
@@ -5767,6 +6252,11 @@ def main():
         e.update(launches_tp=n, max_abs_err_tp=err)
     entry["launches_sharded"], entry["max_abs_err_sharded"] = _timed_phase(
         phase_serving_sharded)
+    pipe_launches, pipe_errs = _timed_phase(phase_train_pipe)
+    for e, n, err in zip(flash, pipe_launches, pipe_errs):
+        e.update(launches_pipe=n, max_abs_err_pipe=err)
+    for e, n in zip(flash, _timed_phase(phase_train_pipe_spmd)):
+        e["launches_pipe_spmd"] = n
     _timed_phase(phase_offload_large)
     _timed_phase(phase_offload_capacity)
     sparse = _timed_phase(phase_block_sparse_kernels)

@@ -25,8 +25,12 @@ compressed schedules and their bucketed overlap (``comm``), row-sparse
 gradients (``runtime.sparse_tensor``), ZeRO stage 3, and Megatron tensor
 parallelism (``parallel``: the topology, the grid with its process groups,
 the mesh; ``initialize(mpu=..., param_shardings=...)``), with head-sharded
-serving (``serving.sharding.model``). ``models.resnet`` is the CIFAR
-ResNet; ``resilience.crash_sim`` the kill/restart harness.
+serving (``serving.sharding.model``), and pipeline parallelism
+(``PipelineModule`` / ``LayerSpec`` / ``TiedLayerSpec`` through
+``initialize`` -> ``PipelineEngine``: the instruction executor on one
+device, or the per-rank executor over a pipe group,
+``parallel.pipeline_spmd``; ``models.gpt2_pipe.GPT2Pipe``). ``models.resnet``
+is the CIFAR ResNet; ``resilience.crash_sim`` the kill/restart harness.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 ``__version__``, ``__git_hash__``, ``__git_branch__`` and ``installed_ops``
 are read lazily (``git_version_info``); ``deepspeed_tpu_torch.pt`` is the
@@ -40,6 +44,7 @@ from . import git_version_info as _gvi
 from .runtime import config as _rt_config, utils as _rt_utils
 from .runtime.config import DeepSpeedConfig  # noqa: F401
 from .runtime.activation_checkpointing import checkpointing  # noqa: F401
+from .parallel.pipe import LayerSpec, PipelineModule, TiedLayerSpec  # noqa: F401
 
 
 def __getattr__(name):
@@ -48,6 +53,10 @@ def __getattr__(name):
             "__git_branch__": "git_branch", "installed_ops": "installed_ops"}
     if name in _map:
         return getattr(_gvi, _map[name])
+    if name == "PipelineEngine":
+        # the engine loads with its first use
+        from .runtime.pipe.engine import PipelineEngine
+        return PipelineEngine
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

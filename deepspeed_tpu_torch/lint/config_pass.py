@@ -7,9 +7,8 @@ exactly the silent no-op the config test sweep exists to prevent, but caught
 at the *declaration* instead of needing a hand-written probe per key.
 
 A copy of ``deepspeed_tpu/lint/config_pass.py`` over the port's
-``runtime/constants.py``. The consumers are JAX's list less
-``runtime/pipe/engine.py``, which the port has not yet (ROADMAP.md item 16);
-a key the port refuses is read where it refuses it, so it counts as reached.
+``runtime/constants.py``, with JAX's list of consumers; a key the port
+refuses is read where it refuses it, so it counts as reached.
 The keys of the model axis (``serving.sharding.model``,
 ``activation_checkpointing.partition_activations``) are read by
 ``runtime/config.py`` and ``runtime/activation_checkpointing/config.py``
@@ -28,6 +27,7 @@ CONSUMER_RELPATHS = (
     "runtime/engine.py",
     "runtime/zero/config.py",
     "runtime/activation_checkpointing/config.py",
+    "runtime/pipe/engine.py",
 )
 
 

@@ -9,8 +9,9 @@ captures every program on its active step path through
 standard two-step ZeRO-2, the external-master fused step (the published
 1.5B structure), the external-master accumulation window, ZeRO-Offload's
 host tier, the GPT-2 decode programs, paged serving and its speculative
-programs. Capturing runs each program once (lint/program_passes.py), so
-every builder makes an engine of its own.
+programs, and the pipeline's instruction executor at 4 stages (each
+stage's forward and backward, local programs). Capturing runs each program
+once (lint/program_passes.py), so every builder makes an engine of its own.
 
 The serving entries run the paged-decode kernel (``use_pallas=True``, where
 the JAX entry takes the gather path): on the card each decode step shows
@@ -32,10 +33,11 @@ model axis (``ENTRY_AXIS``): its manifest admits one float32 all-reduce a
 layer and no other collective, the JAX budget
 (deepspeed_tpu/serve/engine.py:912-915).
 
-Entries the port cannot build yet raise ``NotImplementedError`` naming
-their ROADMAP.md item: the pipeline (item 16). ``capture_registry()`` with
-no names takes the ported entries (``PORTED``); the CLI names the others as
-skipped, and logs the axis of each entry captured at several ranks.
+Entries the port cannot build yet would raise ``NotImplementedError``
+naming their ROADMAP.md item (``_unported``; none is left).
+``capture_registry()`` with no names takes the ported entries (``PORTED``);
+the CLI names the others as skipped, and logs the axis of each entry
+captured at several ranks.
 
 The lint model computes in the engine's compute dtype, with only the loss
 in float32, so a clean low-precision program has no float32 product.
@@ -247,6 +249,40 @@ def _build_serving_sharded(device):
     return _serving_engine(_tiny_gpt2(device), sharding={"model": 2}), None
 
 
+class PipeDense(nn.Module):
+    """One layer of the pipeline entry: ``tanh(x @ w)`` in w's dtype."""
+
+    def __init__(self, dim, seed=0):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.w = nn.Parameter(torch.randn(dim, dim, generator=g) * 0.3)
+
+    def forward(self, x):
+        return torch.tanh(x.to(self.w.dtype) @ self.w)
+
+
+def _pipe_mse(out, tgt):
+    return torch.mean(torch.square(out.float() - tgt.float()))
+
+
+def _build_pipeline(device):
+    # the instruction executor at 4 stages of one layer each (the JAX entry):
+    # each stage's forward and backward are local programs
+    import deepspeed_tpu_torch
+    from ..parallel.pipe import LayerSpec, PipelineModule
+    module = PipelineModule(layers=[LayerSpec(PipeDense, HIDDEN, seed=i) for i in range(4)],
+                            num_stages=4, loss_fn=_pipe_mse)
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=module, device=device,
+        config_params=_config(batch=BATCH, gradient_accumulation_steps=2,
+                              pipeline={"spmd": False}))
+    if eng._spmd:
+        raise RuntimeError("lint registry: the pipeline entry must stay on the "
+                           "instruction executor")
+    x, y = _sample_batch(batch=BATCH // 2)     # one micro-batch
+    return eng, (x, y)
+
+
 def _unported(item):
     def build(device):
         raise NotImplementedError(f"this lint-registry entry is not in the PyTorch port "
@@ -264,7 +300,7 @@ BUILDERS = {
     "comm_overlap": _build_comm_overlap,
     "comm_overlap_compressed": _build_comm_overlap_compressed,
     "zero_offload": _build_zero_offload,
-    "pipeline": _unported("item 16 (pipeline)"),
+    "pipeline": _build_pipeline,
     "gpt2_decode": _build_gpt2_decode,
     "serving": _build_serving,
     "serving_speculative": _build_serving_speculative,

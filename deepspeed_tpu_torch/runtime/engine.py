@@ -150,6 +150,14 @@ tensor parallelism the port leaves out ZeRO-Offload, client optimizer pairs,
 1-bit Adam, sparse gradients, the two-level / bucketed / compressed
 exchanges and the numerics block: each raises ``NotImplementedError``.
 
+Pipeline parallelism (``runtime/pipe/engine.py``): ``make_engine`` routes a
+``PipelineModule`` to ``PipelineEngine``. A model whose ``split_axis`` is
+the pipe axis (``models/gpt2_pipe.py`` ``GPT2Pipe``, the pipeline engine's
+per-rank stage module) trains here over a (pipe, data) mesh: its stage
+leaves are split over the pipe group as a tensor-parallel leaf is over the
+model group (the same ``_tp_*`` state), and what the port leaves out there
+raises naming item 16b.
+
 What the slice does not carry raises ``NotImplementedError`` naming its
 ROADMAP.md item.
 ``compilation_cache_dir`` names the JAX compile cache and has no counterpart
@@ -251,12 +259,21 @@ _OPTIMIZERS = {
 def make_engine(args=None, model=None, optimizer=None, model_parameters=None,
                 training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
                 collate_fn=None, config_params=None, device=None, param_shardings=None):
-    """Engine factory (the JAX package's dispatch point for pipeline models)."""
-    if any(c.__name__ == "PipelineModule" for c in type(model).__mro__):
-        raise _later("a PipelineModule model", "item 16 (pipeline)")
+    """Engine factory: a ``PipelineModule`` goes to ``PipelineEngine``
+    (deepspeed_tpu/runtime/engine.py:120-144), any other module to
+    ``DeepSpeedEngine``."""
+    from ..parallel.pipe.module import PipelineModule
     if dist_init_required is not False:
         from .dist import init_distributed
         init_distributed(resolve_device(device).type)
+    if isinstance(model, PipelineModule):
+        from .pipe.engine import PipelineEngine
+        assert mpu is None, "mpu is mutually exclusive with a PipelineModule model"
+        return PipelineEngine(args=args, model=model, optimizer=optimizer,
+                              model_parameters=model_parameters, training_data=training_data,
+                              lr_scheduler=lr_scheduler, dist_init_required=dist_init_required,
+                              collate_fn=collate_fn, config_params=config_params,
+                              device=device)
     return DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                            model_parameters=model_parameters, training_data=training_data,
                            lr_scheduler=lr_scheduler, mpu=mpu,
@@ -305,8 +322,12 @@ class DeepSpeedEngine:
         self.mpu = mpu
         self.mesh = mesh_from_mpu(mpu) if mpu is not None else build_mesh()
         self._world_size = dist.get_world_size() if dist.is_initialized() else 1
-        if self.mesh.shape[PIPE_AXIS] > 1:
-            raise _later("a mesh with a pipe axis > 1", "item 16 (pipeline)")
+        if (self.mesh.shape[PIPE_AXIS] > 1
+                and getattr(model, "split_axis", MODEL_AXIS) != PIPE_AXIS):
+            # the pipe axis belongs to a pipeline model (GPT2Pipe, the
+            # pipeline engine's stage module), which runs its own groups
+            raise _later("a mesh with a pipe axis > 1 around a model that is not a pipeline "
+                         "(PipelineModule, GPT2Pipe)", "item 16b")
         self.dp_size = self.mesh.shape[DATA_AXIS]
         self.dp_rank = self.mesh.axis_index(DATA_AXIS)
         self._dp_group = self.mesh.group(DATA_AXIS)
@@ -520,9 +541,22 @@ class DeepSpeedEngine:
     def _configure_tensor_parallel(self, model, param_shardings):
         """Make the module tensor-parallel over the mesh's model axis when
         ``param_shardings`` asks for it (the model's Megatron layout), and
-        refuse what the port leaves out under tensor parallelism."""
-        tp = self.mesh.shape[MODEL_AXIS]
-        if param_shardings is not None and tp > 1:
+        refuse what the port leaves out under tensor parallelism.
+
+        The ``_tp_*`` state is the model-parallel split of the module's
+        leaves over one mesh axis, its ``split_axis``: the model axis under
+        tensor parallelism, the pipe axis for a pipeline model (GPT2Pipe,
+        the pipeline engine's stage module), whose split leaves are its
+        stages' and whose ``tp_axis`` / ``tp_whole`` / ``tp_slice`` say how
+        a leaf is split. The norm, the overflow flag and the checkpoints
+        treat both alike."""
+        axis = getattr(model, "split_axis", MODEL_AXIS)
+        tp = self.mesh.shape[axis]
+        if axis == PIPE_AXIS and param_shardings is not None:
+            if param_shardings != model.param_shardings(self.mesh):
+                raise ValueError("a pipeline model takes its own layout: pass "
+                                 "param_shardings=model.param_shardings(mesh)")
+        elif param_shardings is not None and tp > 1:
             layout = getattr(model, "param_shardings", None)
             if not callable(getattr(model, "with_tp", None)) or not callable(layout):
                 raise ValueError("param_shardings over a model axis > 1 needs a module with "
@@ -539,9 +573,11 @@ class DeepSpeedEngine:
         if self._tp_size == 1:
             return
         if self._tp_size != tp:
-            raise ValueError(f"the module is tensor-parallel over {self._tp_size} ranks, the "
-                             f"mesh's model axis has {tp}")
+            raise ValueError(f"the module is split over {self._tp_size} ranks, the "
+                             f"mesh's {axis} axis has {tp}")
         c = self.config
+        under, item = (("pipeline parallelism", "16b") if axis == PIPE_AXIS
+                       else ("tensor parallelism", "15b"))
         left_out = [("ZeRO-Offload", c.zero_enabled and c.zero_config.cpu_offload),
                     ("a client optimizer pair", self._client_optimizer is not None),
                     ("1-bit Adam", self._use_stacked_grads),
@@ -550,11 +586,13 @@ class DeepSpeedEngine:
                     ("comm.overlap.mode='bucketed'",
                      c.comm_overlap_mode == COMM_OVERLAP_BUCKETED),
                     ("the numerics block", c.numerics_enabled)]
+        if axis == PIPE_AXIS:
+            left_out.append(("ZeRO stage 3", c.zero_enabled and c.zero_config.stage >= 3))
         for what, on in left_out:
             if on:
                 raise NotImplementedError(
-                    f"{what} under tensor parallelism is not in the PyTorch port yet: "
-                    "ROADMAP.md item 15b")
+                    f"{what} under {under} is not in the PyTorch port yet: "
+                    f"ROADMAP.md item {item}")
 
     def _tp_whole_shape(self, shape, axis):
         if axis is None:
@@ -1794,7 +1832,7 @@ class DeepSpeedEngine:
         self._update_scaler(overflow)
         return overflow
 
-    def _finish_step(self, overflowed: bool):
+    def _finish_step(self, overflowed: bool, schedule_goodput=None):
         self._grad_acc = None
         if overflowed:
             self.skipped_steps += 1
@@ -1805,7 +1843,7 @@ class DeepSpeedEngine:
             log_dist(f"step={self.global_steps + 1}, skipped={self.skipped_steps}, "
                      f"lr={self.get_lr()}, mom={self.get_mom()}", ranks=[0])
         self.global_steps += 1
-        self._observe_step(overflowed)
+        self._observe_step(overflowed, schedule_goodput)
         self._window_losses = []
         interval = self.config.resilience_save_interval
         if (self._resilience is not None and interval > 0
@@ -1821,10 +1859,13 @@ class DeepSpeedEngine:
         self._goodput_close_train_step()
         if self.wall_clock_breakdown():
             self.timers("step_microstep").stop()
-            self.timers.log(["forward_microstep", "backward_microstep", "step_microstep"],
-                            memory_breakdown=self.config.memory_breakdown)
+            self._log_step_timers()
 
-    def _observe_step(self, overflowed=False):
+    def _log_step_timers(self):
+        self.timers.log(["forward_microstep", "backward_microstep", "step_microstep"],
+                        memory_breakdown=self.config.memory_breakdown)
+
+    def _observe_step(self, overflowed=False, schedule_goodput=None):
         """The monitor's ``Train/Samples/*`` scalars, the session's
         ``end_step``, the numerics commit (and, on its interval, the desync
         audit) and the cluster heartbeat (deepspeed_tpu/runtime/engine.py:
@@ -1874,6 +1915,7 @@ class DeepSpeedEngine:
         if self.telemetry is not None:
             self.telemetry.end_step(self.global_steps, self.train_batch_size(),
                                     pending=self._window_losses, numerics=sent,
+                                    schedule_goodput=schedule_goodput,
                                     run_goodput=self._goodput_scalars())
         if self._numerics is not None:
             grad_norm = (fetched[0] if extra else float(norm)) if norm is not None else None
@@ -2041,10 +2083,9 @@ class DeepSpeedEngine:
             # the data ranks' slices, then (a tensor-parallel leaf) the model
             # ranks': whole leaves in the JAX layout, one at a time
             full = unshard(t, axis, self.dp_size, self._dp_group)
-            if leaf is not None:
-                full = self._tp_join(leaf, full)
-            if materialize:
-                out[key] = ckpt.to_host(full)
+            for k, v in self._export_leaf(key, leaf, full):
+                if materialize:
+                    out[k] = ckpt.to_host(v)
 
         keys = self._ckpt_keys()
         if kind == "params":
@@ -2081,8 +2122,7 @@ class DeepSpeedEngine:
             return torch.from_numpy(np.asarray(flat[key])).reshape(shape)
 
         def leaf(key, i):
-            # the whole leaf, cut to this rank's tensor-parallel slice
-            return self._tp_cut(i, get(key, self._whole_shapes[i]))
+            return self._import_leaf(key, i, get)
 
         keys = self._ckpt_keys()
         if kind == "params":
@@ -2108,6 +2148,17 @@ class DeepSpeedEngine:
                 for key, i in keys:
                     leaves[i].copy_(shard(leaf(f"{field}/{key}", i),
                                           self._axes[i], self.dp_rank, self.dp_size))
+
+    def _export_leaf(self, key, i, full):
+        """[(on-disk key, array)] of engine leaf ``i`` (None: not a parameter
+        leaf) under ``key``, its data-axis slices already joined: the whole
+        leaf, its model-axis slices joined too."""
+        return [(key, full if i is None else self._tp_join(i, full))]
+
+    def _import_leaf(self, key, i, get):
+        """Engine leaf ``i``'s whole value under ``key`` (``get(key, shape)``
+        reads it), cut to this rank's model-axis slice."""
+        return self._tp_cut(i, get(key, self._whole_shapes[i]))
 
     @torch.no_grad()
     def _place_master(self, i, full):

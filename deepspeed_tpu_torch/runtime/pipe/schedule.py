@@ -1,6 +1,6 @@
 """PyTorch port: a copy of ``deepspeed_tpu/runtime/pipe/schedule.py`` (lines
-1-275), pure Python, which ``utils/pipeline_trace.py`` replays. The pipeline
-engine that executes these streams is ROADMAP.md item 16.
+1-275), pure Python, which ``utils/pipeline_trace.py`` replays and
+``runtime/pipe/engine.py``'s instruction executor runs.
 
 Pipeline instruction schedules.
 

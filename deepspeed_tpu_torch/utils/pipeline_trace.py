@@ -2,7 +2,9 @@
 1-661: ``PipelineTracer``, ``lint_schedule``, ``simulate_schedule``,
 ``simulated_bundle``, ``to_trace_events``, ``timeline_main``), host-only; the
 schedules replayed are the port's copy of ``runtime/pipe/schedule.py``. The
-tracer's engine wiring waits for the pipeline engine (ROADMAP.md item 16).
+port's ``runtime/pipe/engine.py`` records into it from its instruction
+executor when ``telemetry.pipeline_trace.enabled`` is set, as the JAX engine
+does; its per-rank executor warns instead, as the JAX SPMD executor does.
 
 Pipeline schedule observatory: per-instruction span timeline, bubble/goodput
 accounting, an analytic schedule simulator, and a Perfetto trace exporter.

@@ -44,4 +44,4 @@ def test_every_key_jax_reaches_is_reached_in_the_port():
 
     jax_reached = reached(JPKG, jcp)
     assert jax_reached and jax_reached <= reached(TPKG, tcp)
-    assert set(tcp.CONSUMER_RELPATHS) == set(jcp.CONSUMER_RELPATHS) - {"runtime/pipe/engine.py"}
+    assert set(tcp.CONSUMER_RELPATHS) == set(jcp.CONSUMER_RELPATHS)

@@ -164,7 +164,7 @@ def test_cli_registry_is_clean_and_byte_stable(tmp_path, capsys):
     rep = json.loads(text)
     assert rep["violations"] == [] and rep["unused_allowlist_entries"] == []
     assert {p.split(":")[0] for p in rep["programs"]} == set(registry.PORTED)
-    assert len(rep["programs"]) == 30
+    assert len(rep["programs"]) == 38
     for entry, item in registry.UNPORTED.items():
         assert f"skipped {entry}: not in the PyTorch port yet (ROADMAP.md {item})" \
             in captured.err

@@ -72,6 +72,15 @@ def test_scan_covers_the_parallel_modules():
         assert f"deepspeed_tpu_torch/{name}" in names, name
 
 
+def test_scan_covers_the_pipeline_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for name in ("parallel/pipe/__init__.py", "parallel/pipe/module.py",
+                 "parallel/pipeline_spmd.py", "models/gpt2_pipe.py",
+                 "runtime/pipe/__init__.py", "runtime/pipe/engine.py",
+                 "runtime/pipe/schedule.py"):
+        assert f"deepspeed_tpu_torch/{name}" in names, name
+
+
 def test_importing_the_port_loads_no_jax():
     # a subprocess: this test process already holds jax (tests/conftest.py)
     modules = sorted(
