@@ -5,7 +5,8 @@
     python3 chip_smoke.py --probe N    # one offload-capacity probe at N layers
     python3 chip_smoke.py --launched   # the [launcher] phase's child (the runner starts it)
     python3 chip_smoke.py --tp-child PHASE RANK PORT DIR   # a rank of [train-tp],
-                                                          # [serving-sharded], [train-pipe-spmd]
+                                                          # [serving-sharded], [train-pipe-spmd],
+                                                          # [train-ring]
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result line):
@@ -52,7 +53,14 @@ result line):
    config's (batch 8) and at edge cases
    (ragged T, T = 9000, D = 32 and 128, float32, float16, key bias, dropout at
    rates 0.1 and 0.5, global offsets with and without the causal mask, bf16 at
-   D = 256) and at the BERT path's shape (non-causal with a key bias); checks
+   D = 256) and at the BERT path's shape (non-causal with a key bias), and
+   the segmented operand of the sequence-parallel ring (causal, dropout 0.1,
+   q and k maps both rank 0's rotation-0 map of a ring of 2 and both rank
+   1's of a ring of 4, each with a gap between its halves, at
+   [1, 25, 2048, 64] in bf16 and float32; each row of out, dq, dk, dv past
+   the half boundary also within 5e-2 (bf16) of the row's own max |ref|,
+   and the kernels with the contiguous map, a control, failing that row
+   check); checks
    that each case ran the design the shape rule names (tensor cores for
    bf16/fp16 at D <= 128, else CUDA cores) in all three kernels; times at the
    training shape beside the plain version, SDPA and the CUDA-core design of
@@ -195,6 +203,26 @@ result line):
    engine bit for bit and within 0.1 of its run's update; step ms logged as
    gloo-staged (the two ranks start during ``[train-pipe]``'s checkpoint
    round trip, which they overlap);
+   ``[train-ring]``: the sequence-parallel ring (the engine's
+   ``sequence_parallel`` block, zigzag) at 2 ranks, two gloo children on
+   the one card started before ``[checkpoint]`` (they train while it runs;
+   this process runs the one-rank reference meanwhile): GPT-2 at the 1.5B
+   widths with ``n_positions`` 16384 at 4 of 48 layers (bf16, flash, no
+   remat, dropout 0, Adam, ZeRO-2), one sequence of T = 16384, 3 steps,
+   against the one-rank dense run with the same weights at the same T:
+   losses within 1e-3, the per-layer grad norms of the first batch within
+   1e-3 (the ranks' grads averaged), the ranks' losses equal, 12 / 12 / 12
+   flash launches a rank a step on the tensor cores of which 4 segmented
+   (rotation 0 of each layer); before the model, each rank's ring
+   (``ring_attention_sharded`` at [1, 25, 4096, 64] bf16, dropout 0.1;
+   zigzag, masked and non-causal) and its grads summed over the ranks
+   against the one-card ``flash_attention`` at the global T with the same
+   seed, within 2e-2 of max |ref| and each row past the first zigzag chunk
+   within 5e-2 of its own max |ref|, while the control (the same ring
+   with zigzag's rotation-0 map made contiguous, the masked and non-causal
+   calls in local coordinates) fails the row check; step ms and the peak a
+   rank logged as gloo-staged (every rotation goes through the host), with
+   each rank's own clock;
    ``[offload-large]``:
    1600-wide GPT-2 at LARGE_LAYERS (5.0 B params), which the device engine
    could not hold (16 B a parameter), with full remat for 3 steps;
@@ -330,7 +358,9 @@ result line):
    widths and engine config at 4 of 48 layers, no remat, 4 steps) prints its
    env identity, losses, optimizer-state digest and flash launches, and its
    losses and state equal the same run's in this process bit for bit, at
-   4 x (1, 1, 1) flash launches a step;
+   4 x (1, 1, 1) flash launches a step; the child is started before
+   ``[checkpoint]``, runs beside it (its three processes' start-up is most
+   of its time) and is joined after ``[train-ring]``;
 14. result — one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -1264,11 +1294,15 @@ def phase_serving_fleet():
 
 # --------------------------------------------------------------------- training
 def _flash_case(B, H, T, D, dtype, causal=True, bias=False, rate=0.0, offsets=(0, 0),
-                seed=0):
+                seed=0, segments=None, control=False):
     """(kernel, plain) results of one case on the same seeded inputs: each a
     list [out, lse, dq, dk, dv] from the forward and from the backward of
     sum(out * g) + sum(lse * g_lse). ``offsets``: the global positions of
-    local q and k position 0 (the dropout hash and the causal mask)."""
+    local q and k position 0 (the dropout hash and the causal mask);
+    ``segments``: the (off0, off1) map of both sides, the ring's segmented
+    operand. ``control``: a third result, the kernels with the contiguous
+    map at ``segments[0]`` (a wrong map: the second half hashed at the
+    wrong global positions)."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn((B, H, T, D), generator=gen, device="cuda").to(dtype)
@@ -1278,18 +1312,35 @@ def _flash_case(B, H, T, D, dtype, causal=True, bias=False, rate=0.0, offsets=(0
          if bias else None)
     dseed = 1234 if rate else None
 
-    def run(kernel):
+    def run(kernel, offsets=offsets, segments=segments):
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
         if kernel:   # the wrappers' core: kernels under the autograd Function
-            out, lse = fa._attend(qs, ks, vs, causal, None, b, rate, dseed, *offsets)
+            out, lse = fa._attend(qs, ks, vs, causal, None, b, rate, dseed, *offsets,
+                                  segments, segments)
         else:
             out, lse = fa.flash_attention_reference(qs, ks, vs, causal, bias=b,
                                                     dropout_rate=rate, dropout_seed=dseed,
-                                                    q_offset=offsets[0], k_offset=offsets[1])
+                                                    q_offset=offsets[0], k_offset=offsets[1],
+                                                    q_segments=segments, k_segments=segments)
         ((out.float() * g.float()).sum() + (lse * g_lse).sum()).backward()
         return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
 
+    if control:
+        return run(True), run(False), run(True, (segments[0],) * 2, None)
     return run(True), run(False)
+
+
+def _row_err(a, b, start):
+    """The largest error of a row (the last dim) over that row's max |b|,
+    over the rows from ``start`` on (dim -2): a wrong keep mask moves the
+    rows past a half boundary by a large part of their own size, but their
+    size is small beside the tensor's max |b| (the early rows of a causal
+    call). The early rows are left out: a causal row over a few keys
+    cancels in dq, so its own size says nothing. A row below 1% of the max
+    |b| of the rows compared counts against that floor."""
+    a, b = a[..., start:, :], b[..., start:, :]
+    den = b.abs().amax(-1).clamp(min=1e-2 * float(b.abs().max()))
+    return float(((a - b).abs().amax(-1) / den).max())
 
 
 def phase_flash_kernels():
@@ -1342,7 +1393,114 @@ def phase_flash_kernels():
             worst[kern] = max(worst[kern], *(errs[n] for n in names))
         del got, want
     torch.cuda.empty_cache()
-    return time_flash(main, worst)
+    segmented = segmented_flash_cases()
+    entries = time_flash(main, worst)
+    for e, err in zip(entries, segmented):
+        e["max_abs_err_segmented"] = err
+    return entries
+
+
+# the sequence-parallel ring's rotation-0 calls: a rank's local [2C] block
+# is global chunks (rank, 2n - 1 - rank) of C = 1024; rank 0 of a ring of 2
+# and rank 1 of a ring of 4, both with a gap between their halves (rank 1
+# of a ring of 2, (1024, 2048), is contiguous and tests nothing new)
+SEGMENTED_FLASH = [(0, 3072), (1024, 6144)]
+SEGMENTED_FLASH_SHAPE = (1, 25, 2048, 64)
+# the largest row error over the row's max |ref| (``_row_err``) of out, dq,
+# dk and dv: the segmented kernels must be under it, the kernels with the
+# contiguous map (the control) over it
+SEGMENTED_ROW_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+
+
+def segmented_flash_cases():
+    """The three kernels with the segmented operand (identical q and k maps,
+    each a rank's rotation-0 map with a gap between its halves, causal,
+    dropout 0.1) against the plain version, in bf16 (tensor cores) and
+    float32 (CUDA cores): within the kernel tolerance of max |ref|, and
+    each row of out, dq, dk, dv past the half boundary within
+    SEGMENTED_ROW_TOL of its own max |ref|; the control, the kernels with
+    the contiguous map against the same reference, must fail that row
+    check. Checks the design and that
+    each segmented launch counted as segmented. Returns each kernel's max
+    abs error over the bf16 cases."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    hd = SEGMENTED_FLASH_SHAPE[3]
+    err_abs = [0.0, 0.0, 0.0]
+    for dtype in (torch.bfloat16, torch.float32):
+        for seg in SEGMENTED_FLASH:
+            tc_before, seg_before = _tensor_core_launches(), _segmented_launches()
+            got, want, wrong = _flash_case(*SEGMENTED_FLASH_SHAPE, dtype, True, False, 0.1,
+                                           segments=seg, control=True)
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(_tensor_core_launches(), tc_before)]
+            seg_ran = [a - b for a, b in zip(_segmented_launches(), seg_before)]
+            if ran != [2 * int(fa._tensor_core_path(dtype, hd))] * 3 or seg_ran != [1, 1, 1]:
+                raise AssertionError(f"segmented flash {seg} {dtype}: tensor-core launches "
+                                     f"{ran}, segmented launches {seg_ran}")
+            tol, row_tol = FLASH_TOL[dtype], SEGMENTED_ROW_TOL[dtype]
+            names = ("out", "lse", "dq", "dk", "dv")
+            errs = {n: float((a - b).abs().max()) / (float(b.abs().max()) + 1e-6)
+                    for n, a, b in zip(names, got, want)}
+            half = SEGMENTED_FLASH_SHAPE[2] // 2     # the rows the second offset maps
+            rows = {n: _row_err(a, b, half) for n, a, b in zip(names, got, want) if n != "lse"}
+            control = {n: _row_err(a, b, half) for n, a, b in zip(names, wrong, want)
+                       if n != "lse"}
+            log(f"[flash] segmented {list(SEGMENTED_FLASH_SHAPE)} {dtype} causal dropout 0.1, "
+                f"q and k segments {seg}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                + f" (scaled by max |ref|, tol {tol}); by row "
+                + ", ".join(f"{n} {e:.2e}" for n, e in rows.items())
+                + "; the control (contiguous map) by row "
+                + ", ".join(f"{n} {e:.2e}" for n, e in control.items())
+                + f" (row tol {row_tol})")
+            if (max(errs.values()) > tol or max(rows.values()) > row_tol
+                    or not all(torch.isfinite(a).all() for a in got)):
+                raise AssertionError(f"segmented flash kernels vs plain {seg} {dtype}: {errs}, "
+                                     f"by row {rows}")
+            if min(control.values()) <= row_tol:
+                raise AssertionError(f"segmented flash {seg} {dtype}: the contiguous map "
+                                     f"passes the row check {control}: it cannot fail")
+            if dtype == torch.bfloat16:
+                absd = [float((a - b).abs().max()) for a, b in zip(got, want)]
+                err_abs = [max(err_abs[0], absd[0], absd[1]), max(err_abs[1], absd[2]),
+                           max(err_abs[2], absd[3], absd[4])]
+            del got, want, wrong
+    torch.cuda.empty_cache()
+    segmented_flash_times()
+    return err_abs
+
+
+def segmented_flash_times():
+    """The segment map costs nothing without dropout: each kernel at
+    SEGMENTED_FLASH_SHAPE (bf16, causal, rate 0) contiguous and with rank
+    0's map, by CUDA events, in turns (contiguous, segmented, segmented,
+    contiguous), inputs rotating over 4 sets; logged, not checked (noise)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    B, H, T, D = SEGMENTED_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sets = []
+    for _ in range(4):
+        q, k, v, do = (torch.randn((B, H, T, D), generator=gen, device="cuda").bfloat16()
+                       for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True, sm_scale=D ** -0.5)
+        sets.append((q, k, v, do, lse, (do.float() * out.float()).sum(-1).contiguous()))
+    off0, off1 = SEGMENTED_FLASH[0]
+    maps = {"contiguous": (0, fa._CONTIGUOUS),
+            "segmented": (off0, (T // 2, off1, T // 2, off1))}
+    times = {n: {"fwd": [], "dq": [], "dkv": []} for n in maps}
+    for name in ("contiguous", "segmented", "segmented", "contiguous"):
+        off, halves = maps[name]
+        kw = dict(causal=True, sm_scale=D ** -0.5, q_offset=off, k_offset=off, halves=halves)
+        times[name]["fwd"].append(time_ms(lambda i: fa.flash_attention_fwd(*sets[i % 4][:3],
+                                                                            **kw), 40))
+        times[name]["dq"].append(time_ms(lambda i: fa.flash_attention_bwd_dq(*sets[i % 4],
+                                                                              **kw), 40))
+        times[name]["dkv"].append(time_ms(lambda i: fa.flash_attention_bwd_dkv(*sets[i % 4],
+                                                                                **kw), 40))
+    del sets
+    torch.cuda.empty_cache()
+    log(f"[flash] {list(SEGMENTED_FLASH_SHAPE)} bf16 causal, dropout 0, ms in turns "
+        f"(contiguous, segmented, segmented, contiguous): {json.dumps(times)}")
+    return times
 
 
 def _tensor_core_launches():
@@ -1688,7 +1846,13 @@ def _flash_counts():
 def _zero_flash_counts():
     from deepspeed_tpu_torch.ops import flash_attention as fa
     for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
-        f.launches = f.tensor_core_launches = 0
+        f.launches = f.tensor_core_launches = f.segmented_launches = 0
+
+
+def _segmented_launches():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    return [f.segmented_launches for f in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                                           fa.flash_attention_bwd_dkv)]
 
 
 def _cut_model(n_layer, **over):
@@ -3346,7 +3510,7 @@ def _tp_start(phase, out_dir):
             [sys.executable, str(Path(__file__).resolve()), "--tp-child", phase, str(r),
              str(port), out_dir], stdout=logs[-1], stderr=subprocess.STDOUT))
     return {"phase": phase, "dir": out_dir, "procs": procs, "logs": logs,
-            "started": time.perf_counter(),
+            "started": time.perf_counter(), "wall_started": time.time(),
             "deadline": time.monotonic() + TP_CHILD_TIMEOUT_S}
 
 
@@ -3390,8 +3554,8 @@ def _tp_wait(run):
 
 
 def tp_child(phase, rank, port, out_dir):
-    """One rank of ``[train-tp]``, ``[serving-sharded]`` or
-    ``[train-pipe-spmd]``: gloo, card 0."""
+    """One rank of ``[train-tp]``, ``[serving-sharded]``, ``[train-pipe-spmd]``
+    or ``[train-ring]``: gloo, card 0."""
     import torch.distributed as dist
     from deepspeed_tpu_torch.runtime.dist import init_distributed
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
@@ -3403,6 +3567,8 @@ def tp_child(phase, rank, port, out_dir):
             del engine
         elif phase == "train-pipe-spmd":
             res = _pipe_spmd_run(rank, out_dir)
+        elif phase == "train-ring":
+            res = _ring_run(rank)
         else:
             res = _sharded_serving_run(TP_RANKS)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4197,6 +4363,275 @@ def phase_train_pipe_spmd():
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"[train-pipe-spmd] failed: {failed}")
+    return [sum(r["flash_launches"][i] for r in ranks) for i in range(3)]
+
+
+# [train-ring]: the sequence-parallel ring at 2 ranks on the one card, two
+# gloo children (``--tp-child train-ring``) as for [train-tp]; every rotation
+# goes through the host, so the step times say nothing of the ring over NCCL
+RING_RANKS = 2
+RING_T = 16384
+RING_LAYERS = 4                 # of the 1.5B's 48
+RING_MODEL = dict(MODEL, n_positions=RING_T, n_layer=RING_LAYERS, use_flash_attention=True,
+                  remat=False, loss_chunk=128)
+RING_STEPS = 3
+RING_CONFIG = {"train_batch_size": 1, "steps_per_print": 1000, "bf16": {"enabled": True},
+               "zero_optimization": {"stage": 2},
+               "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}}
+RING_SP = {"enabled": True, "schedule": "zigzag"}
+RING_LOSS_RTOL = 1e-3           # as [train-tp] and [train-pipe]
+RING_NORM_RTOL = 1e-3
+RING_OP_T = 4096                # the ring-op check's global T (C = 1024 at 2 ranks)
+RING_OP_TOL = 2e-2              # the ring op against one card, x max |ref| (bf16)
+RING_OP_ROW_TOL = SEGMENTED_ROW_TOL[torch.bfloat16]   # each row, x its own max |ref|
+RING_OP_DROPOUT = 0.1
+RING_OP_SEED = 1234
+# a rank's flash launches a step: zigzag at 2 ranks runs 3 forward calls a
+# layer (the segmented causal call of rotation 0, calls A and B of rotation
+# 1), each with one dq and one dk/dv launch
+RING_WANT = [3 * RING_LAYERS] * 3
+RING_SEGMENTED_WANT = [RING_LAYERS] * 3
+
+
+def _ring_batch():
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, MODEL["vocab_size"], size=(1, RING_T))
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -100
+    return (torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda())
+
+
+def _ring_model():
+    """RING_MODEL from seed 0, bf16 parameters as the engine holds them."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    model = GPT2Model(GPT2Config(**RING_MODEL))
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    return model.to(torch.bfloat16)
+
+
+def _ring_steps(engine, tokens, labels):
+    losses, step_ms = [], []
+    for _ in range(RING_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = engine(tokens, labels)
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss.detach()))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    return losses, step_ms
+
+
+def phase_train_ring_start():
+    """Start [train-ring]'s two ranks, then run its one-rank reference in
+    this process while they start: RING_MODEL through ``initialize`` without
+    the ``sequence_parallel`` block on the same weights and sequence (the
+    first batch's per-layer grad norms, then RING_STEPS steps). Returns the
+    run and the reference for ``phase_train_ring``."""
+    import deepspeed_tpu_torch
+    root = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    run = _tp_start("train-ring", root)
+    try:
+        tokens, labels = _ring_batch()
+        model = _ring_model()
+        model(tokens, labels).backward()
+        norms = _layer_grad_norms(model).tolist()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                         config_params=RING_CONFIG)
+        losses, step_ms = _ring_steps(engine, tokens, labels)
+        ref = {"losses": losses, "norms": norms, "step_ms": step_ms,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    except BaseException:
+        _tp_stop(run)
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    return {"root": root, "run": run, "ref": ref}
+
+
+def _ring_op_check(mesh, group):
+    """This rank's ``ring_attention_sharded`` (the whole output, every rank
+    passing the same q, k, v at RING_OP_T) and its grads summed over the
+    ranks, against one card's ``flash_attention`` at that T with the same
+    dropout seed, for the zigzag, masked and non-causal rings: of out, dq,
+    dk, dv the error over max |ref| and the largest row error over the
+    row's max |ref| past the first zigzag chunk (``_row_err``). The
+    control, which must fail the row check: the same ring with its calls
+    hashing in the wrong coordinates (``_ring_control_flash``). Their
+    launches happen before the main path's counts are set to 0."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.parallel import ring_attention as ra
+    H, hd = MODEL["n_head"], MODEL["n_embd"] // MODEL["n_head"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, g = (torch.randn((1, H, RING_OP_T, hd), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    errs = {}
+
+    def ring(causal, schedule):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        out = ra.ring_attention_sharded(qs, ks, vs, mesh, causal=causal, schedule=schedule,
+                                        dropout_rate=RING_OP_DROPOUT,
+                                        dropout_seed=RING_OP_SEED)
+        (out.float() * g.float()).sum().backward()
+        got = [out.detach().float()]
+        for t in (qs, ks, vs):
+            grad = t.grad.float()
+            dist.all_reduce(grad, group=group)
+            got.append(grad)
+        return got
+
+    chunk = RING_OP_T // (2 * RING_RANKS)    # rows by row: past the first zigzag chunk
+    names = ("out", "dq", "dk", "dv")
+    for causal, schedule in ((True, "zigzag"), (True, "masked"), (False, "zigzag")):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        ref = fa.flash_attention(qs, ks, vs, causal, dropout_rate=RING_OP_DROPOUT,
+                                 dropout_seed=RING_OP_SEED)
+        (ref.float() * g.float()).sum().backward()
+        want = [ref.detach().float(), *(t.grad.float() for t in (qs, ks, vs))]
+        got = ring(causal, schedule)
+        flash = ra._flash
+        ra._flash = _ring_control_flash(flash, causal and schedule == "zigzag")
+        try:
+            wrong = ring(causal, schedule)
+        finally:
+            ra._flash = flash
+        torch.cuda.synchronize()
+        errs[schedule if causal else "non-causal"] = {
+            "max": {n: float((a - b).abs().max()) / (float(b.abs().max()) + 1e-6)
+                    for n, a, b in zip(names, got, want)},
+            "row": {n: _row_err(a, b, chunk) for n, a, b in zip(names, got, want)},
+            "control_row": {n: _row_err(a, b, chunk) for n, a, b in zip(names, wrong, want)}}
+        del qs, ks, vs, ref, got, want, wrong
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _ring_control_flash(flash, zigzag):
+    """The ring's flash call with a wrong map, for ``_ring_op_check``'s
+    control. Zigzag: rotation 0's segmented map made contiguous at its
+    first offset, so that the second half hashes at the wrong global
+    positions (the other calls as they are). Masked and non-causal: every
+    call in local coordinates (offsets 0). The causal masks are unchanged:
+    a causal call's q and k maps stay equal."""
+    def wrong(q, k, v, causal, sm_scale, rate, seed, q_off=0, k_off=0, seg=None):
+        if zigzag:
+            if seg is None:
+                return flash(q, k, v, causal, sm_scale, rate, seed, q_off, k_off)
+            return flash(q, k, v, causal, sm_scale, rate, seed, seg[0], seg[0])
+        return flash(q, k, v, causal, sm_scale, rate, seed)
+    return wrong
+
+
+def _ring_run(rank):
+    """One rank of [train-ring]: the ring op check, the first batch's grads
+    through the model's ``sequence_parallel_loss_fn`` (all-reduced, /
+    RING_RANKS: the ranks' grads add up to RING_RANKS times the whole
+    gradient), then RING_STEPS steps through ``initialize`` with the
+    ``sequence_parallel`` block."""
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel import ring_attention as ra
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh()
+    group = mesh.group("data")
+    started = time.time()
+    op_errs = _ring_op_check(mesh, group)
+    op_s = time.time() - started
+    tokens, labels = _ring_batch()
+    model = _ring_model()
+    model.sequence_parallel_loss_fn(mesh, "data", RING_SP["schedule"])(tokens, labels).backward()
+    norms = []
+    groups = [list(b.parameters()) for b in model.blocks]
+    groups.append([model.wte, model.wpe, *model.ln_f.parameters()])
+    for params in groups:
+        flat = torch.cat([p.grad.float().flatten() for p in params])
+        dist.all_reduce(flat, group=group)
+        norms.append(float(torch.linalg.vector_norm(flat / RING_RANKS)))
+        del flat
+    model.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=dict(RING_CONFIG, train_batch_size=RING_RANKS,
+                                        sequence_parallel=RING_SP))
+    _zero_flash_counts()
+    ra.rotate.exchanges = ra.rotate.bytes = 0
+    losses, step_ms = _ring_steps(engine, tokens, labels)
+    return {"rank": rank, "dp": engine.dp_size, "losses": losses, "grad_norms": norms,
+            "step_ms": step_ms, "flash_launches": _flash_counts(),
+            "tensor_core_launches": _tensor_core_launches(),
+            "segmented_launches": _segmented_launches(),
+            "exchanges": ra.rotate.exchanges, "exchange_bytes": ra.rotate.bytes,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "op_errs": op_errs,
+            "op_check_s": op_s, "wall": {"process_start": WALL0, "ring_start": started,
+                                         "done": time.time()}}
+
+
+def phase_train_ring(ring):
+    """[train-ring]'s checks once its ranks have finished (module docstring).
+    Returns both ranks' flash launches, summed."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    card = phase_device(quiet=True)
+    ref = ring["ref"]
+    try:
+        ranks = _tp_wait(ring["run"])
+        joined = time.time()
+    finally:
+        shutil.rmtree(ring["root"], ignore_errors=True)
+    # the ranks' own clocks: when each process started, its ring-op check
+    # began and it finished, in s after the spawn; and how long this process
+    # waited at the join after the last rank had finished
+    spawned = ring["run"]["wall_started"]
+    walls = [{k: round(t - spawned, 2) for k, t in r["wall"].items()} for r in ranks]
+    ranks_s = max(r["wall"]["done"] for r in ranks) - spawned
+    idle_at_join_s = joined - max(r["wall"]["done"] for r in ranks)
+    hd = MODEL["n_embd"] // MODEL["n_head"]
+    want = [n * RING_STEPS for n in RING_WANT]
+    want_seg = [n * RING_STEPS for n in RING_SEGMENTED_WANT]
+
+    def close(a, b, rtol):
+        return len(a) == len(b) and all(abs(x - y) <= rtol * abs(y) for x, y in zip(a, b))
+
+    for r, res in enumerate(ranks):
+        log(f"[train-ring] rank {r} of {RING_RANKS} (gloo-staged): {json.dumps(res)}; {card}")
+    def worst(key, pick=max):
+        return pick(e for r in ranks for case in r["op_errs"].values()
+                    for e in case[key].values())
+
+    worst_op, worst_row, least_control = worst("max"), worst("row"), worst("control_row", min)
+    checks = {
+        "sequence_axis_of_2": all(r["dp"] == RING_RANKS for r in ranks),
+        "ring_op_within_2e-2": worst_op <= RING_OP_TOL,
+        "ring_op_rows_within_5e-2": worst_row <= RING_OP_ROW_TOL,
+        "control_fails_the_row_check": least_control > RING_OP_ROW_TOL,
+        "losses_within_1e-3": all(close(r["losses"], ref["losses"], RING_LOSS_RTOL)
+                                  for r in ranks),
+        "grad_norms_within_1e-3": all(close(r["grad_norms"], ref["norms"], RING_NORM_RTOL)
+                                      for r in ranks),
+        "losses_finite": all(math.isfinite(x) for r in ranks for x in r["losses"]),
+        "ranks_agree": all(r["losses"] == ranks[0]["losses"] for r in ranks),
+        "flash_launches": all(r["flash_launches"] == want for r in ranks),
+        "tensor_core_design": fa._tensor_core_path(torch.bfloat16, hd)
+        and all(r["tensor_core_launches"] == want for r in ranks),
+        "segmented_rotation_0": all(r["segmented_launches"] == want_seg for r in ranks),
+    }
+    log(f"[train-ring] one-rank reference: losses {ref['losses']}, per-layer grad norms "
+        f"{ref['norms']}, step ms {ref['step_ms']}, peak bytes {ref['peak_bytes']}; checks "
+        f"{json.dumps(checks)}; worst ring-op error {worst_op} (tol {RING_OP_TOL}), by row "
+        f"{worst_row} (tol {RING_OP_ROW_TOL}), the wrong-map control by row at least "
+        f"{least_control}; the ranks finished {ranks_s:.1f} s after their spawn (spawn, CUDA "
+        f"start, build-cache load, op check, training; started before [checkpoint]), this "
+        f"process joined {idle_at_join_s:.1f} s later; each rank's clock, s after the spawn "
+        f"{json.dumps(walls)}; step ms a rank (gloo-staged, not the ring over "
+        f"NCCL) {[r['step_ms'] for r in ranks]}; peak bytes a rank "
+        f"{[r['peak_bytes'] for r in ranks]}; {card}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"[train-ring] failed: {failed}")
     return [sum(r["flash_launches"][i] for r in ranks) for i in range(3)]
 
 
@@ -6012,6 +6447,7 @@ def phase_single_card():
 
 
 T0 = time.perf_counter()
+WALL0 = time.time()             # a child's start, on the clock its parent reads too
 
 
 # [lint]: the lint suite over the registry's engines on the card; the
@@ -6124,29 +6560,62 @@ def launched_child():
                                   "state_sha256": state}))
 
 
-def phase_launcher():
-    """``python -m deepspeed_tpu_torch.launcher.runner --num_gpus 1
-    chip_smoke.py --launched``: the child's env identity, its losses and
-    optimizer state bit for bit those of the same run in this process, and
-    LAUNCHER_LAYERS x (1, 1, 1) flash launches a step. Returns the child's
-    flash launches."""
-    gc.collect()
-    torch.cuda.empty_cache()
+def launcher_start():
+    """Start ``python -m deepspeed_tpu_torch.launcher.runner --num_gpus 1
+    chip_smoke.py --launched`` (three processes, each importing torch: most
+    of its wall time is start-up, so it runs beside ``[checkpoint]``, whose
+    time goes to sha256 and ``np.savez`` on the host). Its output goes to
+    files, which a child cannot fill as it can a pipe."""
     root = Path(__file__).resolve().parent
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
-                          "--num_gpus", "1", "chip_smoke.py", "--launched"],
-                         cwd=str(root), env=env, capture_output=True, text=True, timeout=600)
-    child_s = time.perf_counter() - t0
-    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("LAUNCHED ")]
-    if res.returncode != 0 or len(lines) != 1:
-        raise RuntimeError(f"[launcher] the launched child failed (exit {res.returncode}):\n"
-                           f"{res.stdout[-3000:]}\n{res.stderr[-4000:]}")
-    if any(ln.startswith("{\"ok\"") for ln in res.stdout.splitlines()):
+    out = tempfile.TemporaryFile(mode="w+")
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+                             "--num_gpus", "1", "chip_smoke.py", "--launched"],
+                            cwd=str(root), env=env, stdout=out, stderr=err, text=True)
+    return {"proc": proc, "out": out, "err": err, "started": time.perf_counter()}
+
+
+def launcher_stop(launch):
+    """Kill the launcher's child if it still runs (a phase failed)."""
+    if launch["proc"].poll() is None:
+        launch["proc"].kill()
+        launch["proc"].wait()
+
+
+def launcher_join(launch):
+    """The launcher's child once it has exited: (its LAUNCHED record, its
+    wall time from the start to the join in s)."""
+    proc = launch["proc"]
+    try:
+        proc.wait(timeout=600)
+    finally:
+        launcher_stop(launch)
+    child_s = time.perf_counter() - launch["started"]
+    outputs = []
+    for f in (launch["out"], launch["err"]):
+        f.seek(0)
+        outputs.append(f.read())
+        f.close()
+    stdout, stderr = outputs
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("LAUNCHED ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"[launcher] the launched child failed (exit {proc.returncode}):\n"
+                           f"{stdout[-3000:]}\n{stderr[-4000:]}")
+    if any(ln.startswith("{\"ok\"") for ln in stdout.splitlines()):
         raise AssertionError("[launcher] the child printed a result line")
-    child = json.loads(lines[0][len("LAUNCHED "):])
+    return json.loads(lines[0][len("LAUNCHED "):]), child_s
+
+
+def phase_launcher(launched):
+    """The launcher's child (``launcher_start``, ``launcher_join``: its
+    record and wall time): its env identity, its losses and optimizer state
+    bit for bit those of the same run in this process, and LAUNCHER_LAYERS x
+    (1, 1, 1) flash launches a step. Returns the child's flash launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    child, child_s = launched
     want_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "29500",
                 "CUDA_VISIBLE_DEVICES": child["env"]["CUDA_VISIBLE_DEVICES"], "device": 0}
@@ -6162,7 +6631,7 @@ def phase_launcher():
     if child["launches"] != want or launches != want:
         raise AssertionError(f"[launcher] flash launches: child {child['launches']} here "
                              f"{launches}, want {want}")
-    log(f"[launcher] {json.dumps({'child_env': child['env'], 'losses': losses, 'state_sha256': state, 'bitwise_equal': True, 'flash_launches_a_step': want[0], 'child_s': round(child_s, 2), 'in_process_s': round(here_s, 2)})}")
+    log(f"[launcher] {json.dumps({'child_env': child['env'], 'losses': losses, 'state_sha256': state, 'bitwise_equal': True, 'flash_launches_a_step': want[0], 'child_s': round(child_s, 2), 'child_ran': 'beside [checkpoint]', 'in_process_s': round(here_s, 2)})}")
     gc.collect()
     torch.cuda.empty_cache()
     return [sum(step[i] for step in child["launches"]) for i in range(3)]
@@ -6244,7 +6713,22 @@ def main():
     offload_launches, clip_rounding = _timed_phase(phase_train_offload)
     for e, n in zip(flash, offload_launches):
         e["launches_offload"] = n
-    _timed_phase(phase_checkpoint, clip_rounding)
+    # [train-ring]'s ranks and [launcher]'s child run while [checkpoint]
+    # runs (host-bound); the child is joined before the phases that follow
+    launch = launcher_start()
+    try:
+        ring = _timed_phase(phase_train_ring_start)
+        try:
+            _timed_phase(phase_checkpoint, clip_rounding)
+        except BaseException:
+            _tp_stop(ring["run"])
+            shutil.rmtree(ring["root"], ignore_errors=True)
+            raise
+        for e, n in zip(flash, _timed_phase(phase_train_ring, ring)):
+            e["launches_ring"] = n
+        launched = launcher_join(launch)
+    finally:
+        launcher_stop(launch)
     for e, n in zip(flash, _timed_phase(phase_train_zero3)):
         e["launches_zero3"] = n
     tp_launches, tp_errs = _timed_phase(phase_train_tp)
@@ -6287,7 +6771,7 @@ def main():
     _timed_phase(phase_resnet)
     _timed_phase(phase_crash_sim)
     entry["launches_lint"] = _timed_phase(phase_lint)
-    for e, n in zip(flash, _timed_phase(phase_launcher)):
+    for e, n in zip(flash, _timed_phase(phase_launcher, launched)):
         e["launches_launcher"] = n
     log(f"[time] chip_smoke.py phases {time.perf_counter() - T0:.1f} s")
     log(card)

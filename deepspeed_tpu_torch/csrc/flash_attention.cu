@@ -79,7 +79,30 @@ struct Params {
   uint32_t threshold;
   uint32_t seed;
   int q_off, k_off;   // global coordinates of local position 0
+  // the second segment of each side (the sequence-parallel ring's zigzag
+  // layout, the TPU kernels' segmented (7,) seed operand): local positions
+  // from *_half on start at global *_off1; a contiguous side has its half
+  // past every position
+  int q_half, q_off1, k_half, k_off1;
 };
+
+// The one map from a local position to its global coordinate, for the causal
+// mask and the dropout hash alike (the TPU kernels' _read_seed_ref). The
+// boundary may fall inside a tile, so it is taken per element. Causal tile
+// pruning (the CUDA-core kernels' last and masked_tile, the tensor-core
+// kernels' n_tiles, n_mine, first and diag) stays in local coordinates: that
+// is exact because a causal call's q and k maps are identical and keep the
+// local order (the wrapper refuses any other), so local order is global
+// order, as for the TPU kernels' bounds (flash_attention.py:165-167).
+__device__ __forceinline__ int seg_map(int p, int off0, int half, int off1) {
+  return p < half ? p + off0 : p - half + off1;
+}
+__device__ __forceinline__ int gq(const Params& P, int p) {
+  return seg_map(p, P.q_off, P.q_half, P.q_off1);
+}
+__device__ __forceinline__ int gk(const Params& P, int p) {
+  return seg_map(p, P.k_off, P.k_half, P.k_off1);
+}
 
 template <int DP, int BM>
 constexpr int fwd_smem_floats() { return 3 * BM * (DP + 1) + BM * (BM + 1) + BM; }
@@ -166,7 +189,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           x = -INFINITY;
         } else {
           if (bias_row) x += sB[tx + 16 * j];
-          if (masked_tile && qi + P.q_off < kj + P.k_off) x = kMaskValue;
+          if (masked_tile && gq(P, qi) < gk(P, kj)) x = kMaskValue;
         }
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -182,7 +205,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         rs += p;
         if (P.rate > 0.f) {
           const uint32_t bits =
-              dropout_bits(P.seed, bh, qi + P.q_off, kj + P.k_off);
+              dropout_bits(P.seed, bh, gq(P, qi), gk(P, kj));
           p = bits >= P.threshold ? p * inv_keep : 0.f;
         }
         sP[(ty + 16 * i) * (BM + 1) + tx + 16 * j] = round_to<T>(p);
@@ -312,12 +335,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (kj < P.T) {
           float x = s[i][j];
           if (bias_row) x += sB[tx + 16 * j];
-          if (masked_tile && qi + P.q_off < kj + P.k_off) x = kMaskValue;
+          if (masked_tile && gq(P, qi) < gk(P, kj)) x = kMaskValue;
           const float p = exp2f(x - lse2[i]);
           float g = dp[i][j];
           if (P.rate > 0.f) {
             const uint32_t bits =
-                dropout_bits(P.seed, bh, qi + P.q_off, kj + P.k_off);
+                dropout_bits(P.seed, bh, gq(P, qi), gk(P, kj));
             g = bits >= P.threshold ? g * inv_keep : 0.f;
           }
           ds = p * (g - dlt[i]);
@@ -446,12 +469,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float pd = 0.f, g = 0.f;
         if (qi < P.T) {
           float x = s[i][j] + bk[i];
-          if (masked_tile && qi + P.q_off < kj + P.k_off) x = kMaskValue;
+          if (masked_tile && gq(P, qi) < gk(P, kj)) x = kMaskValue;
           const float p = exp2f(x - sL[tx + 16 * j]);
           float keep = 1.f;
           if (P.rate > 0.f) {
             const uint32_t bits =
-                dropout_bits(P.seed, bh, qi + P.q_off, kj + P.k_off);
+                dropout_bits(P.seed, bh, gq(P, qi), gk(P, kj));
             keep = bits >= P.threshold ? inv_keep : 0.f;
           }
           pd = p * keep;
@@ -563,12 +586,13 @@ int run(int pass, const void* q, const void* k, const void* v, const void* dout,
         float* lse, const float* delta, const float* bias, void* o1, void* o2,
         int BH, int H, int T, int D, float sm_scale, float op_scale, int causal,
         float rate, unsigned threshold, unsigned seed, int q_off, int k_off,
-        int dtype, void* stream) {
+        int q_half, int q_off1, int k_half, int k_off1, int dtype, void* stream) {
   if (BH < 1 || H < 1 || BH % H != 0 || T < 1 || D < 2 || D > 256 || D % 2 != 0 ||
       BH > 65535 || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params P{H, T, D, sm_scale, op_scale, causal, bias, rate, threshold, seed, q_off, k_off};
+  Params P{H,     T,    D,     sm_scale, op_scale, causal, bias,   rate,
+           threshold, seed, q_off, k_off,    q_half,   q_off1, k_half, k_off1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
@@ -702,7 +726,7 @@ __device__ __forceinline__ void fwd_scores(float (&sc)[32], float (&mx)[2], cons
       x = -INFINITY;
     } else {
       if (P.bias) x += bias_s[col(e, t)];
-      if (kEdge && diag && r0 + 8 * row8(e) + P.q_off < kj + P.k_off) x = kMaskValue;
+      if (kEdge && diag && gq(P, r0 + 8 * row8(e)) < gk(P, kj)) x = kMaskValue;
     }
     sc[e] = x;
     mx[row8(e)] = fmaxf(mx[row8(e)], x);
@@ -723,11 +747,11 @@ __device__ __forceinline__ void dkv_probs(float (&sc)[32], float (&dp)[32], cons
     float pd = 0.f, gd = 0.f;
     if (!kEdge || qi < P.T) {
       float x = sc[e] + bk[row8(e)];
-      if (kEdge && diag && qi + P.q_off < kj + P.k_off) x = kMaskValue;
+      if (kEdge && diag && gq(P, qi) < gk(P, kj)) x = kMaskValue;
       const float p = exp2_(x - lse_s[col(e, t)]);
       float keep = 1.f;
       if (P.rate > 0.f) {
-        const uint32_t bits = dropout_bits(P.seed, bh, qi + P.q_off, kj + P.k_off);
+        const uint32_t bits = dropout_bits(P.seed, bh, gq(P, qi), gk(P, kj));
         keep = bits >= P.threshold ? inv_keep : 0.f;
       }
       pd = p * keep;
@@ -753,11 +777,11 @@ __device__ __forceinline__ void dq_grads(float (&sc)[32], const float (&dp)[32],
     if (!kEdge || kj < P.T) {
       float x = sc[e];
       if (P.bias) x += bias_s[col(e, t)];
-      if (kEdge && diag && r0 + 8 * r + P.q_off < kj + P.k_off) x = kMaskValue;
+      if (kEdge && diag && gq(P, r0 + 8 * r) < gk(P, kj)) x = kMaskValue;
       const float p = exp2_(x - lse2[r]);
       float g = dp[e];
       if (P.rate > 0.f) {
-        const uint32_t bits = dropout_bits(P.seed, bh, r0 + 8 * r + P.q_off, kj + P.k_off);
+        const uint32_t bits = dropout_bits(P.seed, bh, gq(P, r0 + 8 * r), gk(P, kj));
         g = bits >= P.threshold ? g * inv_keep : 0.f;
       }
       ds = p * (g - dlt[r]);
@@ -905,7 +929,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constan
         rs[r] += p;
         if (P.rate > 0.f) {
           const uint32_t bits =
-              dropout_bits(P.seed, bh, r0 + 8 * r + P.q_off, k0 + col(e, t) + P.k_off);
+              dropout_bits(P.seed, bh, gq(P, r0 + 8 * r), gk(P, k0 + col(e, t)));
           p = bits >= P.threshold ? p * inv_keep : 0.f;
         }
         sc[e] = p;
@@ -1303,13 +1327,15 @@ bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_
 int run_tc(int pass, const void* q, const void* k, const void* v, const void* dout,
            float* lse, const float* delta, const float* bias, void* o1, void* o2, int BH,
            int H, int T, int D, float sm_scale, float op_scale, int causal, float rate,
-           unsigned threshold, unsigned seed, int q_off, int k_off, int dtype, void* stream) {
+           unsigned threshold, unsigned seed, int q_off, int k_off, int q_half, int q_off1,
+           int k_half, int k_off1, int dtype, void* stream) {
   if (BH < 1 || H < 1 || BH % H != 0 || T < 1 || D < 8 || D > 128 || D % 8 != 0 ||
       BH > 65535 || (dtype != 1 && dtype != 2) || !aligned16(q) || !aligned16(k) ||
       !aligned16(v) || !aligned16(dout)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params P{H, T, D, sm_scale, op_scale, causal, bias, rate, threshold, seed, q_off, k_off};
+  Params P{H,     T,    D,     sm_scale, op_scale, causal, bias,   rate,
+           threshold, seed, q_off, k_off,    q_half,   q_off1, k_half, k_off1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1) {
@@ -1328,73 +1354,58 @@ int run_tc(int pass, const void* q, const void* k, const void* v, const void* do
 
 // q, k, v, out: [B*H, T, D] contiguous of one type (dtype 0 float32,
 // 1 bfloat16, 2 float16); lse: float32 [B*H, T]; bias: float32 [B, T] or
-// null; op_scale = sm_scale * log2(e). Each returns the launch's cudaError.
-extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         const float* bias, void* out, float* lse, int BH, int H,
-                         int T, int D, float sm_scale, float op_scale, int causal,
-                         float rate, unsigned threshold, unsigned seed, int q_off,
-                         int k_off, int dtype, void* stream) {
-  return run(kFwd, q, k, v, nullptr, lse, nullptr, bias, out, nullptr, BH, H, T, D,
-             sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off, dtype,
-             stream);
+// null; op_scale = sm_scale * log2(e); q_off, k_off and the second segments
+// q_half, q_off1, k_half, k_off1 as in Params. Each returns the launch's
+// cudaError.
+#define FLASH_TAIL                                                                  \
+  int BH, int H, int T, int D, float sm_scale, float op_scale, int causal, float rate, \
+      unsigned threshold, unsigned seed, int q_off, int k_off, int q_half, int q_off1,  \
+      int k_half, int k_off1, int dtype, void* stream
+#define FLASH_TAIL_ARGS                                                                \
+  BH, H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off, q_half, \
+      q_off1, k_half, k_off1, dtype, stream
+
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const float* bias,
+                         void* out, float* lse, FLASH_TAIL) {
+  return run(kFwd, q, k, v, nullptr, lse, nullptr, bias, out, nullptr, FLASH_TAIL_ARGS);
 }
 
 // dout, dq: as q; lse, delta: float32 [B*H, T].
-extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
-                            const void* dout, const float* lse, const float* delta,
-                            const float* bias, void* dq, int BH, int H, int T, int D,
-                            float sm_scale, float op_scale, int causal, float rate,
-                            unsigned threshold, unsigned seed, int q_off, int k_off,
-                            int dtype, void* stream) {
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, const float* bias, void* dq,
+                            FLASH_TAIL) {
   return run(kDq, q, k, v, dout, const_cast<float*>(lse), delta, bias, dq, nullptr,
-             BH, H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off,
-             k_off, dtype, stream);
+             FLASH_TAIL_ARGS);
 }
 
 // dk, dv: as k.
-extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
-                             const void* dout, const float* lse, const float* delta,
-                             const float* bias, void* dk, void* dv, int BH, int H,
-                             int T, int D, float sm_scale, float op_scale, int causal,
-                             float rate, unsigned threshold, unsigned seed, int q_off,
-                             int k_off, int dtype, void* stream) {
-  return run(kDkv, q, k, v, dout, const_cast<float*>(lse), delta, bias, dk, dv, BH,
-             H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off,
-             dtype, stream);
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, const float* bias, void* dk,
+                             void* dv, FLASH_TAIL) {
+  return run(kDkv, q, k, v, dout, const_cast<float*>(lse), delta, bias, dk, dv,
+             FLASH_TAIL_ARGS);
 }
 
 // The tensor-core entries: the arguments of flash_fwd, flash_bwd_dq and
 // flash_bwd_dkv, for dtype 1 (bfloat16) or 2 (float16), D <= 128 a multiple
 // of 8, and q, k, v, dout 16-byte aligned; anything else returns
 // cudaErrorInvalidValue.
-extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v,
-                            const float* bias, void* out, float* lse, int BH, int H,
-                            int T, int D, float sm_scale, float op_scale, int causal,
-                            float rate, unsigned threshold, unsigned seed, int q_off,
-                            int k_off, int dtype, void* stream) {
-  return tcfa::run_tc(kFwd, q, k, v, nullptr, lse, nullptr, bias, out, nullptr, BH, H, T, D,
-                      sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off, dtype,
-                      stream);
+extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
+                            void* out, float* lse, FLASH_TAIL) {
+  return tcfa::run_tc(kFwd, q, k, v, nullptr, lse, nullptr, bias, out, nullptr,
+                      FLASH_TAIL_ARGS);
 }
 
-extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v,
-                               const void* dout, const float* lse, const float* delta,
-                               const float* bias, void* dq, int BH, int H, int T, int D,
-                               float sm_scale, float op_scale, int causal, float rate,
-                               unsigned threshold, unsigned seed, int q_off, int k_off,
-                               int dtype, void* stream) {
-  return tcfa::run_tc(kDq, q, k, v, dout, const_cast<float*>(lse), delta, bias, dq, nullptr, BH,
-                      H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off,
-                      dtype, stream);
+extern "C" int flash_bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, const float* bias,
+                               void* dq, FLASH_TAIL) {
+  return tcfa::run_tc(kDq, q, k, v, dout, const_cast<float*>(lse), delta, bias, dq, nullptr,
+                      FLASH_TAIL_ARGS);
 }
 
-extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
-                                const void* dout, const float* lse, const float* delta,
-                                const float* bias, void* dk, void* dv, int BH, int H,
-                                int T, int D, float sm_scale, float op_scale, int causal,
-                                float rate, unsigned threshold, unsigned seed, int q_off,
-                                int k_off, int dtype, void* stream) {
-  return tcfa::run_tc(kDkv, q, k, v, dout, const_cast<float*>(lse), delta, bias, dk, dv, BH,
-                      H, T, D, sm_scale, op_scale, causal, rate, threshold, seed, q_off, k_off,
-                      dtype, stream);
+extern "C" int flash_bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* delta, const float* bias,
+                                void* dk, void* dv, FLASH_TAIL) {
+  return tcfa::run_tc(kDkv, q, k, v, dout, const_cast<float*>(lse), delta, bias, dk, dv,
+                      FLASH_TAIL_ARGS);
 }

@@ -48,8 +48,14 @@ engine's scope (``sliced_scope``), a module whose parameters are slices (ZeRO
 stage 3 or tensor parallelism) computes on whole leaves: ``forward``,
 ``generate`` and ``beam_search`` (and ``init_inference``) open
 ``whole_parameters``, which gathers every leaf without grad over the group
-that holds its slices and restores the slices after. MoE comes with a later
-slice and raises ``NotImplementedError`` when asked for.
+that holds its slices and restores the slices after. Sequence parallelism
+(``with_sequence_parallel``, ``sequence_parallel_loss_fn``;
+deepspeed_tpu/models/gpt2.py:151-221): each rank of the group holds a slice
+of the sequence (the zigzag layout's two chunks, or a contiguous one), the
+positions are the slice's global ones, the attention is the ring
+(``parallel/ring_attention.py``), and hidden dropout folds the rank into its
+seeds. MoE comes with a later slice and raises ``NotImplementedError`` when
+asked for.
 """
 
 import contextlib
@@ -68,8 +74,10 @@ from ..device import resolve_device
 from ..ops.block_sparse_attention import block_sparse_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_block import fused_transformer_block
-from ..parallel.mesh import (MODEL_AXIS, all_gather_cat, copy_to_group, fold_tp_seed,
-                             gather_from_group, reduce_from_group)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat, copy_to_group,
+                             fold_tp_seed, gather_from_group, reduce_from_group)
+from ..parallel.pipeline_spmd import psum
+from ..parallel.ring_attention import SCHEDULES, ring_attention, zigzag_shard
 from ..runtime.activation_checkpointing.checkpointing import checkpoint_name, checkpoint_wrapper
 
 
@@ -163,6 +171,15 @@ class _TP:
         self.size, self.rank, self.group = int(size), int(rank), group
 
 
+class _SP:
+    """A model's sequence-parallel group: its size, this rank's index in it,
+    the torch process group and the causal ring's schedule."""
+
+    def __init__(self, size, rank, group, schedule):
+        self.size, self.rank, self.group = int(size), int(rank), group
+        self.schedule = schedule
+
+
 def nucleus_keep(logits, top_p):
     """The top-p keep mask of ``generate``'s sampler, the JAX model's rule
     (deepspeed_tpu/models/gpt2.py:804-815): tokens ordered by a stable
@@ -207,6 +224,7 @@ class GPT2Model(nn.Module):
         self.blocks = nn.ModuleList(_Block(c.n_embd, dev) for _ in range(c.n_layer))
         self._param_gather = None
         self._tp = None             # _TP under tensor parallelism (with_tp)
+        self._sp = None             # _SP under sequence parallelism
         self._sliced_depth = 0      # > 0 while the engine computes on the slices
 
     @property
@@ -274,6 +292,8 @@ class GPT2Model(nn.Module):
                              "(wte is split into equal row blocks)")
         if self._tp is not None:
             raise ValueError("with_tp on a module that is tensor-parallel already")
+        if self._sp is not None:
+            raise ValueError("sequence parallelism does not compose with manual TP yet")
         if size <= 1:
             return self
         with torch.no_grad():
@@ -287,6 +307,109 @@ class GPT2Model(nn.Module):
     @property
     def tp_size(self) -> int:
         return 1 if self._tp is None else self._tp.size
+
+    # ------------------------------------------------------------- sequence parallelism
+    def _sp_state(self, mesh, axis, schedule) -> _SP:
+        """The ``_SP`` of ``mesh``'s ``axis`` (a ``parallel.mesh.Mesh``) once
+        the JAX model's asserts hold (a known schedule; not with manual TP;
+        not with ``sparse_attention``: ValueError); ``remat`` under the ring
+        is not ported (item 14b)."""
+        if schedule not in SCHEDULES:
+            raise ValueError(f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        if self._tp is not None:
+            raise ValueError("sequence parallelism does not compose with manual TP yet")
+        if self.config.sparse_attention is not None:
+            raise ValueError("sparse_attention does not compose with ring sequence "
+                             "parallelism (the ring path would silently ignore the layout)")
+        if self.config.remat:
+            raise NotImplementedError(
+                "remat under sequence parallelism (the ring's rotations recomputed in "
+                "the backward) is not in the PyTorch port yet: ROADMAP.md item 14b")
+        return _SP(mesh.shape[axis], mesh.axis_index(axis), mesh.group(axis), schedule)
+
+    @contextlib.contextmanager
+    def _sequence_parallel(self, sp: _SP):
+        """``sp`` in force while open; the module is dense again on exit."""
+        if self._sp is not None:
+            raise RuntimeError("sequence parallelism entered twice")
+        if self._tp is not None:        # with_tp after the loss function was built
+            raise ValueError("sequence parallelism does not compose with manual TP yet")
+        self._sp = sp
+        try:
+            yield self
+        finally:
+            self._sp = None
+
+    def with_sequence_parallel(self, mesh, axis: str = DATA_AXIS, schedule: str = "zigzag"):
+        """A context; while open, this module is sequence-parallel over ``mesh``'s
+        ``axis``: ``forward`` / ``apply_parts`` take this rank's slice of
+        each sequence, the positions are the slice's global ones, and the
+        attention is the ring over the axis's group. Under the zigzag
+        schedule (the default) the slice is global chunks (rank, 2n-1-rank)
+        of size T/2 (``zigzag_shard``'s layout), under ``"masked"`` the
+        rank's contiguous chunk. The JAX model's ``with_sequence_parallel``
+        returns a copy and leaves the base model dense; here the state holds
+        only inside the context, so outside it (``model(tokens)``,
+        ``generate``) the module is the dense one. The refusals
+        (``_sp_state``) raise at the call.
+        ``sequence_parallel_loss_fn`` packages the slicing and the loss."""
+        return self._sequence_parallel(self._sp_state(mesh, axis, schedule))
+
+    def sequence_parallel_loss_fn(self, mesh, axis: str = DATA_AXIS,
+                                  schedule: str = "zigzag"):
+        """``model_fn(tokens, labels, generator=None) -> loss`` for the engine
+        (deepspeed_tpu/models/gpt2.py:178-221): every rank passes the same
+        natural-order ``[B, T]`` tokens and labels (the labels shifted over
+        the whole sequence first); the function reorders both into the
+        zigzag layout (under that schedule), takes this rank's slice, runs
+        the module sequence-parallel (``with_sequence_parallel``'s state,
+        for the call only), and returns the mean cross-entropy over the
+        whole sequence: the sums of ``ce_mean * n_valid`` and of ``n_valid``
+        over the group, then their ratio, so that labels of -100 weigh
+        globally. The sums are ``psum``: their backward sums the ranks'
+        cotangents, so the ranks' parameter grads add up to ``n`` times the
+        whole gradient, and the data-parallel mean over the same group gives
+        it (the engine's exchange). A ``generator`` turns dropout on: the
+        attention's in the ring's global coordinates, hidden dropout
+        decorrelated per rank. The refusals raise here (``_sp_state``)."""
+        sp = self._sp_state(mesh, axis, schedule)
+
+        def model_fn(tokens, labels, generator=None):
+            if self._computes_whole():
+                with torch.no_grad(), self.whole_parameters():
+                    return model_fn(tokens, labels, generator)
+            if sp.schedule == "zigzag":
+                tokens = zigzag_shard(tokens, sp.size, axis=1)
+                labels = zigzag_shard(labels, sp.size, axis=1)
+            T = tokens.shape[1] // sp.size
+            tokens = tokens[:, sp.rank * T:(sp.rank + 1) * T]
+            labels = labels[:, sp.rank * T:(sp.rank + 1) * T]
+            # the JAX loss adds MoE's auxiliary term, pmean'd: MoE is item 19
+            with self._sequence_parallel(sp):
+                ce_mean, _ = self.apply_parts(self.params_tree(), tokens, labels, generator)
+            n_valid = (labels >= 0).float().sum()
+            total = psum(ce_mean * n_valid, sp.group)
+            return total / psum(n_valid, sp.group).clamp(min=1.0)
+
+        return model_fn
+
+    def _positions(self, T, device):
+        """The global positions of the T tokens this rank holds."""
+        pos = torch.arange(T, device=device)
+        sp = self._sp
+        if sp is None:
+            return pos
+        if sp.schedule == "zigzag":
+            if T % 2:
+                raise ValueError(f"zigzag needs an even local seq, got {T}")
+            C = T // 2
+            return torch.cat([sp.rank * C + pos[:C], (2 * sp.size - 1 - sp.rank) * C + pos[:C]])
+        return pos + sp.rank * T
+
+    def _rank_seed(self, seed):
+        """A hidden-dropout seed: under sequence parallelism each rank holds
+        other positions, so its rank is folded in (gpt2.py:311-315)."""
+        return seed if self._sp is None else fold_tp_seed(seed, self._sp.rank)
 
     @staticmethod
     def _tp_spec(name):
@@ -502,7 +625,14 @@ class GPT2Model(nn.Module):
         qkv = torch.matmul(x, p["c_attn_w"].to(x.dtype)) + p["c_attn_b"].to(x.dtype)
         q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2)
                    for t in qkv.split(nh * hd, dim=-1))
-        if c.sparse_attention is not None:
+        if self._sp is not None:
+            # the ring over the sequence group: T is this rank's slice; the
+            # seed is every rank's (the kernels hash global coordinates)
+            sp = self._sp
+            y = ring_attention(q, k, v, sp.group, causal=True,
+                               dropout_rate=c.dropout if seed is not None else 0.0,
+                               dropout_seed=seed, schedule=sp.schedule)
+        elif c.sparse_attention is not None:
             y = block_sparse_attention(q, k, v, self.sparse_layout(T),
                                        c.sparse_attention.block, causal=True)
         elif c.use_flash_attention:
@@ -520,7 +650,8 @@ class GPT2Model(nn.Module):
             if seed is not None:
                 probs = self._dropout(probs, seed)
             y = torch.matmul(probs.float(), v.float()).to(x.dtype)
-        if c.sparse_attention is not None or not c.use_flash_attention:
+        if (self._sp is not None or c.sparse_attention is not None
+                or not c.use_flash_attention):
             # the "attn" policies keep this output (gpt2.py:387-389)
             y = checkpoint_name(y, "attn_out")
         y = y.transpose(1, 2).reshape(B, T, nh * hd)
@@ -548,7 +679,7 @@ class GPT2Model(nn.Module):
 
     def _embed(self, p, tokens, generator=None):
         c = self.config
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        pos = self._positions(tokens.shape[1], tokens.device)
         # one gathered table at a time: each is dropped once indexed
         if self._tp is not None:
             # vocab-parallel: this rank's rows looked up, the others zero,
@@ -564,6 +695,10 @@ class GPT2Model(nn.Module):
             emb = self._use(p["wte"])[tokens.long()]
         x = emb.to(c.compute_dtype) + self._use(p["wpe"])[pos].to(c.compute_dtype)
         if generator is not None and c.dropout > 0:
+            if self._sp is not None:
+                # a seed of this rank's own (each rank holds other positions)
+                generator = self._rank_seed(int(torch.randint(
+                    0, 2**31 - 1, (1,), generator=generator, device=generator.device)))
             x = self._dropout(x, generator)
         return x
 
@@ -573,7 +708,7 @@ class GPT2Model(nn.Module):
         c = self.config
         eps = c.layer_norm_epsilon
         bp = self._use(bp)
-        if c.fused_block and seeds is None and self._tp is None:
+        if c.fused_block and seeds is None and self._tp is None and self._sp is None:
             # the whole attention half (LayerNorm + qkv + attention + proj +
             # residual) in the fused-block kernels
             ap = bp["attn"]
@@ -584,12 +719,12 @@ class GPT2Model(nn.Module):
             a = self._attention(self._layer_norm(x, bp["ln_1"], eps), bp["attn"],
                                 None if seeds is None else seeds[0])
             if seeds is not None:
-                a = self._dropout(a, seeds[1])
+                a = self._dropout(a, self._rank_seed(seeds[1]))
             x = x + a
         mlp = self._mlp if self._tp is None else self._mlp_tp
         m = mlp(self._layer_norm(x, bp["ln_2"], eps), bp["mlp"])
         if seeds is not None:
-            m = self._dropout(m, seeds[2])
+            m = self._dropout(m, self._rank_seed(seeds[2]))
         return x + m
 
     def _backbone(self, p, tokens, generator=None):

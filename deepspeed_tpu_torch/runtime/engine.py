@@ -342,7 +342,6 @@ class DeepSpeedEngine:
         self._comm_mode = self.config.comm_mode
         self._comm_topo = derive_topology(self.dp_size, self.config.comm_dcn_slices)
         self._refuse_comm()
-        self._refuse_unported()
         # 1-bit Adam keeps each rank's grads unreduced: its compressed momentum
         # exchange replaces the gradient mean (reference onebit_adam.py:372)
         self._use_stacked_grads = (self.config.optimizer_name == ONEBIT_ADAM_OPTIMIZER
@@ -368,6 +367,7 @@ class DeepSpeedEngine:
                 model.load_state_dict(model_parameters, strict=True)
         self.module = model
         self._configure_tensor_parallel(model, param_shardings)
+        self._configure_sequence_parallel(model)
 
         # ---- master (float32, this rank's ZeRO slices) and compute params ----
         named = list(model.named_parameters())
@@ -533,10 +533,25 @@ class DeepSpeedEngine:
             _, class_bytes = _hbm.manifest_signatures(manifest)
             self.telemetry.set_memory_manifest(class_bytes, geometry=manifest.get("geometry"))
 
-    def _refuse_unported(self):
+    def _configure_sequence_parallel(self, model):
+        """With the ``sequence_parallel`` block on, the loss is the model's
+        ``sequence_parallel_loss_fn(mesh, axis, schedule)`` in place of the
+        module's forward (deepspeed_tpu/runtime/engine.py:257-267; a model
+        without one raises TypeError). The axis carries the sequence: every
+        rank passes the same natural-order batch (it is not split on dim 0),
+        the loss is the whole sequence's on every rank, and the grads' mean
+        over the data group (the exchange) is the one-rank model's gradient
+        (``GPT2Model.sequence_parallel_loss_fn``)."""
+        self._sp_loss = None
         c = self.config
-        if c.sequence_parallel_enabled:
-            raise _later("sequence_parallel", "item 14")
+        if not c.sequence_parallel_enabled:
+            return
+        build = getattr(model, "sequence_parallel_loss_fn", None)
+        if build is None:
+            raise TypeError("sequence_parallel requires a model exposing "
+                            "sequence_parallel_loss_fn(mesh, axis, schedule=...)")
+        self._sp_loss = build(self.mesh, c.sequence_parallel_axis,
+                              schedule=c.sequence_parallel_schedule)
 
     def _configure_tensor_parallel(self, model, param_shardings):
         """Make the module tensor-parallel over the mesh's model axis when
@@ -1269,7 +1284,7 @@ class DeepSpeedEngine:
 
     def _loss(self, batch):
         with self._gather_scope(save_slices=True):
-            loss = self.module(*batch)
+            loss = (self.module if self._sp_loss is None else self._sp_loss)(*batch)
         return loss[0] if isinstance(loss, (tuple, list)) else loss
 
     @contextlib.contextmanager

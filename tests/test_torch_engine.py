@@ -204,8 +204,8 @@ def test_fp16_overflow_skips_the_step():
 
 
 def _refused():
-    """(config, exception, message) of each refusal: the unported items name
-    their ROADMAP.md item; the communication modes refuse what the JAX
+    """(config, exception, message) of each refusal: the communication modes
+    and the sequence_parallel block refuse what the JAX
     engine refuses, with its exception (deepspeed_tpu/runtime/engine.py:
     185-235, 294-301)."""
     base = {"train_batch_size": 1}
@@ -220,7 +220,8 @@ def _refused():
         (dict(base, comm={"mode": "hierarchical_compressed"}, bf16={"enabled": True},
               zero_optimization={"stage": 2, "cpu_offload": True}),
          ValueError, "does not compose with ZeRO-Offload"),
-        (dict(base, sequence_parallel={"enabled": True}), NotImplementedError, "ROADMAP.md"),
+        # a model without sequence_parallel_loss_fn (deepspeed_tpu/runtime/engine.py:261-265)
+        (dict(base, sequence_parallel={"enabled": True}), TypeError, "sequence_parallel"),
     ]
 
 

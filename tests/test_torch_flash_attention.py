@@ -199,9 +199,13 @@ def test_long_sequence_takes_the_plain_version_directly():
 
 def test_refusals():
     q = torch.zeros(1, 1, 8, 4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fa.flash_attention_with_lse(q, q, q, causal=True, q_segments=(0, 8),
-                                    k_segments=(0, 8))
+    # a causal segmented call needs one map on both sides that keeps the
+    # local order (the kernels prune causal tiles in local coordinates)
+    for seg in (dict(q_segments=(0, 8)), dict(k_segments=(0, 8)),
+                dict(q_segments=(0, 8), k_segments=(0, 12)),
+                dict(q_segments=(8, 0), k_segments=(8, 0))):
+        with pytest.raises(ValueError, match="segments"):
+            fa.flash_attention_with_lse(q, q, q, causal=True, **seg)
     with pytest.raises(ValueError, match="even"):
         fa.flash_attention(torch.zeros(1, 1, 8, 3), torch.zeros(1, 1, 8, 3),
                            torch.zeros(1, 1, 8, 3))
@@ -327,6 +331,57 @@ def test_cuda_kernels_match_plain_version(case):
     for a, b, name in zip(got, want, ("out", "lse", "dq", "dk", "dv")):
         scale = float(b.abs().max()) + 1e-6
         err = float((a - b).abs().max()) / scale
+        assert err <= tol, f"{name}: max abs err / max |ref| = {err} > {tol}"
+
+
+SEGMENTED_CUDA_CASES = [
+    # (B, H, T, D, dtype, causal, rate, q_segments, k_segments): the zigzag
+    # ring's rotation-0 maps of rank 0 and rank 1 of a ring of 2, a half
+    # boundary inside a kernel tile (T 96: 48), one side segmented
+    (1, 3, 256, 64, torch.bfloat16, True, 0.1, (0, 384), (0, 384)),
+    (1, 3, 256, 64, torch.bfloat16, True, 0.1, (128, 256), (128, 256)),
+    (1, 3, 96, 64, torch.bfloat16, True, 0.0, (48, 144), (48, 144)),
+    (1, 3, 96, 64, torch.float32, True, 0.1, (48, 144), (48, 144)),
+    (1, 2, 256, 128, torch.float16, False, 0.1, (64, 512), None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEGMENTED_CUDA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_segmented_kernels_match_plain_version(case):
+    """The three kernels with the segment map (the mask and the hash in
+    global coordinates) against the plain version, gradients included, and
+    counted as segmented launches of the design the shape rule names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    Bc, Hc, Tc, Dc, dtype, causal, rate, q_seg, k_seg = case
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, g = (torch.randn((Bc, Hc, Tc, Dc), generator=gen, device="cuda")
+                  for _ in range(4))
+    g_lse = torch.randn((Bc, Hc, Tc), generator=gen, device="cuda")
+    seed = 7 if rate else None
+
+    def run(kernel):
+        qs, ks, vs = (t.to(dtype).requires_grad_() for t in (q, k, v))
+        if kernel:
+            out, lse = fa._attend(qs, ks, vs, causal, None, None, rate, seed, 0, 0, q_seg, k_seg)
+        else:
+            out, lse = fa.flash_attention_reference(qs, ks, vs, causal, dropout_rate=rate,
+                                                    dropout_seed=seed, q_segments=q_seg,
+                                                    k_segments=k_seg)
+        ((out.float() * g).sum() + (lse * g_lse).sum()).backward()
+        return [t.detach().float() for t in (out, lse, qs.grad, ks.grad, vs.grad)]
+
+    launchers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    before = [(f.launches, f.tensor_core_launches, f.segmented_launches) for f in launchers]
+    got, want = run(True), run(False)
+    torch.cuda.synchronize()
+    tc = int(fa._tensor_core_path(dtype, Dc))
+    assert [(f.launches, f.tensor_core_launches, f.segmented_launches) for f in launchers] == [
+        (n + 1, n_tc + tc, n_seg + 1) for n, n_tc, n_seg in before]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, name in zip(got, want, ("out", "lse", "dq", "dk", "dv")):
+        err = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-6)
         assert err <= tol, f"{name}: max abs err / max |ref| = {err} > {tol}"
 
 

@@ -72,6 +72,11 @@ def test_scan_covers_the_parallel_modules():
         assert f"deepspeed_tpu_torch/{name}" in names, name
 
 
+def test_scan_covers_the_ring():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "deepspeed_tpu_torch/parallel/ring_attention.py" in names
+
+
 def test_scan_covers_the_pipeline_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for name in ("parallel/pipe/__init__.py", "parallel/pipe/module.py",
